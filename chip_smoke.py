@@ -17,15 +17,25 @@ Phases, one line of output each (or a few):
    index-equal and d2 bitwise;
 4. ``ObjReco.recognition`` end to end in both ICP modes, with default ICP
    settings (a) and with forced iterations (b), each result checked
-   against the JAX package's numbers on this fixture; the kernels' launch
-   counters are reset before and read after, and every kernel must have
-   run;
-5. CUDA-event times of each kernel and twin, and warm per-frame
-   Recognition times.
+   against the JAX package's numbers on this fixture;
+4b. ``ObjReco.recognition_multi`` (top-8 refine + 3D NMS) in both ICP
+   modes on the fixture scene (1 result) and on a two-instance scene (the
+   object's rect pasted at (20, 57): 2 results, 4 NN launches a frame);
+4c. ``TrackedRecognizer`` over 4 panned fixture frames and
+   ``MultiTrackedRecognizer`` over 4 panned two-instance frames: redetect
+   flags, object counts and matches checked against the JAX package's;
+   ROIs and scale steps against the same KCF tracker run on CPU tensors
+   in this process (see ``EXPECT_TRACK``), and their distance from the
+   JAX package's ROIs printed;
+5. CUDA-event times of each kernel and twin, and warm per-frame times of
+   Recognition, multi-object Recognition and a tracked frame.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
-so the script exits non-zero without printing that line.
+Each path of phases 4-4c runs with the kernels' launch counters set to 0
+just before it and read just after; every kernel must have run on the
+paths that reach it.  The line before the last is a JSON object with one
+entry per kernel (launches summed over the paths); the last line is
+``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
+exits non-zero without printing that line.
 """
 
 from __future__ import annotations
@@ -37,7 +47,6 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-FIXTURE = os.path.join(REPO, "benchmarks", "reference", "out")
 REPEATS = 3            # recognitions per (mode, setting) in phase 4
 TIMED_FRAMES = 10      # warm recognitions timed per setting in phase 5
 
@@ -54,6 +63,50 @@ EXPECT_ITERS = {"a": 0, "b": 10}
 EXPECT_NN = {"a": 0, "b": 9}          # K3 launches per recognition
 EXPECT_DIST_B, DIST_TOL_B = 0.2852, 1e-3
 FORCED = {"icp_dist_mean_threshold": 0.0, "icp_dist_diff_threshold": -1e30}
+
+# Multi-object and tracking expectations, from the JAX package on the CPU
+# on this fixture with EngineConfig() defaults (max_objects 8).
+# The two-instance scene (fixture.two_instance_scene): the fixture scene
+# with its rect bgr/depth[157:316, 237:428] pasted at x 20, y 57.
+RECT_WH = (191.0, 159.0)
+# recognition_multi, both ICP modes (JAX on CPU): the fixture scene gives
+# one result, equal to top-1 (the 8 tied candidates form one NMS
+# cluster); the two-instance scene gives (22, 57) then (237, 157).  Each
+# (22, 57) candidate runs 2 ICP iterations, so K3 launches 4x per frame.
+EXPECT_MULTI = {
+    "fixture": [((237.0, 157.0), (-3.7562, -3.5826, -2.0991), 0.3830)],
+    "two": [((22.0, 57.0), (-271.885, -119.516, -0.631), 7.6308),
+            ((237.0, 157.0), (-3.7562, -3.5826, -2.0991), 0.3830)]}
+EXPECT_MULTI_NN = {"fixture": 0, "two": 4}
+MULTI_T_TOL_MM, MULTI_DIST_TOL = 0.05, 1e-3
+# TrackedRecognizer over frame i = the fixture rolled by 2i columns and i
+# rows (JAX on CPU, kcf_reference_config(): hog + lab + multiscale):
+# (redetected, roi, match x, y).  The fixture's object has blue + green =
+# 255 on 90% of its pixels, so FHOG's strongest-channel choice is an
+# exact tie there, broken by the last bit of each implementation's patch
+# arithmetic (XLA's fused loops in JAX): the port's features differ by up
+# to 0.22 (of 0.39) and its scale-test peaks by 0.5-3% from identical
+# states.  So the ROIs and scale steps are held against the port's own
+# tracker on CPU tensors, and the distance from these JAX ROIs is
+# printed, not checked.
+EXPECT_TRACK = [
+    (True, (237.0, 157.0, 191.0, 159.0), (237.0, 157.0)),
+    (False, (235.273, 153.078, 200.550, 166.950), (242.0, 162.0)),
+    (False, (238.038, 152.594, 200.550, 166.950), (242.0, 162.0)),
+    (False, (242.651, 169.821, 191.0, 159.0), (247.0, 162.0))]
+# MultiTrackedRecognizer(max_objects=8) over the two-instance scene with
+# the same rolls (JAX on CPU): frame 0 re-detects and tracks 2 objects in
+# 1 geometry bucket; then (roi, match x, y) per object.
+EXPECT_MULTI_TRACK = [
+    None,
+    [((28.22, 61.04, 181.9, 151.43), (22.0, 62.0)),
+     ((241.9, 160.62, 181.9, 151.43), (242.0, 162.0))],
+    [((29.92, 61.92, 181.9, 151.43), (22.0, 62.0)),
+     ((244.44, 161.28, 181.9, 151.43), (242.0, 162.0))],
+    [((29.76, 63.11, 181.9, 151.43), (27.0, 62.0)),
+     ((243.6, 156.55, 191.0, 159.0), (247.0, 162.0))]]
+ROI_TOL_PX = 1.0       # card vs CPU tracker: cuFFT vs the CPU's FFT
+SIZE_TOL_PX = 0.01     # w, h: the same scale steps
 
 
 def check(cond: bool, what: str) -> None:
@@ -79,6 +132,10 @@ def rotation_deg(r) -> float:
     w = 0.5 * np.array([r[2, 1] - r[1, 2], r[0, 2] - r[2, 0],
                         r[1, 0] - r[0, 1]], np.float64)
     return float(np.degrees(np.arcsin(min(np.linalg.norm(w), 1.0))))
+
+
+def close(got, want, tol) -> bool:
+    return all(abs(float(g) - float(w)) <= tol for g, w in zip(got, want))
 
 
 def card_line() -> str:
@@ -116,9 +173,11 @@ def run(dev) -> None:
     sys.path.insert(0, REPO)
     from fealess_tpu_torch import detector as td
     from fealess_tpu_torch import pipeline
-    from fealess_tpu_torch.engine import CamIntrinsics, ObjReco
-    from fealess_tpu_torch.io.png import read_png
+    from fealess_tpu_torch.apps.track import (MultiTrackedRecognizer,
+                                              TrackedRecognizer)
+    from fealess_tpu_torch.apps import fixture
     from fealess_tpu_torch.ops import _build, nn, score
+    from fealess_tpu_torch.tracker.kcf import KcfTracker
 
     # -- 1. card and versions
     card = card_line()
@@ -143,13 +202,7 @@ def run(dev) -> None:
 
     # -- fixture on the card
     t0 = time.perf_counter()
-    eng = ObjReco.create("LmICP", device=dev)
-    eng.add_obj(os.path.join(FIXTURE, "features"))
-    bgr_np = read_png(os.path.join(FIXTURE, "scene_bgr.png"))
-    depth_np = read_png(os.path.join(FIXTURE, "scene_depth.png"))
-    with open(os.path.join(FIXTURE, "cam.txt")) as f:
-        fx, fy, cx, cy = (float(v) for v in f.read().split())
-    cam = CamIntrinsics(fx, fy, cx, cy, depth_np.shape[1], depth_np.shape[0])
+    eng, bgr_np, depth_np, cam = fixture.load(dev)
     check(eng.bank.capacity == 1024, f"bank capacity {eng.bank.capacity}")
     print(f"fixture: {eng.bank.num_templates} templates, scene "
           f"{bgr_np.shape[1]}x{bgr_np.shape[0]}, loaded in "
@@ -222,8 +275,17 @@ def run(dev) -> None:
 
     # -- 4. end to end through the public API
     counted = (score.coarse_scores, score.local_scores, nn.nearest_neighbor)
-    for fn in counted:
-        fn.launches = 0
+    path_launches = {}
+
+    def zero_counts():
+        for fn in counted:
+            fn.launches = 0
+
+    def read_counts(path):
+        path_launches[path] = [fn.launches for fn in counted]
+        print(f"launches on path {path}: K1/K2/K3 {path_launches[path]}")
+
+    zero_counts()
     n_reco = 0
     default_icp = eng.cfg.icp
     for mode in ("point_to_plane", "point_to_point"):
@@ -268,9 +330,10 @@ def run(dev) -> None:
                   f"(max |dt| {t_err:.5f} mm vs JAX) rotation {angle:.5f} "
                   f"deg, dist_mean {r.icp_dist:.5f}, launches K1/K2/K3 "
                   f"+{grew}")
-    launches = {fn.__name__: fn.launches for fn in counted}
-    for name, count in launches.items():
-        check(count > 0, f"{name} never launched on the main path")
+    read_counts("recognition")
+    for fn, count in zip(counted, path_launches["recognition"]):
+        check(count > 0, f"{fn.__name__} never launched on the Recognition "
+              f"path")
 
     # the step's own fields: slot, ICP iterations and pair count
     for setting in ("a", "b"):
@@ -284,6 +347,116 @@ def run(dev) -> None:
         check(int(step.refine.n_pairs) == 16384,
               f"n_pairs {int(step.refine.n_pairs)}")
         print(f"step {setting}: slot 0, {iters} ICP iterations, 16384 pairs")
+    apply_setting(eng, "a", default_icp)
+
+    # -- 4b. multi-object Recognition (default ICP settings)
+    two_bgr, two_depth = fixture.two_instance_scene(bgr_np, depth_np)
+    scenes = {"fixture": (bgr_np, depth_np), "two": (two_bgr, two_depth)}
+    zero_counts()
+    for mode in ("point_to_plane", "point_to_point"):
+        eng.set_advanced_param("icp_mode", mode)
+        for name, (b, d) in scenes.items():
+            before = [fn.launches for fn in counted]
+            res = eng.recognition_multi(b, d, cam)
+            grew = [fn.launches - x for fn, x in zip(counted, before)]
+            want = EXPECT_MULTI[name]
+            check(len(res) == len(want), f"multi {mode}/{name}: "
+                  f"{len(res)} results, expected {len(want)}")
+            for r, (xy, t, dist) in zip(res, want):
+                pose = r.world2cam
+                check(r.match_rect == xy + RECT_WH and r.similarity == 100.0
+                      and r.obj_tag == "obj",
+                      f"multi {mode}/{name}: {r.match_rect} {r.similarity}")
+                check(bool(np.isfinite(pose).all()) and close(
+                    pose[:3, 3], t, MULTI_T_TOL_MM),
+                    f"multi {mode}/{name}: t {pose[:3, 3]} vs {t}")
+                check(abs(r.icp_dist - dist) <= MULTI_DIST_TOL,
+                      f"multi {mode}/{name}: dist {r.icp_dist} vs {dist}")
+            check(grew[0] >= 1 and grew[1] >= 1,
+                  f"multi {mode}/{name}: score kernels launched {grew[:2]}")
+            check(grew[2] == EXPECT_MULTI_NN[name],
+                  f"multi {mode}/{name}: K3 launched {grew[2]}, expected "
+                  f"{EXPECT_MULTI_NN[name]}")
+            print(f"multi {mode}/{name}: {len(res)} result(s) " + ", ".join(
+                f"{r.match_rect[:2]} sim {r.similarity} t "
+                f"{[round(float(v), 4) for v in r.world2cam[:3, 3]]} dist "
+                f"{r.icp_dist:.4f}" for r in res) + f"; launches +{grew}")
+    read_counts("recognition_multi")
+    eng.set_advanced_param("icp_mode", default_icp.mode)
+
+    # -- 4c. KCF-gated tracking
+    # the ROIs depend on the KCF tracker alone (a match re-initialises it
+    # only on re-detection), so the same tracker on CPU tensors, from the
+    # same initial ROIs, gives each frame's expected ROI
+    def cpu_trace(scene_bgr, scene_depth, rois):
+        frames = [b for b, _ in fixture.pan(scene_bgr, scene_depth, 4)]
+        kcf = KcfTracker(None, "cpu")
+        batch = KcfTracker.stack_states([kcf.init(r, frames[0])
+                                         for r in rois])
+        out = [[tuple(r) for r in rois]]
+        for f in frames[1:]:
+            batch = kcf.update_batch(batch, f)
+            out.append([tuple(float(v) for v in r) for r in batch.roi])
+        return out
+
+    def same_roi(where, roi, want, jax_roi):
+        print(f"  {where}: roi {[round(v, 3) for v in roi]}, CPU tracker "
+              f"{[round(v, 3) for v in want]}, |d| vs JAX "
+              f"{max(abs(a - b) for a, b in zip(roi, jax_roi)):.3f} px")
+        check(close(roi[:2], want[:2], ROI_TOL_PX)
+              and close(roi[2:], want[2:], SIZE_TOL_PX),
+              f"{where}: roi {roi} vs CPU tracker {want}")
+
+    zero_counts()
+    tracker = TrackedRecognizer(eng)
+    want_rois = cpu_trace(bgr_np, depth_np, [EXPECT_TRACK[0][1]])
+    for i, ((b, d), (redet, jax_roi, mxy)) in enumerate(
+            zip(fixture.pan(bgr_np, depth_np, 4), EXPECT_TRACK)):
+        before = [fn.launches for fn in counted]
+        st = tracker.step(b, d, cam)
+        grew = [fn.launches - x for fn, x in zip(counted, before)]
+        print(f"track frame {i}: redetected {st.redetected}, matches "
+              f"{[r.match_rect[:2] for r in st.results]} sim "
+              f"{[r.similarity for r in st.results]}; launches +{grew}")
+        check(st.redetected == redet and len(st.results) == 1,
+              f"track frame {i}: redetected {st.redetected}, "
+              f"{len(st.results)} results")
+        r = st.results[0]
+        check(r.match_rect[:2] == mxy and r.similarity == 100.0,
+              f"track frame {i}: match {r.match_rect} sim {r.similarity}")
+        same_roi(f"track frame {i}", st.roi, want_rois[i][0], jax_roi)
+        check(grew[0] >= 1 and grew[1] >= 1,
+              f"track frame {i}: score kernels launched {grew[:2]}")
+    multi = MultiTrackedRecognizer(eng, max_objects=8)
+    for i, ((b, d), want) in enumerate(
+            zip(fixture.pan(two_bgr, two_depth, 4), EXPECT_MULTI_TRACK)):
+        before = [fn.launches for fn in counted]
+        st = multi.step(b, d, cam)
+        grew = [fn.launches - x for fn, x in zip(counted, before)]
+        print(f"multi-track frame {i}: redetected {st.redetected}, "
+              f"{st.n_tracked} tracked, {len(multi._trackers)} bucket(s), "
+              f"matches {[r.match_rect[:2] for r in st.results]}; launches "
+              f"+{grew}")
+        check(st.redetected == (i == 0) and st.n_tracked == 2
+              and len(st.results) == 2,
+              f"multi-track frame {i}: redetected {st.redetected}, "
+              f"{st.n_tracked} tracked, {len(st.results)} results")
+        if i == 0:
+            check(len(multi._trackers) == 1,
+                  f"{len(multi._trackers)} geometry buckets")
+            want_rois = cpu_trace(two_bgr, two_depth, st.rois)
+        else:
+            for k, (roi, r, (jax_roi, mxy)) in enumerate(
+                    zip(st.rois, st.results, want)):
+                check(r.match_rect[:2] == mxy and r.similarity == 100.0,
+                      f"multi-track frame {i}: match {r.match_rect}")
+                same_roi(f"multi-track frame {i} object {k}", roi,
+                         want_rois[i][k], jax_roi)
+        check(grew[0] >= 1 and grew[1] >= 1,
+              f"multi-track frame {i}: score kernels launched {grew[:2]}")
+    read_counts("tracking")
+    launches = {fn.__name__: sum(v[k] for v in path_launches.values())
+                for k, fn in enumerate(counted)}
 
     # -- 5. timing
     times = {}
@@ -306,6 +479,30 @@ def run(dev) -> None:
         print(f"time recognition ({setting}, {default_icp.mode}): "
               f"{frame_ms[setting]:.3f} ms/frame warm, mean of "
               f"{TIMED_FRAMES} ({card})")
+    apply_setting(eng, "a", default_icp)
+    eng.recognition_multi(two_bgr, two_depth, cam)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_FRAMES):
+        eng.recognition_multi(two_bgr, two_depth, cam)
+    multi_ms = (time.perf_counter() - t0) * 1e3 / TIMED_FRAMES
+    print(f"time recognition_multi (two-instance scene, "
+          f"{default_icp.mode}): {multi_ms:.3f} ms/frame warm, mean of "
+          f"{TIMED_FRAMES} ({card})")
+    frames = fixture.pan(bgr_np, depth_np, 4)
+    tracker = TrackedRecognizer(eng)
+    for b, d in frames:
+        tracker.step(b, d, cam)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    redetects = 0
+    for k in range(TIMED_FRAMES):
+        b, d = frames[1 + k % 3]
+        redetects += tracker.step(b, d, cam).redetected
+    track_ms = (time.perf_counter() - t0) * 1e3 / TIMED_FRAMES
+    print(f"time tracked frame (frames 1-3 repeated, {default_icp.mode}): "
+          f"{track_ms:.3f} ms/frame warm, mean of {TIMED_FRAMES}, "
+          f"{redetects} re-detections ({card})")
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 

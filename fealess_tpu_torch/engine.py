@@ -1,10 +1,11 @@
 """The product engine API: the ObjReco facade (counterpart of
-``fealess_tpu.engine``, single-object Recognition).
+``fealess_tpu.engine``).
 
 Mirrors ``CObjRecoLmICP`` (CadReco/obj_reco_lmicp.cpp:47-348): create an
 engine on a device, ``add_obj`` a trained feature directory
 (``linemod_templates.yml`` + ``depth/<tid>.png`` model depths), then
-``recognition`` on RGB-D frames, which returns world2cam poses.  The bank,
+``recognition`` (top-1) or ``recognition_multi`` (top-M + 3D NMS) on RGB-D
+frames, which return world2cam poses.  The bank,
 its score tables and the model depth stack are uploaded to the engine's
 device once per ``add_obj``; a frame is uploaded, matched and refined
 there, and the result comes back in one transfer.
@@ -181,6 +182,8 @@ class ObjReco:
         "icp_dist_mean_threshold": ("icp", "dist_mean_threshold"),
         "icp_dist_diff_threshold": ("icp", "dist_diff_threshold"),
         "icp_mode": ("icp", "mode"),
+        "max_objects": ("max_objects",),
+        "nms_object_distance": ("nms_object_distance",),
     }
 
     def set_advanced_param(self, name: str, value) -> None:
@@ -248,6 +251,63 @@ class ObjReco:
         return (bgr.to(self.device), depth.to(self.device),
                 gd.intrinsics_matrix(fx, fy, cx, cy, device=self.device))
 
+    def _roi_mask_dev(self, roi_mask: Optional[np.ndarray], frame_hw):
+        """A processing-resolution ROI mask padded bottom/right to the
+        (padded) frame, on the device; None stays None."""
+        if roi_mask is None:
+            return None
+        ph = frame_hw[0] - roi_mask.shape[0]
+        pw = frame_hw[1] - roi_mask.shape[1]
+        if ph < 0 or pw < 0:
+            raise ValueError(f"roi_mask {roi_mask.shape} larger than "
+                             f"processing frame {tuple(frame_hw)}")
+        return torch.from_numpy(
+            np.pad(roi_mask.astype(bool), ((0, ph), (0, pw)))).to(self.device)
+
+    def _class_mask(self, class_ids):
+        return (None if class_ids is None
+                else class_slot_mask(self.bank, class_ids))
+
+    def _result(self, row: np.ndarray) -> RecoResult:
+        """One RecoResult from a fetched float64 row: pose (16), valid,
+        slot, class, similarity, icp_dist, inlier_ratio, match x, y."""
+        slot, cls = int(row[17]), int(row[18])
+        sim, icp_dist, ratio, mx, my = (float(v) for v in row[19:24])
+        return RecoResult(
+            obj_tag=self.bank.class_names[cls],
+            world2cam=row[:16].reshape(4, 4).astype(np.float32),
+            similarity=sim, icp_dist=icp_dist, inlier_ratio=ratio,
+            match_rect=(mx, my, float(self._rect_wh[slot, 0]),
+                        float(self._rect_wh[slot, 1])))
+
+    def recognition_multi(self, rgb_bgr: np.ndarray, depth_u16: np.ndarray,
+                          cam: CamIntrinsics,
+                          max_objects: Optional[int] = None,
+                          class_ids: Optional[List[str]] = None,
+                          roi_mask: Optional[np.ndarray] = None
+                          ) -> List[RecoResult]:
+        """Multi-object Recognition: refine the top-M match candidates and
+        3D-NMS the refined poses (ICP/NMS.cpp:6-40; the reference engine
+        itself returns top-1, obj_reco_lmicp.cpp:111).  ``class_ids`` and
+        ``roi_mask`` as in :meth:`recognition`."""
+        if self.bank is None:
+            raise RuntimeError("add_obj not called")
+        m = max_objects or self.cfg.max_objects
+        bgr, depth, scene_k = self._prepare_frame(rgb_bgr, depth_u16, cam)
+        step = pipeline.recognize_multi(
+            self.bank, self._model_depth_dev, self._origins_dev, bgr, depth,
+            scene_k, self.cfg, m, kernels=self._kernels,
+            class_mask=self._class_mask(class_ids),
+            roi_mask=self._roi_mask_dev(roi_mask, bgr.shape[:2]))
+        # one transfer for every field (float64 holds them all exactly)
+        fields = [step.valid, step.template_slot, step.class_idx,
+                  step.similarity, step.icp_dist, step.inlier_ratio,
+                  step.match_x, step.match_y]
+        host = torch.cat([step.poses.reshape(-1, 16).double(),
+                          torch.stack([f.double() for f in fields], 1)],
+                         1).cpu().numpy()
+        return [self._result(row) for row in host if row[16]]
+
     def recognition(self, rgb_bgr: np.ndarray, depth_u16: np.ndarray,
                     cam: CamIntrinsics, roi_mask: Optional[np.ndarray] = None,
                     class_ids: Optional[List[str]] = None
@@ -259,37 +319,24 @@ class ObjReco:
         if self.bank is None:
             raise RuntimeError("add_obj not called")
         bgr, depth, scene_k = self._prepare_frame(rgb_bgr, depth_u16, cam)
-        mask_dev = None
-        if roi_mask is not None:
-            ph = bgr.shape[0] - roi_mask.shape[0]
-            pw = bgr.shape[1] - roi_mask.shape[1]
-            if ph < 0 or pw < 0:
-                raise ValueError(f"roi_mask {roi_mask.shape} larger than "
-                                 f"processing frame {tuple(bgr.shape[:2])}")
-            mask_dev = torch.from_numpy(
-                np.pad(roi_mask.astype(bool), ((0, ph), (0, pw)))
-            ).to(self.device)
-        class_mask = (None if class_ids is None
-                      else class_slot_mask(self.bank, class_ids))
         step = pipeline.recognize_top1(
             self.bank, self._model_depth_dev, self._origins_dev, bgr, depth,
-            scene_k, self.cfg, kernels=self._kernels, class_mask=class_mask,
-            roi_mask=mask_dev)
-        # one transfer for every field (float64 holds them all exactly)
-        fields = [step.valid, step.similarity, step.class_idx,
-                  step.template_slot, step.match_x, step.match_y,
-                  step.refine.icp.dist_mean, step.refine.icp.inlier_ratio]
-        host = torch.cat([step.pose.reshape(-1).double(),
-                          torch.stack([f.double() for f in fields])]).cpu()
-        host = host.numpy()
-        valid, sim, cls, slot, mx, my, icp_dist, ratio = host[16:]
-        if not valid:
-            return []
-        slot = int(slot)
-        return [RecoResult(
-            obj_tag=self.bank.class_names[int(cls)],
-            world2cam=host[:16].reshape(4, 4).astype(np.float32),
-            similarity=float(sim), icp_dist=float(icp_dist),
-            inlier_ratio=float(ratio),
-            match_rect=(float(mx), float(my), float(self._rect_wh[slot, 0]),
-                        float(self._rect_wh[slot, 1])))]
+            scene_k, self.cfg, kernels=self._kernels,
+            class_mask=self._class_mask(class_ids),
+            roi_mask=self._roi_mask_dev(roi_mask, bgr.shape[:2]))
+        return self._fetch_top1(step)[0]
+
+    def _fetch_top1(self, step: pipeline.RecoStep,
+                    extra: Optional[torch.Tensor] = None):
+        """(results, extra) of a top-1 step in ONE transfer (float64 holds
+        every field exactly); ``extra``, a small float tensor on the
+        device, rides along and comes back as a numpy vector."""
+        fields = [step.valid, step.template_slot, step.class_idx,
+                  step.similarity, step.refine.icp.dist_mean,
+                  step.refine.icp.inlier_ratio, step.match_x, step.match_y]
+        parts = [step.pose.reshape(-1).double(),
+                 torch.stack([f.double() for f in fields])]
+        if extra is not None:
+            parts.append(extra.reshape(-1).double())
+        host = torch.cat(parts).cpu().numpy()
+        return ([self._result(host[:24])] if host[16] else []), host[24:]

@@ -1,5 +1,5 @@
-"""Detection refinement glue and the single-object Recognition step
-(counterpart of the top-1 path of ``fealess_tpu.pipeline``).
+"""Detection refinement glue and the Recognition steps, single- and
+multi-object (counterpart of ``fealess_tpu.pipeline``).
 
 Reimplements ``detection()`` (ICP/detection.cpp:11-254) over fixed-size
 crops: template and scene depth are back-projected with their own
@@ -9,8 +9,8 @@ where both z <= valid_depth_max_mm), translation init mode 2
 ``R = R_icp r_match`` (detection.cpp:232-234).
 
 All indexing with match results stays on the device (gathers, not Python
-ints), so a Recognition step reads nothing back to the host except the
-ICP plane-mode gate.
+ints), so a Recognition step reads nothing back to the host except ICP's
+loop checks and, on the multi-object path, the NMS inputs.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from fealess_tpu import config as cfg
 from fealess_tpu_torch import detector as det_mod
 from fealess_tpu_torch import icp as icp_mod
+from fealess_tpu_torch import nms as nms_mod
 from fealess_tpu_torch.geometry import depth as gd
 from fealess_tpu_torch.geometry import transforms as tf
 
@@ -211,3 +212,67 @@ def recognize_top1(bank, model_depth_stack: torch.Tensor,
                     similarity=matches.similarity[0],
                     class_idx=matches.class_idx[0], template_slot=slot,
                     match_x=mx, match_y=my, refine=res)
+
+
+@dataclasses.dataclass
+class MultiRecoStep:
+    """Multi-object Recognition result: the top-M refined candidates after
+    3D NMS.  Slot ``i`` is live when ``valid[i]``; its fields are taken
+    from the NMS cluster winner (ICP/NMS.cpp:30-39)."""
+    poses: torch.Tensor          # (M, 4, 4)
+    valid: torch.Tensor          # (M,) cluster seeded here, above threshold
+    similarity: torch.Tensor     # (M,)
+    class_idx: torch.Tensor      # (M,)
+    template_slot: torch.Tensor  # (M,)
+    icp_dist: torch.Tensor       # (M,)
+    inlier_ratio: torch.Tensor   # (M,)
+    n_pairs: torch.Tensor        # (M,)
+    match_x: torch.Tensor        # (M,)
+    match_y: torch.Tensor        # (M,)
+
+
+def recognize_multi(bank, model_depth_stack: torch.Tensor,
+                    depth_origins: torch.Tensor, bgr: torch.Tensor,
+                    scene_depth: torch.Tensor, scene_k: torch.Tensor,
+                    engine: cfg.EngineConfig, max_objects: int,
+                    kernels=None, class_mask=None,
+                    roi_mask=None) -> MultiRecoStep:
+    """Multi-object Recognition: match the bank, ICP-refine each of the
+    top-M candidates (M = ``max_objects``; invalid ones too, as the JAX
+    version's map over them does), then 3D NMS over the refined
+    translations (ICP/NMS.cpp:6-40).  Arguments as
+    :func:`recognize_top1`."""
+    crop = model_depth_stack.shape[-1]
+    masks = None if roi_mask is None else [roi_mask, roi_mask]
+    matches = det_mod.match_bank(bank, bgr, scene_depth,
+                                 engine.matching_threshold, engine.detector,
+                                 masks=masks, kernels=kernels,
+                                 class_mask=class_mask)
+    m = max_objects
+    slots, mxs, mys = (matches.template_slot[:m], matches.x[:m],
+                       matches.y[:m])
+    poses, refs = [], []
+    for i in range(slots.shape[0]):
+        pose, res = _refine_candidate(bank, model_depth_stack, depth_origins,
+                                      scene_depth, scene_k, slots[i], mxs[i],
+                                      mys[i], engine, crop)
+        poses.append(pose)
+        refs.append(res)
+    poses = torch.stack(poses)
+    dist_mean = torch.stack([r.icp.dist_mean for r in refs])
+    ratio = torch.stack([r.icp.inlier_ratio for r in refs])
+    icp_ok = torch.stack([r.icp.ok for r in refs])
+    n_pairs = torch.stack([r.n_pairs for r in refs])
+
+    # the model-point count is the ICP pair count, the score its dist_mean
+    icp_dist = torch.where(dist_mean < 0, 1e9, dist_mean)
+    nms = nms_mod.nms_3d(poses[:, :3, 3], icp_dist, n_pairs,
+                         matches.valid[:m] & icp_ok,
+                         engine.nms_object_distance)
+    w = nms.winner.clamp(min=0).to(torch.int64).to(poses.device)
+    return MultiRecoStep(
+        poses=poses[w], valid=nms.keep.to(poses.device),
+        similarity=matches.similarity[:m][w],
+        class_idx=matches.class_idx[:m][w], template_slot=slots[w],
+        icp_dist=dist_mean[w], inlier_ratio=ratio[w], n_pairs=n_pairs[w],
+        match_x=mxs[w], match_y=mys[w])

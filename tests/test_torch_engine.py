@@ -33,10 +33,10 @@ _LEAVES = ("feat_x", "feat_y", "feat_label", "feat_valid", "width", "height",
            "valid")
 
 
-@pytest.fixture(scope="module")
-def feature_dir(tmp_path_factory):
-    rng = np.random.default_rng(7)
-    bgr, depth, mask = make_scene(rng)
+def write_feature_dir(d, bgr, depth, mask):
+    """Train one view of a synthetic scene with the JAX package and write
+    the reference artifact layout to ``d``: linemod_templates.yml +
+    depth/0.png (0.1 mm units)."""
     det_cfg = cfg.DetectorConfig(image_width=W, image_height=H,
                                  max_candidates=16)
     pose = np.zeros(13, np.float32)
@@ -44,13 +44,19 @@ def feature_dir(tmp_path_factory):
     pose[12] = 650.0
     view = training.add_template(bgr, depth, mask, pose, det_cfg)
     assert view is not None
-    d = tmp_path_factory.mktemp("features")
     linemod_yaml.save_linemod(str(d / "linemod_templates.yml"), det_cfg,
                               {"obj": [view]})
     os.makedirs(d / "depth", exist_ok=True)
     cv2.imwrite(str(d / "depth" / "0.png"),
                 (depth.astype(np.uint32) * 10).astype(np.uint16))
     return str(d), (bgr, depth, mask)
+
+
+@pytest.fixture(scope="module")
+def feature_dir(tmp_path_factory):
+    rng = np.random.default_rng(7)
+    return write_feature_dir(tmp_path_factory.mktemp("features"),
+                             *make_scene(rng))
 
 
 def _config(mode, **icp):
@@ -80,7 +86,7 @@ def _rot_diff_deg(r1, r2):
     return float(np.degrees(np.arcsin(min(np.linalg.norm(w), 1.0))))
 
 
-def _same_results(got, want):
+def _same_results(got, want, dist_atol=0.0):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g.obj_tag == w.obj_tag
@@ -91,7 +97,8 @@ def _same_results(got, want):
         assert _rot_diff_deg(g.world2cam[:3, :3],
                              w.world2cam[:3, :3]) <= ROT_TOL_DEG
         np.testing.assert_array_equal(g.world2cam[3], [0, 0, 0, 1])
-        np.testing.assert_allclose(g.icp_dist, w.icp_dist, rtol=1e-4)
+        np.testing.assert_allclose(g.icp_dist, w.icp_dist, rtol=1e-4,
+                                   atol=dist_atol)
         np.testing.assert_allclose(g.inlier_ratio, w.inlier_ratio, atol=2e-3)
 
 
@@ -154,10 +161,12 @@ def test_recognition_gates_match_jax(feature_dir):
 
 
 def test_unported_advanced_params_are_refused():
-    """Multi-object and NMS are not ported, so their parameters are unknown
-    names, not silent no-ops."""
+    """Names the engine does not know raise instead of being silent no-ops;
+    the JAX engine's set (multi-object's max_objects and
+    nms_object_distance included) is accepted."""
     eng = ObjReco.create("LmICP", device="cpu")
-    for name in ("max_objects", "nms_object_distance"):
+    assert set(ObjReco._PARAM_PATHS) == set(JaxReco._PARAM_PATHS)
+    for name in ("no_such_param", "refine_crop"):
         with pytest.raises(KeyError):
             eng.set_advanced_param(name, 2)
     eng.set_advanced_param("icp_iterations", 7)

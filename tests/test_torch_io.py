@@ -168,7 +168,9 @@ import json, sys
 import numpy as np
 from fealess_tpu import config as cfg
 import fealess_tpu_torch
+from fealess_tpu_torch.apps import fixture, profile_reco, track  # noqa: F401
 from fealess_tpu_torch.engine import CamIntrinsics, ObjReco
+from fealess_tpu_torch.tracker.kcf import KcfTracker
 
 frame = np.load(sys.argv[2])
 h, w = frame["depth"].shape
@@ -178,17 +180,23 @@ ecfg = cfg.EngineConfig(
     icp=cfg.IcpConfig(max_points=1024), refine_crop=64)
 eng = ObjReco.create("LmICP", ecfg, device="cpu")
 eng.add_obj(sys.argv[1])
-res = eng.recognition(frame["bgr"], frame["depth"],
-                      CamIntrinsics(608.0, 608.0, w / 2, h / 2, w, h))
-print(json.dumps({"n": len(res),
+cam = CamIntrinsics(608.0, 608.0, w / 2, h / 2, w, h)
+res = eng.recognition(frame["bgr"], frame["depth"], cam)
+multi = eng.recognition_multi(frame["bgr"], frame["depth"], cam,
+                              max_objects=2)
+kcf = KcfTracker(None)
+_, roi = kcf.update(kcf.init((60, 20, 40, 40), frame["bgr"]), frame["bgr"])
+print(json.dumps({"n": len(res), "n_multi": len(multi),
+                  "roi_ok": bool(np.isfinite(roi).all()),
                   "loaded": [m for m in ("jax", "flax", "cv2")
                              if m in sys.modules]}))
 """
 
 
 def test_port_runs_without_jax_flax_or_cv2(tmp_path):
-    """A fresh interpreter imports the port and runs a small recognition;
-    jax, flax and cv2 must never be imported."""
+    """A fresh interpreter imports the port (its apps included) and runs a
+    small recognition, a multi-object recognition and a KCF update; jax,
+    flax and cv2 must never be imported."""
     h, w = 80, 160
     rng = np.random.default_rng(2)
     bgr = rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
@@ -216,3 +224,4 @@ def test_port_runs_without_jax_flax_or_cv2(tmp_path):
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["loaded"] == []
     assert result["n"] in (0, 1)
+    assert result["n_multi"] in (0, 1, 2) and result["roi_ok"]
