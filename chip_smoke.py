@@ -27,8 +27,21 @@ Phases, one line of output each (or a few):
    ROIs and scale steps against the same KCF tracker run on CPU tensors
    in this process (see ``EXPECT_TRACK``), and their distance from the
    JAX package's ROIs printed;
-5. CUDA-event times of each kernel and twin, and warm per-frame times of
-   Recognition, multi-object Recognition and a tracked frame.
+4d. training and the command line on the card: the fixture's training
+   view through ``add_template`` and ``add_templates_batched`` equals
+   template 0 of the repo's YAML bank; a 4-frame scan package (the panned
+   fixture frames, written with the port's PNG writer) goes through
+   ``python -m fealess_tpu_torch`` ``train`` (the database's sha256 equals
+   the JAX package's), ``recon`` (results against the JAX CLI's),
+   ``export`` and ``recon --artifact`` (lines equal to ``recon``'s); on
+   the served bank, each kernel against its twin as in phase 3 at the
+   shapes that bank gives it, then one recognition with forced ICP;
+   templates per second of the batched trainer's stages (crop, front-end,
+   extraction) on the 4-view chunk and on a 32-view chunk of panned
+   frames, and ``add_obj`` against the artifact's load, are timed;
+5. CUDA-event times of each kernel and twin, warm per-frame times of
+   Recognition, multi-object Recognition and a tracked frame, and the
+   fixture bank's cold start through ``add_obj`` and from an artifact.
 
 Each path of phases 4-4c runs with the kernels' launch counters set to 0
 just before it and read just after; every kernel must have run on the
@@ -44,6 +57,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -108,6 +122,22 @@ EXPECT_MULTI_TRACK = [
 ROI_TOL_PX = 1.0       # card vs CPU tracker: cuFFT vs the CPU's FFT
 SIZE_TOL_PX = 0.01     # w, h: the same scale steps
 
+# Training and the CLI (phase 4d), from the JAX package on the CPU on the
+# scan package of fixture.write_scan_package (4 panned fixture frames):
+# the sha256 of the linemod_templates.yml that its ``train`` writes (the
+# port's FileStorage writer gives the same bytes), and its ``recon`` JSON
+# lines with default flags: per frame the similarity, t (mm) and ICP mean
+# distance, rotation the identity.  Forced ICP on frame 0 is phase 4's (b).
+TRAIN_FRAMES = 4
+EXPECT_TRAIN_SHA256 = ("8c754bfc6dee4759eaa62d5e642a0709"
+                       "5176e3ac8354f10a600c09fea6c8e979")
+EXPECT_CLI = [(100.0, (-3.75623, -3.58265, -2.09906), 0.38305),
+              (100.0, (2.47599, 2.45024, 0.29974), 0.44106),
+              (100.0, (2.44607, 2.51570, -0.79999), 0.33400),
+              (100.0, (8.64415, 2.46295, 0.10028), 0.33718)]
+CLI_T_TOL_MM, CLI_DIST_TOL = 0.05, 1e-3
+TRAIN_TIMED = 3        # timed add_templates_batched calls / artifact loads
+
 
 def check(cond: bool, what: str) -> None:
     if not cond:
@@ -138,11 +168,118 @@ def close(got, want, tol) -> bool:
     return all(abs(float(g) - float(w)) <= tol for g, w in zip(got, want))
 
 
+def same_view(got, want) -> bool:
+    import numpy as np
+    if got is None:
+        return False
+    if ((got.width, got.height, got.offset_x, got.offset_y)
+            != (want.width, want.height, want.offset_x, want.offset_y)
+            or not np.array_equal(got.pose, want.pose)):
+        return False
+    return all(a.shape == b.shape and np.array_equal(a, b)
+               for fa, fb in zip(got.features, want.features)
+               for a, b in zip(fa, fb))
+
+
+def run_cli(argv):
+    """(return code, stdout lines) of one in-process CLI call."""
+    import contextlib
+    import io
+    from fealess_tpu_torch.apps import cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, out.getvalue().splitlines()
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def kernel_cases(eng, bgr_np, depth_np, cam):
+    """Each kernel's cases at the shapes ``eng.recognition`` gives it on
+    this frame, {name: [(kernel, twin, args)]}, and the refine's ICP pair
+    count: K1 on the coarse level, K2 on the top candidates' windows (and
+    shifted 20 px out of the frame), K3 on the best match's clouds (and on
+    a reference set with every row twice, planted exact ties where the
+    first index must win)."""
+    import torch
+    from fealess_tpu_torch import detector as td
+    from fealess_tpu_torch import pipeline
+    from fealess_tpu_torch.ops import nn, score
+    det = eng.cfg.detector
+    bgr, depth, scene_k = eng._prepare_frame(bgr_np, depth_np, cam)
+    planes = td.response_planes(td.quantized_pyramid(bgr, depth, det), det)
+    tables = eng._kernels
+    _, tslot, x, y = td.coarse_candidates(eng.bank, planes,
+                                          eng.cfg.matching_threshold, det,
+                                          tables)
+    d0, table_k, px0, py0, _, _ = td.local_window_inputs(
+        eng.bank, planes, det, tables, 0, tslot, x, y)
+    matches = td.match_from_planes(eng.bank, planes,
+                                   eng.cfg.matching_threshold, det, tables)
+    cand = pipeline.candidate_inputs(eng.bank, eng._model_depth_dev,
+                                     eng._origins_dev,
+                                     matches.template_slot[0], eng.cfg)
+    crop = eng.cfg.refine_crop
+    ref, model, pair_mask, _, _ = pipeline.paired_clouds(
+        depth, scene_k, *cand[:6], matches.x[0], matches.y[0], eng.cfg,
+        crop, crop)
+    half = ref.shape[0] // 2
+    tie_ref = torch.cat([ref[:half], ref[:half]]).contiguous()
+    coarse = (planes[det.pyramid_levels - 1][0],
+              tables[det.pyramid_levels - 1])
+    return {
+        "coarse_scores": [(score.coarse_scores, score.coarse_scores_plain,
+                           coarse)],
+        "local_scores": [(score.local_scores, score.local_scores_plain,
+                          (d0, table_k, px0, py0)),
+                         (score.local_scores, score.local_scores_plain,
+                          (d0, table_k, px0 - 20, py0 - 20))],
+        "nearest_neighbor": [(nn.nearest_neighbor, nn.nearest_neighbor_plain,
+                              (model, ref)),
+                             (nn.nearest_neighbor, nn.nearest_neighbor_plain,
+                              (model, tie_ref))],
+    }, int(pair_mask.sum())
+
+
+def hold_to_twins(cases, errs, where: str) -> None:
+    """Every case's kernel against its twin: K1/K2 bitwise, K3 indices
+    equal and d2 bitwise; ``errs[name]`` keeps the largest |kernel - twin|
+    over every call."""
+    import torch
+
+    def shapes(args):
+        return [{k: tuple(v.shape) for k, v in a.items()}
+                if isinstance(a, dict) else tuple(a.shape) for a in args]
+
+    for name, runs in cases.items():
+        errs.setdefault(name, 0.0)
+        for kernel, plain, args in runs:
+            got = kernel(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            if name == "nearest_neighbor":
+                check(torch.equal(got[0], want[0]),
+                      f"{name} ({where}): idx differs at "
+                      f"{int((got[0] != want[0]).sum())} queries")
+                check(torch.equal(got[1], want[1]),
+                      f"{name} ({where}): d2 not bitwise equal")
+                err = (got[1] - want[1]).abs().max().item()
+            else:
+                check(got.dtype == want.dtype and got.shape == want.shape,
+                      f"{name} ({where}): {got.dtype}{tuple(got.shape)} vs "
+                      f"{want.dtype}{tuple(want.shape)}")
+                err = (got - want).abs().max().item()
+                check(err == 0, f"{name} ({where}): max |kernel - twin| = "
+                      f"{err}")
+            errs[name] = max(errs[name], float(err))
+        print(f"kernel {name} ({where}): equal to its twin on {len(runs)} "
+              f"case(s), inputs {shapes(runs[0][2])}, max_abs_err "
+              f"{errs[name]}")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -176,6 +313,8 @@ def run(dev) -> None:
     from fealess_tpu_torch.apps.track import (MultiTrackedRecognizer,
                                               TrackedRecognizer)
     from fealess_tpu_torch.apps import fixture
+    from fealess_tpu_torch.engine import ObjReco
+    from fealess_tpu_torch.io.export import ServingArtifact
     from fealess_tpu_torch.ops import _build, nn, score
     from fealess_tpu_torch.tracker.kcf import KcfTracker
 
@@ -210,68 +349,12 @@ def run(dev) -> None:
 
     # -- 3. kernels vs twins at the main path's shapes
     det = eng.cfg.detector
-    bgr, depth, scene_k = eng._prepare_frame(bgr_np, depth_np, cam)
-    planes = td.response_planes(td.quantized_pyramid(bgr, depth, det), det)
-    tables = eng._kernels
-    coarse_planes = planes[det.pyramid_levels - 1][0]
-    coarse_table = tables[det.pyramid_levels - 1]
-    sim, tslot, x, y = td.coarse_candidates(eng.bank, planes,
-                                            eng.cfg.matching_threshold, det,
-                                            tables)
-    d0, table_k, px0, py0, _, _ = td.local_window_inputs(
-        eng.bank, planes, det, tables, 0, tslot, x, y)
-    matches = td.match_from_planes(eng.bank, planes,
-                                   eng.cfg.matching_threshold, det, tables)
-    cand = pipeline.candidate_inputs(eng.bank, eng._model_depth_dev,
-                                     eng._origins_dev,
-                                     matches.template_slot[0], eng.cfg)
-    crop = eng.cfg.refine_crop
-    ref, model, pair_mask, _, _ = pipeline.paired_clouds(
-        depth, scene_k, *cand[:6], matches.x[0], matches.y[0], eng.cfg,
-        crop, crop)
-    # planted exact ties: every ref row twice, so each query's minimum
-    # occurs at j and j + P/2 and the first must win
-    half = ref.shape[0] // 2
-    tie_ref = torch.cat([ref[:half], ref[:half]]).contiguous()
-
-    cases = {
-        "coarse_scores": [(score.coarse_scores, score.coarse_scores_plain,
-                           (coarse_planes, coarse_table))],
-        "local_scores": [(score.local_scores, score.local_scores_plain,
-                          (d0, table_k, px0, py0)),
-                         (score.local_scores, score.local_scores_plain,
-                          (d0, table_k, px0 - 20, py0 - 20))],
-        "nearest_neighbor": [(nn.nearest_neighbor, nn.nearest_neighbor_plain,
-                              (model, ref)),
-                             (nn.nearest_neighbor, nn.nearest_neighbor_plain,
-                              (model, tie_ref))],
-    }
+    cases, n_pairs = kernel_cases(eng, bgr_np, depth_np, cam)
     errs = {}
-    for name, runs in cases.items():
-        errs[name] = 0.0
-        for kernel, plain, args in runs:
-            got = kernel(*args)
-            want = plain(*args)
-            torch.cuda.synchronize()
-            if name == "nearest_neighbor":
-                check(torch.equal(got[0], want[0]),
-                      f"{name}: idx differs at "
-                      f"{int((got[0] != want[0]).sum())} queries")
-                check(torch.equal(got[1], want[1]),
-                      f"{name}: d2 not bitwise equal")
-                err = (got[1] - want[1]).abs().max().item()
-            else:
-                check(got.dtype == want.dtype and got.shape == want.shape,
-                      f"{name}: {got.dtype}{tuple(got.shape)} vs "
-                      f"{want.dtype}{tuple(want.shape)}")
-                err = (got - want).abs().max().item()
-                check(err == 0, f"{name}: max |kernel - twin| = {err}")
-            errs[name] = max(errs[name], float(err))
-        shapes = [tuple(a.shape) for a in runs[0][2] if hasattr(a, "shape")]
-        print(f"kernel {name}: equal to its twin on {len(runs)} case(s), "
-              f"inputs {shapes}, max_abs_err {errs[name]}")
-    check(int(pair_mask.sum()) == eng.cfg.icp.max_points,
-          f"ICP pairs {int(pair_mask.sum())}")
+    hold_to_twins(cases, errs, "fixture bank")
+    check(n_pairs == eng.cfg.icp.max_points, f"ICP pairs {n_pairs}")
+    bgr, depth, scene_k = eng._prepare_frame(bgr_np, depth_np, cam)
+    tables = eng._kernels
 
     # -- 4. end to end through the public API
     counted = (score.coarse_scores, score.local_scores, nn.nearest_neighbor)
@@ -455,6 +538,8 @@ def run(dev) -> None:
         check(grew[0] >= 1 and grew[1] >= 1,
               f"multi-track frame {i}: score kernels launched {grew[:2]}")
     read_counts("tracking")
+    training_and_cli(dev, bgr_np, depth_np, card, zero_counts, read_counts,
+                     path_launches, errs)
     launches = {fn.__name__: sum(v[k] for v in path_launches.values())
                 for k, fn in enumerate(counted)}
 
@@ -503,6 +588,21 @@ def run(dev) -> None:
     print(f"time tracked frame (frames 1-3 repeated, {default_icp.mode}): "
           f"{track_ms:.3f} ms/frame warm, mean of {TIMED_FRAMES}, "
           f"{redetects} re-detections ({card})")
+    # cold start at the fixture's 1024 templates: add_obj (YAML parse,
+    # 1024 model depth PNGs, table build) against the artifact's load
+    with tempfile.TemporaryDirectory() as tmp:
+        eng.export_artifact(tmp)
+        t0 = time.perf_counter()
+        ObjReco.create("LmICP", device=dev).add_obj(
+            os.path.join(fixture.FIXTURE, "features"))
+        torch.cuda.synchronize()
+        add_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ServingArtifact(tmp, dev)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+    print(f"time cold start ({eng.bank.num_templates} templates): add_obj "
+          f"{add_ms:.3f} ms, ServingArtifact load {load_ms:.3f} ms ({card})")
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
@@ -521,6 +621,183 @@ def run(dev) -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def training_and_cli(dev, bgr_np, depth_np, card, zero_counts, read_counts,
+                     path_launches, errs) -> None:
+    """Phase 4d: training on the card, then the CLI's offline path."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from fealess_tpu import config as cfg
+    from fealess_tpu_torch import training
+    from fealess_tpu_torch.apps import cli, fixture, scan_package
+    from fealess_tpu_torch.io import linemod_yaml
+    from fealess_tpu_torch.io.export import ServingArtifact
+
+    # the fixture's training view (benchmarks/reference/make_fixture.py)
+    det = cfg.DetectorConfig()
+    mask = np.zeros(depth_np.shape, bool)
+    mask[160:320, 240:432] = True
+    pose = np.zeros(13, np.float32)
+    pose[0] = pose[5] = pose[10] = 1.0
+    pose[12] = 800.0
+    _, classes = linemod_yaml.load_linemod(os.path.join(
+        fixture.FIXTURE, "features", "linemod_templates.yml"))
+    golden = classes["obj"][0]
+    host_path = "native" if training.have_native() else "numpy"
+    for name, view in (
+            ("add_template", training.add_template(
+                bgr_np, depth_np, mask, pose, det, dev)),
+            ("add_templates_batched", training.add_templates_batched(
+                [bgr_np], [depth_np], [mask], [pose], det, dev)[0])):
+        check(same_view(view, golden),
+              f"{name} on the card differs from YAML template 0")
+    print(f"train: the fixture view through add_template and "
+          f"add_templates_batched on {dev} equals YAML template 0 "
+          f"({[len(f) for fl in golden.features for f in fl]} features); "
+          f"host extraction path {host_path}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pkg = os.path.join(tmp, "pkg")
+        art = os.path.join(tmp, "artifact")
+        fixture.write_scan_package(pkg, bgr_np, depth_np, TRAIN_FRAMES)
+        rc, out = run_cli(["train", pkg, "--device", "cuda"])
+        check(rc == 0 and out[-1].startswith(
+            f"Training: {TRAIN_FRAMES}/{TRAIN_FRAMES} frames"),
+            f"cli train: rc {rc}, {out[-1:]}")
+        with open(os.path.join(pkg, "linemod_templates.yml"), "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        check(digest == EXPECT_TRAIN_SHA256,
+              f"cli train: database sha256 {digest}, JAX's "
+              f"{EXPECT_TRAIN_SHA256}")
+        print(f"cli train: {out[-1].split(' -> ')[0]}, database sha256 "
+              f"equal to the JAX package's")
+
+        rc, out = run_cli(["export", pkg, art, "--device", "cuda"])
+        check(rc == 0, f"cli export: rc {rc}")
+        lines = {}
+        for path, extra in (("cli recon", []),
+                            ("cli recon --artifact", ["--artifact", art])):
+            zero_counts()
+            rc, out = run_cli(["recon", pkg, "--device", "cuda"] + extra)
+            read_counts(path)
+            grew = path_launches[path]
+            check(rc == 0, f"{path}: rc {rc}")
+            check(grew[0] == grew[1] == TRAIN_FRAMES,
+                  f"{path}: K1/K2 launched {grew[:2]}, expected one each "
+                  f"per frame")
+            lines[path] = [json.loads(ln) for ln in out]
+            check(len(lines[path]) == TRAIN_FRAMES, f"{path}: {out}")
+            for rec, (sim, t, dist) in zip(lines[path], EXPECT_CLI):
+                check(len(rec["results"]) == 1, f"{path}: {rec}")
+                r = rec["results"][0]
+                p = np.asarray(r["pose"])
+                check(r["obj"] == "obj" and r["similarity"] == sim
+                      and p.shape == (4, 4) and bool(np.isfinite(p).all())
+                      and close(p[:3, 3], t, CLI_T_TOL_MM)
+                      and rotation_deg(p[:3, :3]) <= ROT_TOL_DEG
+                      and abs(r["icp_dist"] - dist) <= CLI_DIST_TOL,
+                      f"{path} frame {rec['frame']}: {r} vs JAX's "
+                      f"{(sim, t, dist)}")
+            print(f"{path}: {len(lines[path])} frames equal the JAX CLI's "
+                  f"(t " + ", ".join(
+                      str([round(float(v), 4) for v in np.asarray(
+                          rec["results"][0]["pose"])[:3, 3]])
+                      for rec in lines[path]) + ")")
+        check(lines["cli recon --artifact"] == lines["cli recon"],
+              "recon --artifact lines differ from recon's")
+        print("cli recon --artifact: lines equal recon's")
+
+        # one forced-ICP recognition of the served bank, so K3 runs; first
+        # each kernel against its twin at the shapes this bank gives it
+        served = ServingArtifact(art, dev)
+        for name, value in FORCED.items():
+            served.set_advanced_param(name, value)
+        frame0 = next(scan_package.iter_training_frames(pkg))
+        cam = cli._camera(cli.build_parser().parse_args(["recon", pkg]),
+                          frame0.bgr.shape[1], frame0.bgr.shape[0])
+        served_cases, n_pairs = kernel_cases(served, frame0.bgr,
+                                             frame0.depth_mm, cam)
+        hold_to_twins(served_cases, errs,
+                      f"served {served.bank.num_templates}-template bank")
+        check(n_pairs == served.cfg.icp.max_points,
+              f"served ICP pairs {n_pairs}")
+        zero_counts()
+        res = served.recognition(frame0.bgr, frame0.depth_mm, cam)
+        read_counts("served forced ICP")
+        grew = path_launches["served forced ICP"]
+        check(len(res) == 1 and tuple(res[0].match_rect[:2]) == EXPECT_MATCH
+              and close(res[0].world2cam[:3, 3], EXPECT_T["b"],
+                        T_TOL_MM["b"])
+              and abs(rotation_deg(res[0].world2cam[:3, :3])
+                      - EXPECT_ROT_DEG["b"]) <= ROT_TOL_DEG,
+              f"served forced ICP: {res}")
+        check(grew == [1, 1, EXPECT_NN["b"]],
+              f"served forced ICP: launches {grew}")
+        print(f"served forced ICP: match {res[0].match_rect[:2]} t "
+              f"{[round(float(v), 4) for v in res[0].world2cam[:3, 3]]} "
+              f"rotation {rotation_deg(res[0].world2cam[:3, :3]):.4f} deg")
+
+        # timing: the stages of add_templates_batched (host crop, device
+        # front-end, host extraction threads) timed in turn on one chunk:
+        # the package's 4 frames, and a chunk of CHUNK panned frames as
+        # train_package feeds it, whose first 4 views must equal the first
+        # chunk's; then add_obj vs artifact load
+        frames = list(scan_package.iter_training_frames(pkg))
+        chunks = {TRAIN_FRAMES: [(f.bgr, f.depth_mm, f.mask, f.pose13)
+                                 for f in frames],
+                  scan_package.CHUNK: [
+                      (b, d, d < d[0, 0], frames[0].pose13)
+                      for b, d in fixture.pan(bgr_np, depth_np,
+                                              scan_package.CHUNK)]}
+        workers = training.default_workers()
+        trained = {}
+        for n, chunk in chunks.items():
+            bgrs, depths, masks, poses = (list(c) for c in zip(*chunk))
+            stages = np.zeros((TRAIN_TIMED, 3))
+            for k in range(TRAIN_TIMED):
+                t0 = time.perf_counter()
+                rects, bgr_c, dep_c, msk_c = training.crop_views(
+                    bgrs, depths, masks, det.pyramid_levels)
+                t1 = time.perf_counter()
+                qlevels = training.quantize_crops(bgr_c, dep_c, det, dev)
+                t2 = time.perf_counter()
+                trained[n] = training.extract_views(qlevels, rects, msk_c,
+                                                    poses, det, workers)
+                stages[k] = (t1 - t0, t2 - t1, time.perf_counter() - t2)
+                check(all(v is not None for v in trained[n]),
+                      f"batched training of {n} views")
+            crop_ms, front_ms, extract_ms = stages.mean(0) * 1e3
+            t_ms = crop_ms + front_ms + extract_ms
+            print(f"time add_templates_batched ({n} views, crops "
+                  f"{bgr_c.shape[1]}x{bgr_c.shape[2]}, {host_path} "
+                  f"extraction on {workers} threads): {t_ms:.3f} ms, "
+                  f"{n / t_ms * 1e3:.3f} templates/s; crop {crop_ms:.3f} "
+                  f"ms, front-end {front_ms:.3f} ms, extraction "
+                  f"{extract_ms:.3f} ms; mean of {TRAIN_TIMED} ({card})")
+        check(all(same_view(a, b) for a, b in zip(
+            trained[scan_package.CHUNK], trained[TRAIN_FRAMES])),
+            f"the {scan_package.CHUNK}-view chunk's first views differ from "
+            f"the {TRAIN_FRAMES}-view chunk's")
+        recon_args = cli.build_parser().parse_args(["recon", pkg, "--device",
+                                                    "cuda"])
+        h, w = frames[0].depth_mm.shape
+        load = {"add_obj": [], "artifact": []}
+        for _ in range(TRAIN_TIMED):
+            t0 = time.perf_counter()
+            cli._engine_for(recon_args, w, h)
+            torch.cuda.synchronize()
+            load["add_obj"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            ServingArtifact(art, dev)
+            torch.cuda.synchronize()
+            load["artifact"].append(time.perf_counter() - t0)
+        print(f"time cold start ({TRAIN_FRAMES} templates): add_obj "
+              f"{np.mean(load['add_obj']) * 1e3:.3f} ms, ServingArtifact "
+              f"load {np.mean(load['artifact']) * 1e3:.3f} ms; mean of "
+              f"{TRAIN_TIMED} ({card})")
 
 
 if __name__ == "__main__":

@@ -11,10 +11,17 @@ Configuration is the JAX package's own ``fealess_tpu.config`` (plain
 dataclasses, no framework), re-exported here as ``config``.
 
 Machines that run the port have no jax.  Importing ``fealess_tpu.config``
-runs ``fealess_tpu/__init__.py``, and ``ops/response.py`` executes
-``fealess_tpu/ops/luts.py`` by file path; those three files must stay free
-of jax imports.  ``tests/test_torch_io.py`` checks in a subprocess that
-importing and running the port loads no jax.
+runs ``fealess_tpu/__init__.py``; ``ops/response.py`` executes
+``fealess_tpu/ops/luts.py`` and ``training.py`` executes
+``fealess_tpu/io/native.py`` by file path (their packages' ``__init__``
+import jax); the CLI imports ``fealess_tpu.utils.profiling``,
+``fealess_tpu.apps.metrics`` and ``fealess_tpu.apps.model_mesh``.  Those
+files and their packages' ``__init__`` must stay free of jax and cv2
+imports.  ``tests/test_torch_io.py`` and ``tests/test_torch_cli.py`` check
+in a subprocess that importing and running the port loads neither.
+
+``python -m fealess_tpu_torch train|recon|export|track|eval`` is the
+command line (``apps/cli.py``).
 """
 
 import torch

@@ -1,6 +1,6 @@
 """The in-repo fixture (``benchmarks/reference/out``: 1024 templates, a
-640x480 RGB-D scene, K = 608 608 320 240) and the scenes that
-``chip_smoke.py`` and ``profile_reco`` build from it."""
+640x480 RGB-D scene, K = 608 608 320 240) and the scenes and the scan
+package that ``chip_smoke.py`` and ``profile_reco`` build from it."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ import os
 import numpy as np
 
 from fealess_tpu_torch.engine import CamIntrinsics, ObjReco
-from fealess_tpu_torch.io.png import read_png
+from fealess_tpu_torch.io.png import read_png, write_png
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -48,3 +48,22 @@ def pan(bgr: np.ndarray, depth: np.ndarray, n: int):
     rows."""
     return [(np.roll(np.roll(bgr, i, 0), 2 * i, 1),
              np.roll(np.roll(depth, i, 0), 2 * i, 1)) for i in range(n)]
+
+
+def write_scan_package(directory: str, bgr: np.ndarray, depth: np.ndarray,
+                       n: int = 4, view_distance: float = 800.0) -> None:
+    """A scan package (the reference's training layout, see
+    ``apps/scan_package.py``) of the ``n`` frames of :func:`pan`: gray/ and
+    depth/ pngs (depth x10, 0.1 mm units), pose/<i>.txt (R = I, t = 0) and
+    view/<i>.txt (the view distance on line 3)."""
+    for sub in ("gray", "depth", "pose", "view"):
+        os.makedirs(os.path.join(directory, sub), exist_ok=True)
+    pose = " ".join(str(v) for v in np.eye(3, 4, dtype=np.float32).ravel())
+    for i, (b, d) in enumerate(pan(bgr, depth, n)):
+        write_png(os.path.join(directory, "gray", f"{i}.png"), b)
+        write_png(os.path.join(directory, "depth", f"{i}.png"),
+                  (d.astype(np.uint32) * 10).astype(np.uint16))
+        with open(os.path.join(directory, "pose", f"{i}.txt"), "w") as fh:
+            fh.write(pose + "\n")
+        with open(os.path.join(directory, "view", f"{i}.txt"), "w") as fh:
+            fh.write(f"# header\n# header2\n{view_distance}\n")

@@ -162,3 +162,63 @@ def class_slot_mask(bank: TemplateBank,
     wanted = torch.tensor([bank.class_names.index(c) for c in class_ids],
                           dtype=torch.int32, device=bank.device)
     return torch.isin(bank.class_idx, wanted)
+
+
+def view_from_features(features: Sequence[Sequence[np.ndarray]],
+                       width: Sequence[int], height: Sequence[int],
+                       offset_x: Sequence[int], offset_y: Sequence[int],
+                       pose: np.ndarray) -> TemplateView:
+    """A TemplateView from externally computed features (the
+    ``addSyntheticTemplate`` entry point, linemod.hpp:349,
+    linemod.cpp:1636-1642).  ``features[l][m]`` is an (n, 3) int array of
+    post-crop (x, y, label) with 0 <= label < 8; ranges are validated so a
+    malformed template fails here, not as an out-of-range index in the
+    scorer."""
+    levels = len(features)
+    if not (len(width) == len(height) == len(offset_x) == len(offset_y)
+            == levels):
+        raise ValueError("per-level lists must have equal length")
+    feats = [[np.asarray(fm, np.int32).reshape(-1, 3) for fm in fl]
+             for fl in features]
+    for l, fl in enumerate(feats):
+        for m, fm in enumerate(fl):
+            if len(fm) == 0:
+                continue
+            if (fm[:, 2] < 0).any() or (fm[:, 2] >= 8).any():
+                raise ValueError(f"label out of [0, 8) at level {l} "
+                                 f"modality {m}")
+            if ((fm[:, 0] < 0).any() or (fm[:, 0] > width[l]).any()
+                    or (fm[:, 1] < 0).any() or (fm[:, 1] > height[l]).any()):
+                raise ValueError(f"feature outside bbox at level {l} "
+                                 f"modality {m}")
+    return TemplateView(features=feats,
+                        width=[int(w) for w in width],
+                        height=[int(h) for h in height],
+                        offset_x=[int(x) for x in offset_x],
+                        offset_y=[int(y) for y in offset_y],
+                        pose=np.asarray(pose, np.float32).reshape(13))
+
+
+def bank_arrays(bank: TemplateBank) -> Dict[str, np.ndarray]:
+    """The bank's leaves as host numpy arrays, keyed by field name."""
+    return {k: getattr(bank, k).cpu().numpy() for k in _ARRAYS}
+
+
+def unpack_bank(bank: TemplateBank) -> Dict[str, List[TemplateView]]:
+    """Inverse of :func:`pack_bank` (for serialization round-trips)."""
+    a = bank_arrays(bank)
+    out: Dict[str, List[TemplateView]] = {c: [] for c in bank.class_names}
+    for slot in np.flatnonzero(a["valid"]):
+        fv = a["feat_valid"][slot]
+        feats = [[np.stack([a[k][slot, l, m, fv[l, m]]
+                            for k in ("feat_x", "feat_y", "feat_label")],
+                           axis=-1)
+                  for m in range(bank.modalities)]
+                 for l in range(bank.levels)]
+        out[bank.class_names[int(a["class_idx"][slot])]].append(TemplateView(
+            features=feats,
+            width=list(a["width"][slot]), height=list(a["height"][slot]),
+            offset_x=list(a["offset_x"][slot]),
+            offset_y=list(a["offset_y"][slot]),
+            pose=a["pose"][slot].copy()))
+    return out

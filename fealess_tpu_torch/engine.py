@@ -174,6 +174,17 @@ class ObjReco:
         self._origins_dev = torch.from_numpy(self._origins_array()).to(
             self.device)
 
+    def set_roi(self, roi_mask: np.ndarray) -> None:
+        """SetROI is a stub in the reference (obj_reco_lmicp.cpp:81-84);
+        pass ``roi_mask`` to :meth:`recognition` instead."""
+
+    def export_artifact(self, path: str) -> None:
+        """Write the serving artifact (``fealess_tpu_torch.io.export``):
+        the engine state that a fresh process serves from without parsing
+        the YAML bank or decoding the model depth PNGs."""
+        from fealess_tpu_torch.io import export as export_mod
+        export_mod.export_artifact(self, path)
+
     # -- advanced params (stubs in the reference, obj_reco_lmicp.cpp:
     # 206-214; here they reconfigure)
     _PARAM_PATHS = {

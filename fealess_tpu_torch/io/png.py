@@ -1,17 +1,22 @@
-"""A small PNG reader on the standard library and numpy.
+"""A small PNG reader and writer on the standard library and numpy.
 
 The port has no image library on the card, so the fixture's PNGs (8-bit
 RGB colour, 16-bit gray depth) are decoded here: chunks are walked with
 ``struct``, the IDAT stream is inflated with ``zlib`` and each scanline is
-un-filtered.  Returns what ``cv2.imread(path, cv2.IMREAD_UNCHANGED)``
-returns for the covered formats: (H, W) for gray, (H, W, 3) in BGR order
-for RGB, u8 or u16.
+un-filtered.  :func:`read_png` returns what ``cv2.imread(path,
+cv2.IMREAD_UNCHANGED)`` returns for the covered formats: (H, W) for gray,
+(H, W, 3) in BGR order for RGB, u8 or u16; with ``color=True`` it returns
+what ``cv2.IMREAD_COLOR`` returns: always u8 BGR, gray replicated to three
+channels and 16-bit samples cut to their high byte (libpng's strip-16).
 
 Covered: bit depth 8 or 16, colour type 0 (gray) or 2 (RGB),
 non-interlaced, all five filter types.  None and Sub rows are
 independent of the row above, so they are un-filtered for the whole image
 at once (Sub is a per-byte-lane cumulative sum mod 256); Up, Average and
 Paeth rows run in order, Average and Paeth one pixel at a time.
+
+:func:`write_png` is the inverse for what ``cv2.imwrite`` writes on the
+training path (u8 BGR colour, u8 or u16 gray), with filter type 0.
 """
 
 from __future__ import annotations
@@ -72,8 +77,48 @@ def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(path: str) -> np.ndarray:
-    """Decode a PNG file to u8/u16 (H, W) gray or (H, W, 3) BGR."""
+def read_png(path: str, color: bool = False) -> np.ndarray:
+    """Decode a PNG file to u8/u16 (H, W) gray or (H, W, 3) BGR; with
+    ``color``, to u8 (H, W, 3) BGR as ``cv2.IMREAD_COLOR`` does."""
+    img = _decode(path)
+    if not color:
+        return img
+    if img.dtype == np.uint16:
+        img = (img >> 8).astype(np.uint8)
+    if img.ndim == 2:
+        img = np.repeat(img[:, :, None], 3, axis=2)
+    return img
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Encode u8 (H, W, 3) BGR as 8-bit RGB, or u8/u16 (H, W) as gray."""
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[2] == 3 and img.dtype == np.uint8:
+        pix, color, depth = img[:, :, ::-1], 2, 8
+    elif img.ndim == 2 and img.dtype in (np.uint8, np.uint16):
+        pix, color, depth = img, 0, img.dtype.itemsize * 8
+    else:
+        raise ValueError(f"write_png: unsupported image {img.dtype}"
+                         f"{img.shape}; expected u8 (H, W, 3) or u8/u16 "
+                         f"(H, W)")
+    h, w = img.shape[:2]
+    rows = np.ascontiguousarray(pix, ">u2" if depth == 16 else np.uint8)
+    rows = rows.view(np.uint8).reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 0)
+    data = (_SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + _chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def _decode(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_SIGNATURE):

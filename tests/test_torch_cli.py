@@ -1,0 +1,285 @@
+"""The port's command line (``python -m fealess_tpu_torch``, here with
+``--device cpu``) against the JAX package's CLI on the same scan package:
+``train`` writes the same database; ``recon`` (both ICP modes and
+``--multi``), ``recon --artifact`` after ``export``, ``track`` and ``eval``
+print the JAX CLI's JSON lines: frames, objects and similarity exactly,
+poses within 0.05 mm and 0.01 deg, tracker ROIs within 0.05 px.  A
+subprocess drives every action with the new modules imported and shows
+that jax, flax and cv2 are never loaded."""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from fealess_tpu.apps import cli as jax_cli
+from fealess_tpu_torch.apps import cli
+from tests.test_torch_engine import T_TOL_MM, _rot_diff_deg
+from tests.test_torch_scan_package import write_package
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RECON = ["--refine-crop", "128", "--icp-max-points", "8192"]
+ROI_TOL_PX = 0.05
+DIST_ATOL_MM = 1e-3
+
+
+def _write_cube_obj(path, half=30.0):
+    with open(path, "w") as fh:
+        for sx in (-1, 1):
+            for sy in (-1, 1):
+                for sz in (-1, 1):
+                    fh.write(f"v {sx * half} {sy * half} {sz * half}\n")
+        fh.write("f 1 2 3\nf 5 6 7\nf 1 2 5\nf 3 4 7\n")
+
+
+def _run(main, argv, capsys):
+    """(return code, JSON lines of stdout, other stdout lines, stderr)."""
+    rc = main(argv)
+    cap = capsys.readouterr()
+    lines = cap.out.splitlines()
+    return (rc, [json.loads(ln) for ln in lines if ln.startswith("{")],
+            [ln for ln in lines if not ln.startswith("{")], cap.err)
+
+
+def _capture(main, argv):
+    """(return code, stdout lines) of one in-process CLI call (module-scoped
+    fixtures cannot use the function-scoped capsys)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = main(argv)
+    return rc, out.getvalue().splitlines()
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """One package (with a cube model for eval), copied once per CLI:
+    {"port": dir, "jax": dir}."""
+    src = str(tmp_path_factory.mktemp("pkg"))
+    write_package(src)
+    _write_cube_obj(os.path.join(src, "model.obj"))
+    out = {}
+    for name in ("port", "jax"):
+        out[name] = os.path.join(str(tmp_path_factory.mktemp(name)), "pkg")
+        shutil.copytree(src, out[name])
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_lines(trained):
+    """The JAX CLI's train output and recon/track JSON lines on its copy."""
+    d = trained["jax"]
+    out = {"train": _capture(jax_cli.main, ["train", d])}
+    for key, argv in (("plane", ["recon", d] + RECON),
+                      ("point", ["recon", d, "--icp-mode",
+                                 "point_to_point"] + RECON),
+                      ("multi", ["recon", d, "--multi"] + RECON),
+                      ("track", ["track", d] + RECON)):
+        rc, lines = _capture(jax_cli.main, argv)
+        assert rc == 0
+        out[key] = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    return out
+
+
+@pytest.fixture(scope="module")
+def port_trained(trained):
+    """The port's copy, trained by the port's CLI; (dir, train output)."""
+    d = trained["port"]
+    return d, _capture(cli.main, ["train", d, "--device", "cpu"])
+
+
+def _same_results(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g["obj"] == w["obj"]
+        assert g["similarity"] == w["similarity"]
+        pg, pw = np.asarray(g["pose"]), np.asarray(w["pose"])
+        assert pg.shape == pw.shape == (4, 4)
+        np.testing.assert_allclose(pg[:3, 3], pw[:3, 3], atol=T_TOL_MM,
+                                   rtol=0)
+        assert _rot_diff_deg(pg[:3, :3], pw[:3, :3]) <= 0.01
+        if "icp_dist" in w:
+            np.testing.assert_allclose(g["icp_dist"], w["icp_dist"],
+                                       atol=DIST_ATOL_MM, rtol=0)
+
+
+def _same_lines(got, want):
+    assert [g["frame"] for g in got] == [w["frame"] for w in want]
+    for g, w in zip(got, want):
+        _same_results(g["results"], w["results"])
+
+
+def test_cli_train_matches_jax(port_trained, trained, jax_lines):
+    """train on two copies of one package: the same per-frame report, the
+    same 3/3 count and the same database bytes."""
+    d, (rc, text) = port_trained
+    rc_w, text_w = jax_lines["train"]
+    assert rc == rc_w == 0
+    assert text[:-1] == text_w[:-1] and len(text) == 4
+    assert text[-1] == f"Training: 3/3 frames -> {d}/linemod_templates.yml"
+    with open(os.path.join(d, "linemod_templates.yml"), "rb") as a, \
+            open(os.path.join(trained["jax"], "linemod_templates.yml"),
+                 "rb") as b:
+        assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("key,flags", [
+    ("plane", []), ("point", ["--icp-mode", "point_to_point"]),
+    ("multi", ["--multi"])])
+def test_cli_recon_matches_jax(port_trained, jax_lines, capsys, key, flags):
+    rc, got, _, err = _run(cli.main, ["recon", port_trained[0], "--device",
+                                      "cpu"] + flags + RECON, capsys)
+    assert rc == 0 and "frames in" in err
+    want = jax_lines[key]
+    assert len(want) == 3 and all(w["results"] for w in want)
+    _same_lines(got, want)
+
+
+def test_cli_export_and_artifact_recon(port_trained, jax_lines, tmp_path,
+                                       capsys):
+    """export, then recon --artifact: the lines equal the port's recon
+    lines exactly and the JAX CLI's within the tolerances; --multi with an
+    artifact is refused as in JAX."""
+    art = str(tmp_path / "artifact")
+    rc, _, text, _ = _run(cli.main, ["export", port_trained[0], art, "--width",
+                                     "240", "--height", "160", "--device",
+                                     "cpu"] + RECON, capsys)
+    assert rc == 0 and text == [f"artifact -> {art}"]
+    rc, served, _, _ = _run(cli.main, ["recon", port_trained[0], "--artifact",
+                                       art, "--device", "cpu"] + RECON,
+                            capsys)
+    assert rc == 0
+    rc, direct, _, _ = _run(cli.main, ["recon", port_trained[0], "--device",
+                                       "cpu"] + RECON, capsys)
+    assert served == direct
+    _same_lines(served, jax_lines["plane"])
+    rc, _, _, err = _run(cli.main, ["recon", port_trained[0], "--artifact", art,
+                                    "--multi", "--device", "cpu"], capsys)
+    assert rc == 1 and "top-1" in err
+
+
+def test_cli_track_matches_jax(port_trained, jax_lines, capsys):
+    rc, got, _, _ = _run(cli.main, ["track", port_trained[0], "--device",
+                                    "cpu"] + RECON, capsys)
+    assert rc == 0
+    want = jax_lines["track"]
+    assert [(g["frame"], g["redetected"], g["tracking"]) for g in got] == \
+        [(w["frame"], w["redetected"], w["tracking"]) for w in want]
+    assert want[0]["redetected"] and not want[1]["redetected"]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g["roi"], w["roi"], atol=ROI_TOL_PX,
+                                   rtol=0)
+        _same_results(g["results"], w["results"])
+
+
+def test_cli_eval_matches_jax(port_trained, trained, jax_lines, tmp_path,
+                              capsys):
+    """eval of each CLI's recon lines against the package's poses."""
+    summaries = []
+    for main, d, lines, extra in (
+            (cli.main, port_trained[0], None, ["--device", "cpu"]),
+            (jax_cli.main, trained["jax"], jax_lines["plane"], [])):
+        if lines is None:
+            rc, lines, _, _ = _run(main, ["recon", d] + extra + RECON, capsys)
+            assert rc == 0
+        path = tmp_path / f"{len(summaries)}.jsonl"
+        path.write_text("# comment\n" + "\n".join(json.dumps(ln)
+                                                  for ln in lines) + "\n")
+        rc, out, _, _ = _run(main, ["eval", d, str(path), "--model-scale",
+                                    "1.0"], capsys)
+        assert rc == 0 and len(out) == 1
+        summaries.append(out[0])
+    got, want = summaries
+    assert got.keys() == want.keys()
+    assert want["n_frames"] == 3 and want["detection_rate"] == 1.0
+    for k in ("n_frames", "detection_rate", "add_pass_rate"):
+        assert got[k] == want[k], k
+    np.testing.assert_allclose(got["mean_add"], want["mean_add"], atol=0.05)
+    np.testing.assert_allclose(got["mean_trans_mm"], want["mean_trans_mm"],
+                               atol=T_TOL_MM)
+    np.testing.assert_allclose(got["mean_rot_deg"], want["mean_rot_deg"],
+                               atol=0.01)
+
+
+def test_cli_profile_report_and_refusals(port_trained, tmp_path, capsys):
+    """--profile prints the host stage report; an empty series returns 1;
+    a frame of another size is refused; --device defaults to cuda."""
+    rc, _, _, err = _run(cli.main, ["recon", port_trained[0], "--profile",
+                                    "--device", "cpu"] + RECON, capsys)
+    assert rc == 0
+    assert "host-io(decode)" in err and "recognition(+fetch)" in err
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    rc, _, _, err = _run(cli.main, ["recon", port_trained[0], "--series",
+                                    str(empty), "--device", "cpu"], capsys)
+    assert rc == 1 and "no frames" in err
+    odd = str(tmp_path / "odd")
+    shutil.copytree(port_trained[0], odd)
+    from fealess_tpu_torch.io.png import read_png, write_png
+    write_png(os.path.join(odd, "gray", "1.png"),
+              read_png(os.path.join(odd, "gray", "1.png"))[:80])
+    with pytest.raises(ValueError, match="resizing"):
+        cli.main(["recon", odd, "--device", "cpu"] + RECON)
+    args = cli.build_parser().parse_args(["recon", port_trained[0]])
+    assert args.device == "cuda"
+
+
+_SUBPROCESS = r"""
+import contextlib, io, json, os, runpy, sys
+from fealess_tpu_torch import training
+from fealess_tpu_torch.apps import cli, scan_package  # noqa: F401
+from fealess_tpu_torch.io import checkpoint, export  # noqa: F401
+
+pkg, art = sys.argv[1], sys.argv[2]
+recon = ["--refine-crop", "64", "--icp-max-points", "1024", "--device", "cpu"]
+sys.argv = ["fealess_tpu_torch", "train", pkg, "--device", "cpu"]
+try:
+    runpy.run_module("fealess_tpu_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    rcs = [e.code]
+rcs += [cli.main(["export", pkg, art, "--width", "240", "--height", "160"]
+                 + recon),
+        cli.main(["recon", pkg, "--artifact", art] + recon),
+        cli.main(["track", pkg] + recon)]
+lines = io.StringIO()
+with contextlib.redirect_stdout(lines):
+    rcs.append(cli.main(["recon", pkg] + recon))
+res = os.path.join(art, "recon.jsonl")
+with open(res, "w") as f:
+    f.write(lines.getvalue())
+rcs.append(cli.main(["eval", pkg, res, "--model-scale", "1.0"]))
+bank, det = checkpoint.import_yaml(os.path.join(pkg, "linemod_templates.yml"))
+checkpoint.save_bank(os.path.join(art, "ckpt"), bank, det)
+checkpoint.load_bank(os.path.join(art, "ckpt"))
+print(json.dumps({"rcs": rcs, "native": training.have_native(),
+                  "loaded": [m for m in ("jax", "flax", "cv2")
+                             if m in sys.modules]}))
+"""
+
+
+def test_cli_runs_without_jax_flax_or_cv2(tmp_path):
+    """A fresh interpreter imports every module of the offline path and
+    runs ``python -m fealess_tpu_torch train``, then export, recon
+    --artifact, track, recon, eval and a bank checkpoint; jax, flax and
+    cv2 are never imported."""
+    pkg = str(tmp_path / "pkg")
+    write_package(pkg, shifts=((0, 0), (4, 2)))
+    _write_cube_obj(os.path.join(pkg, "model.obj"))
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", _SUBPROCESS, pkg,
+                          str(tmp_path / "art")], capture_output=True,
+                         text=True, env=env, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["loaded"] == []
+    assert result["rcs"] == [0] * 6

@@ -1,0 +1,256 @@
+"""The port's persistence against the JAX package's: ``write_png`` round
+trips through cv2 and ``read_png``; ``save_linemod`` / ``save_classes``
+files read back identically through JAX's cv2 reader and the port's (and
+equal cv2's bytes); bank checkpoints round-trip and ``import_yaml`` gives
+JAX's leaves; the serving artifact's ``recognition`` equals the port's
+``ObjReco.recognition`` and JAX's (match and similarity exactly, pose
+within 0.05 mm and 0.01 deg)."""
+
+import json
+import os
+
+import cv2
+import numpy as np
+import pytest
+import torch
+
+from fealess_tpu import bank as jax_bank
+from fealess_tpu import config as cfg
+from fealess_tpu.engine import CamIntrinsics as JaxCam
+from fealess_tpu.io import checkpoint as jax_ckpt
+from fealess_tpu.io import linemod_yaml as jax_yaml
+from fealess_tpu_torch import bank
+from fealess_tpu_torch.engine import CamIntrinsics
+from fealess_tpu_torch.io import checkpoint, linemod_yaml
+from fealess_tpu_torch.io.export import ServingArtifact
+from fealess_tpu_torch.io.png import read_png, write_png
+from tests.test_match_e2e import H, W
+from tests.test_torch_engine import (CX, CY, FX, FY, _LEAVES, _engines,
+                                     _frames, _same_results,
+                                     feature_dir)  # noqa: F401
+from tests.test_torch_io import _assert_same_classes, _encode_png
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("shape,dtype", [((7, 9), np.uint8),
+                                         ((5, 8), np.uint16),
+                                         ((6, 5, 3), np.uint8),
+                                         ((1, 1), np.uint16),
+                                         ((160, 240, 3), np.uint8)])
+def test_write_png_roundtrip(tmp_path, shape, dtype):
+    rng = np.random.default_rng(1)
+    img = rng.integers(0, np.iinfo(dtype).max + 1, shape).astype(dtype)
+    path = str(tmp_path / "img.png")
+    write_png(path, img)
+    for got in (read_png(path), cv2.imread(path, cv2.IMREAD_UNCHANGED)):
+        assert got.dtype == img.dtype and got.shape == img.shape
+        np.testing.assert_array_equal(got, img)
+    np.testing.assert_array_equal(read_png(path, color=True),
+                                  cv2.imread(path, cv2.IMREAD_COLOR))
+
+
+def test_read_png_color_matches_cv2(tmp_path):
+    """read_png(color=True) is cv2.IMREAD_COLOR on 8/16-bit gray and RGB
+    (16-bit samples cut to their high byte, gray to three channels)."""
+    rng = np.random.default_rng(3)
+    for i, img in enumerate([
+            rng.integers(0, 256, (5, 7), dtype=np.uint8),
+            rng.integers(0, 65536, (6, 4), dtype=np.uint16),
+            rng.integers(0, 256, (3, 5, 3), dtype=np.uint8),
+            rng.integers(0, 65536, (4, 6, 3), dtype=np.uint16)]):
+        path = str(tmp_path / f"{i}.png")
+        with open(path, "wb") as f:
+            f.write(_encode_png(img, [0, 4]))
+        got = read_png(path, color=True)
+        want = cv2.imread(path, cv2.IMREAD_COLOR)
+        assert got.dtype == want.dtype == np.uint8
+        np.testing.assert_array_equal(got, want)
+
+
+def test_write_png_refuses_other_images(tmp_path):
+    for img in (np.zeros((4, 4, 4), np.uint8), np.zeros((4, 4), np.float32),
+                np.zeros((4, 4, 3), np.uint16)):
+        with pytest.raises(ValueError):
+            write_png(str(tmp_path / "x.png"), img)
+
+
+def _random_classes(det, rng, names=("b_cls", "a_cls", "c-3")):
+    n_mod = len(det.modalities)
+    classes = {}
+    for cname in names:
+        views = []
+        for _ in range(int(rng.integers(1, 4))):
+            levels = det.pyramid_levels
+            feats = [[rng.integers(0, 200, (int(rng.integers(1, 20)), 3))
+                      .astype(np.int32) for _ in range(n_mod)]
+                     for _ in range(levels)]
+            views.append(jax_bank.TemplateView(
+                features=feats,
+                width=[int(v) for v in rng.integers(10, 200, levels)],
+                height=[int(v) for v in rng.integers(10, 200, levels)],
+                offset_x=[int(v) for v in rng.integers(0, 400, levels)],
+                offset_y=[int(v) for v in rng.integers(0, 300, levels)],
+                pose=(rng.normal(size=13) * 100).astype(np.float32)))
+        classes[cname] = views
+    return dict(sorted(classes.items()))      # the readers' order
+
+
+DETS = [cfg.DetectorConfig(t_at_level=(5, 8, 4),
+                           depth_normal=cfg.DepthNormalConfig(
+                               distance_threshold=1500)),
+        cfg.default_line()]
+
+
+@pytest.mark.parametrize("det", DETS, ids=["linemod3", "line"])
+@pytest.mark.parametrize("suffix", [".yml", ".yml.gz"])
+def test_save_linemod_roundtrips_through_both_readers(tmp_path, det, suffix):
+    """Several classes, odd pose values (f32 round-trip), LINE-MOD and LINE
+    modality sets, plain and gzip: the port's file reads back through both
+    readers to what was written, and equals the JAX writer's text."""
+    classes = _random_classes(det, np.random.default_rng(5))
+    port_path = str(tmp_path / ("port" + suffix))
+    jax_path = str(tmp_path / ("jax" + suffix))
+    linemod_yaml.save_linemod(port_path, det, classes)
+    jax_yaml.save_linemod(jax_path, det, classes)
+    for reader in (jax_yaml.load_linemod, linemod_yaml.load_linemod):
+        det_r, cls_r = reader(port_path)
+        assert det_r == det
+        _assert_same_classes(cls_r, classes)
+    if suffix == ".yml":
+        with open(port_path) as a, open(jax_path) as b:
+            assert a.read() == b.read()
+
+
+def test_save_classes_load_classes(tmp_path):
+    det = DETS[0]
+    classes = _random_classes(det, np.random.default_rng(8),
+                              names=("a_cls", "a.b", "3x"))
+    fmt = {k: str(tmp_path / f"{k}_%s.yml.gz") for k in ("port", "jax")}
+    linemod_yaml.save_classes(fmt["port"], det, classes)
+    jax_yaml.save_classes(fmt["jax"], det, classes)
+    ids = sorted(classes)
+    args = (ids, det.pyramid_levels, len(det.modalities))
+    for reader in (jax_yaml.load_classes, linemod_yaml.load_classes):
+        _assert_same_classes(reader(fmt["port"], *args), classes)
+    _assert_same_classes(linemod_yaml.load_classes(fmt["jax"], *args),
+                         classes)
+
+
+@pytest.fixture(scope="module")
+def yaml_banks(tmp_path_factory):
+    """A multi-class database imported by both packages."""
+    det = DETS[0]
+    classes = _random_classes(det, np.random.default_rng(13))
+    path = str(tmp_path_factory.mktemp("yml") / "bank.yml")
+    jax_yaml.save_linemod(path, det, classes)
+    return path, det, classes
+
+
+def test_import_yaml_equals_jax_leaves(yaml_banks):
+    path, det, _ = yaml_banks
+    got, det_g = checkpoint.import_yaml(path, capacity=12)
+    want, det_w = jax_ckpt.import_yaml(path, capacity=12)
+    assert det_g == det_w == det
+    assert got.class_names == want.class_names
+    assert got.max_span == want.max_span
+    for k in _LEAVES:
+        np.testing.assert_array_equal(getattr(got, k).numpy(),
+                                      np.asarray(getattr(want, k)),
+                                      err_msg=k)
+
+
+def test_bank_checkpoint_and_yaml_roundtrip(tmp_path, yaml_banks):
+    """save_bank/load_bank restore every leaf, the static fields and the
+    detector config; export_yaml writes the JAX writer's text and
+    unpack_bank inverts pack_bank."""
+    path, det, classes = yaml_banks
+    packed, _ = checkpoint.import_yaml(path, capacity=12)
+    d = str(tmp_path / "ckpt")
+    checkpoint.save_bank(d, packed, det)
+    restored, det_r = checkpoint.load_bank(d)
+    assert det_r == det
+    assert (restored.class_names, restored.max_span) == \
+        (packed.class_names, packed.max_span)
+    for k in _LEAVES:
+        a, b = getattr(restored, k), getattr(packed, k)
+        assert a.dtype == b.dtype and torch.equal(a, b), k
+    _assert_same_classes(bank.unpack_bank(restored), classes)
+    out = str(tmp_path / "out.yml")
+    checkpoint.export_yaml(out, restored, det)
+    with open(out) as a, open(path) as b:
+        assert a.read() == b.read()
+    checkpoint.save_bank(str(tmp_path / "nodet"), packed)
+    assert checkpoint.load_bank(str(tmp_path / "nodet"))[1] is None
+
+
+def test_load_bank_refuses_orbax_checkpoint(tmp_path, yaml_banks):
+    path, det, _ = yaml_banks
+    jax_packed, _ = jax_ckpt.import_yaml(path, capacity=12)
+    d = str(tmp_path / "orbax")
+    jax_ckpt.save_bank(d, jax_packed, det)
+    with pytest.raises(IOError, match="orbax"):
+        checkpoint.load_bank(d)
+
+
+def test_view_from_features_matches_jax():
+    feats = [[np.array([[0, 1, 2], [5, 6, 7]]), np.array([[3, 3, 0]])],
+             [np.array([[1, 1, 1]]), np.zeros((0, 3), int)]]
+    args = (feats, [10, 5], [8, 4], [100, 50], [40, 20],
+            np.arange(13, dtype=np.float64))
+    got = bank.view_from_features(*args)
+    want = jax_bank.view_from_features(*args)
+    _assert_same_classes({"o": [got]}, {"o": [want]})
+    bad_label = [[np.array([[0, 1, 8]]), feats[0][1]], feats[1]]
+    outside = [[np.array([[11, 1, 2]]), feats[0][1]], feats[1]]
+    for f in (bad_label, outside):
+        with pytest.raises(ValueError):
+            bank.view_from_features(f, *args[1:])
+    with pytest.raises(ValueError):
+        bank.view_from_features(feats, [10], [8, 4], [100, 50], [40, 20],
+                                args[5])
+
+
+@pytest.mark.parametrize("mode", ["point_to_plane", "point_to_point"])
+def test_serving_artifact_equals_engine_and_jax(tmp_path, feature_dir, mode):
+    """An exported artifact holds the engine's state and serves the same
+    results as the port's ObjReco and the JAX package's."""
+    ref, port = _engines(feature_dir, mode)
+    art = str(tmp_path / "artifact")
+    port.export_artifact(art)
+    served = ServingArtifact(art, device="cpu")
+    assert served.cfg == port.cfg
+    for k in _LEAVES:
+        assert torch.equal(getattr(served.bank, k), getattr(port.bank, k)), k
+    assert torch.equal(served._model_depth_dev, port._model_depth_dev)
+    assert torch.equal(served._origins_dev, port._origins_dev)
+    for tab_s, tab_p in zip(served._kernels, port._kernels):
+        assert tab_s.keys() == tab_p.keys()
+        for key in tab_p:
+            assert torch.equal(tab_s[key], tab_p[key]), key
+    pcam = CamIntrinsics(FX, FY, CX, CY, W, H)
+    for bgr, depth in _frames(feature_dir[1]):
+        got = served.recognition(bgr, depth, pcam)
+        same = port.recognition(bgr, depth, pcam)
+        assert len(got) == len(same) == 1
+        for g, s in zip(got, same):
+            np.testing.assert_array_equal(g.world2cam, s.world2cam)
+            assert (g.obj_tag, g.similarity, g.icp_dist, g.inlier_ratio,
+                    g.match_rect) == (s.obj_tag, s.similarity, s.icp_dist,
+                                      s.inlier_ratio, s.match_rect)
+        _same_results(got, ref.recognition(bgr, depth,
+                                           JaxCam(FX, FY, CX, CY, W, H)))
+
+
+def test_serving_artifact_refuses_jax_and_unknown(tmp_path, feature_dir):
+    _, port = _engines(feature_dir, "point_to_plane")
+    art = str(tmp_path / "artifact")
+    port.export_artifact(art)
+    meta_path = os.path.join(art, "meta.json")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    for version, match in (("fealess-artifact-1", "JAX"), ("v9", "unknown")):
+        with open(meta_path, "w") as f:
+            json.dump(dict(meta, version=version), f)
+        with pytest.raises(IOError, match=match):
+            ServingArtifact(art)
