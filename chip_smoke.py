@@ -14,7 +14,10 @@ Phases, one line of output each (or a few):
    the shapes the Recognition path gives it on the in-repo fixture
    (``benchmarks/reference/out``: 1024 templates, 640x480 RGB-D scene):
    K1 coarse scores and K2 local scores bitwise, K3 nearest neighbour
-   index-equal and d2 bitwise;
+   index-equal and d2 bitwise, K3 also on the edges of its split of the
+   reference set (``nn_cases``: duplicate rows straddling every chunk
+   boundary, ragged query and reference counts, a single row, rows at
+   ``icp.PAD_COORD``);
 4. ``ObjReco.recognition`` end to end in both ICP modes, with default ICP
    settings (a) and with forced iterations (b), each result checked
    against the JAX package's numbers on this fixture;
@@ -39,9 +42,12 @@ Phases, one line of output each (or a few):
    templates per second of the batched trainer's stages (crop, front-end,
    extraction) on the 4-view chunk and on a 32-view chunk of panned
    frames, and ``add_obj`` against the artifact's load, are timed;
-5. CUDA-event times of each kernel and twin, warm per-frame times of
-   Recognition, multi-object Recognition and a tracked frame, and the
-   fixture bank's cold start through ``add_obj`` and from an artifact.
+5. CUDA-event times of each kernel and twin at the path's shapes, with
+   each kernel's bound (``bound_ms``: the larger of its bytes over the
+   card's memory rate and its operations over the f32 rate) and its share
+   of it; warm per-frame times of Recognition, multi-object Recognition
+   and a tracked frame, and the fixture bank's cold start through
+   ``add_obj`` and from an artifact.
 
 Each path of phases 4-4c runs with the kernels' launch counters set to 0
 just before it and read just after; every kernel must have run on the
@@ -138,6 +144,12 @@ EXPECT_CLI = [(100.0, (-3.75623, -3.58265, -2.09906), 0.38305),
 CLI_T_TOL_MM, CLI_DIST_TOL = 0.05, 1e-3
 TRAIN_TIMED = 3        # timed add_templates_batched calls / artifact loads
 
+# Published peaks of one H100 SXM at 700 W (NVIDIA's H100 datasheet):
+# HBM bytes per second and non-tensor f32 operations per second (the
+# integer adds of K1/K2 are counted at the same CUDA-core rate).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
 
 def check(cond: bool, what: str) -> None:
     if not cond:
@@ -199,17 +211,60 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def nn_cases(model, ref):
+    """K3's cases on one refine's clouds (queries ``model``, reference set
+    ``ref``): the clouds as they are; a reference set with every row twice
+    (exact ties half a set apart); the same rows with each chunk boundary b
+    of the kernel's split straddled by a duplicate (row b = row b - 1, and
+    a query there, whose first minimum b - 1 the twin is checked to give);
+    ragged counts (queries not a multiple of the query tile, references not
+    a multiple of the chunk, fewer references than one chunk, one
+    reference, fewer queries than one tile); and PAD_COORD rows in both
+    sets, a run of them across a chunk boundary."""
+    import torch
+    from fealess_tpu_torch import icp
+    from fealess_tpu_torch.ops import nn
+    nq, nr = model.shape[0], ref.shape[0]
+    sms = torch.cuda.get_device_properties(ref.device).multi_processor_count
+    nchunks, chunk = nn.chunk_plan(nq, nr, sms)
+    check(nchunks > 1, f"K3 splits {nr} rows into {nchunks} chunk")
+    half = nr // 2
+    bounds = list(range(chunk, nr, chunk))
+    straddle = ref.clone()
+    for b in bounds:
+        straddle[b] = straddle[b - 1]
+    planted = model.clone()
+    planted[:len(bounds)] = straddle[[b - 1 for b in bounds]]
+    want = nn.nearest_neighbor_plain(planted, straddle)[0][:len(bounds)]
+    check(want.tolist() == [b - 1 for b in bounds],
+          "K3 straddle case: the twin's first minima are not b - 1")
+    pad_ref, pad_q = ref.clone(), model.clone()
+    pad_ref[bounds[0] - 300:bounds[0] + 200] = icp.PAD_COORD
+    pad_ref[-100:] = icp.PAD_COORD
+    pad_q[-300:] = icp.PAD_COORD
+    ragged_q = model[:nq - 77].contiguous()
+    cases = [(model, ref),
+             (model, torch.cat([ref[:half], ref[:half]]).contiguous()),
+             (planted, straddle),
+             (ragged_q, ref[:nr - 333].contiguous()),
+             (ragged_q, ref[:300].contiguous()),
+             (model, ref[5:6].contiguous()),
+             (model[:100].contiguous(), ref),
+             (pad_q, pad_ref)]
+    return [(nn.nearest_neighbor, nn.nearest_neighbor_plain, c)
+            for c in cases]
+
+
 def kernel_cases(eng, bgr_np, depth_np, cam):
     """Each kernel's cases at the shapes ``eng.recognition`` gives it on
     this frame, {name: [(kernel, twin, args)]}, and the refine's ICP pair
     count: K1 on the coarse level, K2 on the top candidates' windows (and
-    shifted 20 px out of the frame), K3 on the best match's clouds (and on
-    a reference set with every row twice, planted exact ties where the
-    first index must win)."""
-    import torch
+    shifted 20 px out of the frame), K3 on the best match's clouds and the
+    edge cases of :func:`nn_cases`.  The first case of each kernel is the
+    path's own."""
     from fealess_tpu_torch import detector as td
     from fealess_tpu_torch import pipeline
-    from fealess_tpu_torch.ops import nn, score
+    from fealess_tpu_torch.ops import score
     det = eng.cfg.detector
     bgr, depth, scene_k = eng._prepare_frame(bgr_np, depth_np, cam)
     planes = td.response_planes(td.quantized_pyramid(bgr, depth, det), det)
@@ -228,8 +283,6 @@ def kernel_cases(eng, bgr_np, depth_np, cam):
     ref, model, pair_mask, _, _ = pipeline.paired_clouds(
         depth, scene_k, *cand[:6], matches.x[0], matches.y[0], eng.cfg,
         crop, crop)
-    half = ref.shape[0] // 2
-    tie_ref = torch.cat([ref[:half], ref[:half]]).contiguous()
     coarse = (planes[det.pyramid_levels - 1][0],
               tables[det.pyramid_levels - 1])
     return {
@@ -239,10 +292,7 @@ def kernel_cases(eng, bgr_np, depth_np, cam):
                           (d0, table_k, px0, py0)),
                          (score.local_scores, score.local_scores_plain,
                           (d0, table_k, px0 - 20, py0 - 20))],
-        "nearest_neighbor": [(nn.nearest_neighbor, nn.nearest_neighbor_plain,
-                              (model, ref)),
-                             (nn.nearest_neighbor, nn.nearest_neighbor_plain,
-                              (model, tie_ref))],
+        "nearest_neighbor": nn_cases(model, ref),
     }, int(pair_mask.sum())
 
 
@@ -278,8 +328,57 @@ def hold_to_twins(cases, errs, where: str) -> None:
                       f"{err}")
             errs[name] = max(errs[name], float(err))
         print(f"kernel {name} ({where}): equal to its twin on {len(runs)} "
-              f"case(s), inputs {shapes(runs[0][2])}, max_abs_err "
-              f"{errs[name]}")
+              f"case(s), inputs " + ", ".join(
+                  str(shapes(args)) for _, _, args in runs) +
+              f", max_abs_err {errs[name]}")
+
+
+def bound_ms(name, args):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for the kernel's work on ``args``, the larger of its bytes (each input
+    read once, each output written once) over HBM_BYTES_PER_S and its
+    operations over F32_OPS_PER_S, counted on these inputs: K3 8 f32
+    operations a pair; K1 one integer add per live feature and output
+    position; K2 one integer add per plane byte that a live feature's
+    16x16 window reads (its row start on the plane, as the kernel gates
+    it), and of the planes only the distinct (channel, row, column) bytes
+    those windows read."""
+    import torch
+
+    def size(ts):
+        return sum(t.numel() * t.element_size() for a in ts
+                   for t in (a.values() if isinstance(a, dict) else [a]))
+
+    if name == "nearest_neighbor":
+        q, r = args
+        nbytes = size(args) + q.shape[0] * 8          # idx i32 + d2 f32
+        ops = 8 * q.shape[0] * r.shape[0]
+    elif name == "coarse_scores":
+        planes, table = args
+        n, nf = table["c"].shape
+        nbytes = size(args) + n * planes.shape[1] * planes.shape[2] * 4
+        ops = int(table["bstart"][:, -1].clamp(max=nf).sum()) * \
+            planes.shape[1] * planes.shape[2]
+    else:
+        planes, table, px0, py0 = args
+        k, nf = table["c"].shape
+        _, hd, wd = planes.shape
+        a = py0.clamp(min=0)[:, None] + table["ry"]
+        b = (px0.clamp(min=0)[:, None] + table["rx"]).clamp(max=wd)
+        live = torch.arange(nf, device=a.device)[None, :] < \
+            table["bstart"][:, -1:]
+        keep = (a >= 0) & (a <= hd) & live
+        win = torch.arange(16, device=a.device)
+        y = a[keep][:, None, None] + win[None, :, None]
+        x = b[keep][:, None, None] + win[None, None, :]
+        on = (y < hd) & (x >= 0) & (x < wd)
+        cell = (table["c"][keep][:, None, None].long() * hd + y) * wd + x
+        ops = int(on.sum())
+        nbytes = (size(args[1:]) + k * 16 * 16 * 4 +
+                  int(torch.unique(cell[on]).numel()) * planes.element_size())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -544,13 +643,17 @@ def run(dev) -> None:
                 for k, fn in enumerate(counted)}
 
     # -- 5. timing
-    times = {}
+    times, bounds = {}, {}
     for name, runs in cases.items():
         kernel, plain, args = runs[0]
         times[name] = (cuda_ms(lambda: kernel(*args), 20),
                        cuda_ms(lambda: plain(*args), 3))
+        bounds[name] = bound_ms(name, args)
+        shapes = [tuple(a.shape) for a in args if not isinstance(a, dict)]
         print(f"time {name}: kernel {times[name][0]:.4f} ms, twin "
-              f"{times[name][1]:.4f} ms ({card})")
+              f"{times[name][1]:.4f} ms, bound {bounds[name][0]:.4f} ms "
+              f"({bounds[name][1]}), {bounds[name][0] / times[name][0]:.3f} "
+              f"of it, inputs {shapes} ({card})")
     eng.set_advanced_param("icp_mode", default_icp.mode)
     frame_ms = {}
     for setting in ("a", "b"):
@@ -613,11 +716,17 @@ def run(dev) -> None:
            "nearest_neighbor": ("fealess_tpu_torch/csrc/nn.cu",
                                 "fealess_tpu/ops/nn_pallas.py:35")}
     print(card)
+    # library_ms: no one PyTorch call computes these functions.  K1 and K2
+    # are gathered, bounds-masked integer sums over feature tables; K3
+    # returns the first argmin with d2 rounded as above, and torch.cdist
+    # forms |q|^2 + |r|^2 - 2 q.r, which rounds differently.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1], "launches": launches[name],
          "max_abs_err": errs[name], "ms": times[name][0],
-         "plain_ms": times[name][1]} for name in cases]}))
+         "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": None}
+        for name in cases]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -630,7 +739,7 @@ def training_and_cli(dev, bgr_np, depth_np, card, zero_counts, read_counts,
 
     import numpy as np
     import torch
-    from fealess_tpu import config as cfg
+    from fealess_tpu_torch import config as cfg
     from fealess_tpu_torch import training
     from fealess_tpu_torch.apps import cli, fixture, scan_package
     from fealess_tpu_torch.io import linemod_yaml

@@ -7,26 +7,25 @@ three Pallas kernels of the Recognition path are hand-written CUDA kernels
 for Hopper (``csrc/``), each beside a plain PyTorch twin that the wrappers
 use for CPU tensors only.
 
-Configuration is the JAX package's own ``fealess_tpu.config`` (plain
-dataclasses, no framework), re-exported here as ``config``.
+The package stands alone: it imports and loads nothing of ``fealess_tpu``.
+What it shares with the reference, it keeps as its own copy under the
+same names: ``config`` (the configuration dataclasses and their JSON
+form), ``ops/luts.py``, ``io/native.py`` (the ctypes bindings of
+``libfealess_host``), ``utils/profiling.py`` and ``apps/metrics.py`` /
+``apps/model_mesh.py``.  The machines that run it have no jax, flax or
+cv2; ``tests/test_torch_io.py`` and ``tests/test_torch_cli.py`` check in a
+subprocess that running the port loads none of them and no module under
+``fealess_tpu/``.
 
-Machines that run the port have no jax.  Importing ``fealess_tpu.config``
-runs ``fealess_tpu/__init__.py``; ``ops/response.py`` executes
-``fealess_tpu/ops/luts.py`` and ``training.py`` executes
-``fealess_tpu/io/native.py`` by file path (their packages' ``__init__``
-import jax); the CLI imports ``fealess_tpu.utils.profiling``,
-``fealess_tpu.apps.metrics`` and ``fealess_tpu.apps.model_mesh``.  Those
-files and their packages' ``__init__`` must stay free of jax and cv2
-imports.  ``tests/test_torch_io.py`` and ``tests/test_torch_cli.py`` check
-in a subprocess that importing and running the port loads neither.
-
+Entry points run on ``cuda`` unless the caller names another device; a
+caller that wants the CPU passes ``device="cpu"``, as the tests do.
 ``python -m fealess_tpu_torch train|recon|export|track|eval`` is the
 command line (``apps/cli.py``).
 """
 
 import torch
 
-from fealess_tpu import config  # noqa: F401
+from fealess_tpu_torch import config  # noqa: F401
 
 __version__ = "0.1.0"
 

@@ -106,7 +106,7 @@ def _add_device_arg(p: argparse.ArgumentParser):
 def _engine_for(args, width: int, height: int):
     import dataclasses
 
-    from fealess_tpu import config as cfg
+    from fealess_tpu_torch import config as cfg
     from fealess_tpu_torch.engine import ObjReco
 
     det = cfg.DetectorConfig(image_width=width, image_height=height)
@@ -139,7 +139,7 @@ def _print_profile(timer) -> None:
 
 
 def cmd_train(args) -> int:
-    from fealess_tpu import config as cfg
+    from fealess_tpu_torch import config as cfg
     from fealess_tpu_torch.apps import scan_package
 
     added, seen = scan_package.train_package(
@@ -151,7 +151,7 @@ def cmd_train(args) -> int:
 
 
 def cmd_recon(args) -> int:
-    from fealess_tpu.utils.profiling import StageTimer
+    from fealess_tpu_torch.utils.profiling import StageTimer
 
     found = _series(args)
     if found is None:
@@ -208,7 +208,7 @@ def cmd_export(args) -> int:
 
 
 def cmd_track(args) -> int:
-    from fealess_tpu.utils.profiling import StageTimer
+    from fealess_tpu_torch.utils.profiling import StageTimer
     from fealess_tpu_torch.apps.track import TrackedRecognizer
 
     found = _series(args)
@@ -239,7 +239,7 @@ def cmd_track(args) -> int:
 
 def cmd_eval(args) -> int:
     """Compare recon JSONL output against ground-truth pose txt files."""
-    from fealess_tpu.apps import metrics, model_mesh
+    from fealess_tpu_torch.apps import metrics, model_mesh
 
     poses_est: List[Optional[np.ndarray]] = []
     poses_gt: List[np.ndarray] = []

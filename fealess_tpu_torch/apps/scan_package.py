@@ -29,7 +29,7 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from fealess_tpu import config as cfg
+from fealess_tpu_torch import config as cfg
 from fealess_tpu_torch import training
 from fealess_tpu_torch.bank import TemplateView
 from fealess_tpu_torch.io import linemod_yaml
@@ -121,7 +121,7 @@ def train_package(package_dir: str, det: Optional[cfg.DetectorConfig] = None,
                   out_yml: Optional[str] = None,
                   convert_raw: bool = True,
                   progress: bool = False,
-                  device="cpu") -> Tuple[int, int]:
+                  device="cuda") -> Tuple[int, int]:
     """The linemod_train program: extract a template per frame on
     ``device`` and write the reference-schema database.  Masked frames go
     through :func:`training.add_templates_batched` in chunks of

@@ -17,7 +17,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from fealess_tpu import config as cfg
+from fealess_tpu_torch import config as cfg
 from fealess_tpu_torch import pipeline
 from fealess_tpu_torch.engine import CamIntrinsics, ObjReco, RecoResult
 from fealess_tpu_torch.tracker.kcf import KcfTracker

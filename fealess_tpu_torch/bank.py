@@ -92,7 +92,7 @@ class TemplateView:
 
 def bank_from_numpy(arrays: Mapping[str, np.ndarray],
                     class_names: Sequence[str], max_span: int,
-                    device="cpu") -> TemplateBank:
+                    device="cuda") -> TemplateBank:
     """A bank from numpy leaves (e.g. ``np.asarray`` of a JAX bank's
     fields), so two engines can be fed the identical bank."""
     dtypes = {"feat_valid": torch.bool, "valid": torch.bool,
@@ -106,7 +106,7 @@ def bank_from_numpy(arrays: Mapping[str, np.ndarray],
 
 def pack_bank(classes: Dict[str, List[TemplateView]], levels: int,
               modalities: int = 2, capacity: int | None = None,
-              max_features: int = 63, device="cpu") -> TemplateBank:
+              max_features: int = 63, device="cuda") -> TemplateBank:
     """Pack host-side template views into a TemplateBank on ``device``."""
     views = [(ci, ti, v)
              for ci, (_, vs) in enumerate(sorted(classes.items()))

@@ -26,7 +26,7 @@ from typing import List, Optional
 
 import torch
 
-from fealess_tpu import config as cfg
+from fealess_tpu_torch import config as cfg
 from fealess_tpu_torch.bank import TemplateBank
 from fealess_tpu_torch.ops import quantize as q
 from fealess_tpu_torch.ops import image as fi

@@ -20,7 +20,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from fealess_tpu import config as cfg
+from fealess_tpu_torch import config as cfg
 from fealess_tpu_torch import detector as det_mod
 from fealess_tpu_torch import pipeline
 from fealess_tpu_torch.bank import TemplateBank, class_slot_mask, pack_bank
@@ -56,7 +56,7 @@ class ObjReco:
     """LmICP recognition engine (CObjRecoLmICP) on one torch device."""
 
     def __init__(self, engine_cfg: Optional[cfg.EngineConfig] = None,
-                 device="cpu"):
+                 device="cuda"):
         self.cfg = engine_cfg or cfg.EngineConfig()
         self.device = torch.device(device)
         self.bank: Optional[TemplateBank] = None
@@ -72,7 +72,7 @@ class ObjReco:
     @staticmethod
     def create(algorithm: str = "LmICP",
                engine_cfg: Optional[cfg.EngineConfig] = None,
-               device="cpu") -> "ObjReco":
+               device="cuda") -> "ObjReco":
         if algorithm != "LmICP":
             raise NotImplementedError(
                 f"algorithm {algorithm!r} not implemented (reference "

@@ -7,7 +7,7 @@ import torch
 
 
 def intrinsics_matrix(fx: float, fy: float, cx: float, cy: float,
-                      device="cpu") -> torch.Tensor:
+                      device="cuda") -> torch.Tensor:
     """3x3 K (setCamIntrinsic, ICP/common.cpp:374-379)."""
     return torch.tensor([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]],
                         dtype=torch.float32, device=device)

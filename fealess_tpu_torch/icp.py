@@ -21,7 +21,7 @@ import dataclasses
 
 import torch
 
-from fealess_tpu import config as cfg
+from fealess_tpu_torch import config as cfg
 from fealess_tpu_torch.geometry import transforms as tf
 from fealess_tpu_torch.ops import nn
 

@@ -14,14 +14,13 @@
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 from typing import Optional, Tuple
 
 import numpy as np
 
-from fealess_tpu import config as cfg
+from fealess_tpu_torch import config as cfg
 from fealess_tpu_torch.bank import (TemplateBank, bank_arrays,
                                     bank_from_numpy, pack_bank, unpack_bank)
 from fealess_tpu_torch.io import linemod_yaml
@@ -31,22 +30,6 @@ _ARRAYS = "arrays.npz"
 _ORBAX_ARRAYS = "arrays"
 
 
-def _det_to_dict(det: cfg.DetectorConfig) -> dict:
-    d = dataclasses.asdict(det)
-    d["t_at_level"] = list(det.t_at_level)
-    return d
-
-
-def _det_from_dict(d: dict) -> cfg.DetectorConfig:
-    d = dict(d)
-    cg = cfg.ColorGradientConfig(**d.pop("color_gradient"))
-    dn = cfg.DepthNormalConfig(**d.pop("depth_normal"))
-    d["t_at_level"] = tuple(d["t_at_level"])
-    if "modalities" in d:
-        d["modalities"] = tuple(d["modalities"])
-    return cfg.DetectorConfig(color_gradient=cg, depth_normal=dn, **d)
-
-
 def save_bank(directory: str, bank: TemplateBank,
               det: Optional[cfg.DetectorConfig] = None) -> None:
     """Checkpoint a packed bank: ``arrays.npz`` + ``bank_meta.json``."""
@@ -54,13 +37,13 @@ def save_bank(directory: str, bank: TemplateBank,
     np.savez(os.path.join(directory, _ARRAYS), **bank_arrays(bank))
     meta = {"class_names": list(bank.class_names),
             "max_span": bank.max_span,
-            "detector": _det_to_dict(det) if det else None,
+            "detector": cfg.detector_to_dict(det) if det else None,
             "format_version": 1}
     with open(os.path.join(directory, _META), "w") as fh:
         json.dump(meta, fh, indent=1)
 
 
-def load_bank(directory: str, device="cpu"
+def load_bank(directory: str, device="cuda"
               ) -> Tuple[TemplateBank, Optional[cfg.DetectorConfig]]:
     """Restore a :func:`save_bank` checkpoint onto ``device``."""
     path = os.path.join(directory, _ARRAYS)
@@ -75,7 +58,8 @@ def load_bank(directory: str, device="cpu"
     with np.load(path) as arrays:
         bank = bank_from_numpy(arrays, meta["class_names"],
                                int(meta.get("max_span", 0)), device)
-    det = _det_from_dict(meta["detector"]) if meta["detector"] else None
+    det = (cfg.detector_from_dict(meta["detector"]) if meta["detector"]
+           else None)
     return bank, det
 
 
@@ -86,7 +70,7 @@ def export_yaml(path: str, bank: TemplateBank,
 
 
 def import_yaml(path: str, capacity: Optional[int] = None,
-                max_features: int = 63, device="cpu"
+                max_features: int = 63, device="cuda"
                 ) -> Tuple[TemplateBank, cfg.DetectorConfig]:
     """Load a reference YAML database into a packed bank on ``device``."""
     det, classes = linemod_yaml.load_linemod(path)

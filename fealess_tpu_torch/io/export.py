@@ -26,21 +26,14 @@ import os
 import numpy as np
 import torch
 
-from fealess_tpu import config as cfg
+from fealess_tpu_torch import config as cfg
 from fealess_tpu_torch.bank import bank_arrays, bank_from_numpy
 from fealess_tpu_torch.engine import ObjReco
-from fealess_tpu_torch.io.checkpoint import _det_from_dict
 
 _STATE_FILE = "state.npz"
 _META_FILE = "meta.json"
 VERSION = "fealess-torch-artifact-1"
 _JAX_VERSION = "fealess-artifact-1"
-
-
-def _engine_cfg_from_dict(d: dict) -> cfg.EngineConfig:
-    d = dict(d)
-    return cfg.EngineConfig(detector=_det_from_dict(d.pop("detector")),
-                            icp=cfg.IcpConfig(**d.pop("icp")), **d)
 
 
 def export_artifact(eng: ObjReco, path: str) -> None:
@@ -74,7 +67,7 @@ class ServingArtifact(ObjReco):
     ``recognition`` (and frame preparation and result fetch) as
     :class:`ObjReco`, without parsing YAML or decoding PNGs."""
 
-    def __init__(self, path: str, device="cpu"):
+    def __init__(self, path: str, device="cuda"):
         with open(os.path.join(path, _META_FILE)) as f:
             meta = json.load(f)
         version = meta.get("version")
@@ -84,7 +77,7 @@ class ServingArtifact(ObjReco):
                           f"layout: export it again with this package")
         if version != VERSION:
             raise IOError(f"unknown artifact version {version!r} in {path}")
-        super().__init__(_engine_cfg_from_dict(meta["engine_config"]),
+        super().__init__(cfg.engine_from_dict(meta["engine_config"]),
                          device)
         dev = self.device
         with np.load(os.path.join(path, _STATE_FILE)) as state:

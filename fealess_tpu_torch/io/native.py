@@ -1,0 +1,154 @@
+"""ctypes bindings of the native host library ``libfealess_host``
+(``native/fealess_host``): the port's own copy of the parts of
+``fealess_tpu.io.native`` that its training path calls.
+
+- ``select_scattered_features``: the greedy scattered-feature pick of
+  ``QuantizedPyramid::selectScatteredFeatures`` (linemod.cpp:135-164);
+- ``chamfer_chessboard``: the exact DIST_C 3x3 distance transform
+  (``cv::distanceTransform`` at linemod.cpp:763);
+- ``extract_gradient_template`` / ``extract_normal_template``: a whole
+  modality's feature extraction in one call that releases the GIL.
+
+Nothing here builds the library.  Build it with ``cmake -S
+native/fealess_host -B build/native -G Ninja && ninja -C build/native``;
+:func:`load_library` then finds it there, as the JAX package's loader
+does, or loads the file it is given.
+The bindings are called only while :func:`have_native` is true, and
+``training.py`` runs its numpy path otherwise: the two give equal views.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import pathlib
+from typing import Optional
+
+import numpy as np
+
+_REPO = pathlib.Path(__file__).resolve().parents[2]
+_LIB: Optional[ctypes.CDLL] = None
+_SEARCHED = False
+
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_F32P = ctypes.POINTER(ctypes.c_float)
+_SIGNATURES = {
+    "fealess_select_scattered_features": (
+        ctypes.c_int, [_I32P, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                       _I32P]),
+    "fealess_chamfer_chessboard": (
+        None, [_U8P, ctypes.c_int, ctypes.c_int, _F32P]),
+    "fealess_extract_gradient_template": (
+        ctypes.c_int, [_U8P, _F32P, _U8P, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_float, _I32P]),
+    "fealess_extract_normal_template": (
+        ctypes.c_int, [_U8P, _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, _I32P]),
+}
+
+
+def _bind(path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for name, (restype, argtypes) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
+
+
+def load_library(path=None) -> Optional[ctypes.CDLL]:
+    """The loaded library, or None.  With ``path``, that file is loaded and
+    becomes the library the bindings call (an error if it does not load).
+    Without, the first call looks for ``build/native/libfealess_host.so``
+    under the repository root."""
+    global _LIB, _SEARCHED
+    if path is not None:
+        _LIB, _SEARCHED = _bind(path), True
+        return _LIB
+    if not _SEARCHED:
+        _SEARCHED = True
+        found = _REPO / "build" / "native" / "libfealess_host.so"
+        if found.exists():
+            try:
+                _LIB = _bind(found)
+            except (OSError, AttributeError):   # not loadable here
+                _LIB = None
+    return _LIB
+
+
+def have_native() -> bool:
+    return load_library() is not None
+
+
+def _lib() -> ctypes.CDLL:
+    lib = load_library()
+    if lib is None:
+        raise RuntimeError("libfealess_host is not loaded; check "
+                           "have_native() before calling a native binding")
+    return lib
+
+
+def _ptr(a: np.ndarray, kind):
+    return a.ctypes.data_as(kind)
+
+
+def select_scattered_features(candidates: np.ndarray, num_features: int,
+                              distance: float) -> np.ndarray:
+    """Greedy scattered selection; ``candidates`` (K, 3) int32 sorted by
+    descending score.  Returns (n, 3) int32."""
+    cand = np.ascontiguousarray(candidates, np.int32)
+    out = np.empty((num_features, 3), np.int32)
+    n = _lib().fealess_select_scattered_features(
+        _ptr(cand, _I32P), len(cand), num_features, ctypes.c_float(distance),
+        _ptr(out, _I32P))
+    return out[:n]
+
+
+def chamfer_chessboard(nonzero: np.ndarray) -> np.ndarray:
+    """Exact Chebyshev distance of nonzero pixels to the nearest zero."""
+    src = np.ascontiguousarray(nonzero.astype(np.uint8))
+    h, w = src.shape
+    out = np.empty((h, w), np.float32)
+    _lib().fealess_chamfer_chessboard(_ptr(src, _U8P), h, w,
+                                      _ptr(out, _F32P))
+    return out
+
+
+def _mask_ptr(mask: Optional[np.ndarray]):
+    if mask is None:
+        return None, None
+    m = np.ascontiguousarray(mask.astype(np.uint8))
+    return m, _ptr(m, _U8P)
+
+
+def extract_gradient_template(angle_bits: np.ndarray, magnitude: np.ndarray,
+                              mask: Optional[np.ndarray], num_features: int,
+                              strong_threshold: float
+                              ) -> Optional[np.ndarray]:
+    """ColorGradient extraction (erode, candidates, stable sort, greedy):
+    (num_features, 3) int32, or None when too few candidates."""
+    bits = np.ascontiguousarray(angle_bits, np.uint8)
+    mag = np.ascontiguousarray(magnitude, np.float32)
+    h, w = bits.shape
+    m, m_ptr = _mask_ptr(mask)
+    out = np.empty((num_features, 3), np.int32)
+    n = _lib().fealess_extract_gradient_template(
+        _ptr(bits, _U8P), _ptr(mag, _F32P), m_ptr, h, w, num_features,
+        ctypes.c_float(strong_threshold), _ptr(out, _I32P))
+    return out if n == num_features else None
+
+
+def extract_normal_template(normal_bits: np.ndarray,
+                            mask: Optional[np.ndarray], num_features: int,
+                            extract_threshold: int) -> Optional[np.ndarray]:
+    """DepthNormal extraction (erode x2, per-label chamfer, count
+    balancing, stable sort, greedy); returns as
+    :func:`extract_gradient_template`."""
+    bits = np.ascontiguousarray(normal_bits, np.uint8)
+    h, w = bits.shape
+    m, m_ptr = _mask_ptr(mask)
+    out = np.empty((num_features, 3), np.int32)
+    n = _lib().fealess_extract_normal_template(
+        _ptr(bits, _U8P), m_ptr, h, w, num_features, extract_threshold,
+        _ptr(out, _I32P))
+    return out if n == num_features else None

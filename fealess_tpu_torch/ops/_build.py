@@ -42,8 +42,10 @@ _SIGNATURES = {
     # planes, hd, wd, c, ry, rx, bstart, k, nf, nb1, px0, py0, out, stream
     "fl_local_scores": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                         _P),
-    # query, nq, ref, nr, idx, d2, stream
-    "fl_nearest_neighbor": (_P, _I, _P, _I, _P, _P, _P),
+    # query, nq, ref, nr, chunk, nchunks, part_idx, part_d2, idx, d2, stream
+    "fl_nearest_neighbor": (_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    "fl_nn_query_tile": (),
+    "fl_nn_ref_tile": (),
 }
 
 _lib = None

@@ -5,6 +5,10 @@ The wrapper launches the CUDA kernel (``csrc/nn.cu``) for CUDA tensors and
 runs the plain PyTorch twin only for CPU tensors.  Both compute
 ``d2 = dx*dx + dy*dy + dz*dz`` in float32 in that order, without fused
 multiply-adds, and return the first minimum, so they agree bitwise.
+
+The kernel splits the reference set into chunks (:func:`chunk_plan`),
+keeps each chunk's first minimum per query and merges the chunks in order
+with a strict "<", which is again the first minimum of the whole set.
 """
 
 from __future__ import annotations
@@ -12,6 +16,43 @@ from __future__ import annotations
 import torch
 
 from fealess_tpu_torch.ops import _build
+
+# The kernel's tiles (kQueryTile, kRefTile in csrc/nn.cu); the wrapper
+# checks them against the library at first use.
+QUERY_TILE = 512      # queries a block
+REF_TILE = 512        # reference rows a shared-memory stage
+BLOCKS_PER_SM = 4     # blocks the chunk count aims at on every SM
+
+
+def chunk_plan(nq: int, nr: int, sm_count: int):
+    """(chunks, rows a chunk) of the kernel's split of ``nr`` reference
+    rows for ``nq`` queries on a card of ``sm_count`` SMs: about
+    ``BLOCKS_PER_SM`` blocks an SM, but no more chunks than ``REF_TILE``
+    rows go into ``nr``, rounded up, so a chunk holds about
+    ``nr / ceil(nr / REF_TILE)`` rows or more (2600 rows: 6 chunks of
+    434); at least one chunk, none empty.  16384 x 16384 on 132 SMs gives
+    16 chunks of 1024 rows."""
+    qtiles = max(1, -(-nq // QUERY_TILE))
+    want = max(1, BLOCKS_PER_SM * sm_count // qtiles)
+    n = max(1, min(want, -(-nr // REF_TILE)))
+    chunk = -(-nr // n)
+    return -(-nr // chunk), chunk
+
+
+def _library():
+    """The kernel library, its tiles checked once against this module's."""
+    lib = _build.library()
+    if _library.checked is not lib:
+        got = (lib.fl_nn_query_tile(), lib.fl_nn_ref_tile())
+        if got != (QUERY_TILE, REF_TILE):
+            raise RuntimeError(f"csrc/nn.cu tiles (queries, rows) {got}, "
+                               f"ops/nn.py plans with "
+                               f"{(QUERY_TILE, REF_TILE)}")
+        _library.checked = lib
+    return lib
+
+
+_library.checked = None
 
 
 def nearest_neighbor_plain(query: torch.Tensor, ref: torch.Tensor,
@@ -57,11 +98,20 @@ def nearest_neighbor(query: torch.Tensor, ref: torch.Tensor):
     d2 = torch.empty(nq, dtype=torch.float32, device=dev)
     if nq == 0:
         return idx, d2
-    lib = _build.library()
+    nchunks, chunk = chunk_plan(
+        nq, nr, torch.cuda.get_device_properties(dev).multi_processor_count)
+    part_idx = part_d2 = None
+    if nchunks > 1:
+        part_idx = torch.empty((nchunks, nq), dtype=torch.int32, device=dev)
+        part_d2 = torch.empty((nchunks, nq), dtype=torch.float32, device=dev)
+    lib = _library()
     with torch.cuda.device(dev):
         rc = lib.fl_nearest_neighbor(
-            query.data_ptr(), nq, ref.data_ptr(), nr, idx.data_ptr(),
-            d2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            query.data_ptr(), nq, ref.data_ptr(), nr, chunk, nchunks,
+            None if part_idx is None else part_idx.data_ptr(),
+            None if part_d2 is None else part_d2.data_ptr(),
+            idx.data_ptr(), d2.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "nearest_neighbor")
     nearest_neighbor.launches += 1
     return idx, d2

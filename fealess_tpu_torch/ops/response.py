@@ -10,27 +10,9 @@ arithmetic — the reference's linear memories (linemod.cpp:882-1117) on a
 
 from __future__ import annotations
 
-import importlib.util
-import pathlib
-
 import torch
 
-import fealess_tpu
-
-
-def _orientation_scores():
-    """``ORIENTATION_SCORES`` of fealess_tpu/ops/luts.py.  That module is
-    numpy-only, but importing it as ``fealess_tpu.ops.luts`` would run
-    ``fealess_tpu/ops/__init__.py``, which imports jax; so the file is
-    loaded on its own."""
-    path = pathlib.Path(fealess_tpu.__file__).parent / "ops" / "luts.py"
-    spec = importlib.util.spec_from_file_location("_fealess_tpu_luts", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.ORIENTATION_SCORES
-
-
-ORIENTATION_SCORES = _orientation_scores()
+from fealess_tpu_torch.ops.luts import ORIENTATION_SCORES
 
 
 def decimate_quant(quant: torch.Tensor, t: int) -> torch.Tensor:

@@ -20,7 +20,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from fealess_tpu import config as cfg
+from fealess_tpu_torch import config as cfg
 from fealess_tpu_torch import detector as det_mod
 from fealess_tpu_torch import icp as icp_mod
 from fealess_tpu_torch import nms as nms_mod

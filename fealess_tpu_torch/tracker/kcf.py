@@ -33,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fealess_tpu.config import KcfConfig
+from fealess_tpu_torch.config import KcfConfig
 from fealess_tpu_torch.ops.sampling import sample_patch_bilinear
 from fealess_tpu_torch.tracker import fhog
 
@@ -100,7 +100,7 @@ class KcfState:
 
 
 def state_from_numpy(leaves: Mapping[str, np.ndarray],
-                     device="cpu") -> KcfState:
+                     device="cuda") -> KcfState:
     """A KcfState from numpy leaves (``tmpl``, ``alphaf``, ``roi``,
     ``scale``), e.g. a JAX tracker's state fetched to the host."""
     return KcfState(**{f.name: torch.from_numpy(
@@ -160,7 +160,7 @@ class KcfTracker:
     ``init`` again.  Images are (H, W, 3) u8 BGR, numpy or tensors.
     """
 
-    def __init__(self, cfg: KcfConfig | None = None, device="cpu"):
+    def __init__(self, cfg: KcfConfig | None = None, device="cuda"):
         self.cfg = cfg or kcf_reference_config()
         self.device = torch.device(device)
         self._geom = None   # (tmpl_w, tmpl_h, Hc, Wc, C, scale0)

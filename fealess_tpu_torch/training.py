@@ -15,35 +15,17 @@ in numpy otherwise, with identical results.
 from __future__ import annotations
 
 import concurrent.futures as cf
-import importlib.util
 import os
-import pathlib
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-import fealess_tpu
-from fealess_tpu import config as cfg
+from fealess_tpu_torch import config as cfg
 from fealess_tpu_torch.bank import TemplateView
+from fealess_tpu_torch.io import native as native_host
 from fealess_tpu_torch.ops import image as fi
 from fealess_tpu_torch.ops import quantize as q
-
-
-def _load_native_module():
-    """``fealess_tpu/io/native.py`` (ctypes bindings of libfealess_host),
-    loaded by file path: importing it as ``fealess_tpu.io.native`` would
-    run ``fealess_tpu/io/__init__.py``, which pulls in cv2 and jax.  The
-    port calls its entry points only when :func:`have_native` is true, so
-    their jax fallbacks are never reached."""
-    path = pathlib.Path(fealess_tpu.__file__).parent / "io" / "native.py"
-    spec = importlib.util.spec_from_file_location("_fealess_tpu_native", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-native_host = _load_native_module()
 
 
 def have_native() -> bool:
@@ -175,10 +157,8 @@ def extract_gradient_template(angle_bits: np.ndarray, magnitude: np.ndarray,
     Returns (nf, 3) int32 or None if too few candidates.
     """
     if have_native():
-        out = native_host.extract_gradient_template(
+        return native_host.extract_gradient_template(
             angle_bits, magnitude, mask, num_features, strong_threshold)
-        if out is not NotImplemented:
-            return out
     if mask is not None:
         local_mask = mask.astype(bool) & ~_erode3_np(mask)
     else:
@@ -206,10 +186,8 @@ def extract_normal_template(normal_bits: np.ndarray,
     sqrt(area)/sqrt(nf) + 1.5.
     """
     if have_native():
-        out = native_host.extract_normal_template(
+        return native_host.extract_normal_template(
             normal_bits, mask, num_features, extract_threshold)
-        if out is not NotImplemented:
-            return out
     local_mask = None if mask is None else _erode3_np(mask, iterations=2)
     h, w = normal_bits.shape
     distances = np.zeros((8, h, w), np.float32)
@@ -449,7 +427,7 @@ def extract_views(qlevels, rects, msk_c, poses, det: cfg.DetectorConfig,
 
 
 def add_templates_batched(bgrs, depths, masks, poses,
-                          det: cfg.DetectorConfig, device="cpu",
+                          det: cfg.DetectorConfig, device="cuda",
                           workers: Optional[int] = None
                           ) -> List[Optional[TemplateView]]:
     """Batched :func:`add_template` over N views: every view's mask-bbox
@@ -466,7 +444,7 @@ def add_templates_batched(bgrs, depths, masks, poses,
 def add_template(bgr: np.ndarray, depth_mm: np.ndarray,
                  mask: Optional[np.ndarray], pose_13: np.ndarray,
                  det: cfg.DetectorConfig,
-                 device="cpu") -> Optional[TemplateView]:
+                 device="cuda") -> Optional[TemplateView]:
     """Full addTemplate for one view: a TemplateView, or None if any
     level/modality yields too few features (linemod.cpp:1599-1605).  The
     frame is quantized on ``device`` (one upload, one fetch)."""

@@ -5,7 +5,7 @@
 print the JAX CLI's JSON lines: frames, objects and similarity exactly,
 poses within 0.05 mm and 0.01 deg, tracker ROIs within 0.05 px.  A
 subprocess drives every action with the new modules imported and shows
-that jax, flax and cv2 are never loaded."""
+that jax, flax, cv2 and the JAX package are never loaded."""
 
 import json
 import os
@@ -20,6 +20,7 @@ import torch
 from fealess_tpu.apps import cli as jax_cli
 from fealess_tpu_torch.apps import cli
 from tests.test_torch_engine import T_TOL_MM, _rot_diff_deg
+from tests.test_torch_io import LOADED
 from tests.test_torch_scan_package import write_package
 
 torch.set_num_threads(1)
@@ -234,7 +235,7 @@ def test_cli_profile_report_and_refusals(port_trained, tmp_path, capsys):
     assert args.device == "cuda"
 
 
-_SUBPROCESS = r"""
+_SUBPROCESS = LOADED + r"""
 import contextlib, io, json, os, runpy, sys
 from fealess_tpu_torch import training
 from fealess_tpu_torch.apps import cli, scan_package  # noqa: F401
@@ -258,20 +259,20 @@ res = os.path.join(art, "recon.jsonl")
 with open(res, "w") as f:
     f.write(lines.getvalue())
 rcs.append(cli.main(["eval", pkg, res, "--model-scale", "1.0"]))
-bank, det = checkpoint.import_yaml(os.path.join(pkg, "linemod_templates.yml"))
+bank, det = checkpoint.import_yaml(os.path.join(pkg, "linemod_templates.yml"),
+                                   device="cpu")
 checkpoint.save_bank(os.path.join(art, "ckpt"), bank, det)
-checkpoint.load_bank(os.path.join(art, "ckpt"))
+checkpoint.load_bank(os.path.join(art, "ckpt"), device="cpu")
 print(json.dumps({"rcs": rcs, "native": training.have_native(),
-                  "loaded": [m for m in ("jax", "flax", "cv2")
-                             if m in sys.modules]}))
+                  "loaded": _loaded()}))
 """
 
 
 def test_cli_runs_without_jax_flax_or_cv2(tmp_path):
     """A fresh interpreter imports every module of the offline path and
     runs ``python -m fealess_tpu_torch train``, then export, recon
-    --artifact, track, recon, eval and a bank checkpoint; jax, flax and
-    cv2 are never imported."""
+    --artifact, track, recon, eval and a bank checkpoint; jax, flax, cv2
+    and the JAX package (by name or by file) are never loaded."""
     pkg = str(tmp_path / "pkg")
     write_package(pkg, shifts=((0, 0), (4, 2)))
     _write_cube_obj(os.path.join(pkg, "model.obj"))

@@ -21,6 +21,7 @@ from fealess_tpu.io import linemod_yaml
 from fealess_tpu_torch.bank import bank_from_numpy
 from fealess_tpu_torch.engine import CamIntrinsics, ObjReco
 from tests.test_match_e2e import H, W, make_scene
+from tests.test_torch_config import to_port
 
 torch.set_num_threads(1)
 
@@ -74,7 +75,8 @@ def _engines(feature_dir, mode, **icp):
     path = feature_dir[0]
     ref = JaxReco.create("LmICP", _config(mode, **icp))
     ref.add_obj(path)
-    port = ObjReco.create("LmICP", _config(mode, **icp), device="cpu")
+    port = ObjReco.create("LmICP", to_port(_config(mode, **icp)),
+                          device="cpu")
     port.add_obj(path)
     return ref, port
 
@@ -180,7 +182,7 @@ def test_add_obj_state_matches_jax(feature_dir):
     ref, port = _engines(feature_dir, "point_to_plane")
     from_jax = bank_from_numpy(
         {k: np.asarray(getattr(ref.bank, k)) for k in _LEAVES},
-        ref.bank.class_names, ref.bank.max_span)
+        ref.bank.class_names, ref.bank.max_span, device="cpu")
     for bank in (port.bank, from_jax):
         assert bank.class_names == ref.bank.class_names
         assert bank.max_span == ref.bank.max_span

@@ -20,8 +20,10 @@ from fealess_tpu.ops import quantize as jax_q
 from fealess_tpu.ops import response as jax_resp
 from fealess_tpu_torch import detector as port_det
 from fealess_tpu_torch.ops import image as port_img
+from fealess_tpu_torch.ops import luts as port_luts
 from fealess_tpu_torch.ops import quantize as port_q
 from fealess_tpu_torch.ops import response as port_resp
+from tests.test_torch_config import to_port
 
 torch.set_num_threads(1)
 
@@ -153,7 +155,8 @@ def test_build_level_2d_bit_exact(t):
     np.testing.assert_array_equal(
         port_resp.build_level_2d(torch.from_numpy(q), t).numpy(),
         np.asarray(want).astype(np.int32))
-    assert tuple(port_resp.ORIENTATION_SCORES) == tuple(
+    assert port_resp.ORIENTATION_SCORES is port_luts.ORIENTATION_SCORES
+    assert tuple(port_luts.ORIENTATION_SCORES) == tuple(
         luts.ORIENTATION_SCORES)
 
 
@@ -162,8 +165,9 @@ def _pyramid_and_planes_equal(bgr, depth, det):
         jax_det.quantized_pyramid(b, d, det), det))
     j_planes = jax_fn(jnp.asarray(bgr), jnp.asarray(depth))
     levels = port_det.quantized_pyramid(
-        torch.from_numpy(bgr), torch.from_numpy(depth.astype(np.int32)), det)
-    p_planes = port_det.response_planes(levels, det)
+        torch.from_numpy(bgr), torch.from_numpy(depth.astype(np.int32)),
+        to_port(det))
+    p_planes = port_det.response_planes(levels, to_port(det))
     assert len(p_planes) == det.pyramid_levels
     for (pp, phw), (jp, jhw) in zip(p_planes, j_planes):
         assert tuple(phw) == tuple(jhw)

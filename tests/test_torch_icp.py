@@ -6,12 +6,16 @@ Kabsch branch), and the refine glue (crop back-projection, normals,
 paired clouds).
 
 Tolerances: integer outcomes (NN indices, iteration counts) are equal;
-NN d2 agrees to 2e-7 relative, because JAX sums the three squares with
-jnp.sum; ICP poses agree to 0.05 mm and 0.01 deg and dist_mean to 1e-4
+NN d2 is bitwise equal to JAX's contract ``_nn_xla_blocked`` run op by op
+(``jax.disable_jit``: compiled, XLA's CPU backend contracts the squares'
+sum into fused multiply-adds), and within 2e-7 relative of the Pallas
+kernel in interpret mode, whose compiled tile loops contract some lanes
+and not others (one or two fewer roundings, up to 2 ulp); ICP poses agree to 0.05 mm and 0.01 deg and dist_mean to 1e-4
 relative — float32 reductions and the 3x3 SVD differ in summation order
 and LAPACK path, far inside the TPU-vs-CPU spread on record for the JAX
 package itself (TPUPARITY_r05.json: 1.08 mm ADD)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +32,7 @@ from fealess_tpu_torch import pipeline as port_pipe
 from fealess_tpu_torch.geometry import depth as port_depth
 from fealess_tpu_torch.geometry import transforms as port_tf
 from fealess_tpu_torch.ops import nn
+from tests.test_torch_config import to_port
 
 torch.set_num_threads(1)
 
@@ -68,28 +73,107 @@ def _nn_case(rng):
                              + [0, 0, 600]).astype(np.float32)])
     ref[650:] = jax_icp.PAD_COORD            # padded ref rows
     query[-20:] = jax_icp.PAD_COORD          # padded query rows
-    return query.astype(np.float32), ref
+    return query.astype(np.float32), ref, {i: 100 + i for i in range(100)}
 
 
-def test_nn_twin_matches_jax_with_ties_and_padding():
-    query, ref = _nn_case(np.random.default_rng(0))
+def _cloud_rows(rng, n):
+    return (rng.normal(size=(n, 3)) * [60, 40, 15] + [0, 0, 600]
+            ).astype(np.float32)
+
+
+def _splits(nq, nr):
+    """The reference-set split points of the two kernels at these shapes:
+    the Pallas kernel's reference tiles and K3's chunks (on 132 SMs)."""
+    _, chunk = nn.chunk_plan(nq, nr, 132)
+    return sorted(set(range(nn_pallas.TR, nr, nn_pallas.TR))
+                  | set(range(chunk, nr, chunk)))
+
+
+def _nn_split_case(rng):
+    """Row b = row b - 1 at every split point b, and a query on each:
+    the first minimum b - 1 lies before the split."""
+    nq, nr = 300, 2600
+    ref = _cloud_rows(rng, nr)
+    cuts = _splits(nq, nr)
+    assert nn_pallas.TR in cuts and len(cuts) >= 6
+    for b in cuts:
+        ref[b] = ref[b - 1]
+    query = _cloud_rows(rng, nq)
+    query[:len(cuts)] = ref[[b - 1 for b in cuts]]
+    return query, ref, {i: b - 1 for i, b in enumerate(cuts)}
+
+
+def _nn_one_ref_case(rng):
+    query = _cloud_rows(rng, 77)
+    query[-5:] = jax_icp.PAD_COORD
+    return query, _cloud_rows(rng, 1), {i: 0 for i in range(77)}
+
+
+def _nn_ragged_case(rng):
+    """Counts that are multiples of no tile or chunk, ties 1000 rows
+    apart."""
+    ref = _cloud_rows(rng, 2111)
+    ref[1500:1600] = ref[500:600]
+    query = np.concatenate([ref[500:600], _cloud_rows(rng, 233)])
+    return query, ref, {i: 500 + i for i in range(100)}
+
+
+def _nn_pad_case(rng):
+    """PAD_COORD rows in both sets; the reference's run of them crosses the
+    Pallas tile boundary, so every padded query's first minimum is its
+    first row."""
+    ref = _cloud_rows(rng, 2600)
+    ref[1900:2200] = jax_icp.PAD_COORD
+    ref[-40:] = jax_icp.PAD_COORD
+    query = _cloud_rows(rng, 260)
+    query[-60:] = jax_icp.PAD_COORD
+    return query, ref, {i: 1900 for i in range(200, 260)}
+
+
+@pytest.mark.parametrize("make", [_nn_case, _nn_split_case, _nn_one_ref_case,
+                                  _nn_ragged_case, _nn_pad_case],
+                         ids=["ties_and_padding", "duplicates_across_splits",
+                              "one_ref", "ragged_counts", "pad_rows"])
+def test_nn_twin_matches_jax_with_ties_and_padding(make):
+    """K3's twin against JAX's contract exactly (indices equal, d2
+    bitwise) and against the Pallas kernel's semantics (indices equal, d2
+    within 2e-7 relative: XLA's contraction); the planted first minima
+    win."""
+    query, ref, planted = make(np.random.default_rng(0))
     idx, d2 = nn.nearest_neighbor_plain(_t(query), _t(ref), block=128)
-    j_idx, j_d2 = nn_pallas._nn_xla_blocked(jnp.asarray(query),
-                                            jnp.asarray(ref))
+    with jax.disable_jit():
+        j_idx, j_d2 = nn_pallas._nn_xla_blocked(jnp.asarray(query),
+                                                jnp.asarray(ref))
     np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
-    np.testing.assert_allclose(d2.numpy(), np.asarray(j_d2), rtol=2e-7,
-                               atol=0)
-    # first minimum wins on the planted ties
-    assert (idx.numpy()[:100] == np.arange(100, 200)).all()
-    # the TPU kernel's semantics (interpret mode) agree as well
+    np.testing.assert_array_equal(d2.numpy().view(np.int32),
+                                  np.asarray(j_d2).view(np.int32))
+    got = idx.numpy()
+    assert {i: int(got[i]) for i in planted} == planted
+    # the TPU kernel's semantics (interpret mode)
     p_idx, p_d2 = nn_pallas.nearest_neighbor_tiled(
         jnp.asarray(query), jnp.asarray(ref), interpret=True)
-    np.testing.assert_array_equal(idx.numpy(), np.asarray(p_idx))
-    np.testing.assert_allclose(d2.numpy(), np.asarray(p_d2), rtol=2e-7)
+    np.testing.assert_array_equal(got, np.asarray(p_idx))
+    np.testing.assert_allclose(d2.numpy(), np.asarray(p_d2), rtol=2e-7,
+                               atol=0)
+    # the wrapper takes the twin for CPU tensors
+    w_idx, w_d2 = nn.nearest_neighbor(_t(query), _t(ref))
+    assert torch.equal(w_idx, idx) and torch.equal(w_d2, d2)
+
+
+def test_nn_chunk_plan_covers_the_reference_set():
+    """Every chunk of K3's split is non-empty and the chunks cover the
+    reference rows; the ICP's 16384 x 16384 on 132 SMs gives 16 chunks of
+    1024 rows (4 blocks an SM)."""
+    assert nn.chunk_plan(16384, 16384, 132) == (16, 1024)
+    for nq, nr, sms in ((16384, 16051, 132), (16307, 300, 132), (1, 1, 132),
+                        (100, 16384, 132), (9, 9, 4), (5000, 70000, 1)):
+        n, chunk = nn.chunk_plan(nq, nr, sms)
+        assert n >= 1 and chunk >= 1
+        assert (n - 1) * chunk < nr <= n * chunk
 
 
 def test_nn_wrapper_routes_cpu_to_twin_and_refuses_other_devices():
-    query, ref = _nn_case(np.random.default_rng(1))
+    query, ref, _ = _nn_case(np.random.default_rng(1))
     got = nn.nearest_neighbor(_t(query), _t(ref))
     want = nn.nearest_neighbor_plain(_t(query), _t(ref))
     assert got[0].dtype == torch.int32 and got[1].dtype == torch.float32
@@ -165,7 +249,7 @@ def test_icp_point_to_point_matches_jax(forced, centered):
                         **(_FORCED if forced else {}))
     ref = jax_icp.icp_point_to_point(jnp.asarray(pr), jnp.asarray(pm),
                                      jnp.asarray(m), icp)
-    got = port_icp.icp_point_to_point(_t(pr), _t(pm), _t(m), icp)
+    got = port_icp.icp_point_to_point(_t(pr), _t(pm), _t(m), to_port(icp))
     _icp_equal(got, ref)
     assert int(got.iterations) >= 2
 
@@ -192,7 +276,8 @@ def test_icp_point_to_plane_matches_jax(surface, branch, forced):
     pn[:len(nrm)] = nrm
     ref = jax_icp.icp_point_to_plane(jnp.asarray(pr), jnp.asarray(pn),
                                      jnp.asarray(pm), jnp.asarray(m), icp)
-    got = port_icp.icp_refine(_t(pr), _t(pm), _t(m), icp, ref_normals=_t(pn))
+    got = port_icp.icp_refine(_t(pr), _t(pm), _t(m), to_port(icp),
+                              ref_normals=_t(pn))
     _icp_equal(got, ref)
     assert int(got.iterations) >= 2          # NN correspondences ran
 
@@ -222,7 +307,8 @@ def test_icp_loop_stops_like_jax_and_calls_nn_per_iteration(
         _FORCED if setting == "forced" else dict(dist_mean_threshold=1e9)))
     ref = jax_icp.icp_refine(jnp.asarray(pr), jnp.asarray(pm), jnp.asarray(m),
                              icp, ref_normals=jnp.asarray(pn))
-    got = port_icp.icp_refine(_t(pr), _t(pm), _t(m), icp, ref_normals=_t(pn))
+    got = port_icp.icp_refine(_t(pr), _t(pm), _t(m), to_port(icp),
+                              ref_normals=_t(pn))
     _icp_equal(got, ref)
     assert int(got.iterations) == iters
     assert len(calls) == nn_calls
@@ -234,7 +320,7 @@ def test_icp_too_few_points_is_not_ok():
     for mode in ("point_to_point", "point_to_plane"):
         icp = cfg.IcpConfig(mode=mode)
         normals = _t(np.zeros((64, 3), np.float32))
-        got = port_icp.icp_refine(_t(pr), _t(pm), _t(m), icp,
+        got = port_icp.icp_refine(_t(pr), _t(pm), _t(m), to_port(icp),
                                   ref_normals=normals)
         assert not bool(got.ok) and float(got.dist_mean) == -1.0
         assert int(got.iterations) == icp.max_iterations
@@ -292,7 +378,7 @@ def test_crop_points_and_normals_match_jax():
         n_got = port_depth.normals_from_point_image(_t(got)).numpy()
         np.testing.assert_allclose(n_got, n_want, atol=2e-5)
     np.testing.assert_array_equal(
-        port_depth.intrinsics_matrix(1.0, 2.0, 3.0, 4.0).numpy(),
+        port_depth.intrinsics_matrix(1.0, 2.0, 3.0, 4.0, device="cpu").numpy(),
         np.asarray(jax_depth.intrinsics_matrix(1.0, 2.0, 3.0, 4.0)))
 
 
@@ -315,7 +401,7 @@ def test_refine_match_matches_jax(mode):
                                  engine, crop_h=40, crop_w=40)
     got = port_pipe.refine_match(_t(scene.astype(np.int32)), _t(k),
                                  _t(model.astype(np.int32)), _t(k), *args,
-                                 _t(r_match), _t(t_match), engine,
+                                 _t(r_match), _t(t_match), to_port(engine),
                                  crop_h=40, crop_w=40)
     assert int(got.n_pairs) == int(want.n_pairs) == 900
     _icp_equal(got.icp, want.icp)

@@ -1,7 +1,8 @@
 """The port's I/O against OpenCV and the JAX package: the stdlib PNG reader
 against ``cv2.imread``, the FileStorage YAML reader against
 ``fealess_tpu.io.linemod_yaml.load_linemod``, and a subprocess check that
-the port runs a recognition without jax, flax or cv2."""
+the port runs a recognition without jax, flax, cv2 or any module of the
+JAX package ``fealess_tpu``."""
 
 import json
 import os
@@ -20,6 +21,7 @@ from fealess_tpu.bank import TemplateView as JaxView
 from fealess_tpu.io import linemod_yaml as jax_yaml
 from fealess_tpu_torch.io import linemod_yaml as port_yaml
 from fealess_tpu_torch.io.png import read_png
+from tests.test_torch_config import to_port
 
 torch.set_num_threads(1)
 
@@ -121,7 +123,7 @@ def test_load_linemod_fixture_equals_jax():
     path = os.path.join(FIXTURE, "features", "linemod_templates.yml")
     det_p, classes_p = port_yaml.load_linemod(path)
     det_j, classes_j = jax_yaml.load_linemod(path)
-    assert det_p == det_j
+    assert det_p == to_port(det_j)
     assert len(classes_p["obj"]) == 1024
     _assert_same_classes(classes_p, classes_j)
 
@@ -159,15 +161,36 @@ def test_load_linemod_roundtrip_of_save_linemod(tmp_path):
         jax_yaml.save_linemod(path, det, classes)
         det_p, classes_p = port_yaml.load_linemod(path)
         det_j, classes_j = jax_yaml.load_linemod(path)
-        assert det_p == det_j
+        assert det_j == det and det_p == to_port(det)
         _assert_same_classes(classes_p, classes_j)
 
 
-_SUBPROCESS = r"""
+# Appended to each subprocess script: the names of jax, flax and cv2 and
+# of every module of the JAX package that the process loaded, whether by
+# import (``fealess_tpu``, ``fealess_tpu.*``) or from a file under
+# ``fealess_tpu/`` (``fealess_tpu_torch`` shares the prefix, not the
+# directory).
+LOADED = r"""
+def _loaded():
+    import os
+    import fealess_tpu_torch
+    repo = os.path.dirname(os.path.dirname(os.path.realpath(
+        fealess_tpu_torch.__file__)))
+    pkg = os.path.join(repo, "fealess_tpu") + os.sep
+    names = [m for m in ("jax", "flax", "cv2") if m in sys.modules]
+    names += sorted(m for m in sys.modules
+                    if m == "fealess_tpu" or m.startswith("fealess_tpu."))
+    names += sorted(f for f in (getattr(m, "__file__", None)
+                                for m in list(sys.modules.values()))
+                    if f and os.path.realpath(f).startswith(pkg))
+    return names
+"""
+
+_SUBPROCESS = LOADED + r"""
 import json, sys
 import numpy as np
-from fealess_tpu import config as cfg
 import fealess_tpu_torch
+from fealess_tpu_torch import config as cfg
 from fealess_tpu_torch.apps import fixture, profile_reco, track  # noqa: F401
 from fealess_tpu_torch.engine import CamIntrinsics, ObjReco
 from fealess_tpu_torch.tracker.kcf import KcfTracker
@@ -184,19 +207,18 @@ cam = CamIntrinsics(608.0, 608.0, w / 2, h / 2, w, h)
 res = eng.recognition(frame["bgr"], frame["depth"], cam)
 multi = eng.recognition_multi(frame["bgr"], frame["depth"], cam,
                               max_objects=2)
-kcf = KcfTracker(None)
+kcf = KcfTracker(None, "cpu")
 _, roi = kcf.update(kcf.init((60, 20, 40, 40), frame["bgr"]), frame["bgr"])
 print(json.dumps({"n": len(res), "n_multi": len(multi),
                   "roi_ok": bool(np.isfinite(roi).all()),
-                  "loaded": [m for m in ("jax", "flax", "cv2")
-                             if m in sys.modules]}))
+                  "loaded": _loaded()}))
 """
 
 
 def test_port_runs_without_jax_flax_or_cv2(tmp_path):
     """A fresh interpreter imports the port (its apps included) and runs a
     small recognition, a multi-object recognition and a KCF update; jax,
-    flax and cv2 must never be imported."""
+    flax, cv2 and the JAX package (by name or by file) are never loaded."""
     h, w = 80, 160
     rng = np.random.default_rng(2)
     bgr = rng.integers(0, 255, (h, w, 3), dtype=np.uint8)

@@ -13,7 +13,6 @@ import numpy as np
 import pytest
 import torch
 
-from fealess_tpu import config as cfg
 from fealess_tpu import detector as jax_det
 from fealess_tpu.bank import pack_bank as jax_pack
 from fealess_tpu.io import linemod_yaml as jax_yaml
@@ -21,6 +20,7 @@ from fealess_tpu_torch import detector as port_det
 from fealess_tpu_torch.bank import bank_from_numpy
 from fealess_tpu_torch.bank import pack_bank as port_pack
 from fealess_tpu_torch.io import linemod_yaml as port_yaml
+from tests.test_torch_config import to_port
 
 torch.set_num_threads(1)
 
@@ -41,7 +41,7 @@ def fixture():
     classes = {"obj": classes["obj"][:N_SLOTS]}
     jb = jax_pack(classes, levels=2, modalities=2, capacity=N_SLOTS)
     pb = bank_from_numpy({k: np.asarray(getattr(jb, k)) for k in _LEAVES},
-                         jb.class_names, jb.max_span)
+                         jb.class_names, jb.max_span, device="cpu")
     bgr = cv2.imread(os.path.join(FIXTURE, "scene_bgr.png"))
     depth = cv2.imread(os.path.join(FIXTURE, "scene_depth.png"),
                        cv2.IMREAD_UNCHANGED)
@@ -51,8 +51,8 @@ def fixture():
     # jit returned the static (h, w) as arrays; make them ints again
     jax_planes = [(a, (int(h), int(w))) for a, (h, w) in jax_planes]
     port_planes = port_det.response_planes(port_det.quantized_pyramid(
-        torch.from_numpy(bgr), torch.from_numpy(depth.astype(np.int32)), det),
-        det)
+        torch.from_numpy(bgr), torch.from_numpy(depth.astype(np.int32)),
+        to_port(det)), to_port(det))
     return det, jb, pb, jax_planes, port_planes, yml
 
 
@@ -77,7 +77,7 @@ def test_port_bank_equals_jax_bank(fixture):
     det, jb, pb, _, _, yml = fixture
     _, classes = port_yaml.load_linemod(yml)
     own = port_pack({"obj": classes["obj"][:N_SLOTS]}, levels=2,
-                    modalities=2, capacity=N_SLOTS)
+                    modalities=2, capacity=N_SLOTS, device="cpu")
     for bank in (own, pb):
         assert bank.class_names == jb.class_names
         assert bank.max_span == jb.max_span
@@ -101,9 +101,10 @@ def test_match_bank_fixture_exact(fixture):
     order, and the final (similarity, template_idx) order."""
     det, jb, pb, jax_planes, port_planes, _ = fixture
     jt = jax_det.build_match_tables(jb, det)
-    pt = port_det.build_match_tables(pb, det)
+    pt = port_det.build_match_tables(pb, to_port(det))
     ref = _jax_match(det)(jb, jax_planes, jt)
-    got = port_det.match_from_planes(pb, port_planes, 75.0, det, pt)
+    got = port_det.match_from_planes(pb, port_planes, 75.0, to_port(det),
+                                     pt)
     _matches_equal(got, ref)
     valid = got.valid.numpy()
     assert valid.sum() >= 1
@@ -120,9 +121,9 @@ def test_coarse_topk_tie_order_matches_jax(fixture, monkeypatch):
     monkeypatch.setattr(jax_det, "ALLOW_PROFILE_STOPS", True)
     jt = jax_det.build_match_tables(jb, det)
     ref = _jax_match(det, profile_stop="topk")(jb, jax_planes, jt)
-    pt = port_det.build_match_tables(pb, det)
-    sim, slot, x, y = port_det.coarse_candidates(pb, port_planes, 75.0, det,
-                                                 pt)
+    pt = port_det.build_match_tables(pb, to_port(det))
+    sim, slot, x, y = port_det.coarse_candidates(pb, port_planes, 75.0,
+                                                 to_port(det), pt)
     np.testing.assert_array_equal(sim.numpy(), np.asarray(ref.similarity))
     np.testing.assert_array_equal(slot.numpy(),
                                   np.asarray(ref.template_slot))
@@ -137,7 +138,7 @@ def test_match_class_and_roi_gates_exact(fixture):
     as JAX."""
     det, jb, pb, jax_planes, port_planes, _ = fixture
     jt = jax_det.build_match_tables(jb, det)
-    pt = port_det.build_match_tables(pb, det)
+    pt = port_det.build_match_tables(pb, to_port(det))
     class_mask = np.arange(N_SLOTS) % 3 == 1
     fn = _jax_match(det)
     for box in ([0.0, 0.0, 640.0, 480.0], [300.0, 200.0, 420.0, 300.0],
@@ -146,7 +147,7 @@ def test_match_class_and_roi_gates_exact(fixture):
         ref = fn(jb, jax_planes, jt, jnp.asarray(class_mask),
                  jnp.asarray(roi))
         got = port_det.match_from_planes(
-            pb, port_planes, 75.0, det, pt,
+            pb, port_planes, 75.0, to_port(det), pt,
             class_mask=torch.from_numpy(class_mask),
             roi_box=torch.from_numpy(roi))
         _matches_equal(got, ref)

@@ -28,6 +28,7 @@ from tests.test_match_e2e import H, W
 from tests.test_torch_engine import (CX, CY, FX, FY, _LEAVES, _engines,
                                      _frames, _same_results,
                                      feature_dir)  # noqa: F401
+from tests.test_torch_config import to_port
 from tests.test_torch_io import _assert_same_classes, _encode_png
 
 torch.set_num_threads(1)
@@ -111,11 +112,12 @@ def test_save_linemod_roundtrips_through_both_readers(tmp_path, det, suffix):
     classes = _random_classes(det, np.random.default_rng(5))
     port_path = str(tmp_path / ("port" + suffix))
     jax_path = str(tmp_path / ("jax" + suffix))
-    linemod_yaml.save_linemod(port_path, det, classes)
+    linemod_yaml.save_linemod(port_path, to_port(det), classes)
     jax_yaml.save_linemod(jax_path, det, classes)
-    for reader in (jax_yaml.load_linemod, linemod_yaml.load_linemod):
+    for reader, want in ((jax_yaml.load_linemod, det),
+                         (linemod_yaml.load_linemod, to_port(det))):
         det_r, cls_r = reader(port_path)
-        assert det_r == det
+        assert det_r == want
         _assert_same_classes(cls_r, classes)
     if suffix == ".yml":
         with open(port_path) as a, open(jax_path) as b:
@@ -127,7 +129,7 @@ def test_save_classes_load_classes(tmp_path):
     classes = _random_classes(det, np.random.default_rng(8),
                               names=("a_cls", "a.b", "3x"))
     fmt = {k: str(tmp_path / f"{k}_%s.yml.gz") for k in ("port", "jax")}
-    linemod_yaml.save_classes(fmt["port"], det, classes)
+    linemod_yaml.save_classes(fmt["port"], to_port(det), classes)
     jax_yaml.save_classes(fmt["jax"], det, classes)
     ids = sorted(classes)
     args = (ids, det.pyramid_levels, len(det.modalities))
@@ -149,9 +151,9 @@ def yaml_banks(tmp_path_factory):
 
 def test_import_yaml_equals_jax_leaves(yaml_banks):
     path, det, _ = yaml_banks
-    got, det_g = checkpoint.import_yaml(path, capacity=12)
+    got, det_g = checkpoint.import_yaml(path, capacity=12, device="cpu")
     want, det_w = jax_ckpt.import_yaml(path, capacity=12)
-    assert det_g == det_w == det
+    assert det_w == det and det_g == to_port(det)
     assert got.class_names == want.class_names
     assert got.max_span == want.max_span
     for k in _LEAVES:
@@ -165,11 +167,11 @@ def test_bank_checkpoint_and_yaml_roundtrip(tmp_path, yaml_banks):
     detector config; export_yaml writes the JAX writer's text and
     unpack_bank inverts pack_bank."""
     path, det, classes = yaml_banks
-    packed, _ = checkpoint.import_yaml(path, capacity=12)
+    packed, _ = checkpoint.import_yaml(path, capacity=12, device="cpu")
     d = str(tmp_path / "ckpt")
-    checkpoint.save_bank(d, packed, det)
-    restored, det_r = checkpoint.load_bank(d)
-    assert det_r == det
+    checkpoint.save_bank(d, packed, to_port(det))
+    restored, det_r = checkpoint.load_bank(d, device="cpu")
+    assert det_r == to_port(det)
     assert (restored.class_names, restored.max_span) == \
         (packed.class_names, packed.max_span)
     for k in _LEAVES:
@@ -177,11 +179,12 @@ def test_bank_checkpoint_and_yaml_roundtrip(tmp_path, yaml_banks):
         assert a.dtype == b.dtype and torch.equal(a, b), k
     _assert_same_classes(bank.unpack_bank(restored), classes)
     out = str(tmp_path / "out.yml")
-    checkpoint.export_yaml(out, restored, det)
+    checkpoint.export_yaml(out, restored, to_port(det))
     with open(out) as a, open(path) as b:
         assert a.read() == b.read()
     checkpoint.save_bank(str(tmp_path / "nodet"), packed)
-    assert checkpoint.load_bank(str(tmp_path / "nodet"))[1] is None
+    assert checkpoint.load_bank(str(tmp_path / "nodet"),
+                               device="cpu")[1] is None
 
 
 def test_load_bank_refuses_orbax_checkpoint(tmp_path, yaml_banks):
@@ -190,7 +193,7 @@ def test_load_bank_refuses_orbax_checkpoint(tmp_path, yaml_banks):
     d = str(tmp_path / "orbax")
     jax_ckpt.save_bank(d, jax_packed, det)
     with pytest.raises(IOError, match="orbax"):
-        checkpoint.load_bank(d)
+        checkpoint.load_bank(d, device="cpu")
 
 
 def test_view_from_features_matches_jax():
@@ -253,4 +256,4 @@ def test_serving_artifact_refuses_jax_and_unknown(tmp_path, feature_dir):
         with open(meta_path, "w") as f:
             json.dump(dict(meta, version=version), f)
         with pytest.raises(IOError, match=match):
-            ServingArtifact(art)
+            ServingArtifact(art, device="cpu")

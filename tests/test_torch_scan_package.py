@@ -19,6 +19,7 @@ from fealess_tpu_torch.apps import scan_package
 from fealess_tpu_torch.io import linemod_yaml
 from fealess_tpu_torch.io.png import read_png, write_png
 from tests.test_match_e2e import make_scene
+from tests.test_torch_config import to_port
 from tests.test_torch_io import _assert_same_classes
 
 torch.set_num_threads(1)
@@ -162,15 +163,17 @@ def test_train_package_matches_jax(tmp_path, package):
             ext = "png" if sub == "gray" else "txt"
             shutil.copy(os.path.join(package, sub, f"0.{ext}"),
                         os.path.join(dirs[name], sub, f"3.{ext}"))
-    got = scan_package.train_package(dirs["port"], class_id="box")
+    got = scan_package.train_package(dirs["port"], class_id="box",
+                                     device="cpu")
     want = jax_scan.train_package(dirs["jax"], class_id="box")
     assert got == want == (3, 4)
     yml = {k: os.path.join(v, "linemod_templates.yml")
            for k, v in dirs.items()}
     det_w, cls_w = jax_yaml.load_linemod(yml["jax"])
-    for reader in (jax_yaml.load_linemod, linemod_yaml.load_linemod):
+    for reader, want in ((jax_yaml.load_linemod, det_w),
+                         (linemod_yaml.load_linemod, to_port(det_w))):
         det_g, cls_g = reader(yml["port"])
-        assert det_g == det_w
+        assert det_g == want
         _assert_same_classes(cls_g, cls_w)
     with open(yml["port"], "rb") as a, open(yml["jax"], "rb") as b:
         assert a.read() == b.read()

@@ -15,6 +15,7 @@ from fealess_tpu.ops import score_pallas
 from fealess_tpu_torch import detector as port_det
 from fealess_tpu_torch.bank import bank_from_numpy
 from fealess_tpu_torch.ops import score
+from tests.test_torch_config import to_port
 
 torch.set_num_threads(1)
 
@@ -48,7 +49,7 @@ def _random_banks(rng, n, levels, mods, f, span_px, max_span=None):
     span = span_px + 1 if max_span is None else max_span
     jax_bank = JaxBank(**{k: jnp.asarray(v) for k, v in leaves.items()},
                        class_names=("obj",), max_span=span)
-    return jax_bank, bank_from_numpy(leaves, ("obj",), span)
+    return jax_bank, bank_from_numpy(leaves, ("obj",), span, device="cpu")
 
 
 def _tables_equal(port_tables, jax_tables):
@@ -68,10 +69,11 @@ def test_build_match_tables_equal_jax(span, max_span):
     jb, pb = _random_banks(rng, 12, 2, 2, 20, span, max_span)
     assert np.array_equal(pb.num_features().numpy(),
                           np.asarray(jb.num_features()))
-    _tables_equal(port_det.build_match_tables(pb, det),
+    _tables_equal(port_det.build_match_tables(pb, to_port(det)),
                   jax_det.build_match_tables(jb, det))
     grid = [(20, 30), (8, 12)]
-    _tables_equal(port_det.build_match_tables(pb, det, grid_hw=grid),
+    _tables_equal(port_det.build_match_tables(pb, to_port(det),
+                                              grid_hw=grid),
                   jax_det.build_match_tables(jb, det, grid_hw=grid))
 
 
@@ -82,7 +84,7 @@ def _coarse_case(seed, span_cells, hd, wd):
     jb, pb = _random_banks(rng, 24, 2, 2, 16, span_cells * t)
     grid = [(hd * 2, wd * 2), (hd, wd)]
     jt = jax_det.build_match_tables(jb, det, grid_hw=grid)[1]
-    pt = port_det.build_match_tables(pb, det, grid_hw=grid)[1]
+    pt = port_det.build_match_tables(pb, to_port(det), grid_hw=grid)[1]
     planes = rng.integers(0, 5, (2 * 8 * t * t, hd, wd), np.uint8)
     return planes, jt, pt
 
@@ -112,7 +114,7 @@ def _local_case(seed):
     jb, pb = _random_banks(rng, 10, 2, 2, 16, 12 * t)
     grid = [(hd, wd), (hd // 2, wd // 2)]
     jt = jax_det.build_match_tables(jb, det, grid_hw=grid)[0]
-    pt = port_det.build_match_tables(pb, det, grid_hw=grid)[0]
+    pt = port_det.build_match_tables(pb, to_port(det), grid_hw=grid)[0]
     planes = rng.integers(0, 5, (2 * 8 * t * t, hd, wd), np.uint8)
     k = 24
     slots = rng.integers(0, 10, k)

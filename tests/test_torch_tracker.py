@@ -29,6 +29,7 @@ from fealess_tpu.tracker import fhog as jax_fhog
 from fealess_tpu.tracker import kcf as jax_kcf
 from fealess_tpu_torch.ops.sampling import sample_patch_bilinear
 from fealess_tpu_torch.tracker import fhog, kcf
+from tests.test_torch_config import to_port
 from tests.test_tracker import _frame
 
 torch.set_num_threads(1)
@@ -123,7 +124,7 @@ def test_lab_histogram_matches_jax():
     cfg = jax_kcf.kcf_reference_config(hog=True, lab=True)
     rng = np.random.default_rng(8)
     frame = _frame(50, 40, 24, noise_rng=rng)
-    jt, pt = jax_kcf.KcfTracker(cfg), kcf.KcfTracker(cfg)
+    jt, pt = jax_kcf.KcfTracker(cfg), kcf.KcfTracker(to_port(cfg), "cpu")
     jt.init((38, 28, 24, 24), frame)
     pt.init((38, 28, 24, 24), frame)
     tw, th = pt._geom[:2]
@@ -135,7 +136,7 @@ def test_lab_histogram_matches_jax():
 
 
 def _trace(cfg, frames, roi0):
-    jt, pt = jax_kcf.KcfTracker(cfg), kcf.KcfTracker(cfg)
+    jt, pt = jax_kcf.KcfTracker(cfg), kcf.KcfTracker(to_port(cfg), "cpu")
     js, ps = jt.init(roi0, frames[0]), pt.init(roi0, frames[0])
     out = []
     for f in frames[1:]:
@@ -174,7 +175,7 @@ def test_kcf_init_state_matches_jax():
     cfg = jax_kcf.kcf_reference_config()
     frame = _frames()[0]
     js = jax_kcf.KcfTracker(cfg).init((28, 28, 24, 24), frame)
-    ps = kcf.KcfTracker(cfg).init((28, 28, 24, 24), frame)
+    ps = kcf.KcfTracker(to_port(cfg), "cpu").init((28, 28, 24, 24), frame)
     assert ps.tmpl.shape == tuple(js.tmpl.shape)
     assert ps.alphaf.dtype == torch.complex64
     np.testing.assert_allclose(ps.tmpl.numpy(), np.asarray(js.tmpl),
@@ -194,7 +195,7 @@ def test_update_batch_equals_per_state_update():
     bound); the scale choices are equal."""
     cfg = jax_kcf.kcf_reference_config()
     frames = _frames(3)
-    tr = kcf.KcfTracker(cfg)
+    tr = kcf.KcfTracker(to_port(cfg), "cpu")
     rois = ((28, 28, 24, 24), (30, 26, 24.2, 24.3), (27, 29, 24.3, 24))
     states = [tr.init(roi, frames[0]) for roi in rois]
     assert len({tr._fit_template(r[2], r[3]) for r in rois}) == 1
@@ -218,10 +219,10 @@ def test_update_from_carried_jax_state():
     js = jt.init((28, 28, 24, 24), frames[0])
     for f in frames[1:5]:
         js, _ = jt.update(js, f)
-    pt = kcf.KcfTracker(cfg)
+    pt = kcf.KcfTracker(to_port(cfg), "cpu")
     pt.init((28, 28, 24, 24), frames[0])        # the same geometry
     ps = kcf.state_from_numpy({k: np.asarray(getattr(js, k))
-                               for k in _LEAVES})
+                               for k in _LEAVES}, device="cpu")
     assert ps.alphaf.dtype == torch.complex64 and ps.scale.dim() == 0
     js, want = jt.update(js, frames[5])
     ps, got = pt.update(ps, frames[5])

@@ -1,12 +1,18 @@
 """The port's training path against the JAX package's: ``add_template``
 and ``add_templates_batched`` give views equal to JAX's element for
-element, on the host's numpy path and, where libfealess_host is built, its
-native path; the fixture's view equals template 0 of the in-repo YAML
-bank, which the JAX package wrote; the greedy selection, the chessboard
-chamfer and both extractors equal JAX's on random inputs made from a
-seed."""
+element, on the host's numpy path and on its native path; the fixture's
+view equals template 0 of the in-repo YAML bank, which the JAX package
+wrote; the greedy selection, the chessboard chamfer and both extractors
+equal JAX's on random inputs made from a seed.
+
+The native cases build ``libfealess_host`` themselves, once per module,
+from ``native/fealess_host`` into a temporary directory of their own, and
+load it through ``fealess_tpu_torch.io.native`` by its path; they skip
+only where cmake, ninja or a C++ compiler is missing."""
 
 import os
+import shutil
+import subprocess
 
 import cv2
 import numpy as np
@@ -18,8 +24,10 @@ from fealess_tpu import training as jax_training
 from fealess_tpu.ops import image as jax_image
 from fealess_tpu_torch import training
 from fealess_tpu_torch.io import linemod_yaml
+from fealess_tpu_torch.io import native
 from fealess_tpu_torch.io.png import read_png
 from tests.test_match_e2e import H, W, make_scene
+from tests.test_torch_config import to_port
 
 torch.set_num_threads(1)
 
@@ -27,17 +35,34 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "benchmarks", "reference", "out")
 
 
+@pytest.fixture(scope="module")
+def native_lib(tmp_path_factory):
+    """Path of a libfealess_host built for this module: ``cmake -G Ninja``
+    and ``ninja`` on native/fealess_host, in a directory no other test
+    writes.  Skips only when a build tool is missing."""
+    missing = [t for t in ("cmake", "ninja") if shutil.which(t) is None]
+    if not any(shutil.which(c) for c in ("c++", "g++", "clang++")):
+        missing.append("a C++ compiler")
+    if missing:
+        pytest.skip(f"cannot build libfealess_host: no {', '.join(missing)}")
+    build = str(tmp_path_factory.mktemp("fealess_host"))
+    for cmd in (["cmake", "-S", os.path.join(REPO, "native", "fealess_host"),
+                 "-B", build, "-G", "Ninja"], ["ninja", "-C", build]):
+        subprocess.run(cmd, check=True, capture_output=True)
+    return os.path.join(build, "libfealess_host.so")
+
+
 @pytest.fixture(params=["numpy", "native"])
 def host_path(request, monkeypatch):
-    """Run the port's extraction on one host path.  The JAX package takes
-    its native path where the library is built (its numpy and native paths
-    are equal, tests/test_native.py)."""
+    """Run the port's extraction on one host path: numpy, or the native
+    library built by ``native_lib``, loaded by its path for this test
+    only.  The JAX package takes its native path where the library is
+    built (its numpy and native paths are equal, tests/test_native.py)."""
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_SEARCHED", True)
     if request.param == "native":
-        if not training.have_native():
-            pytest.skip("libfealess_host is not built (native/fealess_host)")
-    else:
-        monkeypatch.setattr(training.native_host, "have_native",
-                            lambda: False)
+        native.load_library(request.getfixturevalue("native_lib"))
+    assert training.have_native() == (request.param == "native")
     return request.param
 
 
@@ -74,13 +99,14 @@ def test_fixture_view_equals_yaml_template0(host_path):
     pose = np.zeros(13, np.float32)
     pose[0] = pose[5] = pose[10] = 1.0
     pose[12] = 800.0
-    det = cfg.DetectorConfig()
+    det = to_port(cfg.DetectorConfig())
     _, classes = linemod_yaml.load_linemod(
         os.path.join(FIXTURE, "features", "linemod_templates.yml"))
     want = classes["obj"][0]
-    assert_same_view(training.add_template(bgr, depth, mask, pose, det), want)
+    assert_same_view(training.add_template(bgr, depth, mask, pose, det,
+                                           device="cpu"), want)
     batched = training.add_templates_batched([bgr], [depth], [mask], [pose],
-                                             det, workers=1)
+                                             det, device="cpu", workers=1)
     assert_same_view(batched[0], want)
 
 
@@ -110,7 +136,8 @@ def test_add_template_matches_jax(host_path, det):
         pose = _pose(600.0 + i)
         for m in ((mask, None) if i == 0 else (mask,)):
             want = jax_training.add_template(bgr, depth, m, pose, det)
-            got = training.add_template(bgr, depth, m, pose, det)
+            got = training.add_template(bgr, depth, m, pose, to_port(det),
+                                        device="cpu")
             if want is None:
                 assert got is None
             else:
@@ -128,7 +155,8 @@ def test_add_templates_batched_matches_jax(host_path):
     views.append((views[0][0], views[0][1], tiny))
     bgrs, depths, masks = (list(a) for a in zip(*views))
     poses = [_pose(600.0 + i) for i in range(len(views))]
-    got = training.add_templates_batched(bgrs, depths, masks, poses, det)
+    got = training.add_templates_batched(bgrs, depths, masks, poses,
+                                         to_port(det), device="cpu")
     want = jax_training.add_templates_batched(bgrs, depths, masks, poses,
                                               det)
     assert len(got) == len(want) == 5
@@ -136,7 +164,8 @@ def test_add_templates_batched_matches_jax(host_path):
     for i in range(4):
         assert_same_view(got[i], want[i])
         assert_same_view(training.add_template(bgrs[i], depths[i], masks[i],
-                                               poses[i], det), want[i])
+                                               poses[i], to_port(det),
+                                               device="cpu"), want[i])
 
 
 def test_batch_crop_rects_match_jax():
@@ -170,7 +199,7 @@ def test_select_scattered_features_matches_jax():
         np.testing.assert_array_equal(got, want)
         if training.have_native():
             np.testing.assert_array_equal(
-                training.native_host.select_scattered_features(cand, nf,
+                native.select_scattered_features(cand, nf,
                                                                dist), want)
 
 
@@ -192,7 +221,7 @@ def test_chamfer_matches_jax_and_cv2():
             # (with no zero pixel at all, the native transform gives
             # 1.7e38 where the numpy one gives inf)
             np.testing.assert_array_equal(
-                got, training.native_host.chamfer_chessboard(nz))
+                got, native.chamfer_chessboard(nz))
 
 
 def test_erode3_matches_cv2():
