@@ -14,10 +14,15 @@ Phases, one line of output each (or a few):
    the shapes the Recognition path gives it on the in-repo fixture
    (``benchmarks/reference/out``: 1024 templates, 640x480 RGB-D scene):
    K1 coarse scores and K2 local scores bitwise, K3 nearest neighbour
-   index-equal and d2 bitwise, K3 also on the edges of its split of the
+   index-equal and d2 bitwise; K1 also on distinct templates and its edge
+   cases (``coarse_cases``: random features, Wd = 37, Hd = 1, templates
+   without features, features at the largest offsets, 4096 features on u8
+   up to 255, misaligned planes), K3 on the edges of its split of the
    reference set (``nn_cases``: duplicate rows straddling every chunk
    boundary, ragged query and reference counts, a single row, rows at
-   ``icp.PAD_COORD``);
+   ``icp.PAD_COORD``); and the coarse stage (``detector.coarse_candidates``:
+   K1, the gates and the top-K) equal to the same stage on CPU copies of
+   its inputs;
 4. ``ObjReco.recognition`` end to end in both ICP modes, with default ICP
    settings (a) and with forced iterations (b), each result checked
    against the JAX package's numbers on this fixture;
@@ -42,12 +47,16 @@ Phases, one line of output each (or a few):
    templates per second of the batched trainer's stages (crop, front-end,
    extraction) on the 4-view chunk and on a 32-view chunk of panned
    frames, and ``add_obj`` against the artifact's load, are timed;
-5. CUDA-event times of each kernel and twin at the path's shapes, with
-   each kernel's bound (``bound_ms``: the larger of its bytes over the
-   card's memory rate and its operations over the f32 rate) and its share
-   of it; warm per-frame times of Recognition, multi-object Recognition
-   and a tracked frame, and the fixture bank's cold start through
-   ``add_obj`` and from an artifact.
+5. times of each kernel and twin at the path's shapes, CUDA events
+   around 20 back-to-back launches (3 for a twin; the kernels' ``ms``),
+   and for each kernel also events around the replay of a CUDA graph of
+   20 launches (``profile_reco.graph_ms``: the device's time without the
+   host's launch cost), K1 also on 1024 distinct templates; each kernel's bound
+   (``bound_ms``: the larger of its bytes over the card's memory rate and
+   its operations over the f32 rate) and its share of it; warm per-frame
+   times of Recognition, multi-object Recognition and a tracked frame, and
+   the fixture bank's cold start through ``add_obj`` and from an
+   artifact.
 
 Each path of phases 4-4c runs with the kernels' launch counters set to 0
 just before it and read just after; every kernel must have run on the
@@ -255,13 +264,86 @@ def nn_cases(model, ref):
             for c in cases]
 
 
+def coarse_cases(planes, table):
+    """K1's cases on one frame's coarse planes and the bank's coarse table
+    (the path's own first): the table's features replaced by random ones
+    (distinct templates, each reading its own plane rows, where the
+    fixture's 1024 are identical), widths not a multiple of the 8
+    positions a thread owns (Wd = 37), one row (Hd = 1), every third
+    template with no valid feature, every feature at the largest offsets
+    (rx = ry = NB - 1, the bottom and right edges), 4096 features a
+    template on u8 values up to 255 (so the packed 16-bit lanes must be
+    flushed), and planes that start 1, 2 and 3 bytes past a 4-byte
+    boundary."""
+    import torch
+    from fealess_tpu_torch.ops import score
+    c, hd, wd = planes.shape
+    nb = table["bstart"].shape[1] - 1
+    g = torch.Generator(device=planes.device).manual_seed(6)
+    none = {k: v.clone() for k, v in table.items()}
+    none["bstart"][::3] = 0
+    edge = {k: v.clone() for k, v in table.items()}
+    nvalid = edge["bstart"][:, -1:].clone()
+    for key in ("ry", "rx"):
+        edge[key][:] = nb - 1
+    edge["bstart"][:] = 0
+    edge["bstart"][:, -1:] = nvalid
+    n, nf = 8, 4096
+
+    def rand(high, size, dtype=torch.int32):
+        return torch.randint(0, high, size, generator=g, dtype=dtype,
+                             device=planes.device)
+
+    wide = {"c": rand(c, (n, nf)), "ry": rand(nb, (n, nf)),
+            "rx": rand(nb, (n, nf)),
+            "bstart": torch.full((n, nb + 1), nf, dtype=torch.int32,
+                                 device=planes.device)}
+    loud = rand(256, planes.shape, torch.uint8)
+    shape = table["c"].shape
+    distinct = {"c": rand(c, shape), "ry": rand(nb, shape),
+                "rx": rand(nb, shape), "bstart": table["bstart"]}
+    flat = torch.cat([planes.new_zeros(3), planes.reshape(-1)])
+    cases = [(planes, table), (planes, distinct),
+             (planes[:, :, :37].contiguous(), table),
+             (planes[:, :1].contiguous(), table), (planes, none),
+             (planes, edge), (loud, wide)]
+    cases += [(flat[k:k + planes.numel()].view(planes.shape), table)
+              for k in (1, 2, 3)]
+    return [(score.coarse_scores, score.coarse_scores_plain, a)
+            for a in cases]
+
+
+def same_coarse_candidates(eng, planes, tables, where: str) -> None:
+    """``detector.coarse_candidates`` on the card (K1, the gates and the
+    top-K) returns exactly what it returns on CPU copies of its inputs
+    (the twin and the same gates and top-K on the CPU)."""
+    import torch
+    from fealess_tpu_torch import detector as td
+    det = eng.cfg.detector
+    thr = eng.cfg.matching_threshold
+    got = td.coarse_candidates(eng.bank, planes, thr, det, tables)
+    cpu = [(d.cpu(), hw) for d, hw in planes]
+    cpu_tables = [None if t is None else {k: v.cpu() for k, v in t.items()}
+                  for t in tables]
+    want = td.coarse_candidates(eng.bank.to("cpu"), cpu, thr, det,
+                                cpu_tables)
+    for name, a, b in zip(("score", "slot", "x", "y"), got, want):
+        check(torch.equal(a.cpu(), b), f"coarse_candidates ({where}): "
+              f"{name} differs from the CPU's")
+    live = int(torch.isfinite(want[0]).sum())
+    print(f"coarse_candidates ({where}): score, slot, x, y equal to the "
+          f"CPU's on {want[0].numel()} candidates ({live} live)")
+
+
 def kernel_cases(eng, bgr_np, depth_np, cam):
     """Each kernel's cases at the shapes ``eng.recognition`` gives it on
     this frame, {name: [(kernel, twin, args)]}, and the refine's ICP pair
-    count: K1 on the coarse level, K2 on the top candidates' windows (and
-    shifted 20 px out of the frame), K3 on the best match's clouds and the
-    edge cases of :func:`nn_cases`.  The first case of each kernel is the
-    path's own."""
+    count: K1 on the coarse level and the edge cases of
+    :func:`coarse_cases`, K2 on the top candidates' windows (and shifted
+    20 px out of the frame), K3 on the best match's clouds and the edge
+    cases of :func:`nn_cases`.  The first case of each kernel is the
+    path's own.  On the way, :func:`same_coarse_candidates` holds the
+    coarse stage on the card to the same stage on the CPU."""
     from fealess_tpu_torch import detector as td
     from fealess_tpu_torch import pipeline
     from fealess_tpu_torch.ops import score
@@ -283,11 +365,11 @@ def kernel_cases(eng, bgr_np, depth_np, cam):
     ref, model, pair_mask, _, _ = pipeline.paired_clouds(
         depth, scene_k, *cand[:6], matches.x[0], matches.y[0], eng.cfg,
         crop, crop)
-    coarse = (planes[det.pyramid_levels - 1][0],
-              tables[det.pyramid_levels - 1])
+    same_coarse_candidates(eng, planes, tables,
+                           f"{eng.bank.capacity}-slot bank")
     return {
-        "coarse_scores": [(score.coarse_scores, score.coarse_scores_plain,
-                           coarse)],
+        "coarse_scores": coarse_cases(planes[det.pyramid_levels - 1][0],
+                                      tables[det.pyramid_levels - 1]),
         "local_scores": [(score.local_scores, score.local_scores_plain,
                           (d0, table_k, px0, py0)),
                          (score.local_scores, score.local_scores_plain,
@@ -412,6 +494,7 @@ def run(dev) -> None:
     from fealess_tpu_torch.apps.track import (MultiTrackedRecognizer,
                                               TrackedRecognizer)
     from fealess_tpu_torch.apps import fixture
+    from fealess_tpu_torch.apps.profile_reco import graph_ms
     from fealess_tpu_torch.engine import ObjReco
     from fealess_tpu_torch.io.export import ServingArtifact
     from fealess_tpu_torch.ops import _build, nn, score
@@ -643,17 +726,29 @@ def run(dev) -> None:
                 for k, fn in enumerate(counted)}
 
     # -- 5. timing
-    times, bounds = {}, {}
+    times, graph, bounds = {}, {}, {}
     for name, runs in cases.items():
         kernel, plain, args = runs[0]
         times[name] = (cuda_ms(lambda: kernel(*args), 20),
                        cuda_ms(lambda: plain(*args), 3))
+        graph[name] = graph_ms(lambda: kernel(*args), 20)
         bounds[name] = bound_ms(name, args)
         shapes = [tuple(a.shape) for a in args if not isinstance(a, dict)]
-        print(f"time {name}: kernel {times[name][0]:.4f} ms, twin "
-              f"{times[name][1]:.4f} ms, bound {bounds[name][0]:.4f} ms "
-              f"({bounds[name][1]}), {bounds[name][0] / times[name][0]:.3f} "
-              f"of it, inputs {shapes} ({card})")
+        print(f"time {name}: kernel {times[name][0]:.4f} ms (events), "
+              f"{graph[name]:.4f} ms (graph), twin {times[name][1]:.4f} ms, "
+              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}), "
+              f"{bounds[name][0] / times[name][0]:.3f} / "
+              f"{bounds[name][0] / graph[name]:.3f} of it, inputs {shapes} "
+              f"({card})")
+    kernel, _, args = cases["coarse_scores"][1]
+    k1_ms = cuda_ms(lambda: kernel(*args), 20)
+    k1_graph = graph_ms(lambda: kernel(*args), 20)
+    k1_bound = bound_ms("coarse_scores", args)[0]
+    print(f"time coarse_scores (distinct templates: random c, ry, rx at "
+          f"{tuple(args[1]['c'].shape)}): kernel {k1_ms:.4f} ms (events), "
+          f"{k1_graph:.4f} ms (graph), bound {k1_bound:.4f} ms, "
+          f"{k1_bound / k1_ms:.3f} / {k1_bound / k1_graph:.3f} of it "
+          f"({card})")
     eng.set_advanced_param("icp_mode", default_icp.mode)
     frame_ms = {}
     for setting in ("a", "b"):
@@ -724,6 +819,7 @@ def run(dev) -> None:
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1], "launches": launches[name],
          "max_abs_err": errs[name], "ms": times[name][0],
+         "graph_ms": graph[name],
          "plain_ms": times[name][1], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}
         for name in cases]}))
@@ -742,6 +838,7 @@ def training_and_cli(dev, bgr_np, depth_np, card, zero_counts, read_counts,
     from fealess_tpu_torch import config as cfg
     from fealess_tpu_torch import training
     from fealess_tpu_torch.apps import cli, fixture, scan_package
+    from fealess_tpu_torch.apps.profile_reco import graph_ms
     from fealess_tpu_torch.io import linemod_yaml
     from fealess_tpu_torch.io.export import ServingArtifact
 
@@ -833,6 +930,12 @@ def training_and_cli(dev, bgr_np, depth_np, card, zero_counts, read_counts,
                       f"served {served.bank.num_templates}-template bank")
         check(n_pairs == served.cfg.icp.max_points,
               f"served ICP pairs {n_pairs}")
+        kernel, _, args = served_cases["coarse_scores"][0]
+        print(f"time coarse_scores (served {served.bank.capacity}-slot "
+              f"bank): kernel {cuda_ms(lambda: kernel(*args), 20):.4f} ms "
+              f"(events), {graph_ms(lambda: kernel(*args), 20):.4f} ms "
+              f"(graph), bound {bound_ms('coarse_scores', args)[0]:.4f} ms "
+              f"({card})")
         zero_counts()
         res = served.recognition(frame0.bgr, frame0.depth_mm, cam)
         read_counts("served forced ICP")

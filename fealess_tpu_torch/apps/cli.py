@@ -49,12 +49,17 @@ def _series_paths(directory: str, color_sub: str = "gray",
 
 def _frames(pairs, shape_hw, depth_scale: float):
     """(index, bgr u8, depth u16) per pair, in order; depth x depth_scale
-    (rounded half to even) unless the scale is 1."""
-    from fealess_tpu_torch.io.png import read_png
+    (rounded half to even) unless the scale is 1.  A pair whose colour or
+    depth PNG does not decode is skipped and keeps its index, as the JAX
+    CLI's frame loader does."""
+    from fealess_tpu_torch.io.png import DecodeError, read_png
 
     for idx, (cp, dp) in enumerate(pairs):
-        bgr = read_png(cp, color=True)
-        depth = read_png(dp)
+        try:
+            bgr = read_png(cp, color=True)
+            depth = read_png(dp)
+        except DecodeError:
+            continue
         if bgr.shape[:2] != shape_hw or depth.shape != shape_hw:
             raise ValueError(
                 f"frame {cp}: colour {bgr.shape[:2]}, depth {depth.shape};"

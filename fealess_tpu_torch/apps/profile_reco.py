@@ -30,7 +30,12 @@ and prints, per frame:
 - the ten device-event names with the most time.
 
 Then the path's stage split of one frame outside the profiler, each stage
-timed on the host clock between ``torch.cuda.synchronize()`` calls.
+timed on the host clock between ``torch.cuda.synchronize()`` calls.  The
+``top1`` path also profiles the coarse stage alone
+(``detector.coarse_candidates``, ``--frames`` calls on the fixture's
+planes) and prints its device time a call split into kernel K1 and the
+rest of the stage (the candidate gates and the top-K), and K1's time
+between CUDA events around a CUDA graph of 20 launches.
 ``--trace DIR`` also writes each setting's Chrome trace there.
 """
 
@@ -51,6 +56,7 @@ from fealess_tpu_torch import nms as nms_mod
 from fealess_tpu_torch import pipeline
 from fealess_tpu_torch.apps import fixture
 from fealess_tpu_torch.apps.track import TrackedRecognizer, roi_box
+from fealess_tpu_torch.ops import score
 from fealess_tpu_torch.tracker.kcf import KcfTracker
 
 FORCED = {"icp_dist_mean_threshold": 0.0, "icp_dist_diff_threshold": -1e30}
@@ -64,6 +70,30 @@ def busy_us(intervals) -> float:
             total += e - max(s, end)
             end = e
     return total
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of ``reps`` calls captured in one CUDA
+    graph, between CUDA events around its replay: the device's time,
+    without the host's launch cost between calls (which back-to-back
+    events measure once a kernel takes less time than its wrapper)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def stage_ms(fn, reps: int = 5):
@@ -138,6 +168,44 @@ def refine(eng, depth, k, m, i):
         m.template_slot[i], m.x[i], m.y[i], eng.cfg, eng.cfg.refine_crop)
 
 
+def coarse_stage(eng, planes, n: int) -> None:
+    """Print the device time of one ``detector.coarse_candidates`` call
+    from a trace of ``n`` calls: K1's kernel, and the rest of the stage;
+    then K1 alone between CUDA events around a CUDA graph of 20
+    launches."""
+    det = eng.cfg.detector
+    l_c = det.pyramid_levels - 1
+
+    def call():
+        return td.coarse_candidates(eng.bank, planes,
+                                    eng.cfg.matching_threshold, det,
+                                    eng._kernels)
+
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    k1 = [e for e in dev if "coarse_scores_kernel" in e.name]
+    if not k1:
+        raise SystemExit("profile_reco: no K1 kernel in the coarse stage")
+    total = busy_us([(e.time_range.start, e.time_range.end)
+                     for e in dev]) / 1e3 / n
+    k1_ms = busy_us([(e.time_range.start, e.time_range.end)
+                     for e in k1]) / 1e3 / n
+    print(f"coarse stage: device busy {total:.4f} ms/call, K1 {k1_ms:.4f} "
+          f"ms ({len(k1) / n:.0f}x), rest {total - k1_ms:.4f} ms "
+          f"({(len(dev) - len(k1)) / n:.0f} device events)")
+    k1_graph = graph_ms(
+        lambda: score.coarse_scores(planes[l_c][0], eng._kernels[l_c]), 20)
+    print(f"coarse stage: K1 {k1_graph:.4f} ms a launch between CUDA "
+          f"events around a CUDA graph of 20")
+
+
 def path_top1(eng, bgr_np, depth_np, cam, args) -> None:
     for setting, params in (("a", {}), ("b", FORCED)):
         set_icp(eng, params)
@@ -155,6 +223,7 @@ def path_top1(eng, bgr_np, depth_np, cam, args) -> None:
         t_ref, _ = stage_ms(lambda: refine(eng, depth, k, m, 0))
         print(f"stages top1 {setting}: prepare {t_prep:.3f} ms, front-end "
               f"{t_fe:.3f} ms, match {t_match:.3f} ms, refine {t_ref:.3f} ms")
+    coarse_stage(eng, planes, args.frames)
 
 
 def path_multi(eng, bgr_np, depth_np, cam, args) -> None:

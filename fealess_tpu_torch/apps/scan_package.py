@@ -33,7 +33,8 @@ from fealess_tpu_torch import config as cfg
 from fealess_tpu_torch import training
 from fealess_tpu_torch.bank import TemplateView
 from fealess_tpu_torch.io import linemod_yaml
-from fealess_tpu_torch.io.png import read_png, write_png
+from fealess_tpu_torch.io.png import (DecodeError, read_png,
+                                      read_png_gray, write_png)
 
 CHUNK = 32             # masked frames quantized per device call
 
@@ -91,15 +92,18 @@ class TrainingFrame:
 
 def iter_training_frames(package_dir: str) -> Iterator[TrainingFrame]:
     """Yield frames in the reference's training layout until a file is
-    missing (linemod_train.cpp:40-67)."""
+    missing or a PNG does not decode (linemod_train.cpp:40-67)."""
     i = 0
     while True:
         gray_p = os.path.join(package_dir, "gray", f"{i}.png")
         depth_p = os.path.join(package_dir, "depth", f"{i}.png")
         if not (os.path.isfile(gray_p) and os.path.isfile(depth_p)):
             return
-        bgr = read_png(gray_p, color=True)
-        depth_raw = read_png(depth_p)
+        try:
+            bgr = read_png(gray_p, color=True)
+            depth_raw = read_png(depth_p)
+        except DecodeError:
+            return
         # depth png is 0.1mm units; convertTo(CV_16U, 0.1) -> mm (cvRound)
         depth_mm = np.clip(np.rint(depth_raw.astype(np.float64) * 0.1),
                            0, 65535).astype(np.uint16)
@@ -180,17 +184,15 @@ class ScanPackage:
 
 
 def _read_mask(path: str) -> Optional[np.ndarray]:
-    """``cv2.imread(path, IMREAD_GRAYSCALE) > 0`` for a gray mask png
-    (16-bit samples cut to their high byte, as libpng's strip-16); None
-    when the file does not exist.  Colour masks are refused."""
+    """``cv2.imread(path, IMREAD_GRAYSCALE) > 0``: any PNG kind, colour
+    converted to gray by libpng's rule; None when the file is missing or
+    does not decode."""
     if not os.path.isfile(path):
         return None
-    img = read_png(path)
-    if img.ndim != 2:
-        raise IOError(f"mask {path} is not a gray png (shape {img.shape})")
-    if img.dtype == np.uint16:
-        img = img >> 8
-    return img > 0
+    try:
+        return read_png_gray(path) > 0
+    except DecodeError:
+        return None
 
 
 def load_scan_package(package_dir: str, obj_tag: str = "obj") -> ScanPackage:

@@ -16,14 +16,28 @@
 // What bounds them on this card: both are gathers of u8 response values
 // with integer adds.  At the fixture operating point K1 reads ~1.2e8 plane
 // bytes (1024 templates x 1200 positions x ~95 features) from a 1.2 MB
-// plane stack that stays in L2, so it is bound by L1/L2 load throughput and
-// by latency, not by DRAM bandwidth or arithmetic.  K2 is tiny (64 x 256
-// outputs) and bound by launch latency.
+// plane stack that stays in L2, so it is bound by instruction issue and by
+// L1/L2 load throughput, not by DRAM bandwidth or arithmetic.  K2 is tiny
+// (64 x 256 outputs) and bound by launch latency.
 //
-// Design: one thread per output, accumulating in int32 in table order, so
-// the result is bitwise equal to the plain twin; the template's (or
-// candidate's) table row is staged once per block in shared memory and
-// read as a broadcast by every thread.  The TPU kernel's nibble packing,
+// K1 design: a block scores one template; each thread owns kCoarseRun
+// adjacent x positions of one row.  The template's features are staged
+// once in shared memory, 8 bytes each ({plane offset c*Hd*Wd + ry*Wd + rx,
+// ry << 16 | 8*rx}), so a feature costs one broadcast load.  For every
+// feature a thread reads the kCoarseRun plane bytes it needs with
+// kCoarseRun/4 + 1 aligned 32-bit loads and a funnel shift, zeroes the
+// bytes past the row's end (a mask from Wd - x0 - rx) or the whole run when
+// the row y + ry is past Hd (one compare on the packed entry; rx, ry >= 0,
+// so those are the only edges), and adds the bytes as packed 16-bit lanes
+// (even and odd bytes).  The lanes are flushed into int32 sums every 256
+// features, so no lane can overflow for any u8 input.  Integer sums are
+// order-free, so the result is bitwise equal to the plain twin.  Loads are
+// clamped to the last aligned word of the plane stack: a word that holds
+// no byte the thread needs is masked out, and no load leaves the buffer.
+//
+// K2 design: one thread per output, accumulating in int32 in table order;
+// the candidate's table row is staged once per block in shared memory and
+// read as a broadcast by every thread.  The TPU kernels' nibble packing,
 // stride-2 preshifted copy, 128-lane relayout and rx buckets are layout
 // workarounds for the TPU's vector unit and are not carried over.
 
@@ -32,43 +46,83 @@
 
 namespace {
 
-constexpr int kCoarseThreads = 256;
+constexpr int kCoarseRun = 8;        // adjacent x positions a thread
+constexpr int kCoarseWords = kCoarseRun / 4;
+constexpr int kCoarseMaxThreads = 256;
+constexpr int kCoarseFlush = 256;    // features per packed-lane flush
 constexpr int kWin = 16;  // LOCAL_WINDOW
 
-__global__ void coarse_scores_kernel(const uint8_t* __restrict__ planes,
-                                     int hd, int wd,
-                                     const int32_t* __restrict__ tc,
-                                     const int32_t* __restrict__ tr,
-                                     const int32_t* __restrict__ tx,
-                                     const int32_t* __restrict__ bstart,
-                                     int nf, int nb1,
-                                     int32_t* __restrict__ out) {
-  extern __shared__ int32_t smem[];
-  int32_t* sc = smem;
-  int32_t* sr = smem + nf;
-  int32_t* sx = smem + 2 * nf;
+__global__ void __launch_bounds__(kCoarseMaxThreads)
+coarse_scores_kernel(const uint8_t* __restrict__ planes, int hd, int wd,
+                     int groups, unsigned last_byte,
+                     const int32_t* __restrict__ tc,
+                     const int32_t* __restrict__ tr,
+                     const int32_t* __restrict__ tx,
+                     const int32_t* __restrict__ bstart, int nf, int nb1,
+                     int32_t* __restrict__ out) {
+  extern __shared__ int2 tab[];
   const int n = blockIdx.x;
   const int nvalid = min(bstart[(size_t)n * nb1 + nb1 - 1], nf);
+  const int plane = hd * wd;
   const size_t row = (size_t)n * nf;
   for (int f = threadIdx.x; f < nvalid; f += blockDim.x) {
-    sc[f] = tc[row + f];
-    sr[f] = tr[row + f];
-    sx[f] = tx[row + f];
+    const int ry = tr[row + f];
+    const int rx = tx[row + f];
+    tab[f] = make_int2(tc[row + f] * plane + ry * wd + rx,
+                       (ry << 16) | (rx << 3));
   }
   __syncthreads();
-  const int p = blockIdx.y * blockDim.x + threadIdx.x;
-  if (p >= hd * wd) return;
-  const int y = p / wd;
-  const int x = p - y * wd;
-  const size_t plane = (size_t)hd * wd;
-  int32_t acc = 0;
-  for (int f = 0; f < nvalid; ++f) {
-    const int yy = y + sr[f];
-    const int xx = x + sx[f];
-    if ((unsigned)yy < (unsigned)hd && (unsigned)xx < (unsigned)wd)
-      acc += planes[sc[f] * plane + (size_t)yy * wd + xx];
+  const int g = blockIdx.y * blockDim.x + threadIdx.x;
+  if (g >= hd * groups) return;
+  const int y = g / groups;
+  const int x0 = (g - y * groups) * kCoarseRun;
+  // byte offsets are taken from the 4-byte-aligned address at or below
+  // `planes`, so that every word load is aligned
+  const unsigned mis = static_cast<unsigned>(
+      reinterpret_cast<uintptr_t>(planes) & 3u);
+  const unsigned pos = mis + static_cast<unsigned>(y * wd + x0);
+  const unsigned m = pos & 3u;
+  const uint8_t* p = planes - mis + (pos - m);
+  const unsigned lim = ((mis + last_byte) & ~3u) - (pos - m);
+  const int xlim8 = (wd - x0) * 8;
+  const int ylim16 = (hd - y) << 16;
+  int32_t total[kCoarseRun] = {};
+  for (int f0 = 0; f0 < nvalid; f0 += kCoarseFlush) {
+    const int f1 = min(f0 + kCoarseFlush, nvalid);
+    uint32_t lo[kCoarseWords] = {}, hi[kCoarseWords] = {};
+#pragma unroll 4
+    for (int f = f0; f < f1; ++f) {
+      const int2 e = tab[f];
+      // valid bits of the run from its first byte: 8 * (Wd - x0 - rx), or
+      // none when the row y + ry is past the plane
+      const int n8 = e.y < ylim16 ? xlim8 - (e.y & 0xFFFF) : 0;
+      const unsigned t = static_cast<unsigned>(e.x) + m;
+      const unsigned a = t & ~3u;
+      uint32_t w[kCoarseWords + 1];
+#pragma unroll
+      for (int j = 0; j <= kCoarseWords; ++j)
+        w[j] = *reinterpret_cast<const uint32_t*>(p + min(a + 4u * j, lim));
+#pragma unroll
+      for (int j = 0; j < kCoarseWords; ++j) {
+        const uint32_t mask = __funnelshift_lc(
+            0xFFFFFFFFu, 0u, static_cast<unsigned>(max(n8 - 32 * j, 0)));
+        const uint32_t v = __funnelshift_r(w[j], w[j + 1], t << 3) & mask;
+        lo[j] += v & 0x00FF00FFu;
+        hi[j] += (v >> 8) & 0x00FF00FFu;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kCoarseWords; ++j) {
+      total[4 * j] += lo[j] & 0xFFFFu;
+      total[4 * j + 1] += hi[j] & 0xFFFFu;
+      total[4 * j + 2] += lo[j] >> 16;
+      total[4 * j + 3] += hi[j] >> 16;
+    }
   }
-  out[(size_t)n * plane + p] = acc;
+  int32_t* o = out + (size_t)n * plane + (size_t)y * wd + x0;
+#pragma unroll
+  for (int k = 0; k < kCoarseRun; ++k)
+    if (x0 + k < wd) o[k] = total[k];
 }
 
 __global__ void local_scores_kernel(const uint8_t* __restrict__ planes,
@@ -114,15 +168,20 @@ __global__ void local_scores_kernel(const uint8_t* __restrict__ planes,
 
 }  // namespace
 
-extern "C" int fl_coarse_scores(const void* planes, int hd, int wd,
+extern "C" int fl_coarse_scores(const void* planes, int c, int hd, int wd,
                                 const void* tc, const void* tr,
                                 const void* tx, const void* bstart, int n,
                                 int nf, int nb1, void* out, void* stream) {
-  dim3 grid(n, (hd * wd + kCoarseThreads - 1) / kCoarseThreads);
-  size_t smem = 3 * (size_t)nf * sizeof(int32_t);
-  coarse_scores_kernel<<<grid, kCoarseThreads, smem,
+  const int groups = (wd + kCoarseRun - 1) / kCoarseRun;
+  const int threads_needed = hd * groups;
+  const int threads =
+      min(kCoarseMaxThreads, (threads_needed + 31) / 32 * 32);
+  dim3 grid(n, (threads_needed + threads - 1) / threads);
+  const size_t smem = (size_t)nf * sizeof(int2);
+  const unsigned last_byte = static_cast<unsigned>((size_t)c * hd * wd - 1);
+  coarse_scores_kernel<<<grid, threads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(planes), hd, wd,
+      static_cast<const uint8_t*>(planes), hd, wd, groups, last_byte,
       static_cast<const int32_t*>(tc), static_cast<const int32_t*>(tr),
       static_cast<const int32_t*>(tx), static_cast<const int32_t*>(bstart),
       nf, nb1, static_cast<int32_t*>(out));

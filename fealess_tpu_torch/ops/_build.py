@@ -37,8 +37,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # planes, hd, wd, c, ry, rx, bstart, n, nf, nb1, out, stream
-    "fl_coarse_scores": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    # planes, channels, hd, wd, c, ry, rx, bstart, n, nf, nb1, out, stream
+    "fl_coarse_scores": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P,
+                         _P),
     # planes, hd, wd, c, ry, rx, bstart, k, nf, nb1, px0, py0, out, stream
     "fl_local_scores": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                         _P),

@@ -24,6 +24,7 @@ from fealess_tpu_torch.ops import _build
 LOCAL_WINDOW = 16   # 16x16 decimated refinement patch (linemod.cpp:1243)
 _TABLE_KEYS = ("c", "ry", "rx", "bstart")
 _MAX_FEATURES = 4096
+_MAX_OFFSET = 8191   # table offsets rx, ry lie in [0, NB) with NB <= this
 
 
 def coarse_scores_plain(planes: torch.Tensor, table) -> torch.Tensor:
@@ -100,7 +101,9 @@ def coarse_scores(planes: torch.Tensor, table) -> torch.Tensor:
     """(N, Hd, Wd) int32 whole-image raw scores at the coarse level
     (``similarity``, linemod.cpp:1130-1214, zero-padded beyond the image).
 
-    ``planes``: (C, Hd, Wd) u8 decimated responses (values 0..4).  CUDA
+    ``planes``: (C, Hd, Wd) u8 decimated responses (values 0..4; the
+    kernel is exact for any u8).  Table offsets ``rx``/``ry`` are
+    non-negative, as :func:`detector.build_match_tables` makes them.  CUDA
     tensors run kernel K1; CPU tensors run :func:`coarse_scores_plain`.
     """
     if planes.device.type == "cpu":
@@ -110,14 +113,21 @@ def coarse_scores(planes: torch.Tensor, table) -> torch.Tensor:
     _build.require(planes, "planes", torch.uint8, 3, dev)
     n, nf = table["c"].shape
     _require_table(table, n, dev)
-    _, hd, wd = planes.shape
+    ch, hd, wd = planes.shape
+    if planes.numel() >= 2 ** 31:
+        raise ValueError(f"planes {tuple(planes.shape)}: K1 addresses them "
+                         f"with 32-bit offsets")
+    if table["bstart"].shape[1] - 1 > _MAX_OFFSET:
+        # K1 packs a feature's offsets as ry << 16 | 8 * rx (rx, ry < NB)
+        raise ValueError(f"{table['bstart'].shape[1] - 1} offset buckets "
+                         f"exceed {_MAX_OFFSET}")
     out = torch.empty((n, hd, wd), dtype=torch.int32, device=dev)
     if n == 0 or hd * wd == 0:
         return out.zero_()
     lib = _build.library()
     with torch.cuda.device(dev):
         rc = lib.fl_coarse_scores(
-            planes.data_ptr(), hd, wd, table["c"].data_ptr(),
+            planes.data_ptr(), ch, hd, wd, table["c"].data_ptr(),
             table["ry"].data_ptr(), table["rx"].data_ptr(),
             table["bstart"].data_ptr(), n, nf, table["bstart"].shape[1],
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)

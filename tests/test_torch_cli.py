@@ -13,6 +13,7 @@ import shutil
 import subprocess
 import sys
 
+import cv2
 import numpy as np
 import pytest
 import torch
@@ -20,7 +21,7 @@ import torch
 from fealess_tpu.apps import cli as jax_cli
 from fealess_tpu_torch.apps import cli
 from tests.test_torch_engine import T_TOL_MM, _rot_diff_deg
-from tests.test_torch_io import LOADED
+from tests.test_torch_io import LOADED, adam7_png, bad_plte_png
 from tests.test_torch_scan_package import write_package
 
 torch.set_num_threads(1)
@@ -77,7 +78,33 @@ def trained(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def jax_lines(trained):
+def corrupt_series(trained, tmp_path_factory):
+    """A recon series of the package's 3 frames and copies of frame 0 as
+    frames 3 and 4, with frame 1's colour PNG cut in half, frame 2's depth
+    PNG replaced by bytes that are no PNG and frame 4's colour PNG by a
+    palette PNG whose PLTE length is no multiple of 3."""
+    d = str(tmp_path_factory.mktemp("series"))
+    for sub in ("gray", "depth"):
+        os.makedirs(os.path.join(d, sub))
+        for i in range(5):
+            shutil.copy(os.path.join(trained["jax"], sub, f"{i % 3}.png"),
+                        os.path.join(d, sub, f"{i}.png"))
+    path = os.path.join(d, "gray", "1.png")
+    with open(path, "rb") as f:
+        data = f.read()
+    with open(path, "wb") as f:
+        f.write(data[:len(data) // 2])
+    with open(os.path.join(d, "depth", "2.png"), "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + bytes(range(64)))
+    h, w = cv2.imread(os.path.join(d, "depth", "0.png"),
+                      cv2.IMREAD_UNCHANGED).shape
+    with open(os.path.join(d, "gray", "4.png"), "wb") as f:
+        f.write(bad_plte_png(h, w))
+    return d
+
+
+@pytest.fixture(scope="module")
+def jax_lines(trained, corrupt_series):
     """The JAX CLI's train output and recon/track JSON lines on its copy."""
     d = trained["jax"]
     out = {"train": _capture(jax_cli.main, ["train", d])}
@@ -85,7 +112,9 @@ def jax_lines(trained):
                       ("point", ["recon", d, "--icp-mode",
                                  "point_to_point"] + RECON),
                       ("multi", ["recon", d, "--multi"] + RECON),
-                      ("track", ["track", d] + RECON)):
+                      ("track", ["track", d] + RECON),
+                      ("corrupt", ["recon", d, "--series", corrupt_series]
+                       + RECON)):
         rc, lines = _capture(jax_cli.main, argv)
         assert rc == 0
         out[key] = [json.loads(ln) for ln in lines if ln.startswith("{")]
@@ -144,6 +173,46 @@ def test_cli_recon_matches_jax(port_trained, jax_lines, capsys, key, flags):
     want = jax_lines[key]
     assert len(want) == 3 and all(w["results"] for w in want)
     _same_lines(got, want)
+
+
+def test_cli_recon_skips_undecodable_frames(port_trained, jax_lines,
+                                           corrupt_series, capsys):
+    """A pair whose colour or depth PNG does not decode (cut, not a PNG, a
+    bad PLTE) is skipped and the frame index counts on over it: the JAX
+    CLI's lines, frames 0 and 3."""
+    rc, got, _, err = _run(cli.main, ["recon", port_trained[0], "--series",
+                                      corrupt_series, "--device", "cpu"]
+                           + RECON, capsys)
+    assert rc == 0 and "2 frames in" in err
+    want = jax_lines["corrupt"]
+    assert [w["frame"] for w in want] == [0, 3]
+    _same_lines(got, want)
+
+
+def test_cli_recon_refuses_interlaced_frame(port_trained, tmp_path,
+                                            capsys):
+    """An Adam7-interlaced colour PNG, which cv2 (and so the JAX CLI) reads,
+    stops the recon run with UnsupportedPNG; it is never skipped as an
+    undecodable frame."""
+    from fealess_tpu_torch.io.png import UnsupportedPNG
+    src = port_trained[0]
+    for sub in ("gray", "depth"):
+        os.makedirs(tmp_path / sub)
+        for i in range(2):
+            shutil.copy(os.path.join(src, sub, "0.png"),
+                        tmp_path / sub / f"{i}.png")
+    bgr = cv2.imread(os.path.join(src, "gray", "0.png"))
+    path = str(tmp_path / "gray" / "1.png")
+    with open(path, "wb") as f:
+        f.write(adam7_png(np.ascontiguousarray(bgr[:, :, ::-1])))
+    np.testing.assert_array_equal(cv2.imread(path), bgr)
+    with pytest.raises(UnsupportedPNG,
+                       match="interlaced PNGs are not supported"):
+        cli.main(["recon", src, "--series", str(tmp_path), "--device",
+                  "cpu"] + RECON)
+    out = capsys.readouterr().out
+    assert [json.loads(ln)["frame"] for ln in out.splitlines()
+            if ln.startswith("{")] == [0]
 
 
 def test_cli_export_and_artifact_recon(port_trained, jax_lines, tmp_path,

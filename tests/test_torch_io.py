@@ -34,16 +34,14 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def _encode_png(img: np.ndarray, filters) -> bytes:
-    """PNG bytes of a gray (H, W) or RGB (H, W, 3) u8/u16 image, row r
-    filtered with ``filters[r % len(filters)]`` (0 None .. 4 Paeth)."""
-    h, w = img.shape[:2]
-    ch = 1 if img.ndim == 2 else 3
-    depth = 16 if img.dtype == np.uint16 else 8
-    raw = np.ascontiguousarray(img.astype(">u2" if depth == 16 else np.uint8))
-    raw = raw.view(np.uint8).reshape(h, -1).astype(np.int64)
-    bpp = ch * depth // 8
-    rows = []
+def _png_bytes(rows: np.ndarray, w: int, depth: int, color: int, bpp: int,
+               filters, chunks=()) -> bytes:
+    """PNG bytes of (H, stride) u8 packed scanlines, row r filtered with
+    ``filters[r % len(filters)]`` (0 None .. 4 Paeth) over ``bpp``-byte
+    pixels; ``chunks`` ((kind, body), ...) go between IHDR and IDAT."""
+    raw = rows.astype(np.int64)
+    h = raw.shape[0]
+    out = []
     prev = np.zeros(raw.shape[1], np.int64)
     for r in range(h):
         f = filters[r % len(filters)]
@@ -63,13 +61,61 @@ def _encode_png(img: np.ndarray, filters) -> bytes:
             pa, pb, pc = abs(p - left), abs(p - prev), abs(p - upleft)
             pred = np.where((pa <= pb) & (pa <= pc), left,
                             np.where(pb <= pc, prev, upleft))
-        rows.append(bytes([f]) + ((x - pred) & 255).astype(np.uint8).tobytes())
+        out.append(bytes([f]) + ((x - pred) & 255).astype(np.uint8).tobytes())
         prev = x
-    color = 0 if ch == 1 else 2
     ihdr = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", ihdr)
+            + b"".join(_chunk(k, b) for k, b in chunks)
+            + _chunk(b"IDAT", zlib.compress(b"".join(out)))
+            + _chunk(b"IEND", b""))
+
+
+def _encode_png(img: np.ndarray, filters) -> bytes:
+    """PNG bytes of a gray (H, W) or RGB (H, W, 3) u8/u16 image, row r
+    filtered with ``filters[r % len(filters)]`` (0 None .. 4 Paeth)."""
+    h, w = img.shape[:2]
+    ch = 1 if img.ndim == 2 else 3
+    depth = 16 if img.dtype == np.uint16 else 8
+    raw = np.ascontiguousarray(img.astype(">u2" if depth == 16 else np.uint8))
+    return _png_bytes(raw.view(np.uint8).reshape(h, -1), w, depth,
+                      0 if ch == 1 else 2, ch * depth // 8, filters)
+
+
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def adam7_png(img: np.ndarray) -> bytes:
+    """PNG bytes of a u8 gray (H, W) or RGB (H, W, 3) image, Adam7
+    interlaced: the seven passes' rows in order, each with filter None."""
+    h, w = img.shape[:2]
+    rows = [b"\0" + np.ascontiguousarray(row).tobytes()
+            for x0, y0, dx, dy in _ADAM7 for row in img[y0::dy, x0::dx]
+            if row.size]
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if img.ndim == 2 else 2, 0, 0,
+                       1)
     return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", ihdr)
             + _chunk(b"IDAT", zlib.compress(b"".join(rows)))
             + _chunk(b"IEND", b""))
+
+
+def bad_plte_png(h: int, w: int) -> bytes:
+    """An 8-bit palette PNG whose PLTE chunk is 8 bytes long, not a multiple
+    of 3, which cv2.imread refuses."""
+    return _png_bytes(np.zeros((h, w), np.uint8), w, 8, 3, 1, [0],
+                      [(b"PLTE", bytes(8))])
+
+
+def _pack_samples(samples: np.ndarray, depth: int) -> np.ndarray:
+    """(H, N) integer samples -> (H, stride) u8 scanlines at ``depth``
+    bits, the last byte of a sub-byte row zero-padded."""
+    h, n = samples.shape
+    if depth == 16:
+        return samples.astype(">u2").view(np.uint8).reshape(h, -1)
+    if depth == 8:
+        return samples.astype(np.uint8)
+    bits = (samples[:, :, None] >> np.arange(depth - 1, -1, -1)) & 1
+    return np.packbits(bits.reshape(h, -1).astype(np.uint8), axis=1)
 
 
 @pytest.mark.parametrize("name", ["scene_bgr.png", "scene_depth.png",
@@ -102,6 +148,139 @@ def test_png_reader_filter_types(tmp_path, filters):
         np.testing.assert_array_equal(got, want)
         bgr = img if img.ndim == 2 else img[:, :, ::-1]
         np.testing.assert_array_equal(got, bgr)
+
+
+# colour type, bit depth, palette entries (0: none) and tRNS: each PNG kind
+# the reader covers besides 8/16-bit gray and RGB, at an odd width
+_KINDS = {"palette8": (3, 8, 11, False), "palette8-trns": (3, 8, 11, True),
+          "palette4-trns": (3, 4, 9, True), "palette2": (3, 2, 4, False),
+          "palette1-trns": (3, 1, 2, True), "gray-alpha8": (4, 8, 0, False),
+          "gray-alpha16": (4, 16, 0, False), "rgba8": (6, 8, 0, False),
+          "rgba16": (6, 16, 0, False), "gray1": (0, 1, 0, False),
+          "gray2": (0, 2, 0, False), "gray4": (0, 4, 0, False),
+          "gray4-trns": (0, 4, 0, True), "rgb8-trns": (2, 8, 0, True),
+          "rgb16-trns": (2, 16, 0, True)}
+
+
+@pytest.mark.parametrize("kind", sorted(_KINDS))
+def test_png_reader_kinds_match_cv2(tmp_path, kind):
+    """Palette (with and without tRNS), gray+alpha, RGBA, gray at 1/2/4
+    bits and RGB/gray with a tRNS colour, 13 columns wide so that sub-byte
+    rows end mid-byte, rows through all five filters: read_png equals
+    cv2.imread with IMREAD_UNCHANGED, read_png(color=True) with
+    IMREAD_COLOR and read_png_gray with IMREAD_GRAYSCALE."""
+    from fealess_tpu_torch.io.png import read_png_gray
+    color, depth, n_pal, trns = _KINDS[kind]
+    rng = np.random.default_rng(sorted(_KINDS).index(kind))
+    h, w = 6, 13
+    ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+    top = n_pal if color == 3 else 1 << depth
+    if trns and color in (0, 2):
+        top = 3                    # small values, so the tRNS colour occurs
+    samples = rng.integers(0, top, (h, w * ch))
+    if color == 2:
+        samples[0, :6] = (0, 0, 1, 0, 1, 2)    # gray 0; the tRNS colour
+    chunks = []
+    if color == 3:
+        chunks.append((b"PLTE", rng.integers(0, 256, (n_pal, 3),
+                                             dtype=np.uint8).tobytes()))
+        if trns:                   # shorter than the palette: 255 past it
+            chunks.append((b"tRNS", rng.integers(
+                0, 256, max(1, n_pal - 1), dtype=np.uint8).tobytes()))
+    elif trns:
+        chunks.append((b"tRNS", struct.pack(">" + "H" * ch, *range(ch))))
+    path = str(tmp_path / f"{kind}.png")
+    with open(path, "wb") as f:
+        f.write(_png_bytes(_pack_samples(samples, depth), w, depth, color,
+                           max(1, ch * depth // 8), [0, 1, 2, 3, 4],
+                           chunks))
+    for got, flag in ((read_png(path), cv2.IMREAD_UNCHANGED),
+                      (read_png(path, color=True), cv2.IMREAD_COLOR),
+                      (read_png_gray(path), cv2.IMREAD_GRAYSCALE)):
+        want = cv2.imread(path, flag)
+        assert got.dtype == want.dtype and got.shape == want.shape, flag
+        np.testing.assert_array_equal(got, want, err_msg=str(flag))
+
+
+def test_png_gray_rule_matches_cv2(tmp_path):
+    """IMREAD_GRAYSCALE of colour PNGs is libpng's fixed-point rule: every
+    8-bit RGB triple below 64 (where truncation decides ``> 0`` for masks)
+    and random 8- and 16-bit pixels give cv2's gray exactly."""
+    from fealess_tpu_torch.io.png import read_png_gray
+    rng = np.random.default_rng(5)
+    v = np.arange(64 ** 3)
+    low = np.stack([v >> 12, (v >> 6) & 63, v & 63], -1).reshape(512, 512, 3)
+    cases = [(low, 8), (rng.integers(0, 256, (64, 97, 3)), 8),
+             (rng.integers(0, 65536, (64, 97, 3)), 16)]
+    for i, (rgb, depth) in enumerate(cases):
+        h, w, _ = rgb.shape
+        path = str(tmp_path / f"rgb{i}.png")
+        with open(path, "wb") as f:
+            f.write(_png_bytes(_pack_samples(rgb.reshape(h, -1), depth), w,
+                               depth, 2, 3 * depth // 8, [0, 1]))
+        np.testing.assert_array_equal(read_png_gray(path),
+                                      cv2.imread(path, cv2.IMREAD_GRAYSCALE))
+
+
+def test_png_reader_refusals(tmp_path):
+    """An Adam7-interlaced file, which cv2.imread reads, is refused with
+    UnsupportedPNG, which is no DecodeError; truncated data, a foreign file
+    and a palette PNG with a PLTE of 8 bytes, for which cv2.imread returns
+    None, with DecodeError."""
+    from fealess_tpu_torch.io.png import DecodeError, UnsupportedPNG
+    img = np.arange(35, dtype=np.uint8).reshape(5, 7)
+    inter = tmp_path / "adam7.png"
+    inter.write_bytes(adam7_png(img))
+    np.testing.assert_array_equal(
+        cv2.imread(str(inter), cv2.IMREAD_UNCHANGED), img)
+    with pytest.raises(UnsupportedPNG,
+                       match="interlaced PNGs are not supported") as e:
+        read_png(str(inter))
+    assert not isinstance(e.value, DecodeError)
+    whole = _encode_png(np.arange(64 * 48, dtype=np.uint16).reshape(48, 64),
+                        [1])
+    for name, data in (("cut_idat", whole[:len(whole) // 2]),
+                       ("cut_ihdr", whole[:20]), ("text", b"not a png"),
+                       ("bad_plte", bad_plte_png(5, 7))):
+        path = str(tmp_path / f"{name}.png")
+        with open(path, "wb") as f:
+            f.write(data)
+        assert cv2.imread(path, cv2.IMREAD_UNCHANGED) is None
+        with pytest.raises(DecodeError):
+            read_png(path)
+
+
+# chunks that libpng ignores (a benign error) or pads, so that cv2 reads
+# the image: (colour type, PLTE, tRNS)
+_IGNORED = {"rgb-plte-8-bytes": (2, bytes(8), None),
+            "gray-plte": (0, bytes(range(12)), None),
+            "rgb-trns-4-bytes": (2, None, bytes(4)),
+            "palette-trns-past-plte": (3, bytes(range(12)), bytes(5)),
+            "palette-trns-empty": (3, bytes(range(12)), b""),
+            "palette-index-past-plte": (3, bytes(range(6)), b"\x07")}
+
+
+@pytest.mark.parametrize("kind", sorted(_IGNORED))
+def test_png_reader_ignored_chunks_match_cv2(tmp_path, kind):
+    """A PLTE in a gray or RGB file (8 bytes long in the RGB one), a tRNS of
+    the wrong length and palette indices past the PLTE entries (black, alpha
+    255) read as cv2.imread reads them with all three flags."""
+    from fealess_tpu_torch.io.png import read_png_gray
+    color, plte, trns = _IGNORED[kind]
+    ch = 3 if color == 2 else 1
+    samples = np.random.default_rng(len(kind)).integers(0, 4, (4, 5 * ch))
+    chunks = [(k, b) for k, b in ((b"PLTE", plte), (b"tRNS", trns))
+              if b is not None]
+    path = str(tmp_path / f"{kind}.png")
+    with open(path, "wb") as f:
+        f.write(_png_bytes(_pack_samples(samples, 8), 5, 8, color, ch, [0],
+                           chunks))
+    for got, flag in ((read_png(path), cv2.IMREAD_UNCHANGED),
+                      (read_png(path, color=True), cv2.IMREAD_COLOR),
+                      (read_png_gray(path), cv2.IMREAD_GRAYSCALE)):
+        want = cv2.imread(path, flag)
+        assert got.dtype == want.dtype and got.shape == want.shape, flag
+        np.testing.assert_array_equal(got, want, err_msg=str(flag))
 
 
 def _assert_same_classes(port, ref):

@@ -4,6 +4,7 @@ packed bank, every Matches field, and the tie order among the fixture's
 identical templates at the coarse top-K and after the class and ROI
 gates."""
 
+import dataclasses
 import os
 
 import cv2
@@ -151,3 +152,67 @@ def test_match_class_and_roi_gates_exact(fixture):
             class_mask=torch.from_numpy(class_mask),
             roi_box=torch.from_numpy(roi))
         _matches_equal(got, ref)
+
+
+def _small_bank(jb, n):
+    """The first ``n`` fixture slots with 16 x 16 px templates (8 x 8 at
+    the coarse level), so every coarse cell may seed a candidate."""
+    size = np.tile(np.asarray([16, 8], np.int32), (n, 1))
+    leaves = {k: np.asarray(getattr(jb, k))[:n] for k in _LEAVES}
+    leaves.update(width=size, height=size)
+    jbank = jb.replace(**{k: jnp.asarray(v) for k, v in leaves.items()})
+    pbank = bank_from_numpy(leaves, jb.class_names, jb.max_span, device="cpu")
+    return jbank, pbank
+
+
+# (raw score draw, Hd, Wd, max_candidates, slots): scores 200..248 around
+# the fixture's raw threshold (~217 at 75%) tie within and across rows;
+# "few" leaves most rows with fewer than K live cells; "none" masks every
+# cell; Hd = Wd = 1 takes JAX's flat fallback (one cell a row).  Its other
+# fallback, N * min(K, P) < K, means N * P < K, where JAX's flat top_k
+# itself refuses K
+@pytest.mark.parametrize("draw,hd,wd,k,n", [
+    ("ties", 30, 40, 64, 128), ("ties", 7, 9, 5, 128),
+    ("few", 30, 40, 64, 128), ("none", 12, 15, 64, 128),
+    ("ties", 1, 1, 64, 128), ("few", 1, 1, 7, 96)])
+def test_coarse_row_topk_matches_jax(fixture, monkeypatch, draw, hd, wd, k,
+                                     n):
+    """The coarse top-K gives what JAX's per-row top-K and merge give
+    (score, slot, x, y), tie order included, on raw scores injected into
+    both packages' coarse stage."""
+    det, jb, _, _, _, _ = fixture
+    det = dataclasses.replace(det, max_candidates=k)
+    jbank, pbank = _small_bank(jb, n)
+    rng = np.random.default_rng(hd * 100 + wd + k)
+    vals = np.asarray([200, 220, 230, 248], np.int32)
+    raw = vals[rng.integers(0, 4, (n, hd, wd))]
+    if draw == "few":
+        raw = np.where(rng.random((n, hd, wd)) < 0.01, raw, 100)
+    elif draw == "none":
+        raw[:] = 100
+    raw[n // 2] = raw[0]                       # two identical rows
+    t_c = det.t_at_level[-1]
+    shape = (8, hd, wd)
+    jax_planes = [(jnp.zeros(shape, jnp.uint8), (hd * 16, wd * 16)),
+                  (jnp.zeros(shape, jnp.uint8), (hd * t_c, wd * t_c))]
+    port_planes = [(torch.zeros(shape, dtype=torch.uint8), hw)
+                   for _, hw in jax_planes]
+    monkeypatch.setattr(jax_det, "ALLOW_PROFILE_STOPS", True)
+    monkeypatch.setattr(jax_det.score_pallas, "coarse_scores",
+                        lambda d, t: jnp.asarray(raw))
+    monkeypatch.setattr(port_det.score, "coarse_scores",
+                        lambda d, t: torch.from_numpy(raw))
+    ref = _jax_match(det, profile_stop="topk")(
+        jbank, jax_planes, jax_det.build_match_tables(jbank, det))
+    tables = port_det.build_match_tables(pbank, to_port(det))
+    sim, slot, x, y = port_det.coarse_candidates(pbank, port_planes, 75.0,
+                                                 to_port(det), tables)
+    np.testing.assert_array_equal(sim.numpy(), np.asarray(ref.similarity))
+    np.testing.assert_array_equal(slot.numpy(), np.asarray(ref.template_slot))
+    np.testing.assert_array_equal(x.numpy(), np.asarray(ref.x))
+    np.testing.assert_array_equal(y.numpy(), np.asarray(ref.y))
+    live = np.isfinite(sim.numpy())
+    if draw == "none":
+        assert not live.any()
+    elif draw == "ties":
+        assert live.all() and (sim.numpy() == sim.numpy()[0]).sum() > 1

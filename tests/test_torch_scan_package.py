@@ -20,7 +20,7 @@ from fealess_tpu_torch.io import linemod_yaml
 from fealess_tpu_torch.io.png import read_png, write_png
 from tests.test_match_e2e import make_scene
 from tests.test_torch_config import to_port
-from tests.test_torch_io import _assert_same_classes
+from tests.test_torch_io import _assert_same_classes, adam7_png
 
 torch.set_num_threads(1)
 
@@ -116,11 +116,62 @@ def test_iter_training_frames_stops_at_missing_files(tmp_path):
         [f.index for f in jax_scan.iter_training_frames(d)] == [0]
 
 
-def test_load_scan_package_matches_jax(tmp_path):
-    """GL projection, bounding box and mask pngs (8- and 16-bit gray)
-    overriding the depth-sentinel mask; a colour mask is refused."""
+def _truncate(path):
+    with open(path, "rb") as f:
+        data = f.read()
+    with open(path, "wb") as f:
+        f.write(data[:len(data) // 2])
+
+
+def test_scan_package_stops_at_undecodable_png(tmp_path):
+    """Frame 2's gray PNG is cut in half: iter_training_frames and
+    load_scan_package end the package there, as JAX's do (frame 3 is
+    never read)."""
     d = str(tmp_path)
-    write_package(d)
+    write_package(d, shifts=SHIFTS + ((2, 2),))
+    _truncate(os.path.join(d, "gray", "2.png"))
+    got = list(scan_package.iter_training_frames(d))
+    want = list(jax_scan.iter_training_frames(d))
+    assert [f.index for f in got] == [f.index for f in want] == [0, 1]
+    for g, w in zip(got, want):
+        _assert_same_frame(g, w)
+    got = scan_package.load_scan_package(d).frames
+    want = jax_scan.load_scan_package(d).frames
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        _assert_same_frame(g, w)
+
+
+def test_scan_package_refuses_interlaced_png(tmp_path):
+    """An Adam7-interlaced gray frame or mask PNG, which cv2 (and so JAX)
+    reads, raises UnsupportedPNG: it neither ends the package nor counts as
+    an absent mask."""
+    from fealess_tpu_torch.io.png import UnsupportedPNG
+    frame, mask = str(tmp_path / "frame"), str(tmp_path / "mask")
+    write_package(frame)
+    write_package(mask)
+    path = os.path.join(frame, "gray", "1.png")
+    bgr = cv2.imread(path)
+    with open(path, "wb") as f:
+        f.write(adam7_png(np.ascontiguousarray(bgr[:, :, ::-1])))
+    np.testing.assert_array_equal(cv2.imread(path), bgr)
+    with pytest.raises(UnsupportedPNG):
+        list(scan_package.iter_training_frames(frame))
+    os.makedirs(os.path.join(mask, "mask"))
+    with open(os.path.join(mask, "mask", "0.png"), "wb") as f:
+        f.write(adam7_png(np.full((160, 240), 255, np.uint8)))
+    with pytest.raises(UnsupportedPNG):
+        scan_package.load_scan_package(mask)
+
+
+def test_load_scan_package_matches_jax(tmp_path):
+    """GL projection, bounding box and mask pngs overriding the
+    depth-sentinel mask: 8- and 16-bit gray, an RGB and an RGBA mask (read
+    as cv2's IMREAD_GRAYSCALE reads them, small values so that libpng's
+    gray rounding decides ``> 0``), and a corrupt mask, which leaves the
+    sentinel mask."""
+    d = str(tmp_path)
+    write_package(d, shifts=SHIFTS + ((2, 2), (-3, -1)))
     with open(os.path.join(d, "colorCameraGLProjection.txt"), "w") as fh:
         fh.write(" ".join(str(0.5 * i) for i in range(16)) + "\n")
     with open(os.path.join(d, "volumeData.txt"), "w") as fh:
@@ -131,19 +182,26 @@ def test_load_scan_package_matches_jax(tmp_path):
     m16 = rng.integers(0, 600, (160, 240)).astype(np.uint16)
     write_png(os.path.join(d, "mask", "0.png"), m8)
     write_png(os.path.join(d, "mask", "2.png"), m16)
+    rgb = rng.integers(0, 10, (160, 240, 3)).astype(np.uint8)
+    rgb[0, :3] = ((1, 0, 0), (0, 0, 1), (0, 0, 9))     # B, G, R: 0, 0, 1
+    rgba = rng.integers(0, 10, (160, 240, 4)).astype(np.uint8)
+    assert cv2.imwrite(os.path.join(d, "mask", "1.png"), rgb)
+    assert cv2.imwrite(os.path.join(d, "mask", "3.png"), rgba)
+    write_png(os.path.join(d, "mask", "4.png"), m8)
+    _truncate(os.path.join(d, "mask", "4.png"))
     got = scan_package.load_scan_package(d, obj_tag="box")
     want = jax_scan.load_scan_package(d, obj_tag="box")
     assert got.obj_tag == want.obj_tag == "box"
     np.testing.assert_array_equal(got.gl_projection, want.gl_projection)
     np.testing.assert_array_equal(got.bounding_box, want.bounding_box)
-    assert len(got.frames) == len(want.frames) == 3
+    assert len(got.frames) == len(want.frames) == 5
     for g, w in zip(got.frames, want.frames):
         _assert_same_frame(g, w)
     np.testing.assert_array_equal(got.frames[2].mask, m16 >= 256)
-    write_png(os.path.join(d, "mask", "1.png"),
-              np.zeros((160, 240, 3), np.uint8))
-    with pytest.raises(IOError):
-        scan_package.load_scan_package(d)
+    assert got.frames[1].mask[0, :3].tolist() == [False, False, True]
+    assert not got.frames[1].mask.all() and got.frames[1].mask.any()
+    sentinel = list(scan_package.iter_training_frames(d))[4].mask
+    np.testing.assert_array_equal(got.frames[4].mask, sentinel)
 
 
 def test_train_package_matches_jax(tmp_path, package):

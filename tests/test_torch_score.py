@@ -89,13 +89,32 @@ def _coarse_case(seed, span_cells, hd, wd):
     return planes, jt, pt
 
 
-@pytest.mark.parametrize("seed,span_cells,hd,wd", [(0, 5, 12, 15),
-                                                   (1, 9, 6, 7),
-                                                   (2, 3, 30, 40)])
-def test_coarse_twin_equals_jax(seed, span_cells, hd, wd):
+def _edge_row(jt, pt):
+    """Template 0 with every valid feature at the largest offsets
+    (rx = ry = NB - 1, all in the last rx bucket), in both tables."""
+    nb = pt["bstart"].shape[1] - 1
+    nvalid = int(pt["bstart"][0, -1])
+    jt = dict(jt)
+    for key in ("ry", "rx"):
+        pt[key][0, :nvalid] = nb - 1
+        jt[key] = jt[key].at[0, :nvalid].set(nb - 1)
+    pt["bstart"][0, :nb] = 0
+    jt["bstart"] = jt["bstart"].at[0, :nb].set(0)
+    return jt, pt
+
+
+@pytest.mark.parametrize("seed,span_cells,hd,wd,edge", [
+    (0, 5, 12, 15, False), (1, 9, 6, 7, False), (2, 3, 30, 40, False),
+    (0, 5, 12, 37, False), (1, 9, 6, 41, True), (2, 3, 30, 37, True)])
+def test_coarse_twin_equals_jax(seed, span_cells, hd, wd, edge):
     """K1's twin: exact against _coarse_scores_xla, also where template
-    offsets reach past the plane (span larger than the grid)."""
+    offsets reach past the plane (span larger than the grid), at widths
+    that are not a multiple of 4, and with a template whose features all
+    sit at the largest offsets (the kernel's bottom and right edges)."""
     planes, jt, pt = _coarse_case(seed, span_cells, hd, wd)
+    if edge:
+        jt, pt = _edge_row(jt, pt)
+        assert int(pt["bstart"][0, -1]) > 0
     want = np.asarray(score_pallas._coarse_scores_xla(jnp.asarray(planes),
                                                       jt))
     got = score.coarse_scores_plain(torch.from_numpy(planes), pt)
@@ -104,6 +123,10 @@ def test_coarse_twin_equals_jax(seed, span_cells, hd, wd):
     # the wrapper takes the twin for CPU tensors
     np.testing.assert_array_equal(
         score.coarse_scores(torch.from_numpy(planes), pt).numpy(), want)
+    if edge:                       # only the top-left corner stays on the plane
+        nb = pt["bstart"].shape[1] - 1
+        assert not want[0, max(hd - nb + 1, 0):].any()
+        assert not want[0, :, max(wd - nb + 1, 0):].any()
 
 
 def _local_case(seed):
