@@ -13,11 +13,17 @@ Phases, one line of output each (or a few):
 3. each kernel against its plain PyTorch twin on the same CUDA tensors, at
    the shapes the Recognition path gives it on the in-repo fixture
    (``benchmarks/reference/out``: 1024 templates, 640x480 RGB-D scene):
-   K1 coarse scores and K2 local scores bitwise, K3 nearest neighbour
-   index-equal and d2 bitwise; K1 also on distinct templates and its edge
-   cases (``coarse_cases``: random features, Wd = 37, Hd = 1, templates
-   without features, features at the largest offsets, 4096 features on u8
-   up to 255, misaligned planes), K3 on the edges of its split of the
+   K1 coarse scores bitwise; K2 as the fused refinement level
+   (``score.local_refine``: scores, x, y, best sum and feature count
+   bitwise) and with the origins given (``score.local_scores``), on its
+   edge cases (``local_cases``: all-zero planes, 4096 features on u8 up
+   to 255, misaligned planes, Wd = 125, K = 1 and 0, clamps at the
+   border from both sides, windows shifted out of the plane); K3 nearest
+   neighbour index-equal and d2 bitwise; K1 also on distinct templates
+   and its edge cases (``coarse_cases``: random features, Wd = 37, Hd =
+   1, templates without features, features at the largest offsets, 4096
+   features on u8 up to 255, misaligned planes), K3 on the edges of its
+   split of the
    reference set (``nn_cases``: duplicate rows straddling every chunk
    boundary, ragged query and reference counts, a single row, rows at
    ``icp.PAD_COORD``); and the coarse stage (``detector.coarse_candidates``:
@@ -51,7 +57,8 @@ Phases, one line of output each (or a few):
    around 20 back-to-back launches (3 for a twin; the kernels' ``ms``),
    and for each kernel also events around the replay of a CUDA graph of
    20 launches (``profile_reco.graph_ms``: the device's time without the
-   host's launch cost), K1 also on 1024 distinct templates; each kernel's bound
+   host's launch cost), K1 also on 1024 distinct templates; the launch
+   floor (the graph time of a one-element in-place add); each kernel's bound
    (``bound_ms``: the larger of its bytes over the card's memory rate and
    its operations over the f32 rate) and its share of it; warm per-frame
    times of Recognition, multi-object Recognition and a tracked frame, and
@@ -313,6 +320,69 @@ def coarse_cases(planes, table):
             for a in cases]
 
 
+def local_cases(planes, table, tslot, x, y, width, height, nfeat, level, t,
+                offset, size):
+    """K2's cases on one refinement level's inputs (the path's own first):
+    the fused entry (``score.local_refine``) on all-zero planes (every
+    window ties, so the first maximum is cell 0), on 4096 features a row
+    with u8 values up to 255 (the packed 16-bit lanes must be flushed), on
+    planes 1, 2 and 3 bytes past a 4-byte boundary, on planes 125 columns
+    wide (Wd not a multiple of 4, windows past it), for K = 1 and K = 0,
+    and on positions whose clamp hits the border from below (x = y = 0),
+    from above (x = y = 10**5) and from both sides (a slot whose template
+    is wider and taller than the level, where the lower bound wins); then
+    the same kernel with the origins given (``score.local_scores``) on the
+    candidates' windows and on windows shifted 20 cells out of the
+    plane."""
+    import torch
+    from fealess_tpu_torch.ops import score
+    c, hd, wd = planes.shape
+    dev = planes.device
+    nb = table["bstart"].shape[1] - 1
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def rand(high, shape, dtype=torch.int32):
+        return torch.randint(0, high, shape, generator=g, dtype=dtype,
+                             device=dev)
+
+    rest = (width, height, nfeat, level, t, offset, size)
+    fused = lambda *a: (score.local_refine, score.local_refine_plain, a)
+    n, nf = min(8, width.shape[0]), 4096
+    wide = {"c": rand(c, (n, nf)), "ry": rand(nb, (n, nf)),
+            "rx": rand(nb, (n, nf)),
+            "bstart": torch.full((n, nb + 1), nf, dtype=torch.int32,
+                                 device=dev)}
+    flat = torch.cat([planes.new_zeros(3), planes.reshape(-1)])
+    h, w = size
+    k = tslot.shape[0]
+    edge_x = (torch.arange(k, device=dev) % 2 * 10 ** 5).to(torch.int32)
+    big = tslot[1::4]
+    width_big, height_big = width.clone(), height.clone()
+    width_big[big, level] = w
+    height_big[big, level] = h
+    cases = [fused(planes, table, tslot, x, y, *rest),
+             fused(torch.zeros_like(planes), table, tslot, x, y, *rest),
+             fused(rand(256, planes.shape, torch.uint8), wide, tslot % n, x,
+                   y, width[:n].contiguous(), height[:n].contiguous(),
+                   nfeat[:n].contiguous(), *rest[3:])]
+    cases += [fused(flat[i:i + planes.numel()].view(planes.shape), table,
+                    tslot, x, y, *rest) for i in (1, 2, 3)]
+    cases += [fused(planes[:, :, :125].contiguous(), table, tslot, x, y,
+                    *rest),
+              fused(planes, table, tslot[:1], x[:1], y[:1], *rest),
+              fused(planes, table, tslot[:0], x[:0], y[:0], *rest),
+              fused(planes, table, tslot, edge_x, edge_x.flip(0), *rest),
+              fused(planes, table, tslot, x, y, width_big, height_big,
+                    *rest[2:])]
+    table_k, px0, py0, _, _ = score.local_window_inputs(
+        table, tslot, x, y, width, height, level, t, size)
+    cases += [(score.local_scores, score.local_scores_plain,
+               (planes, table_k, px0, py0)),
+              (score.local_scores, score.local_scores_plain,
+               (planes, table_k, px0 - 20, py0 - 20))]
+    return cases
+
+
 def same_coarse_candidates(eng, planes, tables, where: str) -> None:
     """``detector.coarse_candidates`` on the card (K1, the gates and the
     top-K) returns exactly what it returns on CPU copies of its inputs
@@ -339,14 +409,14 @@ def kernel_cases(eng, bgr_np, depth_np, cam):
     """Each kernel's cases at the shapes ``eng.recognition`` gives it on
     this frame, {name: [(kernel, twin, args)]}, and the refine's ICP pair
     count: K1 on the coarse level and the edge cases of
-    :func:`coarse_cases`, K2 on the top candidates' windows (and shifted
-    20 px out of the frame), K3 on the best match's clouds and the edge
-    cases of :func:`nn_cases`.  The first case of each kernel is the
-    path's own.  On the way, :func:`same_coarse_candidates` holds the
-    coarse stage on the card to the same stage on the CPU."""
+    :func:`coarse_cases`, K2 on the level-0 refinement of the top
+    candidates and the edge cases of :func:`local_cases`, K3 on the best
+    match's clouds and the edge cases of :func:`nn_cases`.  The first
+    case of each kernel is the path's own.  On the way,
+    :func:`same_coarse_candidates` holds the coarse stage on the card to
+    the same stage on the CPU."""
     from fealess_tpu_torch import detector as td
     from fealess_tpu_torch import pipeline
-    from fealess_tpu_torch.ops import score
     det = eng.cfg.detector
     bgr, depth, scene_k = eng._prepare_frame(bgr_np, depth_np, cam)
     planes = td.response_planes(td.quantized_pyramid(bgr, depth, det), det)
@@ -354,8 +424,10 @@ def kernel_cases(eng, bgr_np, depth_np, cam):
     _, tslot, x, y = td.coarse_candidates(eng.bank, planes,
                                           eng.cfg.matching_threshold, det,
                                           tables)
-    d0, table_k, px0, py0, _, _ = td.local_window_inputs(
-        eng.bank, planes, det, tables, 0, tslot, x, y)
+    t0 = det.t_at_level[0]
+    level0 = (planes[0][0], tables[0], tslot, x, y, eng.bank.width,
+              eng.bank.height, eng.bank.num_features(), 0, t0,
+              td._offset(t0), planes[0][1])
     matches = td.match_from_planes(eng.bank, planes,
                                    eng.cfg.matching_threshold, det, tables)
     cand = pipeline.candidate_inputs(eng.bank, eng._model_depth_dev,
@@ -370,45 +442,42 @@ def kernel_cases(eng, bgr_np, depth_np, cam):
     return {
         "coarse_scores": coarse_cases(planes[det.pyramid_levels - 1][0],
                                       tables[det.pyramid_levels - 1]),
-        "local_scores": [(score.local_scores, score.local_scores_plain,
-                          (d0, table_k, px0, py0)),
-                         (score.local_scores, score.local_scores_plain,
-                          (d0, table_k, px0 - 20, py0 - 20))],
+        "local_refine": local_cases(*level0),
         "nearest_neighbor": nn_cases(model, ref),
     }, int(pair_mask.sum())
 
 
 def hold_to_twins(cases, errs, where: str) -> None:
-    """Every case's kernel against its twin: K1/K2 bitwise, K3 indices
-    equal and d2 bitwise; ``errs[name]`` keeps the largest |kernel - twin|
-    over every call."""
+    """Every case's kernel against its twin, every output bitwise (K1's
+    scores; K2's scores, x, y, best sum and feature count; K3's indices
+    and d2); ``errs[name]`` keeps the largest |kernel - twin| over every
+    call."""
     import torch
 
     def shapes(args):
         return [{k: tuple(v.shape) for k, v in a.items()}
-                if isinstance(a, dict) else tuple(a.shape) for a in args]
+                if isinstance(a, dict) else tuple(a.shape)
+                for a in args if isinstance(a, (dict, torch.Tensor))]
 
     for name, runs in cases.items():
         errs.setdefault(name, 0.0)
-        for kernel, plain, args in runs:
+        for i, (kernel, plain, args) in enumerate(runs):
             got = kernel(*args)
             want = plain(*args)
             torch.cuda.synchronize()
-            if name == "nearest_neighbor":
-                check(torch.equal(got[0], want[0]),
-                      f"{name} ({where}): idx differs at "
-                      f"{int((got[0] != want[0]).sum())} queries")
-                check(torch.equal(got[1], want[1]),
-                      f"{name} ({where}): d2 not bitwise equal")
-                err = (got[1] - want[1]).abs().max().item()
-            else:
-                check(got.dtype == want.dtype and got.shape == want.shape,
-                      f"{name} ({where}): {got.dtype}{tuple(got.shape)} vs "
-                      f"{want.dtype}{tuple(want.shape)}")
-                err = (got - want).abs().max().item()
-                check(err == 0, f"{name} ({where}): max |kernel - twin| = "
-                      f"{err}")
-            errs[name] = max(errs[name], float(err))
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            for j, (a, b) in enumerate(zip(got, want)):
+                where_j = (f"{name} ({where}) case {i} "
+                           f"{kernel.__name__} output {j}")
+                check(a.dtype == b.dtype and a.shape == b.shape,
+                      f"{where_j}: {a.dtype}{tuple(a.shape)} vs "
+                      f"{b.dtype}{tuple(b.shape)}")
+                check(torch.equal(a, b), f"{where_j}: differs at "
+                      f"{int((a != b).sum())} entries")
+                if a.numel():
+                    err = (a.double() - b.double()).abs().max().item()
+                    errs[name] = max(errs[name], err)
         print(f"kernel {name} ({where}): equal to its twin on {len(runs)} "
               f"case(s), inputs " + ", ".join(
                   str(shapes(args)) for _, _, args in runs) +
@@ -424,8 +493,11 @@ def bound_ms(name, args):
     position; K2 one integer add per plane byte that a live feature's
     16x16 window reads (its row start on the plane, as the kernel gates
     it), and of the planes only the distinct (channel, row, column) bytes
-    those windows read."""
+    those windows read; the fused K2 reads its candidates' table rows,
+    slots, positions and bank entries, and writes the scores and 4 int32
+    per candidate."""
     import torch
+    from fealess_tpu_torch.ops import score
 
     def size(ts):
         return sum(t.numel() * t.element_size() for a in ts
@@ -442,7 +514,16 @@ def bound_ms(name, args):
         ops = int(table["bstart"][:, -1].clamp(max=nf).sum()) * \
             planes.shape[1] * planes.shape[2]
     else:
-        planes, table, px0, py0 = args
+        if len(args) > 4:            # the fused entry: derive its windows
+            planes, table, tslot, x, y, width, height, _, level, t, _, \
+                hw = args
+            table, px0, py0, _, _ = score.local_window_inputs(
+                table, tslot, x, y, width, height, level, t, hw)
+            # slots, positions, 3 bank entries in; x, y, best, nf out
+            io = size([tslot, x, y]) + tslot.shape[0] * 7 * 4
+        else:
+            planes, table, px0, py0 = args
+            io = size([px0, py0])
         k, nf = table["c"].shape
         _, hd, wd = planes.shape
         a = py0.clamp(min=0)[:, None] + table["ry"]
@@ -456,7 +537,7 @@ def bound_ms(name, args):
         on = (y < hd) & (x >= 0) & (x < wd)
         cell = (table["c"][keep][:, None, None].long() * hd + y) * wd + x
         ops = int(on.sum())
-        nbytes = (size(args[1:]) + k * 16 * 16 * 4 +
+        nbytes = (size([table]) + io + k * 16 * 16 * 4 +
                   int(torch.unique(cell[on]).numel()) * planes.element_size())
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -518,7 +599,8 @@ def run(dev) -> None:
           f" s)")
     log = (_build.BUILD_DIR / "build.log").read_text()
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if ("registers" in line or "spill" in line
+                or "Function properties" in line):
             print(f"  ptxas: {line.strip()}")
 
     # -- fixture on the card
@@ -539,7 +621,7 @@ def run(dev) -> None:
     tables = eng._kernels
 
     # -- 4. end to end through the public API
-    counted = (score.coarse_scores, score.local_scores, nn.nearest_neighbor)
+    counted = (score.coarse_scores, score.local_refine, nn.nearest_neighbor)
     path_launches = {}
 
     def zero_counts():
@@ -726,6 +808,10 @@ def run(dev) -> None:
                 for k, fn in enumerate(counted)}
 
     # -- 5. timing
+    one = torch.zeros(1, device=dev)
+    floor_ms = graph_ms(lambda: one.add_(1), 20)
+    print(f"time launch floor: {floor_ms:.4f} ms (graph) a one-element "
+          f"in-place add ({card})")
     times, graph, bounds = {}, {}, {}
     for name, runs in cases.items():
         kernel, plain, args = runs[0]
@@ -733,13 +819,15 @@ def run(dev) -> None:
                        cuda_ms(lambda: plain(*args), 3))
         graph[name] = graph_ms(lambda: kernel(*args), 20)
         bounds[name] = bound_ms(name, args)
-        shapes = [tuple(a.shape) for a in args if not isinstance(a, dict)]
+        shapes = [tuple(a.shape) for a in args
+                  if isinstance(a, torch.Tensor)]
         print(f"time {name}: kernel {times[name][0]:.4f} ms (events), "
               f"{graph[name]:.4f} ms (graph), twin {times[name][1]:.4f} ms, "
-              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}), "
+              f"bound {bounds[name][0]:.6f} ms ({bounds[name][1]}), "
               f"{bounds[name][0] / times[name][0]:.3f} / "
-              f"{bounds[name][0] / graph[name]:.3f} of it, inputs {shapes} "
-              f"({card})")
+              f"{bounds[name][0] / graph[name]:.3f} of it, graph "
+              f"{graph[name] / floor_ms:.2f}x the launch floor, inputs "
+              f"{shapes} ({card})")
     kernel, _, args = cases["coarse_scores"][1]
     k1_ms = cuda_ms(lambda: kernel(*args), 20)
     k1_graph = graph_ms(lambda: kernel(*args), 20)
@@ -806,7 +894,7 @@ def run(dev) -> None:
 
     src = {"coarse_scores": ("fealess_tpu_torch/csrc/score.cu",
                              "fealess_tpu/ops/score_pallas.py:153"),
-           "local_scores": ("fealess_tpu_torch/csrc/score.cu",
+           "local_refine": ("fealess_tpu_torch/csrc/score.cu",
                             "fealess_tpu/ops/score_pallas.py:277"),
            "nearest_neighbor": ("fealess_tpu_torch/csrc/nn.cu",
                                 "fealess_tpu/ops/nn_pallas.py:35")}
@@ -819,7 +907,7 @@ def run(dev) -> None:
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1], "launches": launches[name],
          "max_abs_err": errs[name], "ms": times[name][0],
-         "graph_ms": graph[name],
+         "graph_ms": graph[name], "launch_floor_ms": floor_ms,
          "plain_ms": times[name][1], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}
         for name in cases]}))

@@ -35,7 +35,11 @@ timed on the host clock between ``torch.cuda.synchronize()`` calls.  The
 (``detector.coarse_candidates``, ``--frames`` calls on the fixture's
 planes) and prints its device time a call split into kernel K1 and the
 rest of the stage (the candidate gates and the top-K), and K1's time
-between CUDA events around a CUDA graph of 20 launches.
+between CUDA events around a CUDA graph of 20 launches; and one
+refinement level alone (level 0 of ``detector.match_from_planes``:
+positions in, new x, y and similarity out): its device time and device
+events a call, its host time a call (enqueue only, and to a
+synchronisation), and K2's time from a CUDA graph of 20 launches.
 ``--trace DIR`` also writes each setting's Chrome trace there.
 """
 
@@ -206,6 +210,83 @@ def coarse_stage(eng, planes, n: int) -> None:
           f"events around a CUDA graph of 20")
 
 
+def _refine_level_unfused(eng, planes, tslot, x, y, nf):
+    """Level 0 of ``match_from_planes`` as trees without
+    ``detector.refine_level`` run it (``local_window_inputs``, K2 at the
+    given origins, then the argmax epilogue in torch), so that A/B runs
+    time the same stage in both."""
+    det = eng.cfg.detector
+    t, win = det.t_at_level[0], score.LOCAL_WINDOW
+    d0, table_k, px0, py0, x, y = td.local_window_inputs(
+        eng.bank, planes, det, eng._kernels, 0, tslot, x, y)
+    total = score.local_scores(d0, table_k, px0, py0).reshape(
+        -1, win * win).to(torch.float32)
+    best, best_idx = total.max(dim=1).values, total.argmax(dim=1)
+    offs = td._offset(t)
+    x = ((x // t - 8 + best_idx % win) * t + offs).to(torch.int32)
+    y = ((y // t - 8 + best_idx // win) * t + offs).to(torch.int32)
+    sim = best * 100.0 / (4 * nf[tslot, 0].clamp(min=1)).to(torch.float32)
+    return x, y, sim
+
+
+def local_stage(eng, planes, n: int) -> None:
+    """Print one refinement level's device time and device events a call
+    from a trace of ``n`` calls (level 0, on the coarse stage's
+    candidates), its host time a call, enqueued only and to a
+    synchronisation, and K2 alone between CUDA events around a CUDA graph
+    of 20 launches."""
+    det = eng.cfg.detector
+    _, tslot, x, y = td.coarse_candidates(eng.bank, planes,
+                                          eng.cfg.matching_threshold, det,
+                                          eng._kernels)
+    nf = eng.bank.num_features()
+    if hasattr(td, "refine_level"):
+        t = det.t_at_level[0]
+
+        def call():
+            return td.refine_level(eng.bank, planes, det, eng._kernels, 0,
+                                   tslot, x, y, nf)
+
+        def k2():
+            return score.local_refine(
+                planes[0][0], eng._kernels[0], tslot, x, y, eng.bank.width,
+                eng.bank.height, nf, 0, t, td._offset(t), planes[0][1])
+    else:
+        def call():
+            return _refine_level_unfused(eng, planes, tslot, x, y, nf)
+
+        d0, table_k, px0, py0, _, _ = td.local_window_inputs(
+            eng.bank, planes, det, eng._kernels, 0, tslot, x, y)
+
+        def k2():
+            return score.local_scores(d0, table_k, px0, py0)
+
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = busy_us([(e.time_range.start, e.time_range.end)
+                    for e in dev]) / 1e3 / n
+    reps = 50
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    synced_ms, _ = stage_ms(call, reps)
+    print(f"local stage: device busy {busy:.4f} ms/call, {len(dev) / n:.0f} "
+          f"device events/call, host {enqueue_ms:.4f} ms/call enqueued, "
+          f"{synced_ms:.4f} ms/call to a synchronisation")
+    print(f"local stage: K2 {graph_ms(k2, 20):.4f} ms a launch between "
+          f"CUDA events around a CUDA graph of 20")
+
+
 def path_top1(eng, bgr_np, depth_np, cam, args) -> None:
     for setting, params in (("a", {}), ("b", FORCED)):
         set_icp(eng, params)
@@ -224,6 +305,7 @@ def path_top1(eng, bgr_np, depth_np, cam, args) -> None:
         print(f"stages top1 {setting}: prepare {t_prep:.3f} ms, front-end "
               f"{t_fe:.3f} ms, match {t_match:.3f} ms, refine {t_ref:.3f} ms")
     coarse_stage(eng, planes, args.frames)
+    local_stage(eng, planes, args.frames)
 
 
 def path_multi(eng, bgr_np, depth_np, cam, args) -> None:

@@ -9,8 +9,8 @@ Reproduces ``Detector::match``/``matchClass`` (linemod/linemod.cpp:
   (kernel K1, :func:`fealess_tpu_torch.ops.score.coarse_scores`),
 - exact top-K candidates, ordered (score desc, flat index asc) — the tie
   order of ``jax.lax.top_k``,
-- per-level 16x16 local refinement (kernel K2) with matchClass's clamp,
-  offset and score arithmetic (linemod.cpp:1509-1573),
+- per-level 16x16 local refinement (kernel K2, one launch a level) with
+  matchClass's clamp, offset and score arithmetic (linemod.cpp:1509-1573),
 - final (similarity desc, template_id asc) order with duplicate
   suppression (linemod.cpp:1437-1439).
 
@@ -241,26 +241,22 @@ def coarse_candidates(bank: TemplateBank, planes, threshold: float,
     return top_scores, tslot, x, y
 
 
-def local_window_inputs(bank: TemplateBank, planes, det: cfg.DetectorConfig,
-                        kernels, l: int, tslot: torch.Tensor,
-                        x: torch.Tensor, y: torch.Tensor):
-    """One refinement level's K2 inputs (linemod.cpp:1509-1534): the
-    candidates' positions from level l+1 clamped at level ``l`` (the lower
-    bound wins for a template bigger than the search area) and their
-    16x16 window origins.  Returns (planes_l, table_k, px0, py0, x, y)."""
+def refine_level(bank: TemplateBank, planes, det: cfg.DetectorConfig,
+                 kernels, l: int, tslot: torch.Tensor, x: torch.Tensor,
+                 y: torch.Tensor, nf: torch.Tensor):
+    """One refinement level (linemod.cpp:1509-1566): the candidates'
+    level-(l+1) positions ``x``/``y`` clamped at level ``l``, their 16x16
+    windows scored (kernel K2, :func:`score.local_refine`, one launch on
+    the card) and moved to the first maximum.  ``nf`` is
+    ``bank.num_features()``.  Returns (x, y, similarity)."""
     t = det.t_at_level[l]
-    d_l, (h, w) = planes[l]
-    border = 8 * t
-    width_l = bank.width[tslot, l]
-    height_l = bank.height[tslot, l]
-    x = torch.clamp(torch.minimum(x * 2 + 1, w - width_l - border),
-                    min=border)
-    y = torch.clamp(torch.minimum(y * 2 + 1, h - height_l - border),
-                    min=border)
-    px0 = (x // t - 8).to(_I32)
-    py0 = (y // t - 8).to(_I32)
-    table_k = {key: v.index_select(0, tslot) for key, v in kernels[l].items()}
-    return d_l, table_k, px0, py0, x, y
+    d_l, size = planes[l]
+    _, x, y, best, nf_l = score.local_refine(
+        d_l, kernels[l], tslot, x, y, bank.width, bank.height, nf, l, t,
+        _offset(t), size)
+    sim = best.to(torch.float32) * 100.0 / (
+        4 * nf_l.clamp(min=1)).to(torch.float32)
+    return x, y, sim
 
 
 def match_from_planes(bank: TemplateBank, planes, threshold: float,
@@ -270,7 +266,6 @@ def match_from_planes(bank: TemplateBank, planes, threshold: float,
     level, exact top-K, K2 on each survivor's 16x16 window at every finer
     level, then the final order (semantics of matchClass,
     linemod.cpp:1451-1577, as in the JAX package)."""
-    k = det.max_candidates
     if kernels is None or any(kernels[lv] is None
                               for lv in range(det.pyramid_levels)):
         kernels = build_match_tables(
@@ -280,20 +275,9 @@ def match_from_planes(bank: TemplateBank, planes, threshold: float,
                                          kernels, class_mask, roi_box)
     valid = torch.isfinite(sim)
     nf = bank.num_features()
-    win = score.LOCAL_WINDOW
     for l in range(det.pyramid_levels - 2, -1, -1):
-        t = det.t_at_level[l]
-        d_l, table_k, px0, py0, x, y = local_window_inputs(
-            bank, planes, det, kernels, l, tslot, x, y)
-        total = score.local_scores(d_l, table_k, px0, py0).reshape(
-            k, win * win).to(torch.float32)
-        best, best_idx = total.max(dim=1).values, total.argmax(dim=1)
-        best_r, best_c = best_idx // win, best_idx % win
-        offs = _offset(t)
-        x = ((x // t - 8 + best_c) * t + offs).to(_I32)
-        y = ((y // t - 8 + best_r) * t + offs).to(_I32)
-        nf_l = nf[tslot, l].clamp(min=1)
-        sim = best * 100.0 / (4 * nf_l).to(torch.float32)
+        x, y, sim = refine_level(bank, planes, det, kernels, l, tslot, x, y,
+                                 nf)
         valid = valid & (sim >= threshold)
 
     # final (similarity desc, template_idx asc) order — jnp.lexsort as two

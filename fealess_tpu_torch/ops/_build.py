@@ -40,9 +40,16 @@ _SIGNATURES = {
     # planes, channels, hd, wd, c, ry, rx, bstart, n, nf, nb1, out, stream
     "fl_coarse_scores": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P,
                          _P),
-    # planes, hd, wd, c, ry, rx, bstart, k, nf, nb1, px0, py0, out, stream
-    "fl_local_scores": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
-                        _P),
+    # planes, channels, hd, wd, c, ry, rx, bstart, k, nf, nb1, px0, py0,
+    # out, stream
+    "fl_local_scores": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                        _P, _P),
+    # planes, channels, hd, wd, c, ry, rx, bstart, nf, nb1, slot, x, y, k,
+    # width, height, nfeat, levels, level, t, w, h, offset, scores, x_out,
+    # y_out, best, nf_out, stream
+    "fl_local_refine": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P,
+                        _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                        _P, _P, _P),
     # query, nq, ref, nr, chunk, nchunks, part_idx, part_d2, idx, d2, stream
     "fl_nearest_neighbor": (_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P),
     "fl_nn_query_tile": (),

@@ -189,30 +189,41 @@ def test_cli_recon_skips_undecodable_frames(port_trained, jax_lines,
     _same_lines(got, want)
 
 
-def test_cli_recon_refuses_interlaced_frame(port_trained, tmp_path,
-                                            capsys):
-    """An Adam7-interlaced colour PNG, which cv2 (and so the JAX CLI) reads,
-    stops the recon run with UnsupportedPNG; it is never skipped as an
-    undecodable frame."""
-    from fealess_tpu_torch.io.png import UnsupportedPNG
+def test_cli_recon_refuses_interlaced_frame(port_trained, trained,
+                                            jax_lines, tmp_path, capsys):
+    """A series whose frame 1 colour PNG and frame 2 depth PNG are
+    Adam7-interlaced, which cv2 (and so the JAX CLI) reads: every frame is
+    recognised, and the lines equal the JAX CLI's.  (The name is kept from
+    when the port refused such frames.)"""
     src = port_trained[0]
     for sub in ("gray", "depth"):
         os.makedirs(tmp_path / sub)
-        for i in range(2):
-            shutil.copy(os.path.join(src, sub, "0.png"),
+        for i in range(3):
+            shutil.copy(os.path.join(src, sub, f"{i}.png"),
                         tmp_path / sub / f"{i}.png")
-    bgr = cv2.imread(os.path.join(src, "gray", "0.png"))
+    bgr = cv2.imread(os.path.join(src, "gray", "1.png"))
     path = str(tmp_path / "gray" / "1.png")
     with open(path, "wb") as f:
-        f.write(adam7_png(np.ascontiguousarray(bgr[:, :, ::-1])))
+        f.write(adam7_png(np.ascontiguousarray(bgr[:, :, ::-1]),
+                          filters=[0, 1, 2, 3, 4]))
     np.testing.assert_array_equal(cv2.imread(path), bgr)
-    with pytest.raises(UnsupportedPNG,
-                       match="interlaced PNGs are not supported"):
-        cli.main(["recon", src, "--series", str(tmp_path), "--device",
-                  "cpu"] + RECON)
-    out = capsys.readouterr().out
-    assert [json.loads(ln)["frame"] for ln in out.splitlines()
-            if ln.startswith("{")] == [0]
+    depth = cv2.imread(os.path.join(src, "depth", "2.png"),
+                       cv2.IMREAD_UNCHANGED)
+    path = str(tmp_path / "depth" / "2.png")
+    with open(path, "wb") as f:
+        f.write(adam7_png(depth, filters=[1, 2]))
+    np.testing.assert_array_equal(cv2.imread(path, cv2.IMREAD_UNCHANGED),
+                                  depth)
+    series = ["--series", str(tmp_path)] + RECON
+    rc, lines = _capture(jax_cli.main, ["recon", trained["jax"]] + series)
+    assert rc == 0
+    want = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    rc, got, _, err = _run(cli.main, ["recon", src, "--device", "cpu"]
+                           + series, capsys)
+    assert rc == 0 and "3 frames in" in err
+    assert [w["frame"] for w in want] == [0, 1, 2]
+    assert all(w["results"] for w in want)
+    _same_lines(got, want)
 
 
 def test_cli_export_and_artifact_recon(port_trained, jax_lines, tmp_path,

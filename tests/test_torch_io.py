@@ -34,16 +34,14 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def _png_bytes(rows: np.ndarray, w: int, depth: int, color: int, bpp: int,
-               filters, chunks=()) -> bytes:
-    """PNG bytes of (H, stride) u8 packed scanlines, row r filtered with
+def _filter_rows(rows: np.ndarray, bpp: int, filters) -> bytes:
+    """(H, stride) u8 packed scanlines, row r filtered with
     ``filters[r % len(filters)]`` (0 None .. 4 Paeth) over ``bpp``-byte
-    pixels; ``chunks`` ((kind, body), ...) go between IHDR and IDAT."""
+    pixels, each row led by its filter byte."""
     raw = rows.astype(np.int64)
-    h = raw.shape[0]
     out = []
     prev = np.zeros(raw.shape[1], np.int64)
-    for r in range(h):
+    for r in range(raw.shape[0]):
         f = filters[r % len(filters)]
         x = raw[r]
         left = np.concatenate([np.zeros(bpp, np.int64), x[:-bpp]])
@@ -63,11 +61,30 @@ def _png_bytes(rows: np.ndarray, w: int, depth: int, color: int, bpp: int,
                             np.where(pb <= pc, prev, upleft))
         out.append(bytes([f]) + ((x - pred) & 255).astype(np.uint8).tobytes())
         prev = x
-    ihdr = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 0)
+    return b"".join(out)
+
+
+def _png_file(w: int, h: int, depth: int, color: int, data: bytes,
+              chunks=(), interlace: int = 0, after=()) -> bytes:
+    """PNG bytes around the filtered image data ``data``; ``chunks``
+    ((kind, body), ...) go between IHDR and IDAT, ``after`` between IDAT
+    and IEND."""
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, interlace)
     return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", ihdr)
             + b"".join(_chunk(k, b) for k, b in chunks)
-            + _chunk(b"IDAT", zlib.compress(b"".join(out)))
+            + _chunk(b"IDAT", zlib.compress(data, 1))
+            + b"".join(_chunk(k, b) for k, b in after)
             + _chunk(b"IEND", b""))
+
+
+def _png_bytes(rows: np.ndarray, w: int, depth: int, color: int, bpp: int,
+               filters, chunks=(), after=()) -> bytes:
+    """PNG bytes of (H, stride) u8 packed scanlines, row r filtered with
+    ``filters[r % len(filters)]`` (0 None .. 4 Paeth) over ``bpp``-byte
+    pixels; ``chunks`` ((kind, body), ...) go between IHDR and IDAT,
+    ``after`` between IDAT and IEND."""
+    return _png_file(w, rows.shape[0], depth, color,
+                     _filter_rows(rows, bpp, filters), chunks, after=after)
 
 
 def _encode_png(img: np.ndarray, filters) -> bytes:
@@ -85,18 +102,27 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
-def adam7_png(img: np.ndarray) -> bytes:
-    """PNG bytes of a u8 gray (H, W) or RGB (H, W, 3) image, Adam7
-    interlaced: the seven passes' rows in order, each with filter None."""
+def adam7_png(img: np.ndarray, depth=None, color=None, filters=(0,),
+              chunks=()) -> bytes:
+    """PNG bytes of (H, W) or (H, W, ch) integer samples, Adam7
+    interlaced: each of the seven passes (none where it has no pixel)
+    packed at ``depth`` bits (default 8, 16 for u16) and its rows filtered
+    with ``filters[r % len(filters)]``; ``color`` defaults to gray, gray +
+    alpha, RGB or RGBA by the channel count; ``chunks`` go before IDAT."""
     h, w = img.shape[:2]
-    rows = [b"\0" + np.ascontiguousarray(row).tobytes()
-            for x0, y0, dx, dy in _ADAM7 for row in img[y0::dy, x0::dx]
-            if row.size]
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if img.ndim == 2 else 2, 0, 0,
-                       1)
-    return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", ihdr)
-            + _chunk(b"IDAT", zlib.compress(b"".join(rows)))
-            + _chunk(b"IEND", b""))
+    samples = img.reshape(h, w, -1)
+    ch = samples.shape[2]
+    depth = depth or (16 if img.dtype == np.uint16 else 8)
+    if color is None:
+        color = {1: 0, 2: 4, 3: 2, 4: 6}[ch]
+    data = b""
+    for x0, y0, dx, dy in _ADAM7:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size:
+            data += _filter_rows(
+                _pack_samples(sub.reshape(sub.shape[0], -1), depth),
+                max(1, ch * depth // 8), filters)
+    return _png_file(w, h, depth, color, data, chunks, interlace=1)
 
 
 def bad_plte_png(h: int, w: int) -> bytes:
@@ -162,23 +188,17 @@ _KINDS = {"palette8": (3, 8, 11, False), "palette8-trns": (3, 8, 11, True),
           "rgb16-trns": (2, 16, 0, True)}
 
 
-@pytest.mark.parametrize("kind", sorted(_KINDS))
-def test_png_reader_kinds_match_cv2(tmp_path, kind):
-    """Palette (with and without tRNS), gray+alpha, RGBA, gray at 1/2/4
-    bits and RGB/gray with a tRNS colour, 13 columns wide so that sub-byte
-    rows end mid-byte, rows through all five filters: read_png equals
-    cv2.imread with IMREAD_UNCHANGED, read_png(color=True) with
-    IMREAD_COLOR and read_png_gray with IMREAD_GRAYSCALE."""
-    from fealess_tpu_torch.io.png import read_png_gray
+def _kind_samples(kind: str, h: int, w: int, rng):
+    """(colour type, bit depth, (h, w * channels) samples, chunks before
+    IDAT) of one ``_KINDS`` entry: random samples, a random PLTE, a tRNS
+    shorter than the palette or naming the colour (0, 1, 2)."""
     color, depth, n_pal, trns = _KINDS[kind]
-    rng = np.random.default_rng(sorted(_KINDS).index(kind))
-    h, w = 6, 13
     ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
     top = n_pal if color == 3 else 1 << depth
     if trns and color in (0, 2):
         top = 3                    # small values, so the tRNS colour occurs
     samples = rng.integers(0, top, (h, w * ch))
-    if color == 2:
+    if color == 2 and w >= 2:
         samples[0, :6] = (0, 0, 1, 0, 1, 2)    # gray 0; the tRNS colour
     chunks = []
     if color == 3:
@@ -189,17 +209,67 @@ def test_png_reader_kinds_match_cv2(tmp_path, kind):
                 0, 256, max(1, n_pal - 1), dtype=np.uint8).tobytes()))
     elif trns:
         chunks.append((b"tRNS", struct.pack(">" + "H" * ch, *range(ch))))
-    path = str(tmp_path / f"{kind}.png")
-    with open(path, "wb") as f:
-        f.write(_png_bytes(_pack_samples(samples, depth), w, depth, color,
-                           max(1, ch * depth // 8), [0, 1, 2, 3, 4],
-                           chunks))
+    return color, depth, samples, chunks
+
+
+def _assert_reads_as_cv2(path: str) -> None:
+    """read_png, read_png(color=True) and read_png_gray equal cv2.imread
+    with IMREAD_UNCHANGED, IMREAD_COLOR and IMREAD_GRAYSCALE."""
+    from fealess_tpu_torch.io.png import read_png_gray
     for got, flag in ((read_png(path), cv2.IMREAD_UNCHANGED),
                       (read_png(path, color=True), cv2.IMREAD_COLOR),
                       (read_png_gray(path), cv2.IMREAD_GRAYSCALE)):
         want = cv2.imread(path, flag)
         assert got.dtype == want.dtype and got.shape == want.shape, flag
         np.testing.assert_array_equal(got, want, err_msg=str(flag))
+
+
+@pytest.mark.parametrize("kind", sorted(_KINDS))
+def test_png_reader_kinds_match_cv2(tmp_path, kind):
+    """Palette (with and without tRNS), gray+alpha, RGBA, gray at 1/2/4
+    bits and RGB/gray with a tRNS colour, 13 columns wide so that sub-byte
+    rows end mid-byte, rows through all five filters: read_png equals
+    cv2.imread with IMREAD_UNCHANGED, read_png(color=True) with
+    IMREAD_COLOR and read_png_gray with IMREAD_GRAYSCALE."""
+    h, w = 6, 13
+    color, depth, samples, chunks = _kind_samples(
+        kind, h, w, np.random.default_rng(sorted(_KINDS).index(kind)))
+    ch = samples.shape[1] // w
+    path = str(tmp_path / f"{kind}.png")
+    with open(path, "wb") as f:
+        f.write(_png_bytes(_pack_samples(samples, depth), w, depth, color,
+                           max(1, ch * depth // 8), [0, 1, 2, 3, 4],
+                           chunks))
+    _assert_reads_as_cv2(path)
+
+
+# every colour type at every bit depth: _KINDS and 8/16-bit gray and RGB
+_ADAM7_KINDS = sorted(_KINDS) + ["gray8", "gray16", "rgb8", "rgb16"]
+
+
+@pytest.mark.parametrize("kind", _ADAM7_KINDS)
+def test_png_reader_adam7_matches_cv2(tmp_path, kind):
+    """Adam7-interlaced files of every colour type and bit depth (sub-byte
+    samples packed per pass, PLTE and tRNS applied after de-interlacing),
+    the rows of each pass through all five filters, at sizes where passes
+    are empty (1x1, 3x5, 9x2) and at 13x17: read as cv2.imread reads them
+    with all three flags."""
+    rng = np.random.default_rng(_ADAM7_KINDS.index(kind))
+    for h, w in ((1, 1), (3, 5), (9, 2), (13, 17)):
+        if kind in _KINDS:
+            color, depth, samples, chunks = _kind_samples(kind, h, w, rng)
+        else:
+            color = 0 if kind.startswith("gray") else 2
+            depth = int(kind[4:] if color == 0 else kind[3:])
+            samples = rng.integers(0, 1 << depth,
+                                   (h, w * (1 if color == 0 else 3)))
+            chunks = []
+        img = samples.reshape(h, w, -1).astype(
+            np.uint16 if depth == 16 else np.uint8)
+        path = str(tmp_path / f"{kind}_{h}x{w}.png")
+        with open(path, "wb") as f:
+            f.write(adam7_png(img, depth, color, [0, 1, 2, 3, 4], chunks))
+        _assert_reads_as_cv2(path)
 
 
 def test_png_gray_rule_matches_cv2(tmp_path):
@@ -222,26 +292,126 @@ def test_png_gray_rule_matches_cv2(tmp_path):
                                       cv2.imread(path, cv2.IMREAD_GRAYSCALE))
 
 
+def _gama(value: int):
+    return (b"gAMA", struct.pack(">I", value))
+
+
+_SRGB = (b"sRGB", b"\0")
+
+
+@pytest.mark.parametrize("chunk", [_gama(45455), _gama(50000),
+                                   _gama(220000), _SRGB],
+                         ids=["gama45455", "gama50000", "gama220000", "srgb"])
+def test_png_gray_gamma_every_triple_matches_cv2(tmp_path, chunk):
+    """IMREAD_GRAYSCALE of an 8-bit RGB PNG with a gAMA or sRGB chunk goes
+    through libpng's gamma tables: read_png_gray equals cv2 on every one of
+    the 2**24 RGB triples (a 4096 x 4096 image), and the gamma changes the
+    gray of most of them."""
+    from fealess_tpu_torch.io.png import read_png_gray
+    v = np.arange(1 << 24, dtype=np.uint32)
+    rgb = np.stack([v >> 16, (v >> 8) & 255, v & 255], -1).astype(
+        np.uint8).reshape(4096, 4096 * 3)
+    del v
+    data = np.concatenate([np.zeros((4096, 1), np.uint8), rgb], 1).tobytes()
+    path = str(tmp_path / "triples.png")
+    with open(path, "wb") as f:
+        f.write(_png_file(4096, 4096, 8, 2, data, [chunk]))
+    got = read_png_gray(path)
+    want = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+    np.testing.assert_array_equal(got, want)
+    r, g, b = (rgb[:, k::3].astype(np.int32) for k in range(3))
+    plain = (9797 * r + 19234 * g + 3737 * b) >> 15
+    assert (plain != want).mean() > 0.5
+
+
+# colour type, bit depth, chunks before IDAT, chunks after IDAT, and whether
+# libpng converts in linear light (the chunks it ignores: no)
+_PLTE = (b"PLTE", bytes(range(12)))
+_GAMMA_FILES = {
+    "rgb16-gama45455": (2, 16, [_gama(45455)], [], True),
+    "rgb16-gama50000": (2, 16, [_gama(50000)], [], True),
+    "rgb16-gama220000": (2, 16, [_gama(220000)], [], True),
+    "rgb16-srgb": (2, 16, [_SRGB], [], True),
+    "rgb16-sbit12": (2, 16, [(b"sBIT", bytes([12, 12, 12])),
+                             _gama(45455)], [], True),
+    "rgb16-sbit8": (2, 16, [(b"sBIT", bytes([8, 8, 7])), _gama(45455)], [],
+                    True),
+    "rgba16-gama45455": (6, 16, [_gama(45455)], [], True),
+    "rgba8-gama45455": (6, 8, [_gama(45455)], [], True),
+    "palette8-gama45455": (3, 8, [_gama(45455)], [], True),
+    "palette4-srgb": (3, 4, [_SRGB], [], True),
+    "gray8-gama45455": (0, 8, [_gama(45455)], [], False),
+    "gray16-gama45455": (0, 16, [_gama(45455)], [], False),
+    "gray-alpha8-gama45455": (4, 8, [_gama(45455)], [], False),
+    "rgb8-gama-twice": (2, 8, [_gama(45455), _gama(220000)], [], True),
+    "rgb8-gama-then-srgb": (2, 8, [_gama(220000), _SRGB], [], True),
+    "rgb8-srgb-then-gama": (2, 8, [_SRGB, _gama(220000)], [], True),
+    "rgb8-gama95100": (2, 8, [_gama(95100)], [], True),
+    "rgb8-gama3": (2, 8, [_gama(3)], [], True),
+    "rgb8-gama96000": (2, 8, [_gama(96000)], [], False),
+    "rgb8-gama-after-idat": (2, 8, [], [_gama(45455)], False),
+    "rgb8-gama-after-plte": (2, 8, [_PLTE, _gama(45455)], [], False),
+    "rgb8-gama-3-bytes": (2, 8, [(b"gAMA", bytes(3))], [], False),
+    "rgb8-srgb-intent-4": (2, 8, [(b"sRGB", b"\4")], [], False),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(_GAMMA_FILES))
+def test_png_gray_gamma_matches_cv2(tmp_path, kind):
+    """read_png_gray equals cv2's IMREAD_GRAYSCALE with gamma chunks:
+    16-bit RGB(A) on a seeded 2**20-pixel image (and an sBIT that narrows
+    libpng's 16-bit tables), palette and RGBA files with gAMA or sRGB,
+    gray files (no conversion, unchanged), and libpng's chunk rules (the
+    first gAMA counts, sRGB wins over gAMA in either order, a gAMA within
+    5% of 1.0 is ignored unless its reciprocal is not, one below 5 has no
+    int32 reciprocal, and a gAMA after IDAT or PLTE, of 3 bytes, or an
+    sRGB intent past 3, is ignored); gray pixels (r == g == b) included.
+    read_png is unchanged by the chunks."""
+    from fealess_tpu_torch.io.png import read_png_gray
+    color, depth, chunks, after, linear = _GAMMA_FILES[kind]
+    rng = np.random.default_rng(sorted(_GAMMA_FILES).index(kind))
+    ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+    h, w = (1024, 1024) if depth == 16 and color == 2 else (64, 97)
+    samples = rng.integers(0, 256 if color == 3 else 1 << depth,
+                           (h, w, ch))
+    if color in (2, 6):
+        samples[:h // 8, :, 1:3] = samples[:h // 8, :, :1]   # gray pixels
+    if color == 3:
+        plte = rng.integers(0, 256, (256, 3), dtype=np.uint8)
+        plte[:4, 1:] = plte[:4, :1]          # gray entries
+        chunks = chunks + [(b"PLTE", plte[:1 << depth].tobytes())]
+        samples %= 1 << depth
+    path, bare = str(tmp_path / "gamma.png"), str(tmp_path / "bare.png")
+    plain = [c for c in chunks if c[0] == b"PLTE"]
+    for name, pre, post in ((path, chunks, after), (bare, plain, [])):
+        with open(name, "wb") as f:
+            f.write(_png_bytes(_pack_samples(samples.reshape(h, -1), depth),
+                               w, depth, color, max(1, ch * depth // 8),
+                               [0, 1, 2], pre, post))
+    want = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+    np.testing.assert_array_equal(read_png_gray(path), want)
+    np.testing.assert_array_equal(read_png(path), read_png(bare))
+    changed = (want != cv2.imread(bare, cv2.IMREAD_GRAYSCALE)).any()
+    assert changed == linear
+
+
 def test_png_reader_refusals(tmp_path):
-    """An Adam7-interlaced file, which cv2.imread reads, is refused with
-    UnsupportedPNG, which is no DecodeError; truncated data, a foreign file
-    and a palette PNG with a PLTE of 8 bytes, for which cv2.imread returns
-    None, with DecodeError."""
-    from fealess_tpu_torch.io.png import DecodeError, UnsupportedPNG
-    img = np.arange(35, dtype=np.uint8).reshape(5, 7)
-    inter = tmp_path / "adam7.png"
-    inter.write_bytes(adam7_png(img))
-    np.testing.assert_array_equal(
-        cv2.imread(str(inter), cv2.IMREAD_UNCHANGED), img)
-    with pytest.raises(UnsupportedPNG,
-                       match="interlaced PNGs are not supported") as e:
-        read_png(str(inter))
-    assert not isinstance(e.value, DecodeError)
+    """Files for which cv2.imread returns None raise DecodeError: truncated
+    data (progressive, and an Adam7 stream cut in its last pass), a foreign
+    file, a palette PNG with a PLTE of 8 bytes and an unknown interlace
+    method.  (Adam7 itself is read: test_png_reader_adam7_matches_cv2.)"""
+    from fealess_tpu_torch.io.png import DecodeError
     whole = _encode_png(np.arange(64 * 48, dtype=np.uint16).reshape(48, 64),
                         [1])
+    img = np.arange(35, dtype=np.uint8).reshape(5, 7)
+    rows = b"".join(b"\0" + bytes(r) for r in img)
     for name, data in (("cut_idat", whole[:len(whole) // 2]),
                        ("cut_ihdr", whole[:20]), ("text", b"not a png"),
-                       ("bad_plte", bad_plte_png(5, 7))):
+                       ("bad_plte", bad_plte_png(5, 7)),
+                       ("cut_adam7", _png_file(7, 5, 8, 0, rows[:-4],
+                                               interlace=1)),
+                       ("interlace_2", _png_file(7, 5, 8, 0, rows,
+                                                 interlace=2))):
         path = str(tmp_path / f"{name}.png")
         with open(path, "wb") as f:
             f.write(data)

@@ -21,7 +21,9 @@ from fealess_tpu_torch import detector as port_det
 from fealess_tpu_torch.bank import bank_from_numpy
 from fealess_tpu_torch.bank import pack_bank as port_pack
 from fealess_tpu_torch.io import linemod_yaml as port_yaml
+from fealess_tpu_torch.ops import score
 from tests.test_torch_config import to_port
+from tests.test_torch_score import _random_banks
 
 torch.set_num_threads(1)
 
@@ -132,6 +134,60 @@ def test_coarse_topk_tie_order_matches_jax(fixture, monkeypatch):
     np.testing.assert_array_equal(y.numpy(), np.asarray(ref.y))
     # a real tie: many slots share the top score
     assert len(set(slot.numpy()[sim.numpy() == sim.numpy()[0]])) > 8
+
+
+@pytest.mark.parametrize("case", ["fixture", "seeded", "constant", "zero"])
+def test_local_stage_matches_jax(fixture, monkeypatch, case):
+    """The refinement levels (detector.refine_level, whose K2 runs
+    score.local_refine's plain twin here) give JAX's local stage
+    (``profile_stop="local"``: x, y, similarity, slot and valid bitwise) on
+    the fixture, on a seeded random bank over random planes, and on planes
+    whose 16x16 windows have many equal maxima: all 4 (equal sums wherever
+    every feature lands on the plane) and all 0 (every cell ties, so the
+    first maximum is cell 0)."""
+    det, jb, pb, jax_planes, port_planes, _ = fixture
+    if case != "fixture":
+        det = dataclasses.replace(det, image_width=240, image_height=160)
+        rng = np.random.default_rng(["seeded", "constant", "zero"].index(
+            case))
+        jb, pb = _random_banks(rng, 24, 2, 2, 20, 40)
+        arrays = []
+        for l, t in enumerate(det.t_at_level):
+            h, w = 160 >> l, 240 >> l
+            shape = (2 * 8 * t * t, h // t, w // t)
+            fill = {"constant": 4, "zero": 0}.get(case)
+            arrays.append((rng.integers(2, 5, shape).astype(np.uint8)
+                           if fill is None else np.full(shape, fill,
+                                                        np.uint8), (h, w)))
+        jax_planes = [(jnp.asarray(a), hw) for a, hw in arrays]
+        port_planes = [(torch.from_numpy(a), hw) for a, hw in arrays]
+    monkeypatch.setattr(jax_det, "ALLOW_PROFILE_STOPS", True)
+    ref = _jax_match(det, profile_stop="local")(
+        jb, jax_planes, jax_det.build_match_tables(jb, det))
+    pdet = to_port(det)
+    tables = port_det.build_match_tables(pb, pdet)
+    sim, tslot, x, y = port_det.coarse_candidates(pb, port_planes, 75.0,
+                                                  pdet, tables)
+    valid = torch.isfinite(sim)
+    nf = pb.num_features()
+    t0 = pdet.t_at_level[0]
+    scores = score.local_refine_plain(
+        port_planes[0][0], tables[0], tslot, x, y,
+        pb.width, pb.height, nf, 0, t0, port_det._offset(t0),
+        port_planes[0][1])[0].reshape(len(tslot), -1)
+    for l in range(pdet.pyramid_levels - 2, -1, -1):
+        x, y, sim = port_det.refine_level(pb, port_planes, pdet, tables, l,
+                                          tslot, x, y, nf)
+        valid = valid & (sim >= 75.0)
+    for name, got in (("x", x), ("y", y), ("similarity", sim),
+                      ("template_slot", tslot), ("valid", valid)):
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(getattr(ref, name)),
+                                      err_msg=name)
+    assert x.dtype == torch.int32 and sim.dtype == torch.float32
+    if case in ("constant", "zero"):     # windows with several maxima
+        ties = (scores == scores.max(dim=1, keepdim=True).values).sum(1)
+        assert (ties > 1).any()
 
 
 def test_match_class_and_roi_gates_exact(fixture):

@@ -143,25 +143,42 @@ def test_scan_package_stops_at_undecodable_png(tmp_path):
 
 
 def test_scan_package_refuses_interlaced_png(tmp_path):
-    """An Adam7-interlaced gray frame or mask PNG, which cv2 (and so JAX)
-    reads, raises UnsupportedPNG: it neither ends the package nor counts as
-    an absent mask."""
-    from fealess_tpu_torch.io.png import UnsupportedPNG
+    """An Adam7-interlaced frame or mask PNG, which cv2 (and so JAX) reads,
+    is read as JAX reads it: the frame stays in the package (the loader
+    neither ends there nor refuses it), and an interlaced colour mask
+    (gray levels through IMREAD_GRAYSCALE, a gAMA chunk too) and 16-bit
+    mask are read, not counted as absent.  (The name is kept from when
+    the port refused such files.)"""
     frame, mask = str(tmp_path / "frame"), str(tmp_path / "mask")
     write_package(frame)
     write_package(mask)
     path = os.path.join(frame, "gray", "1.png")
     bgr = cv2.imread(path)
     with open(path, "wb") as f:
-        f.write(adam7_png(np.ascontiguousarray(bgr[:, :, ::-1])))
+        f.write(adam7_png(np.ascontiguousarray(bgr[:, :, ::-1]),
+                          filters=[0, 1, 2, 3, 4]))
     np.testing.assert_array_equal(cv2.imread(path), bgr)
-    with pytest.raises(UnsupportedPNG):
-        list(scan_package.iter_training_frames(frame))
+    got = list(scan_package.iter_training_frames(frame))
+    want = list(jax_scan.iter_training_frames(frame))
+    assert [f.index for f in got] == [f.index for f in want] == [0, 1, 2]
+    for g, w in zip(got, want):
+        _assert_same_frame(g, w)
     os.makedirs(os.path.join(mask, "mask"))
+    rng = np.random.default_rng(8)
+    rgb = rng.integers(0, 10, (160, 240, 3)).astype(np.uint8)
+    m16 = rng.integers(0, 600, (160, 240)).astype(np.uint16)
     with open(os.path.join(mask, "mask", "0.png"), "wb") as f:
-        f.write(adam7_png(np.full((160, 240), 255, np.uint8)))
-    with pytest.raises(UnsupportedPNG):
-        scan_package.load_scan_package(mask)
+        f.write(adam7_png(rgb, chunks=[(b"gAMA", bytes.fromhex("0000b18f"))]))
+    with open(os.path.join(mask, "mask", "1.png"), "wb") as f:
+        f.write(adam7_png(m16))
+    got = scan_package.load_scan_package(mask).frames
+    want = jax_scan.load_scan_package(mask).frames
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        _assert_same_frame(g, w)
+    np.testing.assert_array_equal(got[1].mask, m16 >= 256)
+    sentinel = list(scan_package.iter_training_frames(mask))[0].mask
+    assert not np.array_equal(got[0].mask, sentinel)
 
 
 def test_load_scan_package_matches_jax(tmp_path):

@@ -177,3 +177,7 @@ def test_wrappers_refuse_devices_without_a_kernel():
         score.coarse_scores(meta, pt)
     with pytest.raises(ValueError):
         score.local_scores(meta, pt, pt["c"][:, 0], pt["c"][:, 0])
+    slots = torch.zeros(3, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        score.local_refine(meta, pt, slots, pt["c"][:3, 0], pt["c"][:3, 0],
+                           pt["c"], pt["c"], pt["c"], 0, 5, 1, (60, 75))
