@@ -64,11 +64,30 @@ Phases, one line of output each (or a few):
    times of Recognition, multi-object Recognition and a tracked frame, and
    the fixture bank's cold start through ``add_obj`` and from an
    artifact.
+6. the parallel layer (``fealess_tpu_torch.parallel``): first each kernel
+   against its twin and timed at the shapes a 2-way split gives it (K1 on
+   each 512-row half of the coarse table, K2 on each half-bank's own
+   candidates, K3 on each 8192-query half against the 16384-row
+   reference); 6a, in this process, a world-size-1 NCCL group: the
+   sharded match on the fixture and two-instance scenes equal to
+   ``_merge_matches`` of ``detector.match_bank`` (and its top-1 to
+   match_bank's), both sharded ICP modes on phase 4 (b)'s 16384-pair
+   clouds and ``recognize_batch_sharded`` on 4 frames (the fixture scene,
+   the two-instance scene, pan frames 1 and 2; forced ICP) bitwise equal
+   to the single-device functions; 6b, two spawned ranks on the one card
+   in a gloo group over CUDA tensors (NCCL refuses two ranks on one GPU),
+   the bank from a serving artifact that this process writes: their
+   match bitwise equal to a one-process emulation (``match_from_planes``
+   on each half-bank, merged in rank order), ICP within 1e-5 (rotation)
+   and 1e-3 mm of the single-device ICP with equal iterations, the batch
+   bitwise equal to 6a's; times of each against its single-device call
+   (two processes sharing one card: not a scaling figure).
 
-Each path of phases 4-4c runs with the kernels' launch counters set to 0
-just before it and read just after; every kernel must have run on the
-paths that reach it.  The line before the last is a JSON object with one
-entry per kernel (launches summed over the paths); the last line is
+Each path of phases 4-4c and 6 runs with the kernels' launch counters
+set to 0 just before it and read just after; every kernel must have run
+on the paths that reach it.  The line before the last is a JSON object
+with one entry per kernel (launches summed over the paths, and the 2-way
+shard case under ``cases``); the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero without printing that line.
 """
@@ -159,6 +178,17 @@ EXPECT_CLI = [(100.0, (-3.75623, -3.58265, -2.09906), 0.38305),
               (100.0, (8.64415, 2.46295, 0.10028), 0.33718)]
 CLI_T_TOL_MM, CLI_DIST_TOL = 0.05, 1e-3
 TRAIN_TIMED = 3        # timed add_templates_batched calls / artifact loads
+
+# Phase 6 (the parallel layer): every process group's timeout, the
+# parent's wait on its two spawned ranks, timed calls per path, and the
+# sharded ICP's tolerance against the single-device ICP
+# (tests/test_parallel.py:80-84).
+PARALLEL_TIMEOUT_S = 60
+CHILD_WAIT_S = 300
+PARALLEL_REPS = 10
+ICP_R_TOL, ICP_T_TOL_MM = 1e-5, 1e-3
+MATCH_FIELDS = ("x", "y", "similarity", "template_slot", "class_idx",
+                "template_idx", "valid")
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's H100 datasheet):
 # HBM bytes per second and non-tensor f32 operations per second (the
@@ -558,6 +588,554 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# -- phase 6: the parallel layer ------------------------------------------
+
+
+def _forced(icp, mode):
+    """The engine's ICP config in ``mode`` with iterations forced (b)."""
+    import dataclasses
+    return dataclasses.replace(
+        icp, mode=mode, dist_mean_threshold=FORCED["icp_dist_mean_threshold"],
+        dist_diff_threshold=FORCED["icp_dist_diff_threshold"])
+
+
+def parallel_inputs(eng, bgr_np, depth_np, cam):
+    """Phase 6's frames and clouds on the card: the batch (the fixture
+    scene, the two-instance scene and pan frames 1 and 2), K, and phase 4
+    (b)'s ICP inputs (the best match's paired clouds with the plane mode's
+    normals)."""
+    import dataclasses
+
+    import torch
+    from fealess_tpu_torch import detector as td
+    from fealess_tpu_torch import pipeline
+    from fealess_tpu_torch.apps import fixture
+    frames = [(bgr_np, depth_np),
+              fixture.two_instance_scene(bgr_np, depth_np)]
+    frames += fixture.pan(bgr_np, depth_np, 3)[1:]
+    prepped = [eng._prepare_frame(b, d, cam) for b, d in frames]
+    bgr_b = torch.stack([p[0] for p in prepped])
+    depth_b = torch.stack([p[1] for p in prepped])
+    scene_k = prepped[0][2]
+    det = eng.cfg.detector
+    m = td.match_bank(eng.bank, bgr_b[0], depth_b[0],
+                      eng.cfg.matching_threshold, det, kernels=eng._kernels)
+    cand = pipeline.candidate_inputs(eng.bank, eng._model_depth_dev,
+                                     eng._origins_dev, m.template_slot[0],
+                                     eng.cfg)
+    plane = dataclasses.replace(eng.cfg, icp=_forced(eng.cfg.icp,
+                                                     "point_to_plane"))
+    crop = eng.cfg.refine_crop
+    ref, model, mask, normals, _ = pipeline.paired_clouds(
+        depth_b[0], scene_k, *cand[:6], m.x[0], m.y[0], plane, crop, crop)
+    return bgr_b, depth_b, scene_k, {"ref": ref, "model": model,
+                                     "mask": mask, "normals": normals}
+
+
+def run_icp(sharded, clouds, icp, mesh=None):
+    """One ICP of ``clouds``: the sharded entry on ``mesh`` or the
+    single-device one, by ``icp.mode``."""
+    from fealess_tpu_torch import icp as ticp
+    from fealess_tpu_torch.parallel import sharded_icp
+    c = clouds
+    if icp.mode == "point_to_plane":
+        if sharded:
+            return sharded_icp.icp_plane_sharded(
+                c["ref"], c["normals"], c["model"], c["mask"], icp, mesh)
+        return ticp.icp_point_to_plane(c["ref"], c["normals"], c["model"],
+                                       c["mask"], icp)
+    if sharded:
+        return sharded_icp.icp_sharded(c["ref"], c["model"], c["mask"], icp,
+                                       mesh)
+    return ticp.icp_point_to_point(c["ref"], c["model"], c["mask"], icp)
+
+
+def flat(prefix, tree):
+    """A dataclass tree's tensor leaves keyed by field path."""
+    import dataclasses
+
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    if not dataclasses.is_dataclass(tree):
+        return {}
+    out = {}
+    for f in dataclasses.fields(tree):
+        out.update(flat(f"{prefix}.{f.name}", getattr(tree, f.name)))
+    return out
+
+
+def diff_flat(fa: dict, fb: dict) -> list:
+    """The keys where two :func:`flat` dicts differ (dtype, shape or any
+    bit, or a key missing on one side)."""
+    import torch
+    return [k for k in fa if k not in fb or fa[k].dtype != fb[k].dtype
+            or not torch.equal(fa[k], fb[k].to(fa[k].device))] + sorted(
+                set(fb) - set(fa))
+
+
+def same_bits(a, b) -> list:
+    """The field paths where two dataclass trees' tensors differ."""
+    return diff_flat(flat("", a), flat("", b))
+
+
+def icp_close(got, want) -> bool:
+    """Rotation within ICP_R_TOL, translation within ICP_T_TOL_MM,
+    iterations and ok equal (tests/test_parallel.py:80-84)."""
+    return ((got.r - want.r).abs().max().item() <= ICP_R_TOL
+            and (got.t - want.t).abs().max().item() <= ICP_T_TOL_MM
+            and int(got.iterations) == int(want.iterations)
+            and bool(got.ok) == bool(want.ok))
+
+
+def sync(dev) -> None:
+    """Wait for ``dev`` (phase 6 also runs on CPU tensors, rehearsed
+    where there is no card)."""
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def host_ms(fns, reps: int, dev) -> list:
+    """Mean host milliseconds per call of each of ``fns``, each call
+    synchronised, after one warm-up each; the calls take turns (a, b, b,
+    a, ...) so that the host's drift falls on both."""
+    total = [0.0] * len(fns)
+    for fn in fns:
+        fn()
+        sync(dev)
+    for i in range(reps):
+        for k in (range(len(fns)) if i % 2 == 0
+                  else reversed(range(len(fns)))):
+            t0 = time.perf_counter()
+            fns[k]()
+            sync(dev)
+            total[k] += time.perf_counter() - t0
+    return [t * 1e3 / reps for t in total]
+
+
+def bank_halves(eng, bgr, depth):
+    """The frame's response planes and each half of the bank as a 2-way
+    split gives it to a rank: [(slot offset, bank slice, tables
+    slice)]."""
+    from fealess_tpu_torch import detector as td
+    det = eng.cfg.detector
+    planes = td.response_planes(td.quantized_pyramid(bgr, depth, det), det)
+    half = eng.bank.capacity // 2
+    return planes, [(lo, eng.bank.slots(lo, lo + half),
+                     [{k: v[lo:lo + half].contiguous() for k, v in t.items()}
+                      for t in eng._kernels]) for lo in (0, half)]
+
+
+def emulate_two_shards(eng, bgr, depth):
+    """The 2-rank sharded match in one process: ``match_from_planes`` on
+    each half of the bank (slots re-offset), the two lists concatenated in
+    rank order, then ``_merge_matches``."""
+    import torch
+    from fealess_tpu_torch import detector as td
+    from fealess_tpu_torch.parallel import mesh as mesh_mod
+    from fealess_tpu_torch.parallel.sharded_match import _merge_matches
+    det = eng.cfg.detector
+    planes, halves = bank_halves(eng, bgr, depth)
+    lists = []
+    for lo, part, tables in halves:
+        m = td.match_from_planes(part, planes, eng.cfg.matching_threshold,
+                                 det, tables)
+        m.template_slot = m.template_slot + lo
+        lists.append(m)
+    both = mesh_mod.tree_map(lambda *xs: torch.cat(xs), *lists)
+    return _merge_matches(both, det.max_candidates)
+
+
+def shard_cases(eng, bgr, depth, clouds):
+    """Each kernel's cases at the shapes a 2-way split gives it: K1 on
+    each 512-row half of the coarse table, K2 on each half-bank's own
+    candidates (its coarse top-K, level 0), K3 on each half of the
+    queries against the whole reference set (8192 x 16384)."""
+    from fealess_tpu_torch import detector as td
+    from fealess_tpu_torch.ops import nn, score
+    det = eng.cfg.detector
+    planes, halves = bank_halves(eng, bgr, depth)
+    lc = det.pyramid_levels - 1
+    t0 = det.t_at_level[0]
+    cases = {"coarse_scores": [], "local_refine": [], "nearest_neighbor": []}
+    for _, part, tables in halves:
+        cases["coarse_scores"].append(
+            (score.coarse_scores, score.coarse_scores_plain,
+             (planes[lc][0], tables[lc])))
+        _, tslot, x, y = td.coarse_candidates(
+            part, planes, eng.cfg.matching_threshold, det, tables)
+        cases["local_refine"].append(
+            (score.local_refine, score.local_refine_plain,
+             (planes[0][0], tables[0], tslot, x, y, part.width, part.height,
+              part.num_features(), 0, t0, td._offset(t0), planes[0][1])))
+    n = clouds["model"].shape[0] // 2
+    for lo in (0, n):
+        cases["nearest_neighbor"].append(
+            (nn.nearest_neighbor, nn.nearest_neighbor_plain,
+             (clouds["model"][lo:lo + n].contiguous(), clouds["ref"])))
+    return cases
+
+
+def parallel_world1(eng, card, bgr_b, depth_b, scene_k, clouds, counts):
+    """Phase 6a: every parallel entry point at world size 1 over NCCL (gloo
+    for CPU tensors) in this process.  Returns the single-process
+    references that 6b holds its two ranks to: (per-frame RecoSteps
+    stacked, {mode: IcpResult})."""
+    import dataclasses
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from fealess_tpu_torch import detector as td
+    from fealess_tpu_torch import pipeline
+    from fealess_tpu_torch.parallel import batch_recon
+    from fealess_tpu_torch.parallel import mesh as mesh_mod
+    from fealess_tpu_torch.parallel import sharded_match
+    zero_counts, read_counts, path_launches = counts
+    det, thr = eng.cfg.detector, eng.cfg.matching_threshold
+    dev = bgr_b.device
+    tmp = tempfile.TemporaryDirectory()
+    store = os.path.join(tmp.name, "store")
+    cuda = dev.type == "cuda"
+    dist.init_process_group(
+        "nccl" if cuda else "gloo", init_method=f"file://{store}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT_S),
+        **({"device_id": dev} if cuda else {}))
+    try:
+        mesh_t = mesh_mod.make_mesh([("t", 1)], dev.type)
+        for i, name in ((0, "fixture"), (1, "two-instance")):
+            zero_counts()
+            got = sharded_match.match_bank_sharded(
+                eng.bank, bgr_b[i], depth_b[i], thr, det, mesh_t,
+                tables=eng._kernels)
+            read_counts(f"sharded match, world 1, {name} scene")
+            want = td.match_bank(eng.bank, bgr_b[i], depth_b[i], thr, det,
+                                 kernels=eng._kernels)
+            diff = same_bits(got, sharded_match._merge_matches(
+                want, det.max_candidates))
+            check(not diff, f"6a match ({name}): {diff} differ from the "
+                  f"merged match_bank")
+            check(all(getattr(got, f)[0] == getattr(want, f)[0]
+                      for f in MATCH_FIELDS), f"6a match ({name}): top-1 "
+                  f"differs from match_bank's")
+            print(f"6a sharded match (world 1, {name} scene): equal to "
+                  f"_merge_matches(match_bank) in every field, top-1 "
+                  f"({int(got.x[0])}, {int(got.y[0])}) slot "
+                  f"{int(got.template_slot[0])} equal to match_bank's; "
+                  f"fields differing from match_bank itself (its "
+                  f"duplicates keep their score, the merge scores them "
+                  f"-inf): {same_bits(got, want)}")
+        mesh_p = mesh_mod.make_mesh([("p", 1)], dev.type)
+        want_icp = {}
+        for mode in ("point_to_point", "point_to_plane"):
+            icp = _forced(eng.cfg.icp, mode)
+            zero_counts()
+            got = run_icp(True, clouds, icp, mesh_p)
+            read_counts(f"sharded ICP, world 1, {mode}")
+            want_icp[mode] = run_icp(False, clouds, icp)
+            diff = same_bits(got, want_icp[mode])
+            check(not diff, f"6a ICP {mode}: {diff} differ")
+            check(int(got.iterations) == EXPECT_ITERS["b"],
+                  f"6a ICP {mode}: {int(got.iterations)} iterations")
+            print(f"6a sharded ICP (world 1, {mode}, forced, "
+                  f"{clouds['ref'].shape[0]} pairs): bitwise equal to the "
+                  f"single-device ICP, {int(got.iterations)} iterations")
+        mesh_d = mesh_mod.make_mesh([("d", 1)], dev.type)
+        cfg_b = dataclasses.replace(eng.cfg, icp=_forced(eng.cfg.icp,
+                                                         eng.cfg.icp.mode))
+        args = (eng.bank, eng._model_depth_dev, eng._origins_dev, bgr_b,
+                depth_b, scene_k, cfg_b)
+        zero_counts()
+        got = batch_recon.recognize_batch_sharded(*args, mesh_d,
+                                                  kernels=eng._kernels)
+        read_counts("sharded batch, world 1")
+        want_batch = mesh_mod.stack_tree([pipeline.recognize_top1(
+            eng.bank, eng._model_depth_dev, eng._origins_dev, bgr_b[i],
+            depth_b[i], scene_k, cfg_b, kernels=eng._kernels)
+            for i in range(bgr_b.shape[0])])
+        diff = same_bits(got, want_batch)
+        check(not diff, f"6a batch: {diff} differ")
+        check(bool(got.valid.all()), f"6a batch: valid {got.valid}")
+        xy = list(zip(got.match_x.tolist(), got.match_y.tolist()))
+        print(f"6a recognize_batch_sharded (world 1, {bgr_b.shape[0]} "
+              f"frames, forced ICP): bitwise equal to recognize_top1 frame "
+              f"by frame; matches {xy}")
+        n = bgr_b.shape[0]
+        for name, want_n in (
+                ("sharded match, world 1, fixture scene", [1, 1, 0]),
+                ("sharded match, world 1, two-instance scene", [1, 1, 0]),
+                ("sharded ICP, world 1, point_to_point", [0, 0, 9]),
+                ("sharded ICP, world 1, point_to_plane", [0, 0, 9])):
+            check(path_launches[name] == want_n,
+                  f"{name}: launches {path_launches[name]}")
+        got_n = path_launches["sharded batch, world 1"]
+        check(got_n[:2] == [n, n] and got_n[2] > 0,
+              f"sharded batch, world 1: launches {got_n}")
+        # times: the sharded match and ICP against their single-device
+        # functions, in turns (the collectives' and the merge's cost), the
+        # batch's frames/s
+        b0, d0 = bgr_b[0], depth_b[0]
+        t_sh, t_one = host_ms([
+            lambda: sharded_match.match_bank_sharded(
+                eng.bank, b0, d0, thr, det, mesh_t, tables=eng._kernels),
+            lambda: td.match_bank(eng.bank, b0, d0, thr, det,
+                                  kernels=eng._kernels)], PARALLEL_REPS, dev)
+        backend = dist.get_backend()
+        print(f"time sharded match (world 1, {backend}): {t_sh:.3f} ms "
+              f"against "
+              f"match_bank {t_one:.3f} ms, {t_sh - t_one:+.3f} ms for the "
+              f"all-gather and merge; mean of {PARALLEL_REPS} in turns "
+              f"({card})")
+        for mode in want_icp:
+            icp = _forced(eng.cfg.icp, mode)
+            t_sh, t_one = host_ms([
+                lambda: run_icp(True, clouds, icp, mesh_p),
+                lambda: run_icp(False, clouds, icp)], PARALLEL_REPS // 2,
+                dev)
+            print(f"time sharded ICP (world 1, {backend}, {mode}, forced): "
+                  f"{t_sh:.3f} ms against the single-device ICP "
+                  f"{t_one:.3f} ms, {t_sh - t_one:+.3f} ms for 10 "
+                  f"iterations' all-reduces; mean of {PARALLEL_REPS // 2} "
+                  f"in turns ({card})")
+        flt = torch.zeros(16, device=dev)
+        t_ar, = host_ms([lambda: dist.all_reduce(flt)], 5 * PARALLEL_REPS,
+                        dev)
+        print(f"time all_reduce (world 1, {backend}, 16 f32 on "
+              f"{dev.type}): {t_ar:.4f} ms a call, synchronised; mean of "
+              f"{5 * PARALLEL_REPS} ({card})")
+        t_b, = host_ms([lambda: batch_recon.recognize_batch_sharded(
+            *args, mesh_d, kernels=eng._kernels)], PARALLEL_REPS // 2, dev)
+        print(f"time recognize_batch_sharded (world 1, {backend}, "
+              f"{bgr_b.shape[0]} frames, forced ICP): {t_b:.3f} ms, "
+              f"{bgr_b.shape[0] / t_b * 1e3:.3f} frames/s; mean of "
+              f"{PARALLEL_REPS // 2} ({card})")
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    return want_batch, want_icp
+
+
+def _two_rank_child(rank: int, tmp: str, device: str) -> None:
+    """Phase 6b's rank ``rank`` of 2 (a spawned process): a gloo group
+    over CUDA tensors on the one card, the bank from the parent's serving
+    artifact; writes its results, launch counts and times to
+    ``tmp/rank<rank>.pt``."""
+    import dataclasses
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from fealess_tpu_torch import config as cfg
+    from fealess_tpu_torch import detector as td
+    from fealess_tpu_torch.io.export import ServingArtifact
+    from fealess_tpu_torch.ops import nn, score
+    from fealess_tpu_torch.parallel import batch_recon
+    from fealess_tpu_torch.parallel import mesh as mesh_mod
+    from fealess_tpu_torch.parallel import sharded_match
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp}/store", rank=rank, world_size=2,
+        timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT_S))
+    counted = (score.coarse_scores, score.local_refine, nn.nearest_neighbor)
+    out = {"launches": {}, "ms": {}}
+
+    def counting(path, fn):
+        for k in counted:
+            k.launches = 0
+        res = fn()
+        sync(dev)
+        out["launches"][path] = [k.launches for k in counted]
+        return res
+
+    def timed(path, fns, reps):
+        dist.barrier()
+        out["ms"][path] = host_ms(fns, reps, dev)
+
+    try:
+        eng = ServingArtifact(os.path.join(tmp, "artifact"), dev)
+        inp = torch.load(os.path.join(tmp, "inputs.pt"))
+        bgr_b, depth_b = inp["bgr"].to(dev), inp["depth"].to(dev)
+        scene_k = inp["scene_k"].to(dev)
+        clouds = {k: v.to(dev) for k, v in inp["clouds"].items()}
+        det, thr = eng.cfg.detector, eng.cfg.matching_threshold
+        mesh_t = mesh_mod.make_mesh([("t", 2)], dev.type)
+        mesh_p = mesh_mod.make_mesh([("p", 2)], dev.type)
+        mesh_d = mesh_mod.make_mesh([("d", 2)], dev.type)
+        match = lambda: sharded_match.match_bank_sharded(  # noqa: E731
+            eng.bank, bgr_b[0], depth_b[0], thr, det, mesh_t,
+            tables=eng._kernels)
+        out["match"] = flat("", counting("2-rank sharded match", match))
+        for mode in ("point_to_point", "point_to_plane"):
+            icp = cfg.IcpConfig(**inp["icp"][mode])
+            res = counting(f"2-rank sharded ICP, {mode}",
+                           lambda: run_icp(True, clouds, icp, mesh_p))
+            out[f"icp_{mode}"] = flat("", res)
+            timed(f"icp {mode}", [
+                lambda: run_icp(True, clouds, icp, mesh_p),
+                lambda: run_icp(False, clouds, icp)], PARALLEL_REPS // 2)
+        cfg_b = dataclasses.replace(eng.cfg, icp=cfg.IcpConfig(
+            **inp["icp"][eng.cfg.icp.mode]))
+        batch = lambda: batch_recon.recognize_batch_sharded(  # noqa: E731
+            eng.bank, eng._model_depth_dev, eng._origins_dev, bgr_b,
+            depth_b, scene_k, cfg_b, mesh_d, kernels=eng._kernels)
+        out["batch"] = flat("", counting("2-rank sharded batch", batch))
+        timed("match", [match, lambda: td.match_bank(
+            eng.bank, bgr_b[0], depth_b[0], thr, det,
+            kernels=eng._kernels)], PARALLEL_REPS)
+        timed("batch", [batch], PARALLEL_REPS // 2)
+        flt = torch.zeros(16, device=dev)
+        timed("all_reduce", [lambda: dist.all_reduce(flt)],
+              5 * PARALLEL_REPS)
+        out = mesh_mod.tree_map(lambda t: t.cpu(), out)
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_two_ranks(eng, card, bgr_b, depth_b, scene_k, clouds,
+                       want_batch, want_icp, path_launches) -> None:
+    """Phase 6b: two spawned ranks share the card through a gloo group
+    (NCCL refuses two ranks on one GPU); their kernels run on the card and
+    only the collectives go through gloo.  The kernels were built in
+    phase 2, so the children load the same library."""
+    import dataclasses
+
+    import torch
+    import torch.multiprocessing as mp
+    from fealess_tpu_torch import detector as td
+    det = eng.cfg.detector
+    with tempfile.TemporaryDirectory() as tmp:
+        eng.export_artifact(os.path.join(tmp, "artifact"))
+        torch.save({"bgr": bgr_b.cpu(), "depth": depth_b.cpu(),
+                    "scene_k": scene_k.cpu(),
+                    "clouds": {k: v.cpu() for k, v in clouds.items()},
+                    "icp": {m: dataclasses.asdict(_forced(eng.cfg.icp, m))
+                            for m in want_icp}},
+                   os.path.join(tmp, "inputs.pt"))
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_two_rank_child,
+                             args=(r, tmp, str(bgr_b.device)))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=max(1.0, CHILD_WAIT_S
+                                   - (time.perf_counter() - t0)))
+        finally:
+            hung = [p.pid for p in procs if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=30)
+        check(not hung, f"6b: ranks {hung} still running after "
+              f"{CHILD_WAIT_S} s")
+        check(all(p.exitcode == 0 for p in procs),
+              f"6b: exit codes {[p.exitcode for p in procs]}")
+        print(f"6b: 2 spawned ranks (gloo over CUDA tensors, one card) "
+              f"ran in {time.perf_counter() - t0:.1f} s")
+        res = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+               for r in range(2)]
+    dev = bgr_b.device
+    want = flat("", emulate_two_shards(eng, bgr_b[0], depth_b[0]))
+    single = flat("", td.match_bank(eng.bank, bgr_b[0], depth_b[0],
+                                    eng.cfg.matching_threshold, det,
+                                    kernels=eng._kernels))
+    want_b = flat("", want_batch)
+    for r, got in enumerate(res):
+        g = got["match"]
+        diff = diff_flat(want, g)
+        check(not diff, f"6b rank {r} match: {diff} differ from the "
+              f"one-process emulation")
+        check(all(g[f".{f}"][0].item() == single[f".{f}"][0].item()
+                  for f in MATCH_FIELDS), f"6b rank {r}: top-1 differs "
+              f"from match_bank's")
+        for mode, w in want_icp.items():
+            i = {k: v.to(dev) for k, v in got[f"icp_{mode}"].items()}
+            gi = type(w)(**{k[1:]: v for k, v in i.items()})
+            check(icp_close(gi, w), f"6b rank {r} ICP {mode}: r "
+                  f"{(gi.r - w.r).abs().max().item()} t "
+                  f"{(gi.t - w.t).abs().max().item()} it "
+                  f"{int(gi.iterations)}/{int(w.iterations)}")
+        diff = diff_flat(want_b, got["batch"])
+        check(not diff, f"6b rank {r} batch: {diff} differ from the "
+              f"single-process batch")
+        for path, n in got["launches"].items():
+            path_launches[f"{path} (rank {r})"] = n
+            print(f"launches on path {path} (rank {r}): K1/K2/K3 {n}")
+        n = got["launches"]
+        check(n["2-rank sharded match"] == [1, 1, 0]
+              and all(n[f"2-rank sharded ICP, {m}"] == [0, 0, 9]
+                      for m in want_icp)
+              and n["2-rank sharded batch"][:2] == [2, 2]
+              and n["2-rank sharded batch"][2] > 0,
+              f"6b rank {r}: launches {n}")
+    for mode, w in want_icp.items():
+        g = res[0][f"icp_{mode}"]
+        print(f"6b sharded ICP ({mode}, 2 ranks, {clouds['ref'].shape[0]} "
+              f"pairs): |dr| {(g['.r'].to(dev) - w.r).abs().max().item():.3g}"
+              f", |dt| {(g['.t'].to(dev) - w.t).abs().max().item():.3g} mm "
+              f"from the single-device ICP, {int(g['.iterations'])} "
+              f"iterations (equal)")
+    print("6b sharded match (2 ranks): bitwise equal to the one-process "
+          "emulation (match_from_planes on each half-bank, merged in rank "
+          "order), top-1 equal to match_bank's; batch bitwise equal to the "
+          "single-process batch on both ranks")
+    n = bgr_b.shape[0]
+    for r, got in enumerate(res):
+        ms = got["ms"]
+        print(f"time 2 ranks sharing one card (gloo collectives; not a "
+              f"scaling figure), rank {r}, each against its own "
+              f"single-device call in turns: sharded match "
+              f"{ms['match'][0]:.3f} / match_bank {ms['match'][1]:.3f} ms, "
+              f"sharded ICP point {ms['icp point_to_point'][0]:.3f} / "
+              f"{ms['icp point_to_point'][1]:.3f} ms, plane "
+              f"{ms['icp point_to_plane'][0]:.3f} / "
+              f"{ms['icp point_to_plane'][1]:.3f} ms; "
+              f"recognize_batch_sharded {ms['batch'][0]:.3f} ms for {n} "
+              f"frames, {n / ms['batch'][0] * 1e3:.3f} frames/s; one gloo "
+              f"all_reduce of 16 f32 on the card {ms['all_reduce'][0]:.4f} "
+              f"ms, synchronised, mean of {5 * PARALLEL_REPS} ({card})")
+
+
+def parallel_phase(eng, bgr_np, depth_np, cam, card, counts, errs):
+    """Phase 6: the kernels at the shard shapes against their twins and
+    timed; 6a at world size 1 (NCCL); 6b on two ranks sharing the card.
+    Returns the shard cases' timing entries for the kernels line."""
+    import torch
+    from fealess_tpu_torch.apps.profile_reco import graph_ms
+    bgr_b, depth_b, scene_k, clouds = parallel_inputs(eng, bgr_np, depth_np,
+                                                      cam)
+    cases = shard_cases(eng, bgr_b[0], depth_b[0], clouds)
+    hold_to_twins(cases, errs, "2-way shards")
+    timing = {}
+    for name, runs in cases.items():
+        kernel, plain, args = runs[0]
+        ms, gms = cuda_ms(lambda: kernel(*args), 20), graph_ms(
+            lambda: kernel(*args), 20)
+        pms = cuda_ms(lambda: plain(*args), 3)
+        bound, by = bound_ms(name, args)
+        shapes = [tuple(a["c"].shape) if isinstance(a, dict)
+                  else tuple(a.shape) for a in args[:3]
+                  if isinstance(a, (dict, torch.Tensor))]
+        timing[name] = {"case": f"2-way shard, inputs {shapes}", "ms": ms,
+                        "graph_ms": gms, "plain_ms": pms, "bound_ms": bound,
+                        "bound_by": by}
+        print(f"time {name} (2-way shard, inputs {shapes}): kernel "
+              f"{ms:.4f} ms (events), {gms:.4f} ms (graph), twin {pms:.4f} "
+              f"ms, bound {bound:.6f} ms ({by}) ({card})")
+    want_batch, want_icp = parallel_world1(eng, card, bgr_b, depth_b,
+                                           scene_k, clouds, counts)
+    parallel_two_ranks(eng, card, bgr_b, depth_b, scene_k, clouds,
+                       want_batch, want_icp, counts[2])
+    return timing
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -804,8 +1382,6 @@ def run(dev) -> None:
     read_counts("tracking")
     training_and_cli(dev, bgr_np, depth_np, card, zero_counts, read_counts,
                      path_launches, errs)
-    launches = {fn.__name__: sum(v[k] for v in path_launches.values())
-                for k, fn in enumerate(counted)}
 
     # -- 5. timing
     one = torch.zeros(1, device=dev)
@@ -889,6 +1465,13 @@ def run(dev) -> None:
         load_ms = (time.perf_counter() - t0) * 1e3
     print(f"time cold start ({eng.bank.num_templates} templates): add_obj "
           f"{add_ms:.3f} ms, ServingArtifact load {load_ms:.3f} ms ({card})")
+
+    # -- 6. the parallel layer
+    shard_timing = parallel_phase(eng, bgr_np, depth_np, cam, card,
+                                  (zero_counts, read_counts, path_launches),
+                                  errs)
+    launches = {fn.__name__: sum(v[k] for v in path_launches.values())
+                for k, fn in enumerate(counted)}
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
@@ -909,7 +1492,8 @@ def run(dev) -> None:
          "max_abs_err": errs[name], "ms": times[name][0],
          "graph_ms": graph[name], "launch_floor_ms": floor_ms,
          "plain_ms": times[name][1], "bound_ms": bounds[name][0],
-         "bound_by": bounds[name][1], "library_ms": None}
+         "bound_by": bounds[name][1], "library_ms": None,
+         "cases": [shard_timing[name]]}
         for name in cases]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -74,6 +74,12 @@ class TemplateBank:
         return dataclasses.replace(
             self, **{k: getattr(self, k).to(device) for k in _ARRAYS})
 
+    def slots(self, start: int, stop: int) -> "TemplateBank":
+        """Slots ``start:stop`` as a bank (a template shard); the class
+        names and ``max_span`` are the whole bank's."""
+        return dataclasses.replace(
+            self, **{k: getattr(self, k)[start:stop] for k in _ARRAYS})
+
 
 @dataclasses.dataclass
 class TemplateView:

@@ -541,6 +541,8 @@ import numpy as np
 import fealess_tpu_torch
 from fealess_tpu_torch import config as cfg
 from fealess_tpu_torch.apps import fixture, profile_reco, track  # noqa: F401
+from fealess_tpu_torch.parallel import (batch_recon, mesh, multihost,  # noqa: F401
+                                        sharded_icp, sharded_match)
 from fealess_tpu_torch.engine import CamIntrinsics, ObjReco
 from fealess_tpu_torch.tracker.kcf import KcfTracker
 
