@@ -83,7 +83,21 @@ Phases, one line of output each (or a few):
    bitwise equal to 6a's; times of each against its single-device call
    (two processes sharing one card: not a scaling figure).
 
-Each path of phases 4-4c and 6 runs with the kernels' launch counters
+7. camera widths and frame input: ``ops/resize`` on the card bitwise
+   equal to its CPU run on the common camera profiles (``RESIZE_SHAPES``);
+   a 1280x960 camera (every pixel of the fixture scenes replicated 2x2, K
+   doubled) served by ``recognition`` in both ICP settings and by
+   ``recognition_multi`` on the two-instance scene, each bitwise equal to
+   the native frame's result with the same K1/K2/K3 launches; a 1280x720
+   camera (re-pinned processing dims 640x400) against the JAX package's
+   result; the prepare stage at 640x480 and 1280x960, the upload of the
+   larger frame and the resize on the card timed; ``read_png`` of a
+   Paeth-filtered 640x480 RGB file with the C un-filter and with its
+   numpy twin; ``recon --profile`` over a series of such frames through
+   ``io.native.FrameLoader`` (its ``host-io(decode+wait)`` row against a
+   decode on the main thread).
+
+Each path of phases 4-4c, 6 and 7 runs with the kernels' launch counters
 set to 0 just before it and read just after; every kernel must have run
 on the paths that reach it.  The line before the last is a JSON object
 with one entry per kernel (launches summed over the paths, and the 2-way
@@ -189,6 +203,23 @@ PARALLEL_REPS = 10
 ICP_R_TOL, ICP_T_TOL_MM = 1e-5, 1e-3
 MATCH_FIELDS = ("x", "y", "similarity", "template_slot", "class_idx",
                 "template_idx", "valid")
+
+# Phase 7 (camera widths and frame input): the shapes on which ops/resize
+# on the card is held to its CPU run (camera profiles to the 640 width,
+# other downscales, 2-D upscales); a 1280x720 camera resizes to 640x360
+# and pads to these processing dims, where the JAX package on the CPU
+# gives the native match (237, 157), similarity 100.0 and the native pose
+# (default ICP, both the 2x2-replicated 1280x960 scene and its top 720
+# rows); the Paeth-filtered series the CLI reads, and timed PNG reads.
+RESIZE_SHAPES = [((1280, 960), (640, 480)), ((1280, 720), (640, 360)),
+                 ((1920, 1080), (640, 360)), ((848, 480), (640, 362)),
+                 ((1024, 768), (640, 480)), ((1000, 700), (640, 448)),
+                 ((1280, 800), (640, 400)), ((640, 480), (480, 360)),
+                 ((480, 270), (240, 135)), ((320, 240), (640, 480)),
+                 ((300, 240), (641, 480)), ((320, 240), (641, 480))]
+EXPECT_720_DIMS = (400, 640)
+SERIES_FRAMES = 8
+PNG_TIMED = 10
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's H100 datasheet):
 # HBM bytes per second and non-tensor f32 operations per second (the
@@ -1136,6 +1167,255 @@ def parallel_phase(eng, bgr_np, depth_np, cam, card, counts, errs):
     return timing
 
 
+# -- phase 7: camera widths and frame input -------------------------------
+
+def paeth_png(img) -> bytes:
+    """PNG bytes of a u8 BGR (H, W, 3) image as 8-bit RGB with every row
+    Paeth-filtered (libpng's adaptive writer picks Paeth and Average on
+    camera images; io/png.py's own writer uses filter 0)."""
+    import struct
+    import zlib
+
+    import numpy as np
+    rgb = img[:, :, ::-1].reshape(img.shape[0], -1).astype(np.int16)
+    h, stride = rgb.shape
+    a, b, c = (np.zeros_like(rgb) for _ in range(3))
+    a[:, 3:] = rgb[:, :-3]
+    b[1:] = rgb[:-1]
+    c[1:, 3:] = rgb[:-1, :-3]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    raw = np.concatenate([np.full((h, 1), 4, np.uint8),
+                          ((rgb - pred) & 255).astype(np.uint8)], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", img.shape[1], h, 8, 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def same_results(got, want) -> bool:
+    """Two lists of RecoResults equal bit for bit."""
+    import numpy as np
+    return len(got) == len(want) and all(
+        (g.obj_tag, g.match_rect, g.similarity, g.icp_dist, g.inlier_ratio)
+        == (w.obj_tag, w.match_rect, w.similarity, w.icp_dist,
+            w.inlier_ratio)
+        and np.array_equal(g.world2cam, w.world2cam)
+        for g, w in zip(got, want))
+
+
+def zoom_phase(eng, bgr_np, depth_np, cam, card, counts,
+               default_icp) -> None:
+    """Phase 7: the device resize against its CPU run; the zoomed serving
+    paths against the native ones; the prepare stage, the upload, the PNG
+    un-filter and the CLI's frame loader timed."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from fealess_tpu_torch.apps import cli, fixture
+    from fealess_tpu_torch.apps.profile_reco import graph_ms, stage_ms
+    from fealess_tpu_torch.engine import CamIntrinsics
+    from fealess_tpu_torch.io import png
+    from fealess_tpu_torch.ops import resize
+
+    zero_counts, read_counts, path_launches, counted = counts
+    dev = eng.device
+    eng.set_advanced_param("icp_mode", default_icp.mode)
+
+    # 7a. ops/resize on the card against its CPU run
+    rng = np.random.default_rng(9)
+    for (sw, sh), (dw, dh) in RESIZE_SHAPES:
+        img = torch.from_numpy(rng.integers(0, 256, (sh, sw, 3),
+                                            dtype=np.uint8))
+        dep = torch.from_numpy(rng.integers(0, 65536, (sh, sw)).astype(
+            np.int32))
+        for fn, x in ((resize.resize_linear_u8, img),
+                      (resize.resize_nearest, dep)):
+            want = fn(x, (dw, dh))
+            got = fn(x.to(dev), (dw, dh))
+            check(got.device == dev and torch.equal(got.cpu(), want),
+                  f"{fn.__name__} {sw}x{sh} -> {dw}x{dh}: the card differs "
+                  f"from the CPU")
+    shapes = ", ".join(f"{a[0]}x{a[1]}->{b[0]}x{b[1]}"
+                       for a, b in RESIZE_SHAPES)
+    print(f"resize: linear u8 and nearest on the card equal their CPU run "
+          f"bitwise on {len(RESIZE_SHAPES)} shapes ({shapes})")
+
+    # 7b. a 1280x960 camera: the fixture scenes with every pixel 2x2
+    big_bgr, big_depth, cam2 = fixture.doubled(bgr_np, depth_np, cam)
+    check(torch.equal(resize.resize_linear_u8(
+        torch.from_numpy(big_bgr).to(dev), (cam.width, cam.height)).cpu(),
+        torch.from_numpy(bgr_np)), "the 2x2 scene does not resize back")
+
+    def native_counts(fn):
+        zero_counts()
+        out = fn()
+        return out, [f.launches for f in counted]
+
+    for setting in ("a", "b"):
+        apply_setting(eng, setting, default_icp)
+        native, n_counts = native_counts(
+            lambda: eng.recognition(bgr_np, depth_np, cam))
+        zero_counts()
+        zoomed = eng.recognition(big_bgr, big_depth, cam2)
+        read_counts(f"zoomed top-1 ({setting})")
+        check(same_results(zoomed, native) and len(zoomed) == 1,
+              f"zoomed top-1 ({setting}): {zoomed} vs native {native}")
+        check(path_launches[f"zoomed top-1 ({setting})"] == n_counts,
+              f"zoomed top-1 ({setting}): launches "
+              f"{path_launches[f'zoomed top-1 ({setting})']} vs native "
+              f"{n_counts}")
+        print(f"zoomed top-1 ({setting}, {default_icp.mode}, 1280x960 -> "
+              f"640x480): match {zoomed[0].match_rect[:2]} t "
+              f"{[round(float(v), 5) for v in zoomed[0].world2cam[:3, 3]]}"
+              f", bitwise equal to the native frame's, launches "
+              f"{n_counts} as native")
+    apply_setting(eng, "a", default_icp)
+    two_bgr, two_depth = fixture.two_instance_scene(bgr_np, depth_np)
+    native, n_counts = native_counts(
+        lambda: eng.recognition_multi(two_bgr, two_depth, cam))
+    zero_counts()
+    zoomed = eng.recognition_multi(*fixture.doubled(two_bgr, two_depth,
+                                                    cam))
+    read_counts("zoomed recognition_multi")
+    check(same_results(zoomed, native) and len(zoomed) == 2,
+          f"zoomed multi: {zoomed} vs native {native}")
+    check(path_launches["zoomed recognition_multi"] == n_counts,
+          f"zoomed multi: launches {path_launches['zoomed recognition_multi']}"
+          f" vs native {n_counts}")
+    print(f"zoomed recognition_multi (two-instance scene at 1280x960): "
+          f"{len(zoomed)} results bitwise equal to the native frame's, "
+          f"launches {n_counts} as native")
+    # a 1280x720 camera (the doubled scene's top 720 rows): 640x360,
+    # padded to 640x400, re-pins the processing dims (the JAX package on
+    # the CPU: the native match and pose)
+    cam720 = CamIntrinsics(cam2.fx, cam2.fy, cam2.cx, cam2.cy, cam2.width,
+                           720)
+    zero_counts()
+    res = eng.recognition(big_bgr[:720], big_depth[:720], cam720)
+    read_counts("zoomed top-1 1280x720")
+    dims = (eng.cfg.detector.image_height, eng.cfg.detector.image_width)
+    check(dims == EXPECT_720_DIMS, f"1280x720: processing dims {dims}")
+    check(len(res) == 1 and tuple(res[0].match_rect[:2]) == EXPECT_MATCH
+          and res[0].similarity == 100.0
+          and close(res[0].world2cam[:3, 3], EXPECT_T["a"], T_TOL_MM["a"]),
+          f"1280x720: {res}")
+    print(f"zoomed top-1 1280x720 -> 640x360 padded to {dims}: match "
+          f"{res[0].match_rect[:2]} t "
+          f"{[round(float(v), 5) for v in res[0].world2cam[:3, 3]]} (JAX: "
+          f"{EXPECT_T['a']})")
+    eng.recognition(bgr_np, depth_np, cam)
+    check((eng.cfg.detector.image_height, eng.cfg.detector.image_width)
+          == (cam.height, cam.width), "dims not re-pinned to 640x480")
+
+    # 7c. times: the prepare stage at both widths, the upload and the
+    # resize on the card
+    prep = {name: stage_ms(lambda: eng._prepare_frame(b, d, k), 20)[0]
+            for name, b, d, k in (("640x480", bgr_np, depth_np, cam),
+                                  ("1280x960", big_bgr, big_depth, cam2))}
+    big_depth_i32 = big_depth.astype(np.int32)
+
+    def upload():
+        return (torch.from_numpy(big_bgr).to(dev),
+                torch.from_numpy(big_depth_i32).to(dev))
+
+    up_ms = cuda_ms(upload, 10)
+    bgr_d, depth_d = upload()
+
+    def resize_both():
+        return (resize.resize_linear_u8(bgr_d, (cam.width, cam.height)),
+                resize.resize_nearest(depth_d, (cam.width, cam.height)))
+
+    rs_events = cuda_ms(resize_both, 20)
+    rs_graph = graph_ms(resize_both, 20)
+    frame_bytes = big_bgr.nbytes + big_depth_i32.nbytes
+    out_bytes = bgr_np.nbytes + 4 * depth_np.size
+    print(f"time prepare stage (host clock, synchronised, mean of 20): "
+          f"640x480 {prep['640x480']:.4f} ms, 1280x960 "
+          f"{prep['1280x960']:.4f} ms ({card})")
+    print(f"time 1280x960 upload (colour u8 + depth int32, "
+          f"{frame_bytes} bytes, pageable): {up_ms:.4f} ms (events); "
+          f"resize on the card (linear + nearest to 640x480): "
+          f"{rs_events:.4f} ms (events), {rs_graph:.4f} ms (graph), bytes "
+          f"bound {(frame_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3:.6f} "
+          f"ms ({card})")
+
+    # 7d. a Paeth-filtered 640x480 RGB PNG: the C un-filter and its twin
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "paeth.png")
+        with open(path, "wb") as f:
+            f.write(paeth_png(bgr_np))
+        png.read_png(path, color=True)
+        t0 = time.perf_counter()
+        for _ in range(PNG_TIMED):
+            got = png.read_png(path, color=True)
+        c_ms = (time.perf_counter() - t0) * 1e3 / PNG_TIMED
+        check(np.array_equal(got, bgr_np), "Paeth PNG: C read differs")
+        fast = png._unfilter
+        png._unfilter = png._unfilter_plain
+        try:
+            t0 = time.perf_counter()
+            got = png.read_png(path, color=True)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            png._unfilter = fast
+        check(np.array_equal(got, bgr_np), "Paeth PNG: twin read differs")
+        print(f"time read_png (640x480 RGB, every row Paeth): C un-filter "
+              f"{c_ms:.3f} ms (mean of {PNG_TIMED}), numpy twin "
+              f"{plain_ms:.3f} ms (one call); both equal the scene (host, "
+              f"{card})")
+
+        # 7e. the CLI over a series of such frames (FrameLoader)
+        series = os.path.join(tmp, "series")
+        for sub in ("gray", "depth"):
+            os.makedirs(os.path.join(series, sub))
+        frames = fixture.pan(bgr_np, depth_np, SERIES_FRAMES)
+        for i, (b, d) in enumerate(frames):
+            with open(os.path.join(series, "gray", f"{i}.png"), "wb") as f:
+                f.write(paeth_png(b))
+            png.write_png(os.path.join(series, "depth", f"{i}.png"),
+                          (d.astype(np.uint32) * 10).astype(np.uint16))
+        t0 = time.perf_counter()
+        for i in range(SERIES_FRAMES):
+            png.read_png(os.path.join(series, "gray", f"{i}.png"),
+                         color=True)
+            png.read_png(os.path.join(series, "depth", f"{i}.png"))
+        serial_ms = (time.perf_counter() - t0) * 1e3 / SERIES_FRAMES
+        out, err = io.StringIO(), io.StringIO()
+        zero_counts()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(["recon", os.path.join(fixture.FIXTURE,
+                                                 "features"),
+                           "--series", series, "--profile", "--device",
+                           str(dev)])
+        read_counts("CLI recon, Paeth series")
+        lines = [json.loads(ln) for ln in out.getvalue().splitlines()
+                 if ln.startswith("{")]
+        check(rc == 0 and [ln["frame"] for ln in lines]
+              == list(range(SERIES_FRAMES))
+              and all(len(ln["results"]) == 1
+                      and ln["results"][0]["similarity"] == 100.0
+                      for ln in lines),
+              f"CLI recon on the Paeth series: rc {rc}, {lines}")
+        rows = {ln.split()[1]: ln.split()[2:] for ln in
+                err.getvalue().splitlines() if ln.startswith("# ")
+                and len(ln.split()) == 5}
+        io_row, reco_row = rows["host-io(decode+wait)"], \
+            rows["recognition(+fetch)"]
+        print(f"time CLI recon --profile ({SERIES_FRAMES} Paeth frames + "
+              f"u16 depth, FrameLoader 4 threads): host-io(decode+wait) "
+              f"{io_row[2]} ms mean ({io_row[1]} ms in all), "
+              f"recognition(+fetch) {reco_row[2]} ms mean; decoding a "
+              f"frame on the main thread takes {serial_ms:.3f} ms ({card})")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1470,6 +1750,10 @@ def run(dev) -> None:
     shard_timing = parallel_phase(eng, bgr_np, depth_np, cam, card,
                                   (zero_counts, read_counts, path_launches),
                                   errs)
+    # -- 7. camera widths and frame input
+    zoom_phase(eng, bgr_np, depth_np, cam, card,
+               (zero_counts, read_counts, path_launches, counted),
+               default_icp)
     launches = {fn.__name__: sum(v[k] for v in path_launches.values())
                 for k, fn in enumerate(counted)}
     print(f"peak device memory: "

@@ -19,7 +19,7 @@ subprocess that running the port loads none of them and no module under
 
 Entry points run on ``cuda`` unless the caller names another device; a
 caller that wants the CPU passes ``device="cpu"``, as the tests do.
-``python -m fealess_tpu_torch train|recon|export|track|eval`` is the
+``python -m fealess_tpu_torch train|recon|export|track|eval|acq`` is the
 command line (``apps/cli.py``).
 """
 

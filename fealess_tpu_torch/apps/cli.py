@@ -7,14 +7,18 @@ the JAX CLI's actions, flags and stdout JSON lines, plus ``--device``
                -> linemod_templates.yml.
 - ``recon``  — linemod_recon (test/linemod_recon.cpp:10-114): image series
                -> per-frame poses (``--multi``: top-M + 3D NMS;
-               ``--artifact``: serve from an exported artifact).
+               ``--artifact``: serve from an exported artifact;
+               ``--overlay-dir``: wireframe overlay PNGs).
 - ``export`` — write the serving artifact (``io/export.py``).
 - ``track``  — the KCF-gated pipeline (linemod_acq.cpp:103-196 demo).
 - ``eval``   — ADD/rotation/translation metrics against ground-truth
                poses (SURVEY.md §4c).
+- ``acq``    — dump a PNG series (+ depth) into the scan-package layout
+               (linemod_acq.cpp:10-102; ``apps/acquire.py``).
 
-Frames are read with ``io/png.py``; every frame must have the first
-frame's size.  ``--profile`` prints the host wall-clock stage report.
+A series is read by ``io.native.FrameLoader``: PNG pairs decoded ahead on
+its threads and resized to the first frame's size, as the JAX CLI does.
+``--profile`` prints the host wall-clock stage report.
 """
 
 from __future__ import annotations
@@ -33,12 +37,10 @@ import numpy as np
 def _series_paths(directory: str, color_sub: str = "gray",
                   depth_sub: str = "depth"):
     """Numerically ordered (color, depth) png path pairs."""
-    def _key(p):
-        stem = os.path.splitext(os.path.basename(p))[0]
-        return (0, int(stem)) if stem.isdigit() else (1, stem)
+    from fealess_tpu_torch.io.series import numeric_stem_key
 
     colors = sorted(glob.glob(os.path.join(directory, color_sub, "*.png")),
-                    key=_key)
+                    key=numeric_stem_key)
     pairs = []
     for c in colors:
         d = os.path.join(directory, depth_sub, os.path.basename(c))
@@ -47,33 +49,9 @@ def _series_paths(directory: str, color_sub: str = "gray",
     return pairs
 
 
-def _frames(pairs, shape_hw, depth_scale: float):
-    """(index, bgr u8, depth u16) per pair, in order; depth x depth_scale
-    (rounded half to even) unless the scale is 1.  A pair whose colour or
-    depth PNG does not decode is skipped and keeps its index, as the JAX
-    CLI's frame loader does."""
-    from fealess_tpu_torch.io.png import DecodeError, read_png
-
-    for idx, (cp, dp) in enumerate(pairs):
-        try:
-            bgr = read_png(cp, color=True)
-            depth = read_png(dp)
-        except DecodeError:
-            continue
-        if bgr.shape[:2] != shape_hw or depth.shape != shape_hw:
-            raise ValueError(
-                f"frame {cp}: colour {bgr.shape[:2]}, depth {depth.shape};"
-                f" the series is (H, W) = {shape_hw} (resizing is not "
-                f"ported)")
-        depth = np.asarray(depth, np.uint16)
-        if depth_scale != 1.0:
-            depth = np.clip(np.rint(depth.astype(np.float64) * depth_scale),
-                            0, 65535).astype(np.uint16)
-        yield idx, bgr, depth
-
-
 def _series(args):
-    """(pairs, (h, w)) of the recon/track series, or None when empty."""
+    """(pairs, (h, w) of the first frame) of the recon/track series, or
+    None when empty."""
     from fealess_tpu_torch.io.png import read_png
 
     series = args.series or args.dir
@@ -82,6 +60,22 @@ def _series(args):
         print(f"no frames under {series}", file=sys.stderr)
         return None
     return pairs, read_png(pairs[0][0], color=True).shape[:2]
+
+
+def _loader(pairs, h: int, w: int):
+    """The series' frame loader: (index, bgr, depth) of each decodable
+    pair, resized to (w, h) on its threads."""
+    from fealess_tpu_torch.io.native import FrameLoader
+    return FrameLoader([p[0] for p in pairs], [p[1] for p in pairs],
+                       target_wh=(w, h))
+
+
+def _depth_mm(depth: np.ndarray, scale: float) -> np.ndarray:
+    """depth x ``--depth-scale`` (rounded half to even) unless it is 1."""
+    if scale == 1.0:
+        return depth
+    return np.clip(np.rint(depth.astype(np.float64) * scale),
+                   0, 65535).astype(np.uint16)
 
 
 def _camera(args, width: int, height: int):
@@ -172,32 +166,49 @@ def cmd_recon(args) -> int:
         eng = _engine_for(args, w, h)
     cam = _camera(args, w, h)
 
+    mesh = None
+    if args.overlay_dir:
+        from fealess_tpu_torch.apps import model_mesh
+        from fealess_tpu_torch.io.png import write_png
+        objs = glob.glob(os.path.join(args.dir, "*.obj"))
+        if objs:
+            mesh = model_mesh.load_obj(objs[0], model_scale=args.model_scale)
+        os.makedirs(args.overlay_dir, exist_ok=True)
+
     # the results come back to the host, so host time includes the device's
     timer = StageTimer()
     n = 0
     t0 = time.perf_counter()
-    frames = _frames(pairs, (h, w), args.depth_scale)
-    while True:
-        t_io = time.perf_counter()
-        try:
-            idx, bgr, depth = next(frames)
-        except StopIteration:
-            break
-        timer.add("host-io(decode)", time.perf_counter() - t_io)
-        t_e = time.perf_counter()
-        if args.multi:
-            results = eng.recognition_multi(bgr, depth, cam)
-        else:
-            results = eng.recognition(bgr, depth, cam)
-        timer.add("recognition(+fetch)", time.perf_counter() - t_e)
-        n += 1
-        print(json.dumps({"frame": idx,
-                          "results": [{"obj": r.obj_tag,
-                                       "similarity": r.similarity,
-                                       "icp_dist": r.icp_dist,
-                                       "pose": np.asarray(
-                                           r.world2cam).tolist()}
-                                      for r in results]}))
+    with _loader(pairs, h, w) as frames:
+        while True:
+            t_io = time.perf_counter()
+            try:
+                idx, bgr, depth = next(frames)
+            except StopIteration:
+                break
+            timer.add("host-io(decode+wait)", time.perf_counter() - t_io)
+            depth = _depth_mm(depth, args.depth_scale)
+            n += 1
+            t_e = time.perf_counter()
+            if args.multi:
+                results = eng.recognition_multi(bgr, depth, cam)
+            else:
+                results = eng.recognition(bgr, depth, cam)
+            timer.add("recognition(+fetch)", time.perf_counter() - t_e)
+            print(json.dumps({"frame": idx,
+                              "results": [{"obj": r.obj_tag,
+                                           "similarity": r.similarity,
+                                           "icp_dist": r.icp_dist,
+                                           "pose": np.asarray(
+                                               r.world2cam).tolist()}
+                                          for r in results]}))
+            if mesh is not None and results:
+                k = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy],
+                              [0, 0, 1]])
+                img = model_mesh.draw_wireframe(bgr.copy(), mesh, k,
+                                                results[0].world2cam)
+                write_png(os.path.join(args.overlay_dir, f"{idx}.png"),
+                          img)
     dt = time.perf_counter() - t0
     print(f"# {n} frames in {dt:.2f}s ({n / dt:.2f} fps)", file=sys.stderr)
     if args.profile and n:
@@ -225,18 +236,21 @@ def cmd_track(args) -> int:
     tracker = TrackedRecognizer(eng, max_lost=args.max_lost)
     timer = StageTimer()
     n = 0
-    for idx, bgr, depth in _frames(pairs, (h, w), args.depth_scale):
-        t_s = time.perf_counter()
-        step = tracker.step(bgr, depth, cam)
-        timer.add("track_step(kcf+match+refine)", time.perf_counter() - t_s)
-        n += 1
-        print(json.dumps({
-            "frame": idx, "redetected": step.redetected,
-            "tracking": step.tracking,
-            "roi": [float(v) for v in step.roi] if step.roi else None,
-            "results": [{"obj": r.obj_tag, "similarity": r.similarity,
-                         "pose": np.asarray(r.world2cam).tolist()}
-                        for r in step.results]}))
+    with _loader(pairs, h, w) as frames:
+        for idx, bgr, depth in frames:
+            depth = _depth_mm(depth, args.depth_scale)
+            t_s = time.perf_counter()
+            step = tracker.step(bgr, depth, cam)
+            timer.add("track_step(kcf+match+refine)",
+                      time.perf_counter() - t_s)
+            n += 1
+            print(json.dumps({
+                "frame": idx, "redetected": step.redetected,
+                "tracking": step.tracking,
+                "roi": [float(v) for v in step.roi] if step.roi else None,
+                "results": [{"obj": r.obj_tag, "similarity": r.similarity,
+                             "pose": np.asarray(r.world2cam).tolist()}
+                            for r in step.results]}))
     if args.profile and n:
         _print_profile(timer)
     return 0
@@ -277,6 +291,21 @@ def cmd_eval(args) -> int:
         "mean_add": summary.mean_add,
         "mean_rot_deg": summary.mean_rot_deg,
         "mean_trans_mm": summary.mean_trans_mm}))
+    return 0
+
+
+def cmd_acq(args) -> int:
+    from fealess_tpu_torch.apps.acquire import acquire_series
+    source = int(args.source) if args.source.isdigit() else args.source
+    try:
+        acquire_series(source, args.out_dir, depth_dir=args.depth_dir,
+                       fx=args.fx, fy=args.fy,
+                       cx=args.cx if args.cx >= 0 else 320.0,
+                       cy=args.cy if args.cy >= 0 else 240.0,
+                       max_frames=args.max_frames, save_clouds=args.clouds)
+    except ValueError as e:               # a source that needs cv2
+        print(f"acq: {e}", file=sys.stderr)
+        return 1
     return 0
 
 
@@ -322,6 +351,10 @@ def build_parser() -> argparse.ArgumentParser:
     _recon_like(r)
     r.add_argument("--multi", action="store_true",
                    help="multi-object NMS path")
+    r.add_argument("--overlay-dir", default=None,
+                   help="write wireframe overlay pngs here")
+    r.add_argument("--model-scale", type=float, default=0.1,
+                   help="OBJ vertex divisor (RENDERING_MODEL_SCALE)")
     r.add_argument("--artifact", default=None,
                    help="serve from an artifact dir (see the export "
                         "action) instead of loading the YAML bank")
@@ -346,6 +379,18 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--add-tau", type=float, default=0.1)
     e.add_argument("--model-scale", type=float, default=0.1)
     e.set_defaults(fn=cmd_eval)
+
+    a = sub.add_parser("acq", help="capture frames into scan-package layout")
+    a.add_argument("source", help="image dir (PNG files; camera indices, "
+                                  "video files and JPEG/BMP need cv2)")
+    a.add_argument("out_dir")
+    a.add_argument("--depth-dir", default=None,
+                   help="paired u16 depth png series (mm)")
+    a.add_argument("--max-frames", type=int, default=None)
+    a.add_argument("--clouds", action="store_true",
+                   help="also dump cloud/<i>.txt point lists (mm)")
+    _add_camera_args(a)
+    a.set_defaults(fn=cmd_acq)
     return p
 
 

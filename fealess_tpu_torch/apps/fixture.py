@@ -43,6 +43,19 @@ def two_instance_scene(bgr: np.ndarray, depth: np.ndarray):
     return bgr2, depth2
 
 
+def doubled(bgr: np.ndarray, depth: np.ndarray, cam: CamIntrinsics):
+    """The scene as a camera of twice the resolution sees it: every pixel
+    replicated 2x2 and K doubled (a 1280x960 camera for the fixture).
+    Resized to the processing width (``ops/resize``) it gives the scene
+    back bit for bit."""
+    def rep(img):
+        return np.ascontiguousarray(np.repeat(np.repeat(img, 2, 0), 2, 1))
+
+    return rep(bgr), rep(depth), CamIntrinsics(
+        2 * cam.fx, 2 * cam.fy, 2 * cam.cx, 2 * cam.cy, 2 * cam.width,
+        2 * cam.height)
+
+
 def pan(bgr: np.ndarray, depth: np.ndarray, n: int):
     """``n`` frames; frame i is the scene rolled by 2i columns and i
     rows."""

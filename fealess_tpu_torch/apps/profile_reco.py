@@ -15,6 +15,9 @@ Paths:
 - ``multi``: ``ObjReco.recognition_multi`` (8 candidates) on the
   two-instance scene (``fixture.two_instance_scene``), default ICP;
   stages prepare, front-end, match, the 8 refines, NMS;
+- ``top1-zoom``: ``ObjReco.recognition`` with default ICP on the fixture
+  scene at 640x480 and as a 1280x960 camera sees it (``fixture.doubled``:
+  resized on the card to 640x480 by ``ops/resize``); the same stages;
 - ``track``: ``TrackedRecognizer`` steps over panned fixture frames 1-3
   after an initialising frame 0, default ICP; stages KCF update, gated
   match (front-end included), refine.
@@ -308,6 +311,27 @@ def path_top1(eng, bgr_np, depth_np, cam, args) -> None:
     local_stage(eng, planes, args.frames)
 
 
+def path_top1_zoom(eng, bgr_np, depth_np, cam, args) -> None:
+    set_icp(eng, {})
+    big = fixture.doubled(bgr_np, depth_np, cam)
+    det = eng.cfg.detector
+    for label, frame in (("640x480", (bgr_np, depth_np, cam)),
+                         ("1280x960 zoomed", big)):
+        profile_frames(f"top1 {label} (a, {eng.cfg.icp.mode})",
+                       lambda: eng.recognition(*frame), args.frames,
+                       args.trace)
+        bgr, depth, k = eng._prepare_frame(*frame)
+        t_prep, _ = stage_ms(lambda: eng._prepare_frame(*frame))
+        t_fe, planes = stage_ms(lambda: td.response_planes(
+            td.quantized_pyramid(bgr, depth, det), det))
+        t_match, m = stage_ms(lambda: td.match_from_planes(
+            eng.bank, planes, eng.cfg.matching_threshold, det, eng._kernels))
+        t_ref, _ = stage_ms(lambda: refine(eng, depth, k, m, 0))
+        print(f"stages top1 {label}: prepare {t_prep:.3f} ms, front-end "
+              f"{t_fe:.3f} ms, match {t_match:.3f} ms, refine {t_ref:.3f} "
+              f"ms")
+
+
 def path_multi(eng, bgr_np, depth_np, cam, args) -> None:
     set_icp(eng, {})
     two_bgr, two_depth = fixture.two_instance_scene(bgr_np, depth_np)
@@ -361,7 +385,8 @@ def path_track(eng, bgr_np, depth_np, cam, args) -> None:
           f"included) {t_match:.3f} ms, refine {t_ref:.3f} ms")
 
 
-PATHS = {"top1": path_top1, "multi": path_multi, "track": path_track}
+PATHS = {"top1": path_top1, "top1-zoom": path_top1_zoom,
+         "multi": path_multi, "track": path_track}
 
 
 def main() -> None:

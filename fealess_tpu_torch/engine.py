@@ -27,6 +27,7 @@ from fealess_tpu_torch.bank import TemplateBank, class_slot_mask, pack_bank
 from fealess_tpu_torch.geometry import depth as gd
 from fealess_tpu_torch.io import linemod_yaml
 from fealess_tpu_torch.io.png import read_png
+from fealess_tpu_torch.ops import resize
 
 
 @dataclasses.dataclass
@@ -225,27 +226,36 @@ class ObjReco:
 
     def _prepare_frame(self, rgb_bgr: np.ndarray, depth_u16: np.ndarray,
                        cam: CamIntrinsics):
-        """PrepareInputData (obj_reco_lmicp.cpp:216-259) for a camera at the
-        processing width: pad bottom/right to the pyramid alignment (zero
-        colour, zero = invalid depth), upload, and build K.  Returns (bgr
-        (H, W, 3) u8, depth (H, W) int32, K (3, 3) f32) on the device."""
+        """PrepareInputData (obj_reco_lmicp.cpp:216-259): resize to the
+        processing width and zoom the intrinsics, then pad bottom/right to
+        the pyramid alignment (zero colour, zero = invalid depth) and build
+        K.  The frame is uploaded, then resized (``ops/resize``: cv2's
+        INTER_LINEAR for colour, INTER_NEAREST for depth, bit for bit) and
+        padded on the device.  Returns (bgr (H, W, 3) u8, depth (H, W)
+        int32, K (3, 3) f32) on the device."""
         d = self.cfg.detector
         if (rgb_bgr.shape[0] != cam.height or rgb_bgr.shape[1] != cam.width
                 or depth_u16.shape != (cam.height, cam.width)):
             raise ValueError("image size must match camera intrinsics")
         zoom = d.image_width / cam.width
-        if zoom != 1.0:
-            raise NotImplementedError(
-                f"camera width {cam.width} != processing width "
-                f"{d.image_width}: resizing (cv::resize) is not ported yet")
-        h, w = cam.height, cam.width
+        w = d.image_width
+        h = int(round(cam.height * zoom))
         align = d.pyramid_alignment
         h_pad = -(-h // align) * align
         w_pad = -(-w // align) * align
+        bgr = torch.from_numpy(np.ascontiguousarray(rgb_bgr, np.uint8)).to(
+            self.device)
+        depth = torch.from_numpy(np.asarray(depth_u16, np.int32)).to(
+            self.device)
+        if zoom != 1.0:
+            bgr = resize.resize_linear_u8(bgr, (w, h))
+            depth = resize.resize_nearest(depth, (w, h))
         if (h_pad, w_pad) != (h, w):
-            rgb_bgr = np.pad(rgb_bgr, ((0, h_pad - h), (0, w_pad - w),
-                                       (0, 0)))
-            depth_u16 = np.pad(depth_u16, ((0, h_pad - h), (0, w_pad - w)))
+            bgr_pad = bgr.new_zeros((h_pad, w_pad, 3))
+            bgr_pad[:h, :w] = bgr
+            depth_pad = depth.new_zeros((h_pad, w_pad))
+            depth_pad[:h, :w] = depth
+            bgr, depth = bgr_pad, depth_pad
         if (d.image_height, d.image_width) != (h_pad, w_pad):
             # first frame of a new aspect: pin the processing dims and
             # rebuild the score tables
@@ -257,9 +267,7 @@ class ObjReco:
                     self.bank, self.cfg.detector)
         fx, fy, cx, cy = gd.scale_intrinsics(cam.fx, cam.fy, cam.cx, cam.cy,
                                              zoom)
-        bgr = torch.from_numpy(np.ascontiguousarray(rgb_bgr, np.uint8))
-        depth = torch.from_numpy(np.asarray(depth_u16, np.int32))
-        return (bgr.to(self.device), depth.to(self.device),
+        return (bgr, depth,
                 gd.intrinsics_matrix(fx, fy, cx, cy, device=self.device))
 
     def _roi_mask_dev(self, roi_mask: Optional[np.ndarray], frame_hw):

@@ -20,6 +20,28 @@ def scale_intrinsics(fx: float, fy: float, cx: float, cy: float,
     return fx * zoom, fy * zoom, cx * zoom, cy * zoom
 
 
+def rescale_depth_to_m(depth_u16: torch.Tensor) -> torch.Tensor:
+    """u16 depth (mm) -> float32 metres, 0 -> NaN (rescaleDepth,
+    ICP/depth_to_3d.cpp:244-269)."""
+    z = depth_u16.to(torch.float32) / 1000.0
+    return torch.where(depth_u16 == 0, torch.nan, z)
+
+
+def depth_to_3d(depth_u16: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Back-project an (H, W) depth image (mm) to (H, W, 3) metres with the
+    3x3 pinhole ``k``: ``x = (u - cx) / fx * z``, ``y = (v - cy) / fy * z``
+    (depthTo3dNoMask, ICP/depth_to_3d.cpp:99-137); zero depth gives NaN
+    points."""
+    h, w = depth_u16.shape
+    z = rescale_depth_to_m(depth_u16)
+    k = k.to(torch.float32)
+    u = torch.arange(w, dtype=torch.float32, device=z.device)[None, :]
+    v = torch.arange(h, dtype=torch.float32, device=z.device)[:, None]
+    x = (u - k[0, 2]) / k[0, 0] * z
+    y = (v - k[1, 2]) / k[1, 1] * z
+    return torch.stack([x, y, z], dim=-1)
+
+
 def normals_from_point_image(points: torch.Tensor) -> torch.Tensor:
     """Per-pixel unit normals of an (H, W, 3) point image: central
     differences along u and v (one-sided at the borders), n = du x dv,

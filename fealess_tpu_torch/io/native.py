@@ -9,6 +9,11 @@
 - ``extract_gradient_template`` / ``extract_normal_template``: a whole
   modality's feature extraction in one call that releases the GIL.
 
+:class:`FrameLoader`, the JAX package's threaded RGB-D frame stream, needs
+no native library here: its threads decode through ``io/png.py`` (zlib
+and the C un-filter release the interpreter lock) and resize with
+``ops/resize`` on CPU tensors.
+
 Nothing here builds the library.  Build it with ``cmake -S
 native/fealess_host -B build/native -G Ninja && ninja -C build/native``;
 :func:`load_library` then finds it there, as the JAX package's loader
@@ -19,9 +24,11 @@ The bindings are called only while :func:`have_native` is true, and
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import pathlib
-from typing import Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -152,3 +159,72 @@ def extract_normal_template(normal_bits: np.ndarray,
         _ptr(bits, _U8P), m_ptr, h, w, num_features, extract_threshold,
         _ptr(out, _I32P))
     return out if n == num_features else None
+
+
+class FrameLoader:
+    """Threaded in-order RGB-D frame stream (``fealess_tpu.io.native.
+    FrameLoader``): iterates ``(index, bgr u8 (H, W, 3), depth u16 (H,
+    W))``.  ``threads`` decode up to ``capacity`` frames ahead of the
+    consumer through ``io/png.read_png``; a pair whose colour or depth
+    file is missing or does not decode (``png.DecodeError``) is skipped
+    and its index is not reused.  With ``target_wh`` each frame is
+    resized on the pool's threads (colour INTER_LINEAR, depth
+    INTER_NEAREST, as cv2 does)."""
+
+    def __init__(self, color_paths: Sequence[str],
+                 depth_paths: Sequence[str],
+                 target_wh: Optional[Tuple[int, int]] = None,
+                 threads: int = 4, capacity: int = 8):
+        if len(color_paths) != len(depth_paths):
+            raise ValueError(f"{len(color_paths)} colour paths, "
+                             f"{len(depth_paths)} depth paths")
+        self._pairs = list(zip(color_paths, depth_paths))
+        self._target = target_wh
+        self._capacity = max(1, capacity)
+        self._pool = ThreadPoolExecutor(max_workers=threads,
+                                        thread_name_prefix="frame-loader")
+        self._ahead = collections.deque()    # (index, future), in order
+        self._submitted = 0
+
+    def _load(self, color_path: str, depth_path: str):
+        from fealess_tpu_torch.io.png import DecodeError, read_png
+        from fealess_tpu_torch.ops.resize import resize_host
+        try:
+            bgr = read_png(color_path, color=True)
+            depth = read_png(depth_path)
+        except (DecodeError, FileNotFoundError):     # cv2.imread: None
+            return None
+        if self._target:
+            bgr = resize_host(bgr, self._target)
+            depth = resize_host(depth, self._target, nearest=True)
+        return bgr, np.asarray(depth, np.uint16)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        while True:
+            while (len(self._ahead) < self._capacity
+                   and self._submitted < len(self._pairs)):
+                self._ahead.append((self._submitted, self._pool.submit(
+                    self._load, *self._pairs[self._submitted])))
+                self._submitted += 1
+            if not self._ahead:
+                self.close()
+                raise StopIteration
+            idx, fut = self._ahead.popleft()
+            frame = fut.result()
+            if frame is not None:
+                return (idx,) + frame
+
+    def close(self) -> None:
+        """Stop the threads (frames not yet read are dropped)."""
+        self._pool.shutdown(wait=True, cancel_futures=True)
+        self._ahead.clear()
+        self._submitted = len(self._pairs)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

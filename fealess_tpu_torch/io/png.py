@@ -34,11 +34,11 @@ chunks are walked with ``struct``, the IDAT stream is inflated with
   floating-point formulas.
 
 Covered: every colour type (0, 2, 3, 4, 6) at every bit depth PNG
-allows, all five filter types, progressive and Adam7-interlaced.  None
-and Sub rows are independent of the row above, so they are un-filtered
-for the whole image (or Adam7 pass) at once (Sub is a per-byte-lane
-cumulative sum mod 256); Up, Average and Paeth rows run in order,
-Average and Paeth one pixel at a time.  Each Adam7 pass is un-filtered
+allows, all five filter types, progressive and Adam7-interlaced.  The
+scanlines are un-filtered in C (``csrc/png_unfilter.c``, built with the
+host compiler at first use and called through ctypes, which releases the
+interpreter lock; a failed build raises).  :func:`_unfilter_plain` is its
+numpy twin, which the tests hold it to.  Each Adam7 pass is un-filtered
 at its own stride and scattered to ``(y0::dy, x0::dx)``.  A file that
 does not decode (where ``cv2.imread`` returns None) raises
 :class:`DecodeError`.
@@ -49,8 +49,10 @@ training path (u8 BGR colour, u8 or u16 gray), with filter type 0.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import struct
+import threading
 import zlib
 
 import numpy as np
@@ -90,8 +92,43 @@ def _paeth(a: int, b: int, c: int) -> int:
     return b if pb <= pc else c
 
 
+_UNFILTER = None
+_UNFILTER_LOCK = threading.Lock()
+
+
+def _unfilter_fn():
+    """``fl_png_unfilter`` of the host library (built at first use)."""
+    global _UNFILTER
+    with _UNFILTER_LOCK:
+        if _UNFILTER is None:
+            from fealess_tpu_torch.ops import _build
+            fn = ctypes.CDLL(str(_build.build_host("png_unfilter"))
+                             ).fl_png_unfilter
+            fn.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int)
+            fn.restype = ctypes.c_int
+            _UNFILTER = fn
+    return _UNFILTER
+
+
 def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
-    """(h, 1 + stride) filtered scanlines -> (h, stride) u8 bytes."""
+    """(h, 1 + stride) filtered scanlines -> (h, stride) u8 bytes, in C."""
+    raw = np.ascontiguousarray(raw, np.uint8)
+    if raw.shape != (h, stride + 1):
+        raise ValueError(f"scanlines {raw.shape}, expected {(h, stride + 1)}")
+    out = np.empty((h, stride), np.uint8)
+    bad = _unfilter_fn()(raw.ctypes.data, out.ctypes.data, h, stride, bpp)
+    if bad:
+        raise DecodeError(f"bad PNG filter type {int(raw[bad - 1, 0])}")
+    return out
+
+
+def _unfilter_plain(raw: np.ndarray, h: int, stride: int,
+                    bpp: int) -> np.ndarray:
+    """The numpy twin of :func:`_unfilter`: None and Sub rows for the
+    whole image at once (Sub is a per-byte-lane cumulative sum mod 256),
+    Up, Average and Paeth rows in order, Average and Paeth one byte at a
+    time."""
     ftype = raw[:, 0]
     rows = raw[:, 1:]
     if (ftype > 4).any():

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (``fealess_tpu_torch/csrc``).
+"""Build and load the port's CUDA kernels (``fealess_tpu_torch/csrc``)
+and its host C helpers.
 
 The ``.cu`` sources have a plain C interface: ``nvcc`` compiles them for
 Hopper (``sm_90a``) into one shared library under
@@ -8,6 +9,12 @@ changes.  The library is loaded with ``ctypes``; every pointer and the
 CUDA stream are passed as ``c_void_p`` and every entry point returns
 ``cudaGetLastError()``, which :func:`check` turns into an exception.
 
+A host C source (``csrc/*.c``: the PNG un-filter) is compiled with the
+host compiler (``cc -O2 -shared -fPIC``) by :func:`build_host` into the
+same directory, named by a hash of the source and flags, at first use on
+any machine.  Concurrent builds (test workers, a frame loader's threads)
+wait on a lock file and load the one library; a failed build raises.
+
 Nothing here runs at import: the CPU tests import every module, and there
 is no ``nvcc`` without a card.
 """
@@ -15,6 +22,7 @@ is no ``nvcc`` without a card.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -33,6 +41,7 @@ BUILD_DIR = _PKG.parent / "build" / "fealess_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+HOST_CFLAGS = ("-O2", "-shared", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -101,6 +110,39 @@ def build() -> pathlib.Path:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{proc.stderr[-4000:]}")
     os.replace(tmp, so)
+    return so
+
+
+def _host_cc() -> str:
+    for name in (os.environ.get("CC"), "cc", "gcc", "clang"):
+        found = name and shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C compiler (cc, gcc or clang; or set CC)")
+
+
+def build_host(name: str) -> pathlib.Path:
+    """Compile ``csrc/<name>.c`` with the host compiler unless the library
+    for this source and these flags exists; return its path."""
+    src = CSRC / f"{name}.c"
+    h = hashlib.sha256(" ".join(HOST_CFLAGS).encode())
+    h.update(src.read_bytes())
+    so = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{so.name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if so.exists():                  # built while this one waited
+            return so
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_host_cc(), *HOST_CFLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} failed ({proc.returncode})"
+                               f":\n{proc.stderr[-4000:]}")
+        os.replace(tmp, so)
     return so
 
 

@@ -292,13 +292,17 @@ def test_cli_eval_matches_jax(port_trained, trained, jax_lines, tmp_path,
                                atol=0.01)
 
 
-def test_cli_profile_report_and_refusals(port_trained, tmp_path, capsys):
-    """--profile prints the host stage report; an empty series returns 1;
-    a frame of another size is refused; --device defaults to cuda."""
+def test_cli_profile_report_and_refusals(port_trained, trained, jax_lines,
+                                        tmp_path, capsys):
+    """--profile prints the host stage report, whose decode row times the
+    wait on the frame loader; an empty series returns 1; a colour frame of
+    another size is resized to the first frame's, as the JAX CLI does, and
+    the lines equal the JAX CLI's; --device defaults to cuda.  (The name
+    is kept from when the port refused such frames.)"""
     rc, _, _, err = _run(cli.main, ["recon", port_trained[0], "--profile",
                                     "--device", "cpu"] + RECON, capsys)
     assert rc == 0
-    assert "host-io(decode)" in err and "recognition(+fetch)" in err
+    assert "host-io(decode+wait)" in err and "recognition(+fetch)" in err
     empty = tmp_path / "empty"
     empty.mkdir()
     rc, _, _, err = _run(cli.main, ["recon", port_trained[0], "--series",
@@ -309,8 +313,15 @@ def test_cli_profile_report_and_refusals(port_trained, tmp_path, capsys):
     from fealess_tpu_torch.io.png import read_png, write_png
     write_png(os.path.join(odd, "gray", "1.png"),
               read_png(os.path.join(odd, "gray", "1.png"))[:80])
-    with pytest.raises(ValueError, match="resizing"):
-        cli.main(["recon", odd, "--device", "cpu"] + RECON)
+    series = ["--series", odd] + RECON
+    rc, lines = _capture(jax_cli.main, ["recon", trained["jax"]] + series)
+    assert rc == 0
+    want = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    rc, got, _, err = _run(cli.main, ["recon", port_trained[0], "--device",
+                                      "cpu"] + series, capsys)
+    assert rc == 0 and "3 frames in" in err
+    assert [w["frame"] for w in want] == [0, 1, 2]
+    _same_lines(got, want)
     args = cli.build_parser().parse_args(["recon", port_trained[0]])
     assert args.device == "cuda"
 

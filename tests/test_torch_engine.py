@@ -178,7 +178,8 @@ def test_unported_advanced_params_are_refused():
 def test_add_obj_state_matches_jax(feature_dir):
     """The port's own add_obj builds the JAX engine's bank (and
     bank_from_numpy of the JAX leaves gives the same tensors), model depth
-    stack and crop origins; other processing widths are refused."""
+    stack and crop origins; a camera at half the processing width is
+    resized (a 2-D upscale) and recognised as JAX recognises it."""
     ref, port = _engines(feature_dir, "point_to_plane")
     from_jax = bank_from_numpy(
         {k: np.asarray(getattr(ref.bank, k)) for k in _LEAVES},
@@ -195,6 +196,8 @@ def test_add_obj_state_matches_jax(feature_dir):
     np.testing.assert_array_equal(port._origins_dev.numpy(),
                                   ref._origins_array())
     bgr, depth, _ = feature_dir[1]
-    half = CamIntrinsics(FX / 2, FY / 2, CX / 2, CY / 2, W // 2, H // 2)
-    with pytest.raises(NotImplementedError):
-        port.recognition(bgr[::2, ::2].copy(), depth[::2, ::2].copy(), half)
+    half = (FX / 2, FY / 2, CX / 2, CY / 2, W // 2, H // 2)
+    frame = (bgr[::2, ::2].copy(), depth[::2, ::2].copy())
+    want = ref.recognition(*frame, JaxCam(*half))
+    assert want
+    _same_results(port.recognition(*frame, CamIntrinsics(*half)), want)
