@@ -56,7 +56,7 @@ Phases, one line of output each (or a few):
 5. times of each kernel and twin at the path's shapes, CUDA events
    around 20 back-to-back launches (3 for a twin; the kernels' ``ms``),
    and for each kernel also events around the replay of a CUDA graph of
-   20 launches (``profile_reco.graph_ms``: the device's time without the
+   20 launches (``utils.profiling.graph_ms``: the device's time without the
    host's launch cost), K1 also on 1024 distinct templates; the launch
    floor (the graph time of a one-element in-place add); each kernel's bound
    (``bound_ms``: the larger of its bytes over the card's memory rate and
@@ -95,9 +95,25 @@ Phases, one line of output each (or a few):
    Paeth-filtered 640x480 RGB file with the C un-filter and with its
    numpy twin; ``recon --profile`` over a series of such frames through
    ``io.native.FrameLoader`` (its ``host-io(decode+wait)`` row against a
-   decode on the main thread).
+   decode on the main thread; the frames' launches are read before the
+   device-stage table that ``--profile`` prints since phase 8 came, whose
+   launches go on a path of their own).
+8. the rest of the public surface: the CLI's device-stage table
+   (``cli._profile_stages``: front-end, match and the full step as
+   cumulative prefixes, each the device busy of warm calls under
+   ``torch.profiler``) on the fixture engine in both ICP settings, every
+   row positive and none below the one before by more than 0.01 ms, K1
+   and K2 launched once and K3 ``EXPECT_NN`` times a call of the match
+   and full rows, and the full row within 10% of ``profile_reco``'s device
+   busy of whole recognitions in this process; ``recon --profile`` and
+   ``track --profile`` on phase 4d's scan package print the three rows;
+   ``ObjReco.compute_pose_epnp`` on the fixture's model depth at a known
+   pose and at the match offset, and on JAX's planar case, against the
+   JAX package's poses (``EXPECT_EPNP``); ``draw_response``, ``blit_template`` and
+   ``save_ply`` (from CUDA tensors) against the sha256 of the JAX
+   package's outputs (``EXPECT_VISUAL_SHA256``).
 
-Each path of phases 4-4c, 6 and 7 runs with the kernels' launch counters
+Each path of phases 4-4c, 6, 7 and 8 runs with the kernels' launch counters
 set to 0 just before it and read just after; every kernel must have run
 on the paths that reach it.  The line before the last is a JSON object
 with one entry per kernel (launches summed over the paths, and the 2-way
@@ -220,6 +236,68 @@ RESIZE_SHAPES = [((1280, 960), (640, 480)), ((1280, 720), (640, 360)),
 EXPECT_720_DIMS = (400, 640)
 SERIES_FRAMES = 8
 PNG_TIMED = 10
+
+# Phase 8 (the rest of the public surface).  The device-stage table's rows
+# are cumulative prefixes; device busy repeats within 0.01 ms (PERF.md §5),
+# so no row may fall below the one before it by more; its "full" row (the
+# step without the result's fetch) against profile_reco's device busy of
+# whole recognitions over PROFILE_FRAMES frames in the same process.
+STAGE_ROWS = ["frontend(quant+planes)", "match(front+score+topk+refine16)",
+              "full(match+icp_refine)"]
+STAGE_SLACK_MS = 0.01
+PROFILE_FRAMES = 5
+FULL_TOL = 0.10
+# compute_pose_epnp on the fixture's model depth features/depth/0.png,
+# (initial rotation, t, match offset): R = 0.3 rad about y at 700 mm with
+# no offset, and the identity at 700 mm at the match offset (237, 157);
+# and JAX's own planar case (tests/test_misc_parity.py: a tilted plane in
+# a 240x160 box, identity pose, K 608 608 120 80), which JAX's test holds
+# within 1e-2 of the identity and 5 mm; the JAX package's poses on the CPU
+# (cv2 5.0.0), rows of the 3x4.
+EPNP_CASES = {"known_pose": ([[0.955336489125606, 0.0, 0.29552020666134],
+                              [0.0, 1.0, 0.0],
+                              [-0.29552020666134, 0.0, 0.955336489125606]],
+                             (0.0, 0.0, 700.0), (0, 0)),
+              "match_offset": ([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0],
+                                [0.0, 0.0, 1.0]], (0.0, 0.0, 700.0),
+                               (237, 157))}
+EXPECT_EPNP = {
+    "known_pose": [[0.9553365111351013, 1.0552165363719723e-08,
+                    0.295520156621933, 2.9824454941262957e-06],
+                   [-1.9771491110986972e-08, 1.0, 2.820877575970826e-08,
+                    -1.95110919776198e-06],
+                   [-0.295520156621933, -3.2791749760008315e-08,
+                    0.9553365111351013, 700.0]],
+    "planar": [[1.0, 0.0, 0.0, 2.4345231395273004e-06],
+               [0.0, 1.0, 0.0, -1.3412757198238978e-06],
+               [0.0, 0.0, 1.0, -2.497754621799686e-06]],
+    "match_offset": [[0.9185789823532104, -0.06059134006500244,
+                      0.3905654549598694, 273.93096923828125],
+                     [-0.06186746433377266, 0.9539545774459839,
+                      0.29350146651268005, 179.65245056152344],
+                     [-0.3903653621673584, -0.2937675714492798,
+                      0.8725339770317078, 717.9130249023438]]}
+EPNP_ROT_TOL_DEG = 1e-3
+EPNP_T_TOL_MM = 1e-3
+# sha256 of the JAX package's visualize outputs on the CPU (cv2.circle):
+# the fixture scene with template 0's features drawn, the template crop
+# blitted, and save_ply of (u, v, depth) points of the scene's window
+# [150:330, 230:440] (every 97th row NaN), plain and with colours and a
+# depth > 0 mask (points written, sha256).
+EXPECT_VISUAL_SHA256 = {
+    "draw t5":
+        "82ae5092b8545243d2ada8c76335e0f356648cf98231f7a36e2195525cda1097",
+    "draw t8 level 1":
+        "37fff75d95b1ed2f142b45c6719fdcc845fdce5b75502997e79e1d678f071fa0",
+    "draw gray":
+        "73bceb12f153e54b0934ce9ed117caa7dec36397f1a7f41f87a7f88302738c91",
+    "blit":
+        "41db2a88732da885eea384d5d4ccadb3645f6cb187246bdae010ebcbd75fab48",
+    "ply": (37410, "30ba8aa6de6340f3fc7ed618f6fd278792ba3464f1f91a081be578"
+                   "968ad3b150"),
+    "ply colors valid": (37800, "d6f3a447f916568ae03fe86cd48ff3273151255db"
+                                "6bdb3ccca4fb0f663bdea5b"),
+}
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's H100 datasheet):
 # HBM bytes per second and non-tensor f32 operations per second (the
@@ -1139,7 +1217,7 @@ def parallel_phase(eng, bgr_np, depth_np, cam, card, counts, errs):
     timed; 6a at world size 1 (NCCL); 6b on two ranks sharing the card.
     Returns the shard cases' timing entries for the kernels line."""
     import torch
-    from fealess_tpu_torch.apps.profile_reco import graph_ms
+    from fealess_tpu_torch.utils.profiling import graph_ms
     bgr_b, depth_b, scene_k, clouds = parallel_inputs(eng, bgr_np, depth_np,
                                                       cam)
     cases = shard_cases(eng, bgr_b[0], depth_b[0], clouds)
@@ -1220,7 +1298,7 @@ def zoom_phase(eng, bgr_np, depth_np, cam, card, counts,
     import numpy as np
     import torch
     from fealess_tpu_torch.apps import cli, fixture
-    from fealess_tpu_torch.apps.profile_reco import graph_ms, stage_ms
+    from fealess_tpu_torch.utils.profiling import WARMUP, graph_ms, stage_ms
     from fealess_tpu_torch.engine import CamIntrinsics
     from fealess_tpu_torch.io import png
     from fealess_tpu_torch.ops import resize
@@ -1388,14 +1466,44 @@ def zoom_phase(eng, bgr_np, depth_np, cam, card, counts,
                          color=True)
             png.read_png(os.path.join(series, "depth", f"{i}.png"))
         serial_ms = (time.perf_counter() - t0) * 1e3 / SERIES_FRAMES
+        # the frames' launches are read before --profile's device-stage
+        # table runs, and the table's on a path of their own
         out, err = io.StringIO(), io.StringIO()
+        frames_path = "CLI recon, Paeth series"
+        table_path = "CLI recon, Paeth series: device-stage table"
+        table = cli._profile_stages
+        real_stdout = sys.stdout
+
+        def frames_then_table(*args):
+            with contextlib.redirect_stdout(real_stdout):
+                read_counts(frames_path)
+            zero_counts()
+            return table(*args)
+
         zero_counts()
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = cli.main(["recon", os.path.join(fixture.FIXTURE,
-                                                 "features"),
-                           "--series", series, "--profile", "--device",
-                           str(dev)])
-        read_counts("CLI recon, Paeth series")
+        cli._profile_stages = frames_then_table
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main(["recon", os.path.join(fixture.FIXTURE,
+                                                     "features"),
+                               "--series", series, "--profile", "--device",
+                               str(dev)])
+        finally:
+            cli._profile_stages = table
+        check(frames_path in path_launches,
+              "CLI recon --profile ran no device-stage table")
+        read_counts(table_path)
+        calls = WARMUP + cli.PROFILE_ITERS
+        frames_n, table_n = path_launches[frames_path], \
+            path_launches[table_path]
+        # every frame launches K1 and K2 once; the table's match and full
+        # rows launch them once a call, and K3 the same number of times in
+        # each full call
+        check(frames_n[:2] == [SERIES_FRAMES] * 2
+              and table_n[:2] == [2 * calls] * 2 and table_n[2] % calls == 0,
+              f"CLI recon --profile: launches {frames_n} on the frames, "
+              f"{table_n} in the table ({calls} calls a row)")
         lines = [json.loads(ln) for ln in out.getvalue().splitlines()
                  if ln.startswith("{")]
         check(rc == 0 and [ln["frame"] for ln in lines]
@@ -1416,6 +1524,177 @@ def zoom_phase(eng, bgr_np, depth_np, cam, card, counts,
               f"frame on the main thread takes {serial_ms:.3f} ms ({card})")
 
 
+# -- phase 8: the rest of the public surface --------------------------------
+
+def stage_rows(err: str):
+    """[(name, ms)] of a ``--profile`` device-stage table in ``err``."""
+    lines = err.splitlines()
+    heads = [i for i, ln in enumerate(lines)
+             if ln.startswith("# device stages (")]
+    check(len(heads) == 1, f"--profile printed {len(heads)} device tables")
+    rows = [(ln[2:38].strip(), float(ln[38:].split()[0]))
+            for ln in lines[heads[0] + 1:heads[0] + 4]]
+    check([name for name, _ in rows] == STAGE_ROWS,
+          f"device-stage rows {rows}")
+    return rows
+
+
+def rows_ok(rows, what: str) -> None:
+    """Every row positive, none below the row before by more than
+    STAGE_SLACK_MS (the rows are cumulative prefixes)."""
+    ms = [v for _, v in rows]
+    check(all(0 < v < float("inf") for v in ms), f"{what}: rows {rows}")
+    check(all(b >= a - STAGE_SLACK_MS for a, b in zip(ms, ms[1:])),
+          f"{what}: a row below the one before it: {rows}")
+
+
+def surface_phase(eng, bgr_np, depth_np, cam, card, counts, default_icp,
+                  pkg: str) -> None:
+    """Phase 8: the device-stage table on the fixture engine beside
+    ``profile_reco``'s device busy, ``recon --profile`` and ``track
+    --profile`` on phase 4d's package, EPnP on the fixture's model depth
+    and the overlays and PLY dump against the JAX package's outputs."""
+    import contextlib
+    import hashlib
+    import io
+
+    import numpy as np
+    import torch
+    from fealess_tpu_torch.apps import cli, fixture, visualize
+    from fealess_tpu_torch.apps.profile_reco import profile_frames
+    from fealess_tpu_torch.engine import CamIntrinsics
+    from fealess_tpu_torch.io.png import read_png
+    from fealess_tpu_torch.utils.profiling import WARMUP
+
+    zero_counts, read_counts, path_launches, counted = counts
+    eng.set_advanced_param("icp_mode", default_icp.mode)
+    calls = WARMUP + cli.PROFILE_ITERS
+
+    # 8a. the device-stage table (front-end, match, full step) against the
+    # device busy of whole recognitions, per ICP setting
+    for setting in ("a", "b"):
+        apply_setting(eng, setting, default_icp)
+        zero_counts()
+        t0 = time.perf_counter()
+        rows = cli._profile_stages(eng, bgr_np, depth_np, cam)
+        table_s = time.perf_counter() - t0
+        path = f"device-stage table ({setting})"
+        read_counts(path)
+        rows = [(name, secs * 1e3) for name, secs in rows]
+        rows_ok(rows, path)
+        # front: no kernel; match: K1 and K2 once a call; full: K1, K2 and
+        # K3 EXPECT_NN times a call
+        want = [2 * calls, 2 * calls, EXPECT_NN[setting] * calls]
+        check(path_launches[path] == want,
+              f"{path}: launches {path_launches[path]}, expected {want} "
+              f"({calls} calls a row)")
+        busy = profile_frames(f"top1 setting {setting} ({eng.cfg.icp.mode})",
+                              lambda: eng.recognition(bgr_np, depth_np, cam),
+                              PROFILE_FRAMES, None)
+        full = rows[-1][1]
+        check(abs(full - busy) <= FULL_TOL * busy,
+              f"{path}: full {full:.4f} ms against profile_reco's device "
+              f"busy {busy:.4f} ms")
+        print(f"device stages top1 ({setting}, {eng.cfg.icp.mode}): "
+              + ", ".join(f"{name} {ms:.4f}" for name, ms in rows)
+              + f" ms/frame; profile_reco device busy {busy:.4f} ms/frame "
+              f"(full / busy {full / busy:.4f}); launches K1/K2/K3 "
+              f"{path_launches[path]} over {calls} calls a row; the table "
+              f"took {table_s:.1f} s ({card})")
+    apply_setting(eng, "a", default_icp)
+
+    # 8b. recon --profile and track --profile on phase 4d's package
+    for action in ("recon", "track"):
+        out, err = io.StringIO(), io.StringIO()
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main([action, pkg, "--profile", "--device", "cuda"])
+        cli_s = time.perf_counter() - t0
+        read_counts(f"CLI {action} --profile")
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith("{")]
+        check(rc == 0 and len(lines) == TRAIN_FRAMES,
+              f"CLI {action} --profile: rc {rc}, {len(lines)} lines")
+        rows = stage_rows(err.getvalue())
+        rows_ok(rows, f"CLI {action} --profile")
+        print(f"CLI {action} --profile ({TRAIN_FRAMES}-template package): "
+              + ", ".join(f"{name} {ms:.4f}" for name, ms in rows)
+              + f" ms/frame; the command took {cli_s:.1f} s ({card})")
+
+    # 8c. EPnP on the fixture's model depth (host float64, as the JAX
+    # package runs cv2 on the host)
+    raw = read_png(os.path.join(fixture.FIXTURE, "features", "depth",
+                                "0.png"))
+    k_cam = CamIntrinsics(cam.fx, cam.fy, cam.cx, cam.cy, 640, 480)
+    plane = np.full((160, 240), 12000, np.uint16)
+    yy, xx = np.mgrid[40:120, 60:180]
+    plane[40:120, 60:180] = (7000 + 4 * (xx - 60) + 2 * (yy - 40)).astype(
+        np.uint16)
+    cases = {name: (raw, k_cam) + case for name, case in EPNP_CASES.items()}
+    cases["planar"] = (plane, CamIntrinsics(608.0, 608.0, 120.0, 80.0, 240,
+                                            160), np.eye(3).tolist(),
+                       (0.0, 0.0, 0.0), (0, 0))
+    for name, (depth_raw, k_case, rot, t, offset) in cases.items():
+        init = np.eye(4, dtype=np.float32)
+        init[:3, :3] = rot
+        init[:3, 3] = t
+        t0 = time.perf_counter()
+        pose = eng.compute_pose_epnp(depth_raw, *offset, init, k_case)
+        ms = (time.perf_counter() - t0) * 1e3
+        want = np.asarray(EXPECT_EPNP[name], np.float64)
+        check(pose is not None and pose.shape == (4, 4)
+              and bool(np.isfinite(pose).all()), f"EPnP {name}: {pose}")
+        d_rot = rotation_deg(pose[:3, :3].astype(np.float64).T
+                             @ want[:, :3])
+        d_t = float(np.abs(pose[:3, 3] - want[:, 3]).max())
+        check(d_rot <= EPNP_ROT_TOL_DEG and d_t <= EPNP_T_TOL_MM,
+              f"EPnP {name}: {pose[:3].tolist()} vs JAX's {want.tolist()}")
+        print(f"EPnP {name}: t {[round(float(v), 4) for v in pose[:3, 3]]} "
+              f"mm, {d_rot:.2e} deg / {d_t:.2e} mm from the JAX package's; "
+              f"{ms:.1f} ms on the host ({card})")
+
+    # 8d. draw_response, blit_template and save_ply against the sha256 of
+    # the JAX package's outputs (cv2.circle) on the same inputs
+    bank = eng.bank
+    t0 = time.perf_counter()
+    got = {"draw t5": visualize.draw_response(bgr_np.copy(), bank, 0,
+                                              (237, 157), level=0, t=5),
+           "draw t8 level 1": visualize.draw_response(
+               bgr_np.copy(), bank, 0, (-20, 380), level=1, t=8),
+           "draw gray": visualize.draw_response(
+               np.ascontiguousarray(bgr_np[..., 1]), bank, 0, (560, -40),
+               t=8),
+           "blit": visualize.blit_template(
+               bgr_np.copy(), np.ascontiguousarray(bgr_np[157:316, 237:428,
+                                                          1]), (500, 400))}
+    draw_ms = (time.perf_counter() - t0) * 1e3
+    vv, uu = np.mgrid[150:330, 230:440]
+    pts = np.stack([uu, vv, depth_np[150:330, 230:440]], -1).reshape(
+        -1, 3).astype(np.float32)
+    pts[::97] = np.nan
+    cols = torch.from_numpy(bgr_np[150:330, 230:440].reshape(-1, 3)).to(
+        eng.device)
+    valid = torch.from_numpy(depth_np[150:330, 230:440] > 0).reshape(-1)
+    pts_dev = torch.from_numpy(pts).to(eng.device)
+    for name, img in got.items():
+        digest = hashlib.sha256(np.ascontiguousarray(img).tobytes())
+        check(digest.hexdigest() == EXPECT_VISUAL_SHA256[name],
+              f"{name}: sha256 {digest.hexdigest()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, args in (("ply", (pts_dev,)),
+                           ("ply colors valid", (pts_dev, cols, valid))):
+            path = os.path.join(tmp, "cloud.ply")
+            n = visualize.save_ply(path, *args)
+            with open(path, "rb") as f:
+                digest = hashlib.sha256(f.read()).hexdigest()
+            check((n, digest) == EXPECT_VISUAL_SHA256[name],
+                  f"{name}: {n} points, sha256 {digest}")
+    print(f"visualize: {len(got)} overlays and 2 PLY files equal the JAX "
+          f"package's (sha256); the three draw_response calls and the blit "
+          f"took {draw_ms:.1f} ms on the host ({card})")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1433,13 +1712,19 @@ def run(dev) -> None:
     from fealess_tpu_torch.apps.track import (MultiTrackedRecognizer,
                                               TrackedRecognizer)
     from fealess_tpu_torch.apps import fixture
-    from fealess_tpu_torch.apps.profile_reco import graph_ms
+    from fealess_tpu_torch.utils.profiling import graph_ms
     from fealess_tpu_torch.engine import ObjReco
     from fealess_tpu_torch.io.export import ServingArtifact
     from fealess_tpu_torch.ops import _build, nn, score
     from fealess_tpu_torch.tracker.kcf import KcfTracker
 
     # -- 1. card and versions
+    t_run = time.perf_counter()
+
+    def phase_clock(phase: str) -> None:
+        print(f"clock: {time.perf_counter() - t_run:.1f} s at the start of "
+              f"phase {phase}")
+
     card = card_line()
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60).stdout
@@ -1660,10 +1945,12 @@ def run(dev) -> None:
         check(grew[0] >= 1 and grew[1] >= 1,
               f"multi-track frame {i}: score kernels launched {grew[:2]}")
     read_counts("tracking")
-    training_and_cli(dev, bgr_np, depth_np, card, zero_counts, read_counts,
-                     path_launches, errs)
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    pkg = training_and_cli(dev, bgr_np, depth_np, card, zero_counts,
+                           read_counts, path_launches, errs, work.name)
 
     # -- 5. timing
+    phase_clock("5")
     one = torch.zeros(1, device=dev)
     floor_ms = graph_ms(lambda: one.add_(1), 20)
     print(f"time launch floor: {floor_ms:.4f} ms (graph) a one-element "
@@ -1747,13 +2034,22 @@ def run(dev) -> None:
           f"{add_ms:.3f} ms, ServingArtifact load {load_ms:.3f} ms ({card})")
 
     # -- 6. the parallel layer
+    phase_clock("6")
     shard_timing = parallel_phase(eng, bgr_np, depth_np, cam, card,
                                   (zero_counts, read_counts, path_launches),
                                   errs)
     # -- 7. camera widths and frame input
+    phase_clock("7")
     zoom_phase(eng, bgr_np, depth_np, cam, card,
                (zero_counts, read_counts, path_launches, counted),
                default_icp)
+    # -- 8. the rest of the public surface
+    phase_clock("8")
+    surface_phase(eng, bgr_np, depth_np, cam, card,
+                  (zero_counts, read_counts, path_launches, counted),
+                  default_icp, pkg)
+    work.cleanup()
+    phase_clock("9 (the end)")
     launches = {fn.__name__: sum(v[k] for v in path_launches.values())
                 for k, fn in enumerate(counted)}
     print(f"peak device memory: "
@@ -1785,8 +2081,10 @@ def run(dev) -> None:
 
 
 def training_and_cli(dev, bgr_np, depth_np, card, zero_counts, read_counts,
-                     path_launches, errs) -> None:
-    """Phase 4d: training on the card, then the CLI's offline path."""
+                     path_launches, errs, work: str) -> str:
+    """Phase 4d: training on the card, then the CLI's offline path; the
+    scan package (trained, served by phase 8 too) lives in ``work``.
+    Returns its path."""
     import hashlib
 
     import numpy as np
@@ -1794,7 +2092,7 @@ def training_and_cli(dev, bgr_np, depth_np, card, zero_counts, read_counts,
     from fealess_tpu_torch import config as cfg
     from fealess_tpu_torch import training
     from fealess_tpu_torch.apps import cli, fixture, scan_package
-    from fealess_tpu_torch.apps.profile_reco import graph_ms
+    from fealess_tpu_torch.utils.profiling import graph_ms
     from fealess_tpu_torch.io import linemod_yaml
     from fealess_tpu_torch.io.export import ServingArtifact
 
@@ -1821,151 +2119,152 @@ def training_and_cli(dev, bgr_np, depth_np, card, zero_counts, read_counts,
           f"({[len(f) for fl in golden.features for f in fl]} features); "
           f"host extraction path {host_path}")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        pkg = os.path.join(tmp, "pkg")
-        art = os.path.join(tmp, "artifact")
-        fixture.write_scan_package(pkg, bgr_np, depth_np, TRAIN_FRAMES)
-        rc, out = run_cli(["train", pkg, "--device", "cuda"])
-        check(rc == 0 and out[-1].startswith(
-            f"Training: {TRAIN_FRAMES}/{TRAIN_FRAMES} frames"),
-            f"cli train: rc {rc}, {out[-1:]}")
-        with open(os.path.join(pkg, "linemod_templates.yml"), "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()
-        check(digest == EXPECT_TRAIN_SHA256,
-              f"cli train: database sha256 {digest}, JAX's "
-              f"{EXPECT_TRAIN_SHA256}")
-        print(f"cli train: {out[-1].split(' -> ')[0]}, database sha256 "
-              f"equal to the JAX package's")
+    tmp = work
+    pkg = os.path.join(tmp, "pkg")
+    art = os.path.join(tmp, "artifact")
+    fixture.write_scan_package(pkg, bgr_np, depth_np, TRAIN_FRAMES)
+    rc, out = run_cli(["train", pkg, "--device", "cuda"])
+    check(rc == 0 and out[-1].startswith(
+        f"Training: {TRAIN_FRAMES}/{TRAIN_FRAMES} frames"),
+        f"cli train: rc {rc}, {out[-1:]}")
+    with open(os.path.join(pkg, "linemod_templates.yml"), "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    check(digest == EXPECT_TRAIN_SHA256,
+          f"cli train: database sha256 {digest}, JAX's "
+          f"{EXPECT_TRAIN_SHA256}")
+    print(f"cli train: {out[-1].split(' -> ')[0]}, database sha256 "
+          f"equal to the JAX package's")
 
-        rc, out = run_cli(["export", pkg, art, "--device", "cuda"])
-        check(rc == 0, f"cli export: rc {rc}")
-        lines = {}
-        for path, extra in (("cli recon", []),
-                            ("cli recon --artifact", ["--artifact", art])):
-            zero_counts()
-            rc, out = run_cli(["recon", pkg, "--device", "cuda"] + extra)
-            read_counts(path)
-            grew = path_launches[path]
-            check(rc == 0, f"{path}: rc {rc}")
-            check(grew[0] == grew[1] == TRAIN_FRAMES,
-                  f"{path}: K1/K2 launched {grew[:2]}, expected one each "
-                  f"per frame")
-            lines[path] = [json.loads(ln) for ln in out]
-            check(len(lines[path]) == TRAIN_FRAMES, f"{path}: {out}")
-            for rec, (sim, t, dist) in zip(lines[path], EXPECT_CLI):
-                check(len(rec["results"]) == 1, f"{path}: {rec}")
-                r = rec["results"][0]
-                p = np.asarray(r["pose"])
-                check(r["obj"] == "obj" and r["similarity"] == sim
-                      and p.shape == (4, 4) and bool(np.isfinite(p).all())
-                      and close(p[:3, 3], t, CLI_T_TOL_MM)
-                      and rotation_deg(p[:3, :3]) <= ROT_TOL_DEG
-                      and abs(r["icp_dist"] - dist) <= CLI_DIST_TOL,
-                      f"{path} frame {rec['frame']}: {r} vs JAX's "
-                      f"{(sim, t, dist)}")
-            print(f"{path}: {len(lines[path])} frames equal the JAX CLI's "
-                  f"(t " + ", ".join(
-                      str([round(float(v), 4) for v in np.asarray(
-                          rec["results"][0]["pose"])[:3, 3]])
-                      for rec in lines[path]) + ")")
-        check(lines["cli recon --artifact"] == lines["cli recon"],
-              "recon --artifact lines differ from recon's")
-        print("cli recon --artifact: lines equal recon's")
-
-        # one forced-ICP recognition of the served bank, so K3 runs; first
-        # each kernel against its twin at the shapes this bank gives it
-        served = ServingArtifact(art, dev)
-        for name, value in FORCED.items():
-            served.set_advanced_param(name, value)
-        frame0 = next(scan_package.iter_training_frames(pkg))
-        cam = cli._camera(cli.build_parser().parse_args(["recon", pkg]),
-                          frame0.bgr.shape[1], frame0.bgr.shape[0])
-        served_cases, n_pairs = kernel_cases(served, frame0.bgr,
-                                             frame0.depth_mm, cam)
-        hold_to_twins(served_cases, errs,
-                      f"served {served.bank.num_templates}-template bank")
-        check(n_pairs == served.cfg.icp.max_points,
-              f"served ICP pairs {n_pairs}")
-        kernel, _, args = served_cases["coarse_scores"][0]
-        print(f"time coarse_scores (served {served.bank.capacity}-slot "
-              f"bank): kernel {cuda_ms(lambda: kernel(*args), 20):.4f} ms "
-              f"(events), {graph_ms(lambda: kernel(*args), 20):.4f} ms "
-              f"(graph), bound {bound_ms('coarse_scores', args)[0]:.4f} ms "
-              f"({card})")
+    rc, out = run_cli(["export", pkg, art, "--device", "cuda"])
+    check(rc == 0, f"cli export: rc {rc}")
+    lines = {}
+    for path, extra in (("cli recon", []),
+                        ("cli recon --artifact", ["--artifact", art])):
         zero_counts()
-        res = served.recognition(frame0.bgr, frame0.depth_mm, cam)
-        read_counts("served forced ICP")
-        grew = path_launches["served forced ICP"]
-        check(len(res) == 1 and tuple(res[0].match_rect[:2]) == EXPECT_MATCH
-              and close(res[0].world2cam[:3, 3], EXPECT_T["b"],
-                        T_TOL_MM["b"])
-              and abs(rotation_deg(res[0].world2cam[:3, :3])
-                      - EXPECT_ROT_DEG["b"]) <= ROT_TOL_DEG,
-              f"served forced ICP: {res}")
-        check(grew == [1, 1, EXPECT_NN["b"]],
-              f"served forced ICP: launches {grew}")
-        print(f"served forced ICP: match {res[0].match_rect[:2]} t "
-              f"{[round(float(v), 4) for v in res[0].world2cam[:3, 3]]} "
-              f"rotation {rotation_deg(res[0].world2cam[:3, :3]):.4f} deg")
+        rc, out = run_cli(["recon", pkg, "--device", "cuda"] + extra)
+        read_counts(path)
+        grew = path_launches[path]
+        check(rc == 0, f"{path}: rc {rc}")
+        check(grew[0] == grew[1] == TRAIN_FRAMES,
+              f"{path}: K1/K2 launched {grew[:2]}, expected one each "
+              f"per frame")
+        lines[path] = [json.loads(ln) for ln in out]
+        check(len(lines[path]) == TRAIN_FRAMES, f"{path}: {out}")
+        for rec, (sim, t, dist) in zip(lines[path], EXPECT_CLI):
+            check(len(rec["results"]) == 1, f"{path}: {rec}")
+            r = rec["results"][0]
+            p = np.asarray(r["pose"])
+            check(r["obj"] == "obj" and r["similarity"] == sim
+                  and p.shape == (4, 4) and bool(np.isfinite(p).all())
+                  and close(p[:3, 3], t, CLI_T_TOL_MM)
+                  and rotation_deg(p[:3, :3]) <= ROT_TOL_DEG
+                  and abs(r["icp_dist"] - dist) <= CLI_DIST_TOL,
+                  f"{path} frame {rec['frame']}: {r} vs JAX's "
+                  f"{(sim, t, dist)}")
+        print(f"{path}: {len(lines[path])} frames equal the JAX CLI's "
+              f"(t " + ", ".join(
+                  str([round(float(v), 4) for v in np.asarray(
+                      rec["results"][0]["pose"])[:3, 3]])
+                  for rec in lines[path]) + ")")
+    check(lines["cli recon --artifact"] == lines["cli recon"],
+          "recon --artifact lines differ from recon's")
+    print("cli recon --artifact: lines equal recon's")
 
-        # timing: the stages of add_templates_batched (host crop, device
-        # front-end, host extraction threads) timed in turn on one chunk:
-        # the package's 4 frames, and a chunk of CHUNK panned frames as
-        # train_package feeds it, whose first 4 views must equal the first
-        # chunk's; then add_obj vs artifact load
-        frames = list(scan_package.iter_training_frames(pkg))
-        chunks = {TRAIN_FRAMES: [(f.bgr, f.depth_mm, f.mask, f.pose13)
-                                 for f in frames],
-                  scan_package.CHUNK: [
-                      (b, d, d < d[0, 0], frames[0].pose13)
-                      for b, d in fixture.pan(bgr_np, depth_np,
-                                              scan_package.CHUNK)]}
-        workers = training.default_workers()
-        trained = {}
-        for n, chunk in chunks.items():
-            bgrs, depths, masks, poses = (list(c) for c in zip(*chunk))
-            stages = np.zeros((TRAIN_TIMED, 3))
-            for k in range(TRAIN_TIMED):
-                t0 = time.perf_counter()
-                rects, bgr_c, dep_c, msk_c = training.crop_views(
-                    bgrs, depths, masks, det.pyramid_levels)
-                t1 = time.perf_counter()
-                qlevels = training.quantize_crops(bgr_c, dep_c, det, dev)
-                t2 = time.perf_counter()
-                trained[n] = training.extract_views(qlevels, rects, msk_c,
-                                                    poses, det, workers)
-                stages[k] = (t1 - t0, t2 - t1, time.perf_counter() - t2)
-                check(all(v is not None for v in trained[n]),
-                      f"batched training of {n} views")
-            crop_ms, front_ms, extract_ms = stages.mean(0) * 1e3
-            t_ms = crop_ms + front_ms + extract_ms
-            print(f"time add_templates_batched ({n} views, crops "
-                  f"{bgr_c.shape[1]}x{bgr_c.shape[2]}, {host_path} "
-                  f"extraction on {workers} threads): {t_ms:.3f} ms, "
-                  f"{n / t_ms * 1e3:.3f} templates/s; crop {crop_ms:.3f} "
-                  f"ms, front-end {front_ms:.3f} ms, extraction "
-                  f"{extract_ms:.3f} ms; mean of {TRAIN_TIMED} ({card})")
-        check(all(same_view(a, b) for a, b in zip(
-            trained[scan_package.CHUNK], trained[TRAIN_FRAMES])),
-            f"the {scan_package.CHUNK}-view chunk's first views differ from "
-            f"the {TRAIN_FRAMES}-view chunk's")
-        recon_args = cli.build_parser().parse_args(["recon", pkg, "--device",
-                                                    "cuda"])
-        h, w = frames[0].depth_mm.shape
-        load = {"add_obj": [], "artifact": []}
-        for _ in range(TRAIN_TIMED):
+    # one forced-ICP recognition of the served bank, so K3 runs; first
+    # each kernel against its twin at the shapes this bank gives it
+    served = ServingArtifact(art, dev)
+    for name, value in FORCED.items():
+        served.set_advanced_param(name, value)
+    frame0 = next(scan_package.iter_training_frames(pkg))
+    cam = cli._camera(cli.build_parser().parse_args(["recon", pkg]),
+                      frame0.bgr.shape[1], frame0.bgr.shape[0])
+    served_cases, n_pairs = kernel_cases(served, frame0.bgr,
+                                         frame0.depth_mm, cam)
+    hold_to_twins(served_cases, errs,
+                  f"served {served.bank.num_templates}-template bank")
+    check(n_pairs == served.cfg.icp.max_points,
+          f"served ICP pairs {n_pairs}")
+    kernel, _, args = served_cases["coarse_scores"][0]
+    print(f"time coarse_scores (served {served.bank.capacity}-slot "
+          f"bank): kernel {cuda_ms(lambda: kernel(*args), 20):.4f} ms "
+          f"(events), {graph_ms(lambda: kernel(*args), 20):.4f} ms "
+          f"(graph), bound {bound_ms('coarse_scores', args)[0]:.4f} ms "
+          f"({card})")
+    zero_counts()
+    res = served.recognition(frame0.bgr, frame0.depth_mm, cam)
+    read_counts("served forced ICP")
+    grew = path_launches["served forced ICP"]
+    check(len(res) == 1 and tuple(res[0].match_rect[:2]) == EXPECT_MATCH
+          and close(res[0].world2cam[:3, 3], EXPECT_T["b"],
+                    T_TOL_MM["b"])
+          and abs(rotation_deg(res[0].world2cam[:3, :3])
+                  - EXPECT_ROT_DEG["b"]) <= ROT_TOL_DEG,
+          f"served forced ICP: {res}")
+    check(grew == [1, 1, EXPECT_NN["b"]],
+          f"served forced ICP: launches {grew}")
+    print(f"served forced ICP: match {res[0].match_rect[:2]} t "
+          f"{[round(float(v), 4) for v in res[0].world2cam[:3, 3]]} "
+          f"rotation {rotation_deg(res[0].world2cam[:3, :3]):.4f} deg")
+
+    # timing: the stages of add_templates_batched (host crop, device
+    # front-end, host extraction threads) timed in turn on one chunk:
+    # the package's 4 frames, and a chunk of CHUNK panned frames as
+    # train_package feeds it, whose first 4 views must equal the first
+    # chunk's; then add_obj vs artifact load
+    frames = list(scan_package.iter_training_frames(pkg))
+    chunks = {TRAIN_FRAMES: [(f.bgr, f.depth_mm, f.mask, f.pose13)
+                             for f in frames],
+              scan_package.CHUNK: [
+                  (b, d, d < d[0, 0], frames[0].pose13)
+                  for b, d in fixture.pan(bgr_np, depth_np,
+                                          scan_package.CHUNK)]}
+    workers = training.default_workers()
+    trained = {}
+    for n, chunk in chunks.items():
+        bgrs, depths, masks, poses = (list(c) for c in zip(*chunk))
+        stages = np.zeros((TRAIN_TIMED, 3))
+        for k in range(TRAIN_TIMED):
             t0 = time.perf_counter()
-            cli._engine_for(recon_args, w, h)
-            torch.cuda.synchronize()
-            load["add_obj"].append(time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            ServingArtifact(art, dev)
-            torch.cuda.synchronize()
-            load["artifact"].append(time.perf_counter() - t0)
-        print(f"time cold start ({TRAIN_FRAMES} templates): add_obj "
-              f"{np.mean(load['add_obj']) * 1e3:.3f} ms, ServingArtifact "
-              f"load {np.mean(load['artifact']) * 1e3:.3f} ms; mean of "
-              f"{TRAIN_TIMED} ({card})")
+            rects, bgr_c, dep_c, msk_c = training.crop_views(
+                bgrs, depths, masks, det.pyramid_levels)
+            t1 = time.perf_counter()
+            qlevels = training.quantize_crops(bgr_c, dep_c, det, dev)
+            t2 = time.perf_counter()
+            trained[n] = training.extract_views(qlevels, rects, msk_c,
+                                                poses, det, workers)
+            stages[k] = (t1 - t0, t2 - t1, time.perf_counter() - t2)
+            check(all(v is not None for v in trained[n]),
+                  f"batched training of {n} views")
+        crop_ms, front_ms, extract_ms = stages.mean(0) * 1e3
+        t_ms = crop_ms + front_ms + extract_ms
+        print(f"time add_templates_batched ({n} views, crops "
+              f"{bgr_c.shape[1]}x{bgr_c.shape[2]}, {host_path} "
+              f"extraction on {workers} threads): {t_ms:.3f} ms, "
+              f"{n / t_ms * 1e3:.3f} templates/s; crop {crop_ms:.3f} "
+              f"ms, front-end {front_ms:.3f} ms, extraction "
+              f"{extract_ms:.3f} ms; mean of {TRAIN_TIMED} ({card})")
+    check(all(same_view(a, b) for a, b in zip(
+        trained[scan_package.CHUNK], trained[TRAIN_FRAMES])),
+        f"the {scan_package.CHUNK}-view chunk's first views differ from "
+        f"the {TRAIN_FRAMES}-view chunk's")
+    recon_args = cli.build_parser().parse_args(["recon", pkg, "--device",
+                                                "cuda"])
+    h, w = frames[0].depth_mm.shape
+    load = {"add_obj": [], "artifact": []}
+    for _ in range(TRAIN_TIMED):
+        t0 = time.perf_counter()
+        cli._engine_for(recon_args, w, h)
+        torch.cuda.synchronize()
+        load["add_obj"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ServingArtifact(art, dev)
+        torch.cuda.synchronize()
+        load["artifact"].append(time.perf_counter() - t0)
+    print(f"time cold start ({TRAIN_FRAMES} templates): add_obj "
+          f"{np.mean(load['add_obj']) * 1e3:.3f} ms, ServingArtifact "
+          f"load {np.mean(load['artifact']) * 1e3:.3f} ms; mean of "
+          f"{TRAIN_TIMED} ({card})")
+    return pkg
 
 
 if __name__ == "__main__":

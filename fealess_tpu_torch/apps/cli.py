@@ -18,7 +18,10 @@ the JAX CLI's actions, flags and stdout JSON lines, plus ``--device``
 
 A series is read by ``io.native.FrameLoader``: PNG pairs decoded ahead on
 its threads and resized to the first frame's size, as the JAX CLI does.
-``--profile`` prints the host wall-clock stage report.
+``--profile`` prints the host wall-clock stage report, then (not under
+``--artifact``) the device-stage table of the last frame: three cumulative
+prefixes of one Recognition, front-end, match and the full step
+(``_profile_stages``).
 """
 
 from __future__ import annotations
@@ -131,10 +134,63 @@ def _engine_for(args, width: int, height: int):
     return eng
 
 
-def _print_profile(timer) -> None:
+# --profile's device-stage table: on a card each row is the device busy of
+# PROFILE_ITERS warm calls (after WARMUP) under the profiler
+# (utils/profiling.device_seconds); on the CPU, a wall-clock slope over
+# chains of 2 and 2 + PROFILE_ITERS calls, one run each
+PROFILE_ITERS = 5
+
+
+def _profile_stages(eng, bgr, depth, cam):
+    """Per-stage device time of one Recognition frame, the printTimeOfICP
+    analog (ICP/ICP.cpp:283-311): rows are cumulative prefixes of the
+    pipeline (a stage's own cost is the delta from the row before), each
+    the device seconds per call of ``utils.profiling.device_seconds``:
+    ``detector.quantized_pyramid`` + ``response_planes``,
+    ``detector.match_bank``, ``pipeline.recognize_top1`` (without the
+    result's fetch).  Returns [(name, seconds)]."""
+    from fealess_tpu_torch import detector as det_mod
+    from fealess_tpu_torch import pipeline
+    from fealess_tpu_torch.utils.profiling import device_seconds
+
+    bgr_p, depth_p, scene_k = eng._prepare_frame(bgr, depth, cam)
+    d = eng.cfg.detector
+    kern = eng._kernels
+
+    def front(b):
+        det_mod.response_planes(det_mod.quantized_pyramid(b, depth_p, d), d)
+        return b
+
+    def match(b):
+        det_mod.match_bank(eng.bank, b, depth_p, eng.cfg.matching_threshold,
+                           d, kernels=kern)
+        return b
+
+    def full(b):
+        pipeline.recognize_top1(eng.bank, eng._model_depth_dev,
+                                eng._origins_dev, b, depth_p, scene_k,
+                                eng.cfg, kernels=kern)
+        return b
+
+    return [(name, device_seconds(body, bgr_p, PROFILE_ITERS, reps=1))
+            for name, body in (("frontend(quant+planes)", front),
+                               ("match(front+score+topk+refine16)", match),
+                               ("full(match+icp_refine)", full))]
+
+
+def _print_profile(timer, eng=None, last_frame=None, cam=None) -> None:
+    """The host stage report; with an engine and its last frame, the
+    device-stage table after it."""
     print("# host wall-clock per frame:", file=sys.stderr)
     print("\n".join("# " + ln for ln in timer.report().splitlines()),
           file=sys.stderr)
+    if eng is None:
+        return
+    how = ("device busy under torch.profiler" if eng.device.type == "cuda"
+           else "wall-clock slope")
+    print(f"# device stages ({how}, cumulative prefixes):", file=sys.stderr)
+    for name, secs in _profile_stages(eng, *last_frame, cam):
+        print(f"# {name:<36}{secs * 1e3:>10.3f} ms/frame", file=sys.stderr)
 
 
 def cmd_train(args) -> int:
@@ -178,6 +234,7 @@ def cmd_recon(args) -> int:
     # the results come back to the host, so host time includes the device's
     timer = StageTimer()
     n = 0
+    last_frame = None
     t0 = time.perf_counter()
     with _loader(pairs, h, w) as frames:
         while True:
@@ -195,6 +252,7 @@ def cmd_recon(args) -> int:
             else:
                 results = eng.recognition(bgr, depth, cam)
             timer.add("recognition(+fetch)", time.perf_counter() - t_e)
+            last_frame = (bgr, depth)
             print(json.dumps({"frame": idx,
                               "results": [{"obj": r.obj_tag,
                                            "similarity": r.similarity,
@@ -212,7 +270,9 @@ def cmd_recon(args) -> int:
     dt = time.perf_counter() - t0
     print(f"# {n} frames in {dt:.2f}s ({n / dt:.2f} fps)", file=sys.stderr)
     if args.profile and n:
-        _print_profile(timer)
+        # the JAX CLI leaves the device table out under --artifact
+        _print_profile(timer, None if args.artifact else eng, last_frame,
+                       cam)
     return 0
 
 
@@ -236,6 +296,7 @@ def cmd_track(args) -> int:
     tracker = TrackedRecognizer(eng, max_lost=args.max_lost)
     timer = StageTimer()
     n = 0
+    last_frame = None
     with _loader(pairs, h, w) as frames:
         for idx, bgr, depth in frames:
             depth = _depth_mm(depth, args.depth_scale)
@@ -243,6 +304,7 @@ def cmd_track(args) -> int:
             step = tracker.step(bgr, depth, cam)
             timer.add("track_step(kcf+match+refine)",
                       time.perf_counter() - t_s)
+            last_frame = (bgr, depth)
             n += 1
             print(json.dumps({
                 "frame": idx, "redetected": step.redetected,
@@ -252,7 +314,7 @@ def cmd_track(args) -> int:
                              "pose": np.asarray(r.world2cam).tolist()}
                             for r in step.results]}))
     if args.profile and n:
-        _print_profile(timer)
+        _print_profile(timer, eng, last_frame, cam)
     return 0
 
 
@@ -333,7 +395,8 @@ def build_parser() -> argparse.ArgumentParser:
                             "the production path; point_to_point = "
                             "reference parity mode)")
         r.add_argument("--profile", action="store_true",
-                       help="print the host wall-clock stage report")
+                       help="print the host wall-clock stage report and "
+                            "the device-stage table")
         r.add_argument("--refine-crop", type=int, default=256)
         r.add_argument("--icp-max-points", type=int, default=16384)
         r.add_argument("--depth-scale", type=float, default=0.1,

@@ -73,7 +73,7 @@ def project_vertices(mesh: ObjMesh, k: np.ndarray, r: np.ndarray,
     return np.stack([u, v], axis=-1)
 
 
-def _clip_line(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
+def clip_line(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
     """OpenCV's ``clipLine`` (drawing.cpp): (inside, x1, y1, x2, y2)."""
     right, bottom = w - 1, h - 1
     c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
@@ -107,7 +107,7 @@ def line_pixels(w: int, h: int, p1, p2) -> Tuple[np.ndarray, np.ndarray]:
     x1, y1 = (int(v) for v in p1)
     x2, y2 = (int(v) for v in p2)
     if not (0 <= x1 < w and 0 <= x2 < w and 0 <= y1 < h and 0 <= y2 < h):
-        inside, x1, y1, x2, y2 = _clip_line(w, h, x1, y1, x2, y2)
+        inside, x1, y1, x2, y2 = clip_line(w, h, x1, y1, x2, y2)
         if not inside:
             return np.zeros(0, np.int64), np.zeros(0, np.int64)
     if x2 < x1:                                # iterate left to right

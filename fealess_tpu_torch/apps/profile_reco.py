@@ -22,8 +22,10 @@ Paths:
   after an initialising frame 0, default ICP; stages KCF update, gated
   match (front-end included), refine.
 
-For each setting it runs ``--frames`` warm frames under ``torch.profiler``
-and prints, per frame:
+For each setting it runs ``--frames`` warm frames under ``torch.profiler``,
+recording device activity and the CUDA runtime's calls but not the host's
+operators (``utils.profiling.profile_calls``, as ``--profile``'s
+device-stage table does), and prints, per frame:
 
 - ``wall``: host clock around the frames (under the profiler);
 - ``device busy``: the union of the intervals of every device-side event
@@ -55,8 +57,6 @@ import subprocess
 import time
 
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 from fealess_tpu_torch import detector as td
 from fealess_tpu_torch import nms as nms_mod
@@ -65,78 +65,28 @@ from fealess_tpu_torch.apps import fixture
 from fealess_tpu_torch.apps.track import TrackedRecognizer, roi_box
 from fealess_tpu_torch.ops import score
 from fealess_tpu_torch.tracker.kcf import KcfTracker
+from fealess_tpu_torch.utils.profiling import (WARMUP, busy_us, graph_ms,
+                                              profile_calls, stage_ms)
 
 FORCED = {"icp_dist_mean_threshold": 0.0, "icp_dist_diff_threshold": -1e30}
 
 
-def busy_us(intervals) -> float:
-    """Length of the union of (start, end) intervals."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if e > end:
-            total += e - max(s, end)
-            end = e
-    return total
-
-
-def graph_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of ``reps`` calls captured in one CUDA
-    graph, between CUDA events around its replay: the device's time,
-    without the host's launch cost between calls (which back-to-back
-    events measure once a kernel takes less time than its wrapper)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def stage_ms(fn, reps: int = 5):
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        out = fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / reps, out
-
-
-def profile_frames(label: str, frame, n: int, trace_dir) -> None:
-    """Warm ``frame()`` up, then profile ``n`` calls and print the
-    per-frame summary."""
-    for _ in range(3):
+def profile_frames(label: str, frame, n: int, trace_dir) -> float:
+    """Warm ``frame()`` up, then profile ``n`` calls
+    (``utils.profiling.profile_calls``) and print the per-frame summary;
+    returns the device busy ms per frame."""
+    for _ in range(WARMUP):
         frame()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            frame()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    events = prof.events()
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    run = profile_calls(frame, n)
+    dev = run.device_events
     if not dev:
         raise SystemExit("profile_reco: the trace holds no device events")
-    busy_ms = busy_us([(e.time_range.start, e.time_range.end)
-                       for e in dev]) / 1e3 / n
-    syncs = sum(e.name == "cudaStreamSynchronize" for e in events) / n
-    print(f"{label}: wall {wall_ms:.3f} ms/frame, device busy "
-          f"{busy_ms:.3f} ms/frame, idle {1 - busy_ms / wall_ms:.3f}, "
-          f"{len(dev) / n:.0f} device events/frame, {syncs:.0f} "
-          f"cudaStreamSynchronize/frame")
+    syncs = sum(e.name == "cudaStreamSynchronize"
+                for e in run.prof.events()) / n
+    print(f"{label}: wall {run.wall_ms:.3f} ms/frame, device busy "
+          f"{run.busy_ms:.3f} ms/frame, idle "
+          f"{1 - run.busy_ms / run.wall_ms:.3f}, {len(dev) / n:.0f} device "
+          f"events/frame, {syncs:.0f} cudaStreamSynchronize/frame")
     by_name = collections.Counter()
     count = collections.Counter()
     for e in dev:
@@ -147,8 +97,9 @@ def profile_frames(label: str, frame, n: int, trace_dir) -> None:
               f"{name[:90]}")
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(
+        run.prof.export_chrome_trace(os.path.join(
             trace_dir, f"trace_{label.replace(' ', '_')}.json"))
+    return run.busy_ms
 
 
 def set_icp(eng, params) -> None:
@@ -188,20 +139,14 @@ def coarse_stage(eng, planes, n: int) -> None:
                                     eng.cfg.matching_threshold, det,
                                     eng._kernels)
 
-    for _ in range(3):
+    for _ in range(WARMUP):
         call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            call()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    run = profile_calls(call, n)
+    dev = run.device_events
     k1 = [e for e in dev if "coarse_scores_kernel" in e.name]
     if not k1:
         raise SystemExit("profile_reco: no K1 kernel in the coarse stage")
-    total = busy_us([(e.time_range.start, e.time_range.end)
-                     for e in dev]) / 1e3 / n
+    total = run.busy_ms
     k1_ms = busy_us([(e.time_range.start, e.time_range.end)
                      for e in k1]) / 1e3 / n
     print(f"coarse stage: device busy {total:.4f} ms/call, K1 {k1_ms:.4f} "
@@ -264,17 +209,10 @@ def local_stage(eng, planes, n: int) -> None:
         def k2():
             return score.local_scores(d0, table_k, px0, py0)
 
-    for _ in range(3):
+    for _ in range(WARMUP):
         call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            call()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = busy_us([(e.time_range.start, e.time_range.end)
-                    for e in dev]) / 1e3 / n
+    run = profile_calls(call, n)
+    dev, busy = run.device_events, run.busy_ms
     reps = 50
     torch.cuda.synchronize()
     t0 = time.perf_counter()

@@ -25,9 +25,15 @@ from fealess_tpu_torch import detector as det_mod
 from fealess_tpu_torch import pipeline
 from fealess_tpu_torch.bank import TemplateBank, class_slot_mask, pack_bank
 from fealess_tpu_torch.geometry import depth as gd
+from fealess_tpu_torch.geometry import pnp
 from fealess_tpu_torch.io import linemod_yaml
 from fealess_tpu_torch.io.png import read_png
 from fealess_tpu_torch.ops import resize
+from fealess_tpu_torch.utils.logging import get_logger
+
+# Error codes (CadReco/lotus_common.h:5-10)
+ERROR_INVALID_PARAM = 0x80000001
+ERROR_OPEN_FILE_FAILED = 0x80000002
 
 
 @dataclasses.dataclass
@@ -171,6 +177,7 @@ class ObjReco:
         if missing:
             raise IOError(f"{len(missing)} model depth png(s) missing, e.g. "
                           f"{missing[0]}")
+        get_logger().debug("loaded %d model depths", slot)
         self._model_depth_dev = torch.from_numpy(out).to(self.device)
         self._origins_dev = torch.from_numpy(self._origins_array()).to(
             self.device)
@@ -215,6 +222,41 @@ class ObjReco:
         for p in self._PARAM_PATHS[name]:
             obj = getattr(obj, p)
         return obj
+
+    def compute_pose_epnp(self, model_depth_raw: np.ndarray,
+                          match_x: int, match_y: int,
+                          pose_init_4x4: np.ndarray,
+                          cam: CamIntrinsics) -> Optional[np.ndarray]:
+        """The reference's dormant EPnP pose path (``ComputePose`` behind
+        EPNP_LM, obj_reco_lmicp.cpp:275-348): back-project the template's
+        masked depth pixels (below the sentinel ``raw[0, 0]``, at least 10
+        mm) into the model frame with the initial pose, pair them with
+        their scene pixels at the match offset, and solve EPnP
+        (``geometry.pnp``, OpenCV's EPnP in float64 on the host).
+        ``model_depth_raw`` is the stored 0.1 mm u16 PNG.  Returns the
+        float32 4x4 world2cam pose, or None below 4 points."""
+        raw = np.asarray(model_depth_raw)
+        sentinel = raw[0, 0]
+        ii, jj = np.nonzero(raw < sentinel)
+        z = raw[ii, jj].astype(np.float32) * self.cfg.model_depth_scale
+        ok = z >= 10.0                      # EFFECTIVE_DEPTH gate
+        ii, jj, z = ii[ok], jj[ok], z[ok]
+        if len(z) < 4:
+            return None
+        k = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy],
+                      [0, 0, 1]], np.float64)
+        pix = np.stack([jj, ii, np.ones_like(jj)], axis=0).astype(np.float64)
+        xc = (np.linalg.inv(k) @ pix) * z[None, :]
+        r = np.asarray(pose_init_4x4, np.float64)[:3, :3]
+        t = np.asarray(pose_init_4x4, np.float64)[:3, 3]
+        xw = (r.T @ (xc - t[:, None])).T.astype(np.float32)
+        img_pts = np.stack([jj + match_x, ii + match_y],
+                           axis=-1).astype(np.float32)
+        _, rvec, tvec = pnp.solve_pnp_epnp(xw, img_pts, k)
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, :3] = pnp.rodrigues(rvec)
+        pose[:3, 3] = tvec[:, 0]
+        return pose
 
     def _origins_array(self) -> np.ndarray:
         out = np.zeros((self.bank.capacity, 2), np.int32)

@@ -1,5 +1,5 @@
-"""Camera intrinsics and point-image normals (counterpart of
-``fealess_tpu.geometry.depth``)."""
+"""Camera intrinsics, depth back-projection and point-image normals
+(counterpart of ``fealess_tpu.geometry.depth``)."""
 
 from __future__ import annotations
 
@@ -40,6 +40,20 @@ def depth_to_3d(depth_u16: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     x = (u - k[0, 2]) / k[0, 0] * z
     y = (v - k[1, 2]) / k[1, 1] * z
     return torch.stack([x, y, z], dim=-1)
+
+
+def depth_to_3d_mm(depth_u16: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Back-project to millimetres: :func:`depth_to_3d` then x1000
+    (depthTo3d and scale_mat_vec3f, ICP/detection.cpp:38-40)."""
+    return depth_to_3d(depth_u16, k) * 1000.0
+
+
+def valid_mm(points_mm: torch.Tensor,
+             max_depth_mm: float = 900.0) -> torch.Tensor:
+    """Validity of back-projected points in mm: ``z <= max_depth_mm``; NaN
+    z compares False, as ``is_vec3f_valid`` rejects it
+    (ICP/common.cpp:260-266)."""
+    return points_mm[..., 2] <= max_depth_mm
 
 
 def normals_from_point_image(points: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from fealess_tpu_torch import config as cfg
@@ -41,6 +42,21 @@ class IcpResult:
     inlier_ratio: torch.Tensor
     iterations: torch.Tensor     # int32
     ok: torch.Tensor             # False if input had < min_points pairs
+
+
+def pad_cloud(points, mask, capacity: int):
+    """Pad or truncate a host-side (n, 3) cloud to (capacity, 3) float32
+    and a (capacity,) bool mask, with every masked-out row at
+    ``PAD_COORD`` so that no nearest neighbour selects it."""
+    points = np.asarray(points, np.float32).reshape(-1, 3)
+    mask = np.asarray(mask, bool).reshape(-1)
+    n = min(len(points), capacity)
+    out = np.full((capacity, 3), PAD_COORD, np.float32)
+    m = np.zeros((capacity,), bool)
+    out[:n] = points[:n]
+    m[:n] = mask[:n]
+    out[~m] = PAD_COORD
+    return out, m
 
 
 def _local(x: torch.Tensor) -> torch.Tensor:
@@ -101,16 +117,6 @@ def _moments(model_tmp, cor_ref, cor_mask, kabsch: bool, centered: bool,
                       @ ((cor_ref - r_centroid) * w)).reshape(9)
                      ).reshape(3, 3)
     return count, m_centroid, r_centroid, cov
-
-
-def _kabsch(cov, m_centroid, r_centroid):
-    """Alignment step (ICP.cpp:736-744): SVD of the covariance, R* = V U^T,
-    T* = r_centroid - R* m_centroid."""
-    u, _, vt = torch.linalg.svd(cov)
-    r_opt = vt.T @ u.T
-    t_opt = r_centroid - r_opt @ m_centroid
-    finite = torch.isfinite(r_opt).all() & torch.isfinite(t_opt).all()
-    return r_opt, t_opt, finite
 
 
 def _icp_loop(ref, model, pair_mask, icp: cfg.IcpConfig, align,
@@ -183,7 +189,7 @@ def icp_point_to_point(ref: torch.Tensor, model: torch.Tensor,
         count, m_centroid, r_centroid, cov = _moments(
             model_tmp, cor_ref, cor_mask, True, icp.centered_covariance,
             reduce)
-        r_opt, t_opt, finite = _kabsch(cov, m_centroid, r_centroid)
+        r_opt, t_opt, finite = tf.svd_align(cov, m_centroid, r_centroid)
         return r_opt, t_opt, count >= icp.min_points, finite
 
     return _icp_loop(ref, model, pair_mask, icp, align, reduce)
@@ -273,7 +279,7 @@ def icp_point_to_plane(ref: torch.Tensor, ref_normals: torch.Tensor,
                                                  cor_mask, centroid, icp,
                                                  reduce)
         else:
-            r_opt, t_opt, finite = _kabsch(cov, centroid, r_centroid)
+            r_opt, t_opt, finite = tf.svd_align(cov, centroid, r_centroid)
         return r_opt, t_opt, count >= icp.min_points, finite
 
     return _icp_loop(ref, model, pair_mask, icp, align, reduce)

@@ -96,6 +96,12 @@ def pyr_down_u8(img: torch.Tensor) -> torch.Tensor:
     return ((acc + 128) >> 8).to(torch.uint8)
 
 
+def resize_nn_half(img: torch.Tensor) -> torch.Tensor:
+    """INTER_NEAREST half-size resize = even-index decimation (the mask and
+    normal pyramid downsample, linemod.cpp:446/730)."""
+    return img[::2, ::2]
+
+
 def _box5_sum_i32(x: torch.Tensor) -> torch.Tensor:
     h, w = x.shape
     xp = _pad(x, 2, 0, "replicate")
@@ -116,6 +122,21 @@ def median_blur5_u8(img: torch.Tensor) -> torch.Tensor:
         cnt = _box5_sum_i32((x <= v).to(torch.int32))
         med = torch.where(cnt >= 13, v, med)
     return med.to(torch.uint8)
+
+
+def erode3_bool(mask: torch.Tensor, iterations: int = 1) -> torch.Tensor:
+    """3x3 binary erosion, BORDER_REPLICATE (``cv::erode`` with the
+    default kernel; linemod.cpp:466/751) of an (H, W) bool mask."""
+    m = mask.to(torch.bool)
+    h, w = m.shape
+    for _ in range(iterations):
+        mp = _pad(_pad(m, 1, 0, "replicate"), 1, 1, "replicate")
+        acc = mp[0:h, 0:w]
+        for dy in range(3):
+            for dx in range(3):
+                acc = acc & mp[dy:dy + h, dx:dx + w]
+        m = acc
+    return m
 
 
 def fast_atan2_deg(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from fealess_tpu_torch.parallel import mesh as mesh_mod
+from fealess_tpu_torch.utils.logging import get_logger
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -68,6 +69,8 @@ def initialize(coordinator_address: Optional[str] = None,
         if backend == "nccl":
             kwargs["device_id"] = dev
     dist.init_process_group(backend, **kwargs)
+    get_logger().info("multihost: process %d/%d on %s (%s)", dist.get_rank(),
+                      dist.get_world_size(), dev, backend)
     return dev
 
 

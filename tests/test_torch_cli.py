@@ -303,6 +303,7 @@ def test_cli_profile_report_and_refusals(port_trained, trained, jax_lines,
                                     "--device", "cpu"] + RECON, capsys)
     assert rc == 0
     assert "host-io(decode+wait)" in err and "recognition(+fetch)" in err
+    assert _device_rows(err) == STAGE_ROWS
     empty = tmp_path / "empty"
     empty.mkdir()
     rc, _, _, err = _run(cli.main, ["recon", port_trained[0], "--series",
@@ -326,6 +327,50 @@ def test_cli_profile_report_and_refusals(port_trained, trained, jax_lines,
     assert args.device == "cuda"
 
 
+# the JAX CLI's device-stage rows (fealess_tpu/apps/cli.py _profile_stages)
+STAGE_ROWS = ["frontend(quant+planes)", "match(front+score+topk+refine16)",
+              "full(match+icp_refine)"]
+
+
+def _device_rows(err):
+    """The row names of --profile's device-stage table, each with a
+    positive finite ms/frame; [] without the table."""
+    lines = err.splitlines()
+    heads = [i for i, ln in enumerate(lines)
+             if ln.startswith("# device stages (")]
+    if not heads:
+        return []
+    rows = lines[heads[0] + 1:heads[0] + 4]
+    for ln in rows:
+        ms = float(ln[2 + 36:].split()[0])
+        assert 0 < ms < float("inf") and ln.endswith(" ms/frame"), ln
+    return [ln[2:2 + 36].strip() for ln in rows]
+
+
+def test_cli_profile_device_stage_rows(port_trained, tmp_path, capsys):
+    """``recon --profile`` and ``track --profile`` print the JAX CLI's
+    three device-stage rows (cumulative prefixes, JAX's names and format)
+    after the host table; ``recon --profile --artifact`` prints the host
+    table only, as the JAX CLI leaves the table out there."""
+    import inspect
+    src = inspect.getsource(jax_cli._profile_stages)
+    assert all(f'"{name}"' in src for name in STAGE_ROWS)
+    rc, _, _, err = _run(cli.main, ["track", port_trained[0], "--profile",
+                                    "--device", "cpu"] + RECON, capsys)
+    assert rc == 0 and "track_step(kcf+match+refine)" in err
+    assert _device_rows(err) == STAGE_ROWS
+    assert err.index("# host wall-clock") < err.index("# device stages")
+    art = str(tmp_path / "artifact")
+    assert cli.main(["export", port_trained[0], art, "--width", "240",
+                     "--height", "160", "--device", "cpu"] + RECON) == 0
+    capsys.readouterr()
+    rc, _, _, err = _run(cli.main, ["recon", port_trained[0], "--artifact",
+                                    art, "--profile", "--device", "cpu"]
+                         + RECON, capsys)
+    assert rc == 0 and "recognition(+fetch)" in err
+    assert _device_rows(err) == [] and "device stages" not in err
+
+
 _SUBPROCESS = LOADED + r"""
 import contextlib, io, json, os, runpy, sys
 from fealess_tpu_torch import training
@@ -342,7 +387,7 @@ except SystemExit as e:
 rcs += [cli.main(["export", pkg, art, "--width", "240", "--height", "160"]
                  + recon),
         cli.main(["recon", pkg, "--artifact", art] + recon),
-        cli.main(["track", pkg] + recon)]
+        cli.main(["track", pkg, "--profile"] + recon)]
 lines = io.StringIO()
 with contextlib.redirect_stdout(lines):
     rcs.append(cli.main(["recon", pkg] + recon))
@@ -362,8 +407,9 @@ print(json.dumps({"rcs": rcs, "native": training.have_native(),
 def test_cli_runs_without_jax_flax_or_cv2(tmp_path):
     """A fresh interpreter imports every module of the offline path and
     runs ``python -m fealess_tpu_torch train``, then export, recon
-    --artifact, track, recon, eval and a bank checkpoint; jax, flax, cv2
-    and the JAX package (by name or by file) are never loaded."""
+    --artifact, track --profile (with the device-stage table), recon, eval
+    and a bank checkpoint; jax, flax, cv2 and the JAX package (by name or
+    by file) are never loaded."""
     pkg = str(tmp_path / "pkg")
     write_package(pkg, shifts=((0, 0), (4, 2)))
     _write_cube_obj(os.path.join(pkg, "model.obj"))

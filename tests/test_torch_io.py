@@ -560,16 +560,30 @@ multi = eng.recognition_multi(frame["bgr"], frame["depth"], cam,
                               max_objects=2)
 kcf = KcfTracker(None, "cpu")
 _, roi = kcf.update(kcf.init((60, 20, 40, 40), frame["bgr"]), frame["bgr"])
+from fealess_tpu_torch.apps import visualize
+from fealess_tpu_torch.utils import logging as flog, profiling
+flog.get_logger().debug("no jax")
+raw = np.full((h, w), 12000, np.uint16)
+yy, xx = np.mgrid[10:50, 40:100]
+raw[10:50, 40:100] = 7000 + 3 * (xx - 40) + ((xx * yy) % 7) * 20
+pose = eng.compute_pose_epnp(raw, 5, 3, np.eye(4, dtype=np.float32), cam)
+drawn = visualize.draw_response(frame["bgr"].copy(), eng.bank, 0, (-4, 50))
+timer = profiling.StageTimer()
+with timer.stage("noop", eng.bank.feat_x):
+    pass
 print(json.dumps({"n": len(res), "n_multi": len(multi),
                   "roi_ok": bool(np.isfinite(roi).all()),
+                  "epnp_ok": bool(np.isfinite(pose).all()),
+                  "drawn": bool((drawn != frame["bgr"]).any()),
                   "loaded": _loaded()}))
 """
 
 
 def test_port_runs_without_jax_flax_or_cv2(tmp_path):
     """A fresh interpreter imports the port (its apps included) and runs a
-    small recognition, a multi-object recognition and a KCF update; jax,
-    flax, cv2 and the JAX package (by name or by file) are never loaded."""
+    small recognition, a multi-object recognition, a KCF update, an EPnP
+    pose, a match overlay, the logger and a stage timer; jax, flax, cv2 and
+    the JAX package (by name or by file) are never loaded."""
     h, w = 80, 160
     rng = np.random.default_rng(2)
     bgr = rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
@@ -598,3 +612,4 @@ def test_port_runs_without_jax_flax_or_cv2(tmp_path):
     assert result["loaded"] == []
     assert result["n"] in (0, 1)
     assert result["n_multi"] in (0, 1, 2) and result["roi_ok"]
+    assert result["epnp_ok"] and result["drawn"]
