@@ -41,8 +41,12 @@ Phases, one line of output each (or a few):
    ROIs and scale steps against the same KCF tracker run on CPU tensors
    in this process (see ``EXPECT_TRACK``), and their distance from the
    JAX package's ROIs printed;
-4d. training and the command line on the card: the fixture's training
-   view through ``add_template`` and ``add_templates_batched`` equals
+4d. training and the command line on the card: ``libfealess_host`` built
+   by the port (``ops/_build.build_native_host``: three sources of
+   ``native/fealess_host`` with the host C++ compiler; its path and build
+   seconds printed) and loaded, so the host extraction runs native; the
+   fixture's training view through ``add_template`` and
+   ``add_templates_batched`` (and through the numpy twin) equals
    template 0 of the repo's YAML bank; a 4-frame scan package (the panned
    fixture frames, written with the port's PNG writer) goes through
    ``python -m fealess_tpu_torch`` ``train`` (the database's sha256 equals
@@ -52,7 +56,12 @@ Phases, one line of output each (or a few):
    shapes that bank gives it, then one recognition with forced ICP;
    templates per second of the batched trainer's stages (crop, front-end,
    extraction) on the 4-view chunk and on a 32-view chunk of panned
-   frames, and ``add_obj`` against the artifact's load, are timed;
+   frames beside the C++ reference's 27.8, and ``add_obj`` against the
+   artifact's load, are timed; on both chunks the batched front-end
+   (each level's ops once over all crops) is held bit for bit to the
+   per-crop loop it replaced and both are profiled (device events and
+   busy a chunk); on the 32-view chunk the native views are held to the
+   numpy twin's, feature for feature;
 5. times of each kernel and twin at the path's shapes, CUDA events
    around 20 back-to-back launches (3 for a twin; the kernels' ``ms``),
    and for each kernel also events around the replay of a CUDA graph of
@@ -80,8 +89,11 @@ Phases, one line of output each (or a few):
    match bitwise equal to a one-process emulation (``match_from_planes``
    on each half-bank, merged in rank order), ICP within 1e-5 (rotation)
    and 1e-3 mm of the single-device ICP with equal iterations, the batch
-   bitwise equal to 6a's; times of each against its single-device call
-   (two processes sharing one card: not a scaling figure).
+   bitwise equal to 6a's, and on ``template_mesh(1)`` (a sub-mesh both
+   ranks build) rank 0's match bitwise equal to ``_merge_matches`` of
+   ``match_bank`` while rank 1 is refused; times of each against its
+   single-device call (two processes sharing one card: not a scaling
+   figure).
 
 7. camera widths and frame input: ``ops/resize`` on the card bitwise
    equal to its CPU run on the common camera profiles (``RESIZE_SHAPES``);
@@ -208,6 +220,9 @@ EXPECT_CLI = [(100.0, (-3.75623, -3.58265, -2.09906), 0.38305),
               (100.0, (8.64415, 2.46295, 0.10028), 0.33718)]
 CLI_T_TOL_MM, CLI_DIST_TOL = 0.05, 1e-3
 TRAIN_TIMED = 3        # timed add_templates_batched calls / artifact loads
+# The single-core C++ reference's training rate (BASELINE.md:46-50: the
+# reference's addTemplate loop over 30 rendered views).
+CPP_TEMPLATES_PER_S = 27.8
 
 # Phase 6 (the parallel layer): every process group's timeout, the
 # parent's wait on its two spawned ranks, timed calls per path, and the
@@ -912,7 +927,7 @@ def parallel_world1(eng, card, bgr_b, depth_b, scene_k, clouds, counts):
         world_size=1, timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT_S),
         **({"device_id": dev} if cuda else {}))
     try:
-        mesh_t = mesh_mod.make_mesh([("t", 1)], dev.type)
+        mesh_t = mesh_mod.make_mesh([("t", 1)], device_type=dev.type)
         for i, name in ((0, "fixture"), (1, "two-instance")):
             zero_counts()
             got = sharded_match.match_bank_sharded(
@@ -935,7 +950,7 @@ def parallel_world1(eng, card, bgr_b, depth_b, scene_k, clouds, counts):
                   f"fields differing from match_bank itself (its "
                   f"duplicates keep their score, the merge scores them "
                   f"-inf): {same_bits(got, want)}")
-        mesh_p = mesh_mod.make_mesh([("p", 1)], dev.type)
+        mesh_p = mesh_mod.make_mesh([("p", 1)], device_type=dev.type)
         want_icp = {}
         for mode in ("point_to_point", "point_to_plane"):
             icp = _forced(eng.cfg.icp, mode)
@@ -950,7 +965,7 @@ def parallel_world1(eng, card, bgr_b, depth_b, scene_k, clouds, counts):
             print(f"6a sharded ICP (world 1, {mode}, forced, "
                   f"{clouds['ref'].shape[0]} pairs): bitwise equal to the "
                   f"single-device ICP, {int(got.iterations)} iterations")
-        mesh_d = mesh_mod.make_mesh([("d", 1)], dev.type)
+        mesh_d = mesh_mod.make_mesh([("d", 1)], device_type=dev.type)
         cfg_b = dataclasses.replace(eng.cfg, icp=_forced(eng.cfg.icp,
                                                          eng.cfg.icp.mode))
         args = (eng.bank, eng._model_depth_dev, eng._origins_dev, bgr_b,
@@ -1071,9 +1086,9 @@ def _two_rank_child(rank: int, tmp: str, device: str) -> None:
         scene_k = inp["scene_k"].to(dev)
         clouds = {k: v.to(dev) for k, v in inp["clouds"].items()}
         det, thr = eng.cfg.detector, eng.cfg.matching_threshold
-        mesh_t = mesh_mod.make_mesh([("t", 2)], dev.type)
-        mesh_p = mesh_mod.make_mesh([("p", 2)], dev.type)
-        mesh_d = mesh_mod.make_mesh([("d", 2)], dev.type)
+        mesh_t = mesh_mod.make_mesh([("t", 2)], device_type=dev.type)
+        mesh_p = mesh_mod.make_mesh([("p", 2)], device_type=dev.type)
+        mesh_d = mesh_mod.make_mesh([("d", 2)], device_type=dev.type)
         match = lambda: sharded_match.match_bank_sharded(  # noqa: E731
             eng.bank, bgr_b[0], depth_b[0], thr, det, mesh_t,
             tables=eng._kernels)
@@ -1092,6 +1107,15 @@ def _two_rank_child(rank: int, tmp: str, device: str) -> None:
             eng.bank, eng._model_depth_dev, eng._origins_dev, bgr_b,
             depth_b, scene_k, cfg_b, mesh_d, kernels=eng._kernels)
         out["batch"] = flat("", counting("2-rank sharded batch", batch))
+        # a sub-mesh of the first rank, which both ranks build: rank 0
+        # matches on it alone, rank 1 is refused instead of waiting
+        sub = mesh_mod.template_mesh(1, device_type=dev.type)
+        try:
+            out["submesh"] = flat("", sharded_match.match_bank_sharded(
+                eng.bank, bgr_b[0], depth_b[0], thr, det, sub,
+                tables=eng._kernels))
+        except ValueError as e:
+            out["submesh"] = str(e)
         timed("match", [match, lambda: td.match_bank(
             eng.bank, bgr_b[0], depth_b[0], thr, det,
             kernels=eng._kernels)], PARALLEL_REPS)
@@ -1152,6 +1176,20 @@ def parallel_two_ranks(eng, card, bgr_b, depth_b, scene_k, clouds,
                for r in range(2)]
     dev = bgr_b.device
     want = flat("", emulate_two_shards(eng, bgr_b[0], depth_b[0]))
+    from fealess_tpu_torch.parallel import sharded_match
+    want_sub = flat("", sharded_match._merge_matches(td.match_bank(
+        eng.bank, bgr_b[0], depth_b[0], eng.cfg.matching_threshold, det,
+        kernels=eng._kernels), det.max_candidates))
+    check(isinstance(res[0]["submesh"], dict)
+          and not diff_flat(want_sub, res[0]["submesh"]),
+          f"6b template_mesh(1): rank 0's match differs from the "
+          f"single-device match: {res[0]['submesh']}")
+    check("not in this mesh" in str(res[1]["submesh"]),
+          f"6b template_mesh(1): rank 1 was not refused: "
+          f"{res[1]['submesh']}")
+    print(f"6b template_mesh(1) on 2 ranks: rank 0's sharded match "
+          f"bitwise equal to _merge_matches(match_bank); rank 1 refused "
+          f"({res[1]['submesh']})")
     single = flat("", td.match_bank(eng.bank, bgr_b[0], depth_b[0],
                                     eng.cfg.matching_threshold, det,
                                     kernels=eng._kernels))
@@ -2080,6 +2118,47 @@ def run(dev) -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def numpy_twin(fn):
+    """``fn()`` with ``io.native``'s library set aside, so the training
+    path runs its numpy extraction (the plain twin of libfealess_host)."""
+    from fealess_tpu_torch.io import native
+    saved = native._LIB, native._SEARCHED
+    native._LIB, native._SEARCHED = None, True
+    try:
+        return fn()
+    finally:
+        native._LIB, native._SEARCHED = saved
+
+
+def per_crop_front_end(bgr_c, dep_c, det, dev):
+    """The training front-end as it ran before batching: one upload, the
+    serving front-end (one (H, W[, 3]) image a call) crop by crop, one
+    fetch; ``out[l][i]`` as ``training.quantize_crops`` returns it."""
+    import numpy as np
+    import torch
+    from fealess_tpu_torch import training
+    bgr_d = torch.from_numpy(np.ascontiguousarray(bgr_c)).to(dev)
+    dep_d = torch.from_numpy(np.asarray(dep_c, np.int32)).to(dev)
+    parts = [t for i in range(len(bgr_c))
+             for lv in training._quantize_levels(bgr_d[i], dep_d[i], det)
+             for t in lv]
+    host = training._fetch(parts)
+    per = 3 * det.pyramid_levels
+    return [[tuple(host[i * per + 3 * l:i * per + 3 * l + 3])
+             for i in range(len(bgr_c))] for l in range(det.pyramid_levels)]
+
+
+def same_levels(got, want) -> bool:
+    """Every level, crop and output equal bit for bit (magnitudes as
+    bits)."""
+    return all(
+        len(g_l) == len(w_l) and all(
+            a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes()
+            for g, w in zip(g_l, w_l) for a, b in zip(g, w))
+        for g_l, w_l in zip(got, want)) and len(got) == len(want)
+
+
 def training_and_cli(dev, bgr_np, depth_np, card, zero_counts, read_counts,
                      path_launches, errs, work: str) -> str:
     """Phase 4d: training on the card, then the CLI's offline path; the
@@ -2092,9 +2171,21 @@ def training_and_cli(dev, bgr_np, depth_np, card, zero_counts, read_counts,
     from fealess_tpu_torch import config as cfg
     from fealess_tpu_torch import training
     from fealess_tpu_torch.apps import cli, fixture, scan_package
-    from fealess_tpu_torch.utils.profiling import graph_ms
+    from fealess_tpu_torch.ops import _build
+    from fealess_tpu_torch.utils.profiling import graph_ms, profile_calls
     from fealess_tpu_torch.io import linemod_yaml
     from fealess_tpu_torch.io.export import ServingArtifact
+
+    # the native extraction the port builds from native/fealess_host's
+    # scatter.cc, chamfer.cc and extract.cc (no CMake, no OpenCV)
+    cached = any(_build.BUILD_DIR.glob("libfealess_host_*.so"))
+    t0 = time.perf_counter()
+    so = _build.build_native_host()
+    build_s = time.perf_counter() - t0
+    check(training.have_native(), "training.have_native() is false")
+    print(f"native: {os.path.relpath(so, REPO)} "
+          f"{'found built' if cached else 'built'} in {build_s:.3f} s "
+          f"(c++), loaded; training.have_native() true")
 
     # the fixture's training view (benchmarks/reference/make_fixture.py)
     det = cfg.DetectorConfig()
@@ -2107,17 +2198,22 @@ def training_and_cli(dev, bgr_np, depth_np, card, zero_counts, read_counts,
         fixture.FIXTURE, "features", "linemod_templates.yml"))
     golden = classes["obj"][0]
     host_path = "native" if training.have_native() else "numpy"
+    check(host_path == "native", f"host extraction path {host_path}")
     for name, view in (
             ("add_template", training.add_template(
                 bgr_np, depth_np, mask, pose, det, dev)),
             ("add_templates_batched", training.add_templates_batched(
-                [bgr_np], [depth_np], [mask], [pose], det, dev)[0])):
+                [bgr_np], [depth_np], [mask], [pose], det, dev)[0]),
+            ("add_template (numpy twin)", numpy_twin(
+                lambda: training.add_template(bgr_np, depth_np, mask, pose,
+                                              det, dev)))):
         check(same_view(view, golden),
               f"{name} on the card differs from YAML template 0")
     print(f"train: the fixture view through add_template and "
           f"add_templates_batched on {dev} equals YAML template 0 "
           f"({[len(f) for fl in golden.features for f in fl]} features); "
-          f"host extraction path {host_path}")
+          f"host extraction path {host_path}, and the numpy twin's view "
+          f"equals it")
 
     tmp = work
     pkg = os.path.join(tmp, "pkg")
@@ -2210,7 +2306,10 @@ def training_and_cli(dev, bgr_np, depth_np, card, zero_counts, read_counts,
     # front-end, host extraction threads) timed in turn on one chunk:
     # the package's 4 frames, and a chunk of CHUNK panned frames as
     # train_package feeds it, whose first 4 views must equal the first
-    # chunk's; then add_obj vs artifact load
+    # chunk's.  On each chunk the batched front-end is held bit for bit
+    # to the per-crop loop it replaced, and both are profiled (device
+    # events and busy per chunk); on the CHUNK-view chunk the native
+    # views are held to the numpy twin's.  Then add_obj vs artifact load
     frames = list(scan_package.iter_training_frames(pkg))
     chunks = {TRAIN_FRAMES: [(f.bgr, f.depth_mm, f.mask, f.pose13)
                              for f in frames],
@@ -2240,9 +2339,37 @@ def training_and_cli(dev, bgr_np, depth_np, card, zero_counts, read_counts,
         print(f"time add_templates_batched ({n} views, crops "
               f"{bgr_c.shape[1]}x{bgr_c.shape[2]}, {host_path} "
               f"extraction on {workers} threads): {t_ms:.3f} ms, "
-              f"{n / t_ms * 1e3:.3f} templates/s; crop {crop_ms:.3f} "
-              f"ms, front-end {front_ms:.3f} ms, extraction "
-              f"{extract_ms:.3f} ms; mean of {TRAIN_TIMED} ({card})")
+              f"{n / t_ms * 1e3:.3f} templates/s (C++ reference "
+              f"{CPP_TEMPLATES_PER_S}); crop {crop_ms:.3f} ms, front-end "
+              f"{front_ms:.3f} ms, extraction {extract_ms:.3f} ms; mean of "
+              f"{TRAIN_TIMED} ({card})")
+        check(same_levels(qlevels, per_crop_front_end(bgr_c, dep_c, det,
+                                                      dev)),
+              f"batched front-end of {n} crops differs from the per-crop "
+              f"loop")
+        prof = {name: profile_calls(fn, 1) for name, fn in (
+            ("per-crop loop", lambda: per_crop_front_end(bgr_c, dep_c, det,
+                                                         dev)),
+            ("batched", lambda: training.quantize_crops(bgr_c, dep_c, det,
+                                                        dev)))}
+        print(f"front-end ({n} crops): batched bitwise equal to the "
+              f"per-crop loop at {det.pyramid_levels} levels; device "
+              f"events a chunk " + ", ".join(
+                  f"{name} {len(p.device_events)} (busy {p.busy_ms:.3f} "
+                  f"ms, wall {p.wall_ms:.3f} ms)"
+                  for name, p in prof.items()) + f" ({card})")
+        if n == scan_package.CHUNK:
+            t0 = time.perf_counter()
+            twin = numpy_twin(lambda: training.extract_views(
+                qlevels, rects, msk_c, poses, det, workers))
+            twin_ms = (time.perf_counter() - t0) * 1e3
+            check(len(twin) == n and all(
+                same_view(a, b) for a, b in zip(trained[n], twin)),
+                f"native views of the {n}-view chunk differ from the numpy "
+                f"twin's")
+            print(f"train: the {n}-view chunk's native views equal the "
+                  f"numpy twin's (every feature); twin extraction "
+                  f"{twin_ms:.3f} ms on {workers} threads ({card})")
     check(all(same_view(a, b) for a, b in zip(
         trained[scan_package.CHUNK], trained[TRAIN_FRAMES])),
         f"the {scan_package.CHUNK}-view chunk's first views differ from "

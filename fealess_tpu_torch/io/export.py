@@ -12,9 +12,14 @@ computes:
   JAX package's schema, with this package's own version string.
 
 There is no serialized program: the port runs its Python pipeline, so a
-cold start saves the YAML parse, the PNG decodes and the table build.  The
-JAX package's artifacts hold score tables of another layout and are
-refused.
+cold start saves the YAML parse, the PNG decodes and the table build.
+
+:class:`ServingArtifact` also serves the JAX package's artifacts
+(``fealess-artifact-1``): their ``state.npz`` holds the same bank leaves,
+model depths and origins and their ``meta.json`` the same fields, but
+their score tables have another layout and ``recognition.jaxexport`` is a
+JAX program, so both are ignored and the port builds its own tables from
+the bank (``detector.build_match_tables``, as ``ObjReco.add_obj`` does).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 from fealess_tpu_torch import config as cfg
+from fealess_tpu_torch import detector as det_mod
 from fealess_tpu_torch.bank import bank_arrays, bank_from_numpy
 from fealess_tpu_torch.engine import ObjReco
 
@@ -65,17 +71,15 @@ def export_artifact(eng: ObjReco, path: str) -> None:
 class ServingArtifact(ObjReco):
     """An engine restored from an artifact on ``device``: the same
     ``recognition`` (and frame preparation and result fetch) as
-    :class:`ObjReco`, without parsing YAML or decoding PNGs."""
+    :class:`ObjReco`, without parsing YAML or decoding PNGs.  Reads this
+    package's artifacts and the JAX package's (whose score tables are
+    rebuilt here); any other version raises ``IOError``."""
 
     def __init__(self, path: str, device="cuda"):
         with open(os.path.join(path, _META_FILE)) as f:
             meta = json.load(f)
         version = meta.get("version")
-        if version == _JAX_VERSION:
-            raise IOError(f"{path} was written by the JAX package "
-                          f"(fealess_tpu); its score tables have another "
-                          f"layout: export it again with this package")
-        if version != VERSION:
+        if version not in (VERSION, _JAX_VERSION):
             raise IOError(f"unknown artifact version {version!r} in {path}")
         super().__init__(cfg.engine_from_dict(meta["engine_config"]),
                          device)
@@ -87,14 +91,19 @@ class ServingArtifact(ObjReco):
                 meta["class_names"], meta["max_span"], dev)
             self._model_depth_dev = torch.from_numpy(
                 state["model_depth"].astype(np.int32)).to(dev)
-            self._origins_dev = torch.from_numpy(state["origins"]).to(dev)
-            tables = []
-            for l in range(meta["levels"]):
-                prefix = f"table_{l}_"
-                tab = {k[len(prefix):]: torch.from_numpy(state[k]).to(dev)
-                       for k in state.files if k.startswith(prefix)}
-                tables.append(tab or None)
-        self._kernels = tuple(tables)
+            self._origins_dev = torch.from_numpy(
+                state["origins"].astype(np.int32)).to(dev)
+            if version == VERSION:
+                tables = []
+                for l in range(meta["levels"]):
+                    prefix = f"table_{l}_"
+                    tab = {k[len(prefix):]: torch.from_numpy(state[k]).to(dev)
+                           for k in state.files if k.startswith(prefix)}
+                    tables.append(tab or None)
+                self._kernels = tuple(tables)
+            else:
+                self._kernels = det_mod.build_match_tables(
+                    self.bank, self.cfg.detector)
         self._rect_wh = torch.stack([self.bank.width[:, 0],
                                      self.bank.height[:, 0]], 1).cpu().numpy()
         self._feature_path = path

@@ -14,27 +14,30 @@ no native library here: its threads decode through ``io/png.py`` (zlib
 and the C un-filter release the interpreter lock) and resize with
 ``ops/resize`` on CPU tensors.
 
-Nothing here builds the library.  Build it with ``cmake -S
-native/fealess_host -B build/native -G Ninja && ninja -C build/native``;
-:func:`load_library` then finds it there, as the JAX package's loader
-does, or loads the file it is given.
-The bindings are called only while :func:`have_native` is true, and
-``training.py`` runs its numpy path otherwise: the two give equal views.
+:func:`load_library` builds the library at its first call
+(``ops/_build.build_native_host``: ``scatter.cc``, ``chamfer.cc`` and
+``extract.cc`` with the host C++ compiler into
+``build/fealess_tpu_torch/``, no CMake, no OpenCV) and raises, with the
+compiler's errors, if the build fails; nothing falls back to numpy on its
+own.  ``load_library(path)`` loads a given file instead.  ``training.py``
+calls the bindings while :func:`have_native` is true, and runs its numpy
+twin (equal views) only where a caller set the library aside first:
+``_LIB = None`` and ``_SEARCHED = True``, as the tests do.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
-import pathlib
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-_REPO = pathlib.Path(__file__).resolve().parents[2]
 _LIB: Optional[ctypes.CDLL] = None
 _SEARCHED = False
+_LOCK = threading.Lock()
 
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
@@ -64,22 +67,21 @@ def _bind(path) -> ctypes.CDLL:
 
 
 def load_library(path=None) -> Optional[ctypes.CDLL]:
-    """The loaded library, or None.  With ``path``, that file is loaded and
-    becomes the library the bindings call (an error if it does not load).
-    Without, the first call looks for ``build/native/libfealess_host.so``
-    under the repository root."""
+    """The loaded library.  With ``path``, that file is loaded and becomes
+    the library the bindings call (an error if it does not load).
+    Without, the first call builds the port's own from the repo's sources
+    (``ops/_build.build_native_host``) and loads it; a failed build or
+    load raises.  None only after a caller set the library aside
+    (``_LIB = None``, ``_SEARCHED = True``)."""
     global _LIB, _SEARCHED
     if path is not None:
         _LIB, _SEARCHED = _bind(path), True
         return _LIB
-    if not _SEARCHED:
-        _SEARCHED = True
-        found = _REPO / "build" / "native" / "libfealess_host.so"
-        if found.exists():
-            try:
-                _LIB = _bind(found)
-            except (OSError, AttributeError):   # not loadable here
-                _LIB = None
+    with _LOCK:
+        if not _SEARCHED:
+            from fealess_tpu_torch.ops import _build
+            _LIB = _bind(_build.build_native_host())
+            _SEARCHED = True
     return _LIB
 
 

@@ -12,8 +12,13 @@ CUDA stream are passed as ``c_void_p`` and every entry point returns
 A host C source (``csrc/*.c``: the PNG un-filter) is compiled with the
 host compiler (``cc -O2 -shared -fPIC``) by :func:`build_host` into the
 same directory, named by a hash of the source and flags, at first use on
-any machine.  Concurrent builds (test workers, a frame loader's threads)
-wait on a lock file and load the one library; a failed build raises.
+any machine.  :func:`build_native_host` compiles the training path's
+native extraction the same way, with the host C++ compiler, from three
+sources of ``native/fealess_host`` (``scatter.cc``, ``chamfer.cc``,
+``extract.cc``; ``frame_loader.cc`` needs OpenCV and is left out), so it
+needs neither CMake nor OpenCV.  Concurrent builds (test workers, a frame
+loader's or an extraction pool's threads) wait on a lock file and load
+the one library; a failed build raises with the compiler's errors.
 
 Nothing here runs at import: the CPU tests import every module, and there
 is no ``nvcc`` without a card.
@@ -42,6 +47,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 HOST_CFLAGS = ("-O2", "-shared", "-fPIC")
+# The repo's native extraction (read, never edited).  No -march=native and
+# no contraction: the views must not drift from the numpy twin's with the
+# machine's instruction set.
+NATIVE_HOST = _PKG.parent / "native" / "fealess_host"
+NATIVE_SOURCES = ("scatter.cc", "chamfer.cc", "extract.cc")
+HOST_CXXFLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC",
+                 "-ffp-contract=off")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -113,21 +125,32 @@ def build() -> pathlib.Path:
     return so
 
 
-def _host_cc() -> str:
-    for name in (os.environ.get("CC"), "cc", "gcc", "clang"):
+def _find_compiler(env: str, names, what: str) -> str:
+    for name in (os.environ.get(env), *names):
         found = name and shutil.which(name)
         if found:
             return found
-    raise RuntimeError("no host C compiler (cc, gcc or clang; or set CC)")
+    raise RuntimeError(f"no host {what} compiler ({', '.join(names)}; or "
+                       f"set {env})")
 
 
-def build_host(name: str) -> pathlib.Path:
-    """Compile ``csrc/<name>.c`` with the host compiler unless the library
-    for this source and these flags exists; return its path."""
-    src = CSRC / f"{name}.c"
-    h = hashlib.sha256(" ".join(HOST_CFLAGS).encode())
-    h.update(src.read_bytes())
-    so = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+def _host_cc() -> str:
+    return _find_compiler("CC", ("cc", "gcc", "clang"), "C")
+
+
+def _host_cxx() -> str:
+    return _find_compiler("CXX", ("c++", "g++", "clang++"), "C++")
+
+
+def _build_host_library(stem: str, compiler, flags, sources) -> pathlib.Path:
+    """Compile ``sources`` into ``lib<stem>_<hash>.so`` under BUILD_DIR
+    unless the library for these sources and flags exists; the hash
+    covers the flags and each source's name and bytes."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    so = BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -136,7 +159,7 @@ def build_host(name: str) -> pathlib.Path:
         if so.exists():                  # built while this one waited
             return so
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_host_cc(), *HOST_CFLAGS, "-o", str(tmp), str(src)]
+        cmd = [compiler(), *flags, "-o", str(tmp), *map(str, sources)]
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=300)
         if proc.returncode != 0:
@@ -144,6 +167,21 @@ def build_host(name: str) -> pathlib.Path:
                                f":\n{proc.stderr[-4000:]}")
         os.replace(tmp, so)
     return so
+
+
+def build_host(name: str) -> pathlib.Path:
+    """Compile ``csrc/<name>.c`` with the host compiler unless the library
+    for this source and these flags exists; return its path."""
+    return _build_host_library(name, _host_cc, HOST_CFLAGS,
+                               [CSRC / f"{name}.c"])
+
+
+def build_native_host() -> pathlib.Path:
+    """Compile ``libfealess_host`` (the training path's extraction) from
+    ``NATIVE_SOURCES`` with the host C++ compiler unless the library for
+    these sources and flags exists; return its path."""
+    return _build_host_library("fealess_host", _host_cxx, HOST_CXXFLAGS,
+                               [NATIVE_HOST / f for f in NATIVE_SOURCES])
 
 
 def library() -> ctypes.CDLL:

@@ -5,7 +5,10 @@
   ``hysteresisGradient`` (linemod/linemod.cpp:230-385).
 - :func:`quantize_normals` == ``quantizedNormals`` (linemod.cpp:595-685).
 
-Outputs are u8 bitmask images: pixel value ``1 << label`` or 0.
+Outputs are u8 bitmask images: pixel value ``1 << label`` or 0.  Leading
+axes before the image's are a batch (``training.quantize_crops`` runs all
+of a chunk's crops in one call); a single image takes the same launches
+as before batching was possible.
 """
 
 from __future__ import annotations
@@ -22,14 +25,15 @@ NORMAL_GRANULARITY = 20  # normal_lut.i granularity
 
 
 def _interior(h: int, w: int, lo: int, hi: int, device) -> torch.Tensor:
-    """(h, w) bool: lo <= y < h - hi and lo <= x < w - hi."""
+    """(h, w) bool: lo <= y < h - hi and lo <= x < w - hi (broadcasts
+    over a batch's leading axes)."""
     yy = torch.arange(h, device=device)[:, None]
     xx = torch.arange(w, device=device)[None, :]
     return (yy >= lo) & (yy < h - hi) & (xx >= lo) & (xx < w - hi)
 
 
 def quantize_gradients(src_bgr: torch.Tensor, weak_threshold: float):
-    """Quantized gradient-orientation image of a u8 (H, W, 3) image.
+    """Quantized gradient-orientation image of a u8 (..., H, W, 3) image.
 
     Returns ``(quantized, magnitude)``: the u8 bitmask image and the
     float32 squared-magnitude image.  Channel-argmax tie-breaks, the
@@ -37,7 +41,7 @@ def quantize_gradients(src_bgr: torch.Tensor, weak_threshold: float):
     and the >=5-vote hysteresis follow linemod.cpp:230-385.
     """
     smoothed = fi.gaussian_blur7_u8(src_bgr)
-    dx = fi.sobel3_i16(smoothed, "x").to(torch.int32)     # (H, W, 3)
+    dx = fi.sobel3_i16(smoothed, "x").to(torch.int32)
     dy = fi.sobel3_i16(smoothed, "y").to(torch.int32)
     mag = dx * dx + dy * dy
 
@@ -57,7 +61,7 @@ def quantize_gradients(src_bgr: torch.Tensor, weak_threshold: float):
     # convertTo(CV_8U, 16/360): cvRound = round-half-to-even (torch.round
     # rounds half to even, like jnp.rint), then &7.
     quant16 = torch.round(angle * (16.0 / 360.0)).to(torch.int32)
-    h, w = angle.shape
+    h, w = angle.shape[-2:]
     interior = _interior(h, w, 1, 1, angle.device)
     quant8 = torch.where(interior, quant16 & 7, 0)
 
@@ -65,7 +69,8 @@ def quantize_gradients(src_bgr: torch.Tensor, weak_threshold: float):
     onehot = (quant8[..., None] == torch.arange(8, device=angle.device)
               ).to(torch.int32)
     onehot_p = F.pad(onehot, (0, 0, 1, 1, 1, 1))
-    hist = sum(onehot_p[r:r + h, c:c + w] for r in range(3) for c in range(3))
+    hist = sum(onehot_p[..., r:r + h, c:c + w, :] for r in range(3)
+               for c in range(3))
     # first maximum wins, like the reference's C scan
     votes = hist[..., 0]
     best = torch.zeros_like(votes)
@@ -95,20 +100,23 @@ def _azimuth_bin_from_grid(ix: torch.Tensor, iy: torch.Tensor) -> torch.Tensor:
     return torch.bitwise_left_shift(1, bin8).to(torch.uint8)
 
 
-def quantize_normals(depth: torch.Tensor, distance_threshold: int,
+def quantize_normals(depth_u16: torch.Tensor, distance_threshold: int,
                      difference_threshold: int) -> torch.Tensor:
-    """Quantized surface-normal image of an int32 (H, W) depth image (mm),
-    after the reference's 5x5 median filter (linemod.cpp:595-685)."""
-    h, w = depth.shape
+    """Quantized surface-normal image of a (..., H, W) depth image in mm,
+    after the reference's 5x5 median filter (linemod.cpp:595-685).  The
+    depth is int32 (what the engine prepares) or any integer dtype that
+    converts to int32 exactly (uint16, as the JAX package's name says;
+    int16, uint8); leading axes are a batch of images."""
+    h, w = depth_u16.shape[-2:]
     r = NORMAL_RING_RADIUS
-    d = depth.to(torch.int32)
+    d = depth_u16.to(torch.int32)
     dpad = F.pad(d, (r, r, r, r))
 
     offsets = [(-r, -r), (0, -r), (r, -r), (-r, 0), (r, 0), (-r, r), (0, r),
                (r, r)]
     a00 = a01 = a11 = b0 = b1 = torch.zeros_like(d)
     for (i, j) in offsets:  # i = x offset, j = y offset (accumBilateral)
-        nb = dpad[r + j:r + j + h, r + i:r + i + w]
+        nb = dpad[..., r + j:r + j + h, r + i:r + i + w]
         delta = nb - d
         f = (delta.abs() < difference_threshold).to(torch.int32)
         fi_, fj_ = f * i, f * j
@@ -135,7 +143,7 @@ def quantize_normals(depth: torch.Tensor, distance_threshold: int,
     sector = _azimuth_bin_from_grid(ix, iy)
 
     # Reference loop bounds: y in [r, H-r-1), x in [r, W-r-1) (linemod.cpp:619).
-    interior = _interior(h, w, r, r + 1, depth.device)
+    interior = _interior(h, w, r, r + 1, d.device)
     valid = interior & (d < distance_threshold) & (norm > 0)
     quant = torch.where(valid, sector, 0).to(torch.uint8)
     return fi.median_blur5_u8(quant)

@@ -74,7 +74,7 @@ def match_batch_2d(bank: TemplateBank, bgr_batch: torch.Tensor,
             m, template_slot=m.template_slot + offset))
     b = len(local)
     g = mesh_mod.all_gather_tree(mesh_mod.stack_tree(local),
-                                 mesh.get_group(template_axis))
+                                 mesh_mod.axis_group(mesh, template_axis))
     # (shards * b, K) in shard order -> (b, shards * K): frame f's row is
     # its shards' lists side by side, as JAX's tiled all_gather lays it out
     rows = mesh_mod.tree_map(
@@ -83,7 +83,8 @@ def match_batch_2d(bank: TemplateBank, bgr_batch: torch.Tensor,
     merged = mesh_mod.stack_tree([
         _merge_matches(mesh_mod.tree_map(lambda a: a[f], rows),
                        det.max_candidates) for f in range(b)])
-    return mesh_mod.all_gather_tree(merged, mesh.get_group(frame_axis))
+    return mesh_mod.all_gather_tree(merged,
+                                    mesh_mod.axis_group(mesh, frame_axis))
 
 
 def recognize_batch_sharded(bank: TemplateBank,
@@ -102,4 +103,4 @@ def recognize_batch_sharded(bank: TemplateBank,
     local = recognize_batch(bank, model_depth_stack, depth_origins,
                             bgr_batch[mine], depth_batch[mine], scene_k,
                             engine, kernels=kernels)
-    return mesh_mod.all_gather_tree(local, mesh.get_group(axis))
+    return mesh_mod.all_gather_tree(local, mesh_mod.axis_group(mesh, axis))

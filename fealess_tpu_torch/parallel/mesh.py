@@ -9,20 +9,26 @@ Each process owns one device, and a mesh names its processes' axes:
 - ``d``: data parallelism over frames (``batch_recon``);
 - ``p``: point sharding inside ICP's sums (``sharded_icp``).
 
-A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over every
-process of the default group, which the caller initialises first
-(``multihost.initialize``, torchrun, or ``init_process_group``).  The
-collectives run on whatever backend that group has: NCCL on the card,
-gloo on the CPU.  Results travel as pytrees of tensors (dataclasses,
-dicts, tuples) packed into one byte buffer, so a gather or a broadcast is
-one collective whatever the fields' dtypes.
+A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over processes
+of the default group, which the caller initialises first
+(``multihost.initialize``, torchrun, or ``init_process_group``): every
+process by default, or the ranks given (a sub-mesh, as the JAX package's
+meshes take a list of devices; ``template_mesh(n_devices)`` takes the
+first n).  Every process of the default group builds each mesh, since
+``new_group`` must be called by all of them; a process outside a
+sub-mesh gets a ``ValueError`` when it uses it (its collectives would
+otherwise wait for it forever).  The collectives run on whatever backend
+that group has: NCCL on the card, gloo on the CPU.  Results travel as
+pytrees of tensors (dataclasses, dicts, tuples) packed into one byte
+buffer, so a gather or a broadcast is one collective whatever the fields'
+dtypes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,34 +37,63 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 
 def make_mesh(axes: Sequence[Tuple[str, int]],
+              devices: Optional[Sequence[int]] = None,
               device_type: str = "cuda") -> DeviceMesh:
     """A mesh from (axis_name, size) pairs, e.g. [("d", 2), ("t", 2)],
-    ranks laid out row-major.  The sizes must multiply to the world size
-    (one -1 is inferred)."""
+    over the processes ``devices`` (global ranks, each process owning one
+    device; every process by default), laid out row-major.  The sizes
+    must multiply to the number of ranks (one -1 is inferred from it).
+    Every process of the default group calls this with the same
+    arguments."""
+    world = dist.get_world_size()
+    ranks = list(range(world)) if devices is None else [int(r)
+                                                        for r in devices]
+    if (len(set(ranks)) != len(ranks)
+            or not all(0 <= r < world for r in ranks)):
+        raise ValueError(f"mesh ranks {ranks} are not distinct ranks of "
+                         f"the {world} processes")
     names = tuple(a for a, _ in axes)
     sizes = [s for _, s in axes]
-    world = dist.get_world_size()
     if sizes.count(-1) == 1:
         known = math.prod(s for s in sizes if s != -1)
-        sizes[sizes.index(-1)] = world // known
-    if math.prod(sizes) != world:
-        raise ValueError(f"mesh {list(zip(names, sizes))} != {world} "
+        sizes[sizes.index(-1)] = len(ranks) // known
+    if math.prod(sizes) != len(ranks):
+        raise ValueError(f"mesh {list(zip(names, sizes))} != {len(ranks)} "
                          f"processes")
-    return init_device_mesh(device_type, tuple(sizes), mesh_dim_names=names)
+    if ranks == list(range(world)):
+        return init_device_mesh(device_type, tuple(sizes),
+                                mesh_dim_names=names)
+    mesh = DeviceMesh(device_type, torch.tensor(ranks).reshape(sizes),
+                      mesh_dim_names=names)
+    mesh._fealess_group = dist.new_group(ranks)    # for replicated()
+    return mesh
 
 
-def template_mesh(n: int | None = None,
+def template_mesh(n_devices: Optional[int] = None,
                   device_type: str = "cuda") -> DeviceMesh:
-    """1-D template-sharding mesh over every process (``n``, if given,
-    must be the world size)."""
-    return make_mesh([("t", dist.get_world_size() if n is None else n)],
-                     device_type)
+    """1-D template-sharding mesh over every process, or over the first
+    ``n_devices`` ranks."""
+    return make_mesh([("t", -1)], None if n_devices is None
+                     else range(n_devices), device_type)
+
+
+def _member(mesh: DeviceMesh) -> None:
+    if mesh.get_coordinate() is None:
+        raise ValueError(f"process {dist.get_rank()} is not in this mesh "
+                         f"(ranks {mesh.mesh.flatten().tolist()})")
 
 
 def axis_index(mesh: DeviceMesh, axis: str) -> Tuple[int, int]:
     """(this process's coordinate on ``axis``, the axis size)."""
+    _member(mesh)
     return (mesh.get_local_rank(axis),
             mesh.size(mesh.mesh_dim_names.index(axis)))
+
+
+def axis_group(mesh: DeviceMesh, axis: str):
+    """The process group of this process's line along ``axis``."""
+    _member(mesh)
+    return mesh.get_group(axis)
 
 
 def shard_bank(bank, mesh: DeviceMesh, axis: str = "t", tables=None):
@@ -80,13 +115,14 @@ def shard_bank(bank, mesh: DeviceMesh, axis: str = "t", tables=None):
 
 def replicated(mesh: DeviceMesh):
     """The process group a replicated value lives on: every process of
-    the mesh, which :func:`make_mesh` makes the whole default group."""
-    del mesh
-    return dist.group.WORLD
+    the mesh (the whole default group unless it is a sub-mesh)."""
+    _member(mesh)
+    return getattr(mesh, "_fealess_group", dist.group.WORLD)
 
 
 def mesh_device(mesh: DeviceMesh) -> torch.device:
     """This process's device on ``mesh``."""
+    _member(mesh)
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)

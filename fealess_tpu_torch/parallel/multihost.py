@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -28,6 +28,7 @@ from fealess_tpu_torch.utils.logging import get_logger
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
+               local_device_ids: Optional[Sequence[int]] = None,
                backend: Optional[str] = None, device=None,
                timeout: Optional[datetime.timedelta] = None
                ) -> torch.device:
@@ -37,11 +38,13 @@ def initialize(coordinator_address: Optional[str] = None,
     rendezvous, process 0 listens), ``FEALESS_NUM_PROCESSES`` and
     ``FEALESS_PROCESS_ID``; without a coordinator the group reads
     torchrun's ``env://`` variables.  ``device`` is ``cuda`` unless the
-    caller names another; a bare ``cuda`` is card ``LOCAL_RANK`` (or the
-    process id modulo the cards).  The backend follows the device (NCCL
-    for ``cuda``, gloo for ``cpu``) unless ``backend`` names one; NCCL
-    joins eagerly, so a failed init raises here.  ``timeout`` bounds
-    every collective (torch's default if None)."""
+    caller names another; a bare ``cuda`` is card ``local_device_ids[0]``
+    (JAX's argument: here a process owns one device, so it lists one
+    card), else ``LOCAL_RANK``, else the process id modulo the cards.
+    The backend follows the device (NCCL for ``cuda``, gloo for ``cpu``)
+    unless ``backend`` names one; NCCL joins eagerly, so a failed init
+    raises here.  ``timeout`` bounds every collective (torch's default if
+    None)."""
     coordinator_address = coordinator_address or os.environ.get(
         "FEALESS_COORDINATOR")
     if num_processes is None and "FEALESS_NUM_PROCESSES" in os.environ:
@@ -49,6 +52,15 @@ def initialize(coordinator_address: Optional[str] = None,
     if process_id is None and "FEALESS_PROCESS_ID" in os.environ:
         process_id = int(os.environ["FEALESS_PROCESS_ID"])
     dev = torch.device("cuda" if device is None else device)
+    if local_device_ids is not None:
+        ids = [int(i) for i in local_device_ids]
+        if len(ids) != 1:
+            raise ValueError(f"local_device_ids {ids}: a process owns one "
+                             f"device here")
+        if dev.type != "cuda" or dev.index not in (None, ids[0]):
+            raise ValueError(f"local_device_ids {ids} name a card, device "
+                             f"is {dev}")
+        dev = torch.device("cuda", ids[0])
     if dev.type == "cuda" and dev.index is None:
         local = os.environ.get("LOCAL_RANK")
         dev = torch.device("cuda", int(local) if local is not None else
@@ -76,7 +88,7 @@ def initialize(coordinator_address: Optional[str] = None,
 
 def global_mesh(axis: str = "d", device_type: str = "cuda") -> DeviceMesh:
     """One-axis mesh over every process (the frame/data axis)."""
-    return mesh_mod.make_mesh([(axis, dist.get_world_size())], device_type)
+    return mesh_mod.make_mesh([(axis, -1)], device_type=device_type)
 
 
 def feed_local_batch(mesh: DeviceMesh, local_arrays, axis: str = "d"):
@@ -93,9 +105,11 @@ def feed_local_batch(mesh: DeviceMesh, local_arrays, axis: str = "d"):
 
 
 def replicate(mesh: DeviceMesh, tree):
-    """Process 0's pytree (bank, model depths, tables; numpy arrays or
-    tensors) on every process's device, in one broadcast.  Every process
-    passes a tree of the same structure, shapes and dtypes."""
+    """The mesh's first process's pytree (bank, model depths, tables;
+    numpy arrays or tensors) on every process's device of the mesh, in
+    one broadcast.  Every process passes a tree of the same structure,
+    shapes and dtypes."""
     dev = mesh_mod.mesh_device(mesh)
     tensors = mesh_mod.tree_map(lambda a: torch.as_tensor(a).to(dev), tree)
-    return mesh_mod.broadcast_tree(tensors, mesh_mod.replicated(mesh))
+    return mesh_mod.broadcast_tree(tensors, mesh_mod.replicated(mesh),
+                                   src=int(mesh.mesh.flatten()[0]))

@@ -60,7 +60,7 @@ def icp_sharded(ref: torch.Tensor, model: torch.Tensor,
     ref_s, model_s, mask_s = _my_points(mesh, axis, ref, model, pair_mask)
     return icp_mod.icp_point_to_point(
         ref_s, model_s, mask_s, icp, ref_all=ref,
-        reduce=_sum_over(mesh.get_group(axis)))
+        reduce=_sum_over(mesh_mod.axis_group(mesh, axis)))
 
 
 def icp_plane_sharded(ref: torch.Tensor, ref_normals: torch.Tensor,
@@ -75,4 +75,5 @@ def icp_plane_sharded(ref: torch.Tensor, ref_normals: torch.Tensor,
                                                 pair_mask)
     return icp_mod.icp_point_to_plane(
         ref_s, norm_s, model_s, mask_s, icp, ref_all=ref,
-        normals_all=ref_normals, reduce=_sum_over(mesh.get_group(axis)))
+        normals_all=ref_normals,
+        reduce=_sum_over(mesh_mod.axis_group(mesh, axis)))

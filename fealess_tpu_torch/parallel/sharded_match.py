@@ -64,8 +64,9 @@ def match_bank_sharded(bank: TemplateBank, bgr: torch.Tensor,
     part, part_tables, offset = mesh_mod.shard_bank(bank, mesh, axis, tables)
     m = det_mod.match_from_planes(part, planes, threshold, det, part_tables)
     m = dataclasses.replace(m, template_slot=m.template_slot + offset)
-    return _merge_matches(mesh_mod.all_gather_tree(m, mesh.get_group(axis)),
-                          det.max_candidates)
+    return _merge_matches(
+        mesh_mod.all_gather_tree(m, mesh_mod.axis_group(mesh, axis)),
+        det.max_candidates)
 
 
 def jit_match_sharded(mesh: DeviceMesh, det: cfg.DetectorConfig,

@@ -126,17 +126,21 @@ def paired_clouds(scene_depth, scene_k, model_depth, template_k, rect_w,
     return ref_flat, model_flat, pair_mask, ref_normals, t_tmp
 
 
-def refine_match(scene_depth, scene_k, model_depth, template_k, rect_w,
-                 rect_h, model_x0, model_y0, match_x, match_y,
+def refine_match(scene_depth_u16, scene_k, model_depth_u16, template_k,
+                 rect_w, rect_h, model_x0, model_y0, match_x, match_y,
                  r_match: torch.Tensor, t_match: torch.Tensor,
                  engine: cfg.EngineConfig, crop_h: int = 256,
                  crop_w: int = 256) -> RefineResult:
-    """``detection()`` for one match.  ``model_depth`` is the template's
-    depth already in mm (int32); ``model_x0/model_y0`` the template rect
-    origin; ``match_x/match_y`` the scene rect origin; both rects are
-    ``rect_w x rect_h``."""
+    """``detection()`` for one match.  ``scene_depth_u16`` (H, W) is the
+    scene's depth and ``model_depth_u16`` the template's, both in mm as
+    int32 tensors (the names are the JAX package's, whose depths are
+    uint16; the engine prepares int32, which every torch operator here
+    takes); ``model_x0/model_y0`` the template rect origin;
+    ``match_x/match_y`` the scene rect origin; both rects are ``rect_w x
+    rect_h``."""
     ref, model, pair_mask, ref_normals, t_tmp = paired_clouds(
-        scene_depth, scene_k, model_depth, template_k, rect_w, rect_h,
+        scene_depth_u16, scene_k, model_depth_u16, template_k, rect_w,
+        rect_h,
         model_x0, model_y0, match_x, match_y, engine, crop_h, crop_w)
     t_init = t_tmp + t_match
     result = icp_mod.icp_refine(ref, model, pair_mask, engine.icp,
@@ -185,7 +189,7 @@ def _refine_candidate(bank, model_depth_stack, depth_origins, scene_depth,
 
 def recognize_top1(bank, model_depth_stack: torch.Tensor,
                    depth_origins: torch.Tensor, bgr: torch.Tensor,
-                   scene_depth: torch.Tensor, scene_k: torch.Tensor,
+                   scene_depth_u16: torch.Tensor, scene_k: torch.Tensor,
                    engine: cfg.EngineConfig, kernels=None, class_mask=None,
                    roi_mask=None, roi_box=None) -> RecoStep:
     """The Recognition step: match the whole bank, take the best match
@@ -194,20 +198,21 @@ def recognize_top1(bank, model_depth_stack: torch.Tensor,
 
     ``model_depth_stack`` (N, crop, crop) int32 mm per slot, pre-cropped at
     ``depth_origins`` (N, 2) int32; ``bgr`` (H, W, 3) u8 and
-    ``scene_depth`` (H, W) int32 at the processing resolution; ``scene_k``
-    (3, 3) f32 — all on the bank's device.
+    ``scene_depth_u16`` (H, W) int32 mm at the processing resolution (the
+    JAX package's name; its depth is uint16); ``scene_k`` (3, 3) f32 —
+    all on the bank's device.
     """
     crop = model_depth_stack.shape[-1]
     masks = None if roi_mask is None else [roi_mask, roi_mask]
-    matches = det_mod.match_bank(bank, bgr, scene_depth,
+    matches = det_mod.match_bank(bank, bgr, scene_depth_u16,
                                  engine.matching_threshold, engine.detector,
                                  masks=masks, kernels=kernels,
                                  class_mask=class_mask, roi_box=roi_box)
     slot = matches.template_slot[0]
     mx, my = matches.x[0], matches.y[0]
     pose, res = _refine_candidate(bank, model_depth_stack, depth_origins,
-                                  scene_depth, scene_k, slot, mx, my, engine,
-                                  crop)
+                                  scene_depth_u16, scene_k, slot, mx, my,
+                                  engine, crop)
     return RecoStep(pose=pose, valid=matches.valid[0],
                     similarity=matches.similarity[0],
                     class_idx=matches.class_idx[0], template_slot=slot,
@@ -233,7 +238,7 @@ class MultiRecoStep:
 
 def recognize_multi(bank, model_depth_stack: torch.Tensor,
                     depth_origins: torch.Tensor, bgr: torch.Tensor,
-                    scene_depth: torch.Tensor, scene_k: torch.Tensor,
+                    scene_depth_u16: torch.Tensor, scene_k: torch.Tensor,
                     engine: cfg.EngineConfig, max_objects: int,
                     kernels=None, class_mask=None,
                     roi_mask=None) -> MultiRecoStep:
@@ -244,7 +249,7 @@ def recognize_multi(bank, model_depth_stack: torch.Tensor,
     :func:`recognize_top1`."""
     crop = model_depth_stack.shape[-1]
     masks = None if roi_mask is None else [roi_mask, roi_mask]
-    matches = det_mod.match_bank(bank, bgr, scene_depth,
+    matches = det_mod.match_bank(bank, bgr, scene_depth_u16,
                                  engine.matching_threshold, engine.detector,
                                  masks=masks, kernels=kernels,
                                  class_mask=class_mask)
@@ -254,8 +259,8 @@ def recognize_multi(bank, model_depth_stack: torch.Tensor,
     poses, refs = [], []
     for i in range(slots.shape[0]):
         pose, res = _refine_candidate(bank, model_depth_stack, depth_origins,
-                                      scene_depth, scene_k, slots[i], mxs[i],
-                                      mys[i], engine, crop)
+                                      scene_depth_u16, scene_k, slots[i],
+                                      mxs[i], mys[i], engine, crop)
         poses.append(pose)
         refs.append(res)
     poses = torch.stack(poses)

@@ -6,10 +6,14 @@ quantize each modality, extract candidate features per pyramid level, pick
 scattered features greedily, crop all templates of the view to a common
 bounding box.  Quantization and pyrDown run on the device through the
 port's front-end (``ops.quantize``, ``ops.image``, bitwise equal to the JAX
-package's); candidate scoring and the greedy selection are sequential
-(selectScatteredFeatures, linemod.cpp:135-164) and run on the host, in one
-native call when ``libfealess_host`` is built (``native/fealess_host``) and
-in numpy otherwise, with identical results.
+package's), once over a batch of views.  Candidate scoring and the greedy
+selection are sequential (selectScatteredFeatures, linemod.cpp:135-164)
+and run on the host, one native call a view and modality through
+``libfealess_host``, which ``io.native`` builds at first use from
+``native/fealess_host``.  The numpy functions here are its plain twin,
+with identical results; they run only where ``io.native``'s library was
+set aside (``native._LIB = None`` with ``native._SEARCHED = True``), as
+the tests do.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ from fealess_tpu_torch.ops import quantize as q
 
 
 def have_native() -> bool:
-    """True when libfealess_host is built and loadable."""
+    """True when the extraction runs through libfealess_host (built at
+    first call); False only where a caller set the library aside."""
     return native_host.have_native()
 
 
@@ -284,31 +289,33 @@ def _batch_crop_rects(masks, shape_hw, levels: int, margin: int = 16):
 
 
 def _quantize_levels(bgr: torch.Tensor, depth: torch.Tensor,
-                     det: cfg.DetectorConfig) -> List[torch.Tensor]:
-    """One view's per-level (angle bits u8, magnitude f32, normal bits u8)
-    on the device: the ColorGradient modality re-quantizes a pyrDown'd
-    image, DepthNormal nearest-downsamples its level-0 quantization."""
+                     det: cfg.DetectorConfig) -> List[tuple]:
+    """Per-level (angle bits u8, magnitude f32, normal bits u8) of views
+    ``bgr`` (..., H, W, 3) u8 and ``depth`` (..., H, W) int32 on the
+    device; each front-end op runs once over the leading (batch) axes.
+    The ColorGradient modality re-quantizes a pyrDown'd image, DepthNormal
+    nearest-downsamples its level-0 quantization."""
     cg, dn = det.color_gradient, det.depth_normal
     use_cg = "color_gradient" in det.modalities
-    h, w = depth.shape
     qdn = (q.quantize_normals(depth, dn.distance_threshold,
                               dn.difference_threshold)
            if "depth_normal" in det.modalities
-           else torch.zeros((h, w), dtype=torch.uint8, device=depth.device))
+           else torch.zeros(depth.shape, dtype=torch.uint8,
+                            device=depth.device))
     out = []
     src = bgr
     for l in range(det.pyramid_levels):
         if l > 0:
             src = fi.pyr_down_u8(src)
-            qdn = qdn[::2, ::2]
+            qdn = qdn[..., ::2, ::2]
         if use_cg:
             ab, mag = q.quantize_gradients(src, cg.weak_threshold)
         else:
-            ab = torch.zeros(src.shape[:2], dtype=torch.uint8,
+            ab = torch.zeros(src.shape[:-1], dtype=torch.uint8,
                              device=src.device)
-            mag = torch.zeros(src.shape[:2], dtype=torch.float32,
+            mag = torch.zeros(src.shape[:-1], dtype=torch.float32,
                               device=src.device)
-        out += [ab, mag, qdn.contiguous()]
+        out.append((ab, mag, qdn.contiguous()))
     return out
 
 
@@ -327,19 +334,17 @@ def _fetch(tensors: List[torch.Tensor]) -> List[np.ndarray]:
 
 def quantize_crops(bgr_c: np.ndarray, dep_c: np.ndarray,
                    det: cfg.DetectorConfig, device) -> List[List[tuple]]:
-    """Quantize N stacked crops: one upload, the crops in turn on the
-    device, one fetch.  Returns ``levels[l][i] = (angle bits, magnitude,
-    normal bits)`` as host arrays."""
+    """Quantize N stacked crops (the counterpart of the JAX package's
+    vmapped ``quantize_batch``): one upload, each level's front-end once
+    over all N crops on the device, one fetch.  Returns ``levels[l][i] =
+    (angle bits, magnitude, normal bits)`` as host arrays."""
     bgr_d = torch.from_numpy(np.ascontiguousarray(bgr_c, np.uint8)).to(device)
     dep_d = torch.from_numpy(np.asarray(dep_c, np.int32)).to(device)
-    levels = det.pyramid_levels
-    parts = []
-    for i in range(len(bgr_c)):
-        parts += _quantize_levels(bgr_d[i], dep_d[i], det)
-    host = _fetch(parts)
-    per = 3 * levels
-    return [[tuple(host[i * per + 3 * l:i * per + 3 * l + 3])
-             for i in range(len(bgr_c))] for l in range(levels)]
+    host = _fetch([t for lv in _quantize_levels(bgr_d, dep_d, det)
+                   for t in lv])
+    return [[tuple(a[i] for a in host[3 * l:3 * l + 3])
+             for i in range(len(bgr_c))]
+            for l in range(det.pyramid_levels)]
 
 
 def _extract_view(qlevels, mask: Optional[np.ndarray], pose,

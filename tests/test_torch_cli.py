@@ -421,3 +421,4 @@ def test_cli_runs_without_jax_flax_or_cv2(tmp_path):
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["loaded"] == []
     assert result["rcs"] == [0] * 6
+    assert result["native"]        # train built and ran libfealess_host

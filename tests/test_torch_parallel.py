@@ -250,14 +250,14 @@ def _worker_ranks(d: str, rank: int, world: int) -> None:
                             rank=rank, world_size=world, timeout=TIMEOUT)
     inp, conf = _load(d)
     out = {}
-    t_mesh = mesh_mod.make_mesh([("t", world)], "cpu")
+    t_mesh = mesh_mod.make_mesh([("t", world)], device_type="cpu")
     for name in BANKS:
         det = cfg.detector_from_dict(conf[f"det_{name}"])
         m = sharded_match.match_bank_sharded(
             _bank(inp, conf, name), _t(inp[f"frame_{name}_bgr"]),
             _t(inp[f"frame_{name}_depth"]), THRESHOLD, det, t_mesh)
         out.update(_flat(f"match_{name}", m))
-    p_mesh = mesh_mod.make_mesh([("p", world)], "cpu")
+    p_mesh = mesh_mod.make_mesh([("p", world)], device_type="cpu")
     pair = (sharded_icp.icp_sharded, sharded_icp.icp_plane_sharded)
     for case in ICP_CASES:
         out.update(_flat(f"icp_{case}",
@@ -274,20 +274,50 @@ def _worker_ranks(d: str, rank: int, world: int) -> None:
     engine = cfg.engine_from_dict(conf["engine"])
     bank = _bank(inp, conf, "scene")
     if world == 2:
-        d_mesh = mesh_mod.make_mesh([("d", world)], "cpu")
+        d_mesh = mesh_mod.make_mesh([("d", world)], device_type="cpu")
         step = batch_recon.recognize_batch_sharded(
             bank, _t(inp["md"]), _t(inp["org"]), _t(inp["batch_bgr"]),
             _t(inp["batch_depth"]), _t(inp["scene_k"]), engine, d_mesh)
         out.update(_flat("batch", step))
     else:
-        mesh2 = mesh_mod.make_mesh([("d", 2), ("t", -1)], "cpu")
+        mesh2 = mesh_mod.make_mesh([("d", 2), ("t", -1)], device_type="cpu")
         m = batch_recon.match_batch_2d(
             bank, _t(inp["batch_bgr"][:2]), _t(inp["batch_depth"][:2]),
             THRESHOLD, engine.detector, mesh2)
         out.update(_flat("match2d", m))
+    sub = _submeshes(inp, conf, rank, world)
     dist.destroy_process_group()
     _check_no_jax()
     np.savez(os.path.join(d, f"ranks{world}_{rank}.npz"), **out)
+    np.savez(os.path.join(d, f"submesh{world}_{rank}.npz"), **sub)
+
+
+def _submeshes(inp, conf, rank: int, world: int) -> dict:
+    """Sub-meshes built by every rank: at 2 ranks ``template_mesh(1)`` and
+    ``make_mesh(devices=[0])``, at 4 ranks ``template_mesh(2)``.  Their
+    ranks run the sharded match of the scene bank on them; the others
+    must be refused with a ValueError, before any collective."""
+    det = cfg.detector_from_dict(conf["det_scene"])
+    args = (_bank(inp, conf, "scene"), _t(inp["frame_scene_bgr"]),
+            _t(inp["frame_scene_depth"]), THRESHOLD, det)
+    if world == 2:
+        meshes = {"first1": mesh_mod.template_mesh(1, device_type="cpu"),
+                  "devices0": mesh_mod.make_mesh([("t", -1)], devices=[0],
+                                                 device_type="cpu")}
+    else:
+        meshes = {"first2": mesh_mod.template_mesh(2, device_type="cpu")}
+    out = {}
+    for name, mesh in meshes.items():
+        size = mesh.mesh.numel()
+        assert mesh.mesh.flatten().tolist() == list(range(size))
+        try:
+            m = sharded_match.match_bank_sharded(*args, mesh)
+            out.update(_flat(f"{name}", m))
+            out[f"{name}_refused"] = np.array(False)
+        except ValueError as e:
+            assert "not in this mesh" in str(e), e
+            out[f"{name}_refused"] = np.array(True)
+    return out
 
 
 def _worker_multihost(d: str) -> None:
@@ -362,10 +392,12 @@ class _Runs:
                          for k, p in self.procs.items()}
         return self.outs
 
-    def result(self, name: str) -> dict:
+    def result(self, name: str, file: str = None) -> dict:
+        """Process ``name``'s results, from ``file`` (default: its own
+        name) in DIR."""
         out = self.wait()[name]
         assert self.procs[name].returncode == 0, f"{name}:\n{out[-3000:]}"
-        return dict(np.load(os.path.join(self.d, f"{name}.npz")))
+        return dict(np.load(os.path.join(self.d, f"{file or name}.npz")))
 
     def close(self):
         for p in self.procs.values():
@@ -578,6 +610,39 @@ def test_every_rank_returns_the_same(runs, world):
             assert v.tobytes() == other[k].tobytes(), (rank, k)
 
 
+def test_submesh_of_the_first_rank_is_the_single_device_match(runs):
+    """On 2 ranks, ``template_mesh(1)`` and ``make_mesh(devices=[0])``
+    give rank 0 a one-rank mesh whose sharded match is the single-device
+    match (``_merge_matches`` of ``match_bank``) bitwise; rank 1, outside
+    it, is refused with a ValueError instead of waiting on it."""
+    inp, conf = _load(runs.d)
+    det = cfg.detector_from_dict(conf["det_scene"])
+    want = _flat("", sharded_match._merge_matches(det_mod.match_bank(
+        _bank(inp, conf, "scene"), _t(inp["frame_scene_bgr"]),
+        _t(inp["frame_scene_depth"]), THRESHOLD, det), det.max_candidates))
+    got = runs.result("ranks2_0", "submesh2_0")
+    other = runs.result("ranks2_1", "submesh2_1")
+    for name in ("first1", "devices0"):
+        assert not got[f"{name}_refused"] and other[f"{name}_refused"]
+        for k, v in want.items():
+            assert got[name + k].tobytes() == v.tobytes(), (name, k)
+            assert f"{name}{k}" not in other
+
+
+def test_submesh_of_the_first_two_of_four_ranks(runs):
+    """On 4 ranks, ``template_mesh(2)`` spans ranks 0 and 1: their
+    sharded match equals the 2-rank run's bitwise, and ranks 2 and 3 are
+    refused."""
+    want = runs.result("ranks2_0")
+    for rank in range(4):
+        got = runs.result(f"ranks4_{rank}", f"submesh4_{rank}")
+        assert bool(got["first2_refused"]) == (rank >= 2), rank
+        if rank < 2:
+            for f in FIELDS:
+                assert got[f"first2.{f}"].tobytes() == \
+                    want[f"match_scene.{f}"].tobytes(), (rank, f)
+
+
 # -- world size 1, in this process --------------------------------------
 
 
@@ -616,7 +681,7 @@ def test_world1_match_is_the_merged_single_device_match(world1):
     for f in FIELDS:
         assert getattr(got, f)[0] == getattr(single, f)[0], f
     fn = sharded_match.jit_match_sharded(
-        mesh_mod.make_mesh([("t", 1)], "cpu"), det, THRESHOLD)
+        mesh_mod.make_mesh([("t", 1)], device_type="cpu"), det, THRESHOLD)
     _bitwise(fn(bank, bgr, depth), got)
 
 
@@ -624,7 +689,7 @@ def test_world1_match_is_the_merged_single_device_match(world1):
 def test_world1_icp_is_single_device(world1, case):
     """At one process the sharded ICP is the single-device ICP, bitwise."""
     inp, conf = world1
-    mesh = mesh_mod.make_mesh([("p", -1)], "cpu")
+    mesh = mesh_mod.make_mesh([("p", -1)], device_type="cpu")
     got = _icp_run((sharded_icp.icp_sharded, sharded_icp.icp_plane_sharded),
                    inp, conf, case, mesh)
     single = (icp_mod.icp_point_to_point, icp_mod.icp_point_to_plane)
@@ -651,7 +716,7 @@ def test_world1_batch_is_single_device(world1):
     bgr, depth = _t(inp["batch_bgr"]), _t(inp["batch_depth"])
     got = batch_recon.recognize_batch_sharded(
         bank, *fixed, bgr, depth, _t(inp["scene_k"]), engine,
-        mesh_mod.make_mesh([("d", 1)], "cpu"))
+        mesh_mod.make_mesh([("d", 1)], device_type="cpu"))
     want = mesh_mod.stack_tree([pipeline.recognize_top1(
         bank, *fixed, bgr[i], depth[i], _t(inp["scene_k"]), engine)
         for i in range(bgr.shape[0])])
@@ -667,7 +732,7 @@ def test_world1_match_batch_2d_is_single_device(world1):
     bgr, depth = _t(inp["batch_bgr"]), _t(inp["batch_depth"])
     got = batch_recon.match_batch_2d(
         bank, bgr, depth, THRESHOLD, det,
-        mesh_mod.make_mesh([("d", 1), ("t", 1)], "cpu"))
+        mesh_mod.make_mesh([("d", 1), ("t", 1)], device_type="cpu"))
     tables = det_mod.build_match_tables(bank, det)
     want = mesh_mod.stack_tree([sharded_match._merge_matches(
         det_mod.match_bank(bank, bgr[i], depth[i], THRESHOLD, det,
@@ -682,8 +747,14 @@ def test_world1_mesh_feed_and_replicate(world1):
     itself."""
     inp, conf = world1
     with pytest.raises(ValueError):
-        mesh_mod.make_mesh([("t", 3)], "cpu")
-    mesh = mesh_mod.make_mesh([("d", -1)], "cpu")
+        mesh_mod.make_mesh([("t", 3)], device_type="cpu")
+    for devices in ([1], [0, 0], [-1]):
+        with pytest.raises(ValueError, match="ranks"):
+            mesh_mod.make_mesh([("t", -1)], devices, device_type="cpu")
+    whole = mesh_mod.template_mesh(1, device_type="cpu")
+    assert mesh_mod.axis_index(whole, "t") == (0, 1)
+    assert mesh_mod.replicated(whole) is dist.group.WORLD
+    mesh = mesh_mod.make_mesh([("d", -1)], device_type="cpu")
     frames, offset = multihost.feed_local_batch(
         mesh, {"bgr": inp["batch_bgr"]})
     assert offset == 0 and torch.equal(frames["bgr"], _t(inp["batch_bgr"]))
@@ -691,6 +762,15 @@ def test_world1_mesh_feed_and_replicate(world1):
     got = multihost.replicate(mesh, bank)
     assert got.class_names == bank.class_names
     _bitwise(got, bank)
+
+
+def test_initialize_local_device_ids_name_one_card():
+    """JAX's ``local_device_ids`` names this process's one card; more than
+    one id, or an id that contradicts ``device``, is refused before any
+    group is joined."""
+    for ids, device in (([0, 1], None), ([0], "cpu"), ([1], "cuda:0")):
+        with pytest.raises(ValueError, match="local_device_ids"):
+            multihost.initialize(local_device_ids=ids, device=device)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ files read back identically through JAX's cv2 reader and the port's (and
 equal cv2's bytes); bank checkpoints round-trip and ``import_yaml`` gives
 JAX's leaves; the serving artifact's ``recognition`` equals the port's
 ``ObjReco.recognition`` and JAX's (match and similarity exactly, pose
-within 0.05 mm and 0.01 deg)."""
+within 0.05 mm and 0.01 deg), and so does an artifact that the JAX
+package wrote."""
 
 import json
 import os
@@ -245,15 +246,45 @@ def test_serving_artifact_equals_engine_and_jax(tmp_path, feature_dir, mode):
                                            JaxCam(FX, FY, CX, CY, W, H)))
 
 
-def test_serving_artifact_refuses_jax_and_unknown(tmp_path, feature_dir):
+@pytest.mark.parametrize("mode", ["point_to_plane", "point_to_point"])
+def test_serving_artifact_serves_jax_artifact(tmp_path, feature_dir, mode):
+    """An artifact written by the JAX package's ``export_artifact`` is
+    served by the port: the bank, model depths and origins are JAX's, the
+    score tables are the port's own (built from that bank), and the
+    results equal the JAX engine's (match and similarity exactly, pose
+    within 0.05 mm and 0.01 deg)."""
+    ref, port = _engines(feature_dir, mode)
+    art = str(tmp_path / "jax_artifact")
+    ref.export_artifact(art)
+    with open(os.path.join(art, "meta.json")) as f:
+        assert json.load(f)["version"] == "fealess-artifact-1"
+    served = ServingArtifact(art, device="cpu")
+    assert served.cfg == port.cfg
+    for k in _LEAVES:
+        assert torch.equal(getattr(served.bank, k), getattr(port.bank, k)), k
+    assert served._model_depth_dev.dtype == torch.int32
+    assert torch.equal(served._model_depth_dev, port._model_depth_dev)
+    assert torch.equal(served._origins_dev, port._origins_dev)
+    for tab_s, tab_p in zip(served._kernels, port._kernels):
+        assert tab_s.keys() == tab_p.keys()
+        for key in tab_p:
+            assert torch.equal(tab_s[key], tab_p[key]), key
+    pcam = CamIntrinsics(FX, FY, CX, CY, W, H)
+    for bgr, depth in _frames(feature_dir[1]):
+        _same_results(served.recognition(bgr, depth, pcam),
+                      ref.recognition(bgr, depth,
+                                      JaxCam(FX, FY, CX, CY, W, H)))
+
+
+def test_serving_artifact_refuses_unknown_version(tmp_path, feature_dir):
     _, port = _engines(feature_dir, "point_to_plane")
     art = str(tmp_path / "artifact")
     port.export_artifact(art)
     meta_path = os.path.join(art, "meta.json")
     with open(meta_path) as f:
         meta = json.load(f)
-    for version, match in (("fealess-artifact-1", "JAX"), ("v9", "unknown")):
+    for version in ("v9", "fealess-artifact-2", None):
         with open(meta_path, "w") as f:
             json.dump(dict(meta, version=version), f)
-        with pytest.raises(IOError, match=match):
+        with pytest.raises(IOError, match="unknown"):
             ServingArtifact(art, device="cpu")

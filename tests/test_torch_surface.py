@@ -4,7 +4,12 @@ UPPER_CASE constants, module by module) has a counterpart in the same
 module of ``fealess_tpu_torch``, or an entry in ``LEFT_OUT`` whose reason
 is one of ``REASONS``.  Both packages are read as source (``ast``), so the
 walk imports neither.  A name added to the JAX package later fails here
-until it is ported or entered with a reason."""
+until it is ported or entered with a reason.
+
+The walk also holds parameter names: every parameter of a JAX function or
+method that has a counterpart is accepted by the counterpart under the
+same name (JAX callers pass them by keyword), or is entered in
+``PARAMS_LEFT_OUT`` with a reason from ``REASONS``."""
 
 import ast
 import os
@@ -72,6 +77,13 @@ LEFT_OUT = {
     ("apps/cli.py", "cmd_bench"): ("waits for ROADMAP item 10", ""),
 }
 
+# (JAX module, function or Class.method, parameter) -> (reason, detail):
+# JAX parameter names that the counterpart does not take.
+PARAMS_LEFT_OUT = {
+    ("detector.py", "match_from_planes", "profile_stop"): (
+        "TPU workaround", "the profile_stop hooks (ROADMAP Open items)"),
+}
+
 
 def _modules(root):
     out = {}
@@ -113,6 +125,40 @@ def _public(tree, classes_anywhere=None):
             names |= {t.id for t in targets
                       if isinstance(t, ast.Name) and t.id.isupper()}
     return {n for n in names if not n.split(".")[-1].startswith("_")}
+
+
+def _functions(tree, classes_anywhere=None):
+    """Public top-level functions and class methods (``__init__`` too,
+    and the methods of bases found in ``classes_anywhere``) by name:
+    their ast nodes."""
+    out = {}
+
+    def methods(cls, seen=()):
+        found = {}
+        for base in cls.bases:
+            if (isinstance(base, ast.Name) and classes_anywhere
+                    and base.id in classes_anywhere and base.id not in seen):
+                found.update(methods(classes_anywhere[base.id],
+                                     seen + (base.id,)))
+        found.update({m.name: m for m in cls.body if isinstance(
+            m, (ast.FunctionDef, ast.AsyncFunctionDef))})
+        return found
+
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out[node.name] = node
+        elif isinstance(node, ast.ClassDef):
+            out.update({f"{node.name}.{m}": fn
+                        for m, fn in methods(node).items()})
+    return {n: fn for n, fn in out.items()
+            if not n.split(".")[-1].startswith("_")
+            or n.endswith(".__init__")}
+
+
+def _params(fn):
+    a = fn.args
+    return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs
+            if x.arg not in ("self", "cls")]
 
 
 def _parse(path):
@@ -157,6 +203,48 @@ def test_left_out_entries_are_current_and_allowed(surfaces):
     waits = [k for k, (r, _) in LEFT_OUT.items()
              if r == "waits for ROADMAP item 10"]
     assert waits == [("apps/cli.py", "cmd_bench")]
+
+
+@pytest.fixture(scope="module")
+def parameters():
+    """(JAX module, function) -> (its parameter names, the counterpart's)
+    for every JAX function with a counterpart."""
+    jax_trees = {m: _parse(p) for m, p in _modules(JAX).items()}
+    port_trees = {m: _parse(p) for m, p in _modules(PORT).items()}
+    anywhere = {}
+    for tree in port_trees.values():
+        anywhere.update(_classes(tree))
+    port = {m: _functions(t, anywhere) for m, t in port_trees.items()}
+    out = {}
+    for mod, tree in jax_trees.items():
+        there = port.get(MOVED.get(mod, mod), {})
+        for name, fn in _functions(tree).items():
+            if name in there:
+                out[mod, name] = (_params(fn), _params(there[name]))
+    return out
+
+
+def test_every_jax_parameter_name_is_accepted(parameters):
+    missing = [f"{mod}:{name}({p})"
+               for (mod, name), (jax_p, port_p) in sorted(parameters.items())
+               for p in jax_p
+               if p not in port_p and (mod, name, p) not in PARAMS_LEFT_OUT]
+    assert not missing, ("JAX parameter names that the port's counterpart "
+                         f"does not take and PARAMS_LEFT_OUT omits: "
+                         f"{missing}")
+
+
+def test_params_left_out_entries_are_current_and_allowed(parameters):
+    for (mod, name, p), (reason, _) in PARAMS_LEFT_OUT.items():
+        assert reason in REASONS, (mod, name, p, reason)
+        assert (mod, name) in parameters, f"stale entry: {mod}:{name}"
+        jax_p, port_p = parameters[mod, name]
+        assert p in jax_p, f"stale entry: {mod}:{name} takes no {p}"
+        assert p not in port_p, f"stale entry: {mod}:{name}({p}) is taken"
+    workarounds = [k for k, (r, _) in PARAMS_LEFT_OUT.items()
+                   if r == "TPU workaround"]
+    assert workarounds == [("detector.py", "match_from_planes",
+                            "profile_stop")]
 
 
 def test_inherited_methods_count_as_present(surfaces):

@@ -5,14 +5,20 @@ view equals template 0 of the in-repo YAML bank, which the JAX package
 wrote; the greedy selection, the chessboard chamfer and both extractors
 equal JAX's on random inputs made from a seed.
 
-The native cases build ``libfealess_host`` themselves, once per module,
-from ``native/fealess_host`` into a temporary directory of their own, and
-load it through ``fealess_tpu_torch.io.native`` by its path; they skip
-only where cmake, ninja or a C++ compiler is missing."""
+The native cases load ``libfealess_host`` as the port builds it at first
+use (``ops/_build.build_native_host``: ``scatter.cc``, ``chamfer.cc`` and
+``extract.cc`` of ``native/fealess_host`` with the host C++ compiler into
+``build/fealess_tpu_torch/``), through ``fealess_tpu_torch.io.native`` by
+its path; they skip only where no C++ compiler exists.  The numpy cases
+set that library aside (``native._LIB = None``, ``native._SEARCHED =
+True``), the only way the port's numpy twin runs.
+
+The batched front-end (``quantize_crops``: each level's ops once over all
+crops) equals the serving front-end run crop by crop, bit for bit, and
+its launches do not grow with the batch; the front-end functions called
+on one image take the launches they took before they accepted a batch."""
 
 import os
-import shutil
-import subprocess
 
 import cv2
 import numpy as np
@@ -23,9 +29,13 @@ from fealess_tpu import config as cfg
 from fealess_tpu import training as jax_training
 from fealess_tpu.ops import image as jax_image
 from fealess_tpu_torch import training
+from fealess_tpu_torch.apps import fixture
 from fealess_tpu_torch.io import linemod_yaml
 from fealess_tpu_torch.io import native
 from fealess_tpu_torch.io.png import read_png
+from fealess_tpu_torch.ops import _build
+from fealess_tpu_torch.ops import image as fi
+from fealess_tpu_torch.ops import quantize as q
 from tests.test_match_e2e import H, W, make_scene
 from tests.test_torch_config import to_port
 
@@ -35,28 +45,27 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "benchmarks", "reference", "out")
 
 
+def _need_cxx():
+    try:
+        _build._host_cxx()
+    except RuntimeError as e:
+        pytest.skip(f"cannot build libfealess_host: {e}")
+
+
 @pytest.fixture(scope="module")
-def native_lib(tmp_path_factory):
-    """Path of a libfealess_host built for this module: ``cmake -G Ninja``
-    and ``ninja`` on native/fealess_host, in a directory no other test
-    writes.  Skips only when a build tool is missing."""
-    missing = [t for t in ("cmake", "ninja") if shutil.which(t) is None]
-    if not any(shutil.which(c) for c in ("c++", "g++", "clang++")):
-        missing.append("a C++ compiler")
-    if missing:
-        pytest.skip(f"cannot build libfealess_host: no {', '.join(missing)}")
-    build = str(tmp_path_factory.mktemp("fealess_host"))
-    for cmd in (["cmake", "-S", os.path.join(REPO, "native", "fealess_host"),
-                 "-B", build, "-G", "Ninja"], ["ninja", "-C", build]):
-        subprocess.run(cmd, check=True, capture_output=True)
-    return os.path.join(build, "libfealess_host.so")
+def native_lib():
+    """Path of libfealess_host as the port builds it at first use
+    (``_build.build_native_host``; test workers share it under the
+    build's lock).  Skips only when no C++ compiler exists."""
+    _need_cxx()
+    return str(_build.build_native_host())
 
 
 @pytest.fixture(params=["numpy", "native"])
 def host_path(request, monkeypatch):
-    """Run the port's extraction on one host path: numpy, or the native
-    library built by ``native_lib``, loaded by its path for this test
-    only.  The JAX package takes its native path where the library is
+    """Run the port's extraction on one host path: the numpy twin, or the
+    native library built by ``native_lib``, loaded by its path for this
+    test only.  The JAX package takes its native path where the library is
     built (its numpy and native paths are equal, tests/test_native.py)."""
     monkeypatch.setattr(native, "_LIB", None)
     monkeypatch.setattr(native, "_SEARCHED", True)
@@ -257,3 +266,249 @@ def test_extractors_match_jax_on_random_inputs(host_path):
                         assert got is None
                     else:
                         np.testing.assert_array_equal(got, want)
+
+
+def test_load_library_builds_three_sources_into_the_port_build_dir(
+        monkeypatch, tmp_path):
+    """Without a path, the first ``load_library`` builds the library from
+    scatter.cc, chamfer.cc and extract.cc (no frame loader) into the
+    port's build directory and loads it; a second call loads the same."""
+    _need_cxx()
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_SEARCHED", False)
+    assert _build.NATIVE_SOURCES == ("scatter.cc", "chamfer.cc",
+                                     "extract.cc")
+    lib = native.load_library()
+    assert lib is not None and training.have_native()
+    built = sorted((tmp_path / "build").glob("libfealess_host_*.so"))
+    assert len(built) == 1
+    for name in native._SIGNATURES:
+        assert hasattr(lib, name), name
+    assert not hasattr(lib, "fealess_loader_create")
+    assert native.load_library() is lib
+    assert _build.build_native_host() == built[0]
+
+
+def test_failed_native_build_raises_and_nothing_falls_back(monkeypatch,
+                                                           tmp_path):
+    """Sources that do not compile raise with the compiler's errors, at
+    the library's load and at the extraction that needs it: no numpy
+    fallback."""
+    _need_cxx()
+    src = tmp_path / "src"
+    src.mkdir()
+    for name in _build.NATIVE_SOURCES:
+        (src / name).write_text("int broken( {\n")
+    monkeypatch.setattr(_build, "NATIVE_HOST", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_SEARCHED", False)
+    with pytest.raises(RuntimeError, match="failed"):
+        native.load_library()
+    bits = np.full((8, 8), 4, np.uint8)
+    with pytest.raises(RuntimeError, match="broken"):
+        training.extract_normal_template(bits, None, 4, 1)
+    assert not native._SEARCHED and native._LIB is None
+
+
+@pytest.fixture(scope="module")
+def pan_chunk():
+    """A chunk of panned fixture frames as phase 4d of chip_smoke.py feeds
+    the trainer (masks: nearer than the frame's corner), and the JAX
+    package's batched views of it."""
+    bgr = read_png(os.path.join(FIXTURE, "scene_bgr.png"))
+    depth = read_png(os.path.join(FIXTURE, "scene_depth.png"))
+    frames = fixture.pan(bgr, depth, 6)
+    bgrs = [b for b, _ in frames]
+    depths = [d for _, d in frames]
+    masks = [d < d[0, 0] for d in depths]
+    poses = [_pose(800.0 + i) for i in range(len(frames))]
+    det = cfg.DetectorConfig()
+    want = jax_training.add_templates_batched(bgrs, depths, masks, poses,
+                                              det)
+    return (bgrs, depths, masks, poses), det, want
+
+
+def test_pan_chunk_views_match_jax(host_path, pan_chunk):
+    """The panned chunk's views, batched, equal JAX's batched views."""
+    (bgrs, depths, masks, poses), det, want = pan_chunk
+    got = training.add_templates_batched(bgrs, depths, masks, poses,
+                                         to_port(det), device="cpu",
+                                         workers=2)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert_same_view(g, w)
+
+
+def test_random_masks_batched_views_match_jax(host_path):
+    """Views with random masks (rectangles with holes, one touching the
+    frame's corner) equal JAX's batched views."""
+    rng = np.random.default_rng(17)
+    det = cfg.DetectorConfig(image_width=W, image_height=H)
+    bgr, depth, _ = make_scene(np.random.default_rng(7))
+    masks = []
+    for k in range(4):
+        m = np.zeros((H, W), bool)
+        y0, x0 = (0, 0) if k == 0 else (int(rng.integers(0, H // 2)),
+                                         int(rng.integers(0, W // 2)))
+        m[y0:y0 + int(rng.integers(40, H // 2)),
+          x0:x0 + int(rng.integers(40, W // 2))] = True
+        m &= rng.random((H, W)) < 0.97
+        masks.append(m)
+    poses = [_pose(600.0 + k) for k in range(4)]
+    args = ([bgr] * 4, [depth] * 4, masks, poses)
+    want = jax_training.add_templates_batched(*args, det)
+    got = training.add_templates_batched(*args, to_port(det), device="cpu",
+                                         workers=2)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        else:
+            assert_same_view(g, w)
+
+
+class _Launches(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the operators that are not views: each launches one kernel
+    on a card."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not func.is_view:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _launches(fn):
+    with _Launches() as c:
+        out = fn()
+    return c.n, out
+
+
+def _per_crop_levels(bgr, depth, det):
+    """The serving front-end (one (H, W[, 3]) image per call) on one crop:
+    per level (angle bits, magnitude, normal bits)."""
+    cg, dn = det.color_gradient, det.depth_normal
+    src = torch.from_numpy(bgr)
+    qdn = q.quantize_normals(torch.from_numpy(depth.astype(np.int32)),
+                             dn.distance_threshold, dn.difference_threshold)
+    out = []
+    for l in range(det.pyramid_levels):
+        if l > 0:
+            src = fi.pyr_down_u8(src)
+            qdn = qdn[::2, ::2]
+        ab, mag = q.quantize_gradients(src, cg.weak_threshold)
+        out.append((ab, mag, qdn))
+    return out
+
+
+@pytest.mark.parametrize("det", [
+    cfg.DetectorConfig(image_width=W, image_height=H),
+    cfg.DetectorConfig(t_at_level=(5, 8, 4))], ids=["two_levels",
+                                                    "three_levels"])
+def test_quantize_crops_batched_equals_per_crop(det):
+    """Batched ``quantize_crops`` equals quantize_gradients / pyr_down_u8
+    / quantize_normals run crop by crop, at every level and for all three
+    outputs (magnitudes compared as bits), and launches the same number
+    of operators for 1 crop and for 4."""
+    bgrs, depths, masks = (list(a) for a in zip(*_views(4)))
+    det = to_port(det)
+    _, bgr_c, dep_c, _ = training.crop_views(bgrs, depths, masks,
+                                             det.pyramid_levels)
+    n4, got = _launches(lambda: training.quantize_crops(bgr_c, dep_c, det,
+                                                        "cpu"))
+    n1, _ = _launches(lambda: training.quantize_crops(bgr_c[:1], dep_c[:1],
+                                                      det, "cpu"))
+    assert n4 == n1
+    assert len(got) == det.pyramid_levels
+    for i in range(len(bgr_c)):
+        want = _per_crop_levels(bgr_c[i], dep_c[i], det)
+        for l, (ab, mag, qdn) in enumerate(want):
+            g_ab, g_mag, g_qdn = got[l][i]
+            assert g_ab.dtype == np.uint8 and g_qdn.dtype == np.uint8
+            assert g_mag.dtype == np.float32
+            np.testing.assert_array_equal(g_ab, ab.numpy())
+            np.testing.assert_array_equal(g_mag.view(np.uint32),
+                                          mag.numpy().view(np.uint32))
+            np.testing.assert_array_equal(g_qdn, qdn.numpy())
+
+
+# Operators (non-view) of each front-end function on one image, as they
+# were before the functions accepted a batch: a batch must not cost the
+# serving path a launch.
+SINGLE_IMAGE_LAUNCHES = {
+    "gaussian_blur7_u8": 40, "sobel3_i16 x": 20, "sobel3_i16 y": 20,
+    "pyr_down_u8 bgr": 22, "pyr_down_u8 gray": 22, "median_blur5_u8": 171,
+    "erode3_bool": 30, "quantize_gradients": 191, "quantize_normals": 378,
+    "apply_mask": 2}
+
+
+def _frontend_calls(img, quant, arrays, batched=False):
+    """Each front-end function of the modules ``img`` and ``quant`` (the
+    port's or JAX's) on ``arrays``; a batch has no gray pyr_down."""
+    bgr, gray, depth, bits, mask = arrays
+    calls = {
+        "gaussian_blur7_u8": lambda: img.gaussian_blur7_u8(bgr),
+        "sobel3_i16 x": lambda: img.sobel3_i16(bgr, "x"),
+        "sobel3_i16 y": lambda: img.sobel3_i16(bgr, "y"),
+        "pyr_down_u8 bgr": lambda: img.pyr_down_u8(bgr),
+        "pyr_down_u8 gray": lambda: img.pyr_down_u8(gray),
+        "median_blur5_u8": lambda: img.median_blur5_u8(bits),
+        "erode3_bool": lambda: img.erode3_bool(mask, 2),
+        "quantize_gradients": lambda: quant.quantize_gradients(bgr, 10.0),
+        "quantize_normals": lambda: quant.quantize_normals(depth, 2000, 50),
+        "apply_mask": lambda: quant.apply_mask(bits, mask)}
+    if batched:
+        del calls["pyr_down_u8 gray"]
+    return calls
+
+
+def _frontend_inputs(rng, lead):
+    h, w = 48, 64
+    depth = rng.integers(500, 900, lead + (h, w)).astype(np.int32)
+    depth[..., 10:20, 30:50] += 600
+    return (rng.integers(0, 256, lead + (h, w, 3), dtype=np.uint8),
+            rng.integers(0, 256, lead + (h, w), dtype=np.uint8), depth,
+            (1 << rng.integers(0, 8, lead + (h, w))).astype(np.uint8),
+            rng.random(lead + (h, w)) < 0.8)
+
+
+def _outs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def test_frontend_single_image_launches_and_values_unchanged():
+    """On one (H, W[, 3]) image each front-end function launches what it
+    did before it accepted a batch, and gives the JAX package's values."""
+    import jax.numpy as jnp
+    from fealess_tpu.ops import quantize as jax_q
+    arrays = _frontend_inputs(np.random.default_rng(0), ())
+    port = _frontend_calls(fi, q, [torch.from_numpy(a) for a in arrays])
+    ref = _frontend_calls(jax_image, jax_q, [jnp.asarray(a) for a in arrays])
+    for name, fn in port.items():
+        n, out = _launches(fn)
+        assert n == SINGLE_IMAGE_LAUNCHES[name], (name, n)
+        for o, w in zip(_outs(out), _outs(ref[name]())):
+            w = np.asarray(w)
+            assert o.numpy().dtype == w.dtype, name
+            np.testing.assert_array_equal(o.numpy(), w, err_msg=name)
+
+
+def test_frontend_batch_axes_equal_per_image():
+    """A batch of 3 images through each front-end function (colour
+    filters on (N, H, W, 3), gray ones on (N, H, W)) equals the images
+    one by one, bit for bit, with the launches of one image."""
+    arrays = [torch.from_numpy(a)
+              for a in _frontend_inputs(np.random.default_rng(4), (3,))]
+    batched = _frontend_calls(fi, q, arrays, batched=True)
+    for name, fn in batched.items():
+        n, out = _launches(fn)
+        assert n == SINGLE_IMAGE_LAUNCHES[name], (name, n)
+        for i in range(3):
+            one = _frontend_calls(fi, q, [a[i] for a in arrays])[name]()
+            for o, w in zip(_outs(out), _outs(one)):
+                assert o.dtype == w.dtype and o.shape[1:] == w.shape, name
+                assert torch.equal(o[i], w), (name, i)
