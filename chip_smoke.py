@@ -68,11 +68,11 @@ Phases, one line of output each (or a few):
    20 launches (``utils.profiling.graph_ms``: the device's time without the
    host's launch cost), K1 also on 1024 distinct templates; the launch
    floor (the graph time of a one-element in-place add); each kernel's bound
-   (``bound_ms``: the larger of its bytes over the card's memory rate and
-   its operations over the f32 rate) and its share of it; warm per-frame
-   times of Recognition, multi-object Recognition and a tracked frame, and
-   the fixture bank's cold start through ``add_obj`` and from an
-   artifact.
+   (``ops/bounds.bound_ms``: the larger of its bytes over the card's
+   memory rate and its operations over the f32 rate) and its share of it;
+   warm per-frame times of Recognition, multi-object Recognition and a
+   tracked frame, and the fixture bank's cold start through ``add_obj``
+   and from an artifact.
 6. the parallel layer (``fealess_tpu_torch.parallel``): first each kernel
    against its twin and timed at the shapes a 2-way split gives it (K1 on
    each 512-row half of the coarse table, K2 on each half-bank's own
@@ -125,11 +125,30 @@ Phases, one line of output each (or a few):
    ``save_ply`` (from CUDA tensors) against the sha256 of the JAX
    package's outputs (``EXPECT_VISUAL_SHA256``).
 
+9. the kernel lab (``fealess_tpu_torch.apps.kernel_lab``, kernels L1-L4
+   of ``ops/lab.py``, the counterparts of ``benchmarks/kernel_lab.py``'s
+   Pallas calls): its ``coarse``, ``local2`` and ``nn`` runs on the lab's
+   inputs (each variant's graph time beside K1, K2 or K3 on the same
+   inputs, and its bound); then L1 (every mode) and L2 (both settings)
+   bitwise equal to their twins on the lab's coarse inputs and edge cases
+   (``lab_coarse_cases``: odd bucket counts, Wd = 37, Hd = 1,
+   featureless templates, every feature at the largest offsets, 4096
+   feature slots on u8 up to 255, misaligned planes), L3 (its four
+   settings) on ``lab_local_cases`` (negative and border origins, Wd =
+   125, misaligned planes, 4096 slots, K = 1 and 0), L4 against its twin
+   and K3 by the lab's near-tie rule on ``lab_nn_cases`` (16384 x 16384,
+   duplicates across every 2048-row tile whose first index must win,
+   ragged counts, other tiles); every exact L1/L2/L3 run bitwise equal to
+   K1/K2 on the same inputs; and each L kernel, its twin and L4's library
+   call (``torch.cdist`` and a min) timed.
+
 Each path of phases 4-4c, 6, 7 and 8 runs with the kernels' launch counters
 set to 0 just before it and read just after; every kernel must have run
-on the paths that reach it.  The line before the last is a JSON object
-with one entry per kernel (launches summed over the paths, and the 2-way
-shard case under ``cases``); the last line is
+on the paths that reach it; phase 9 counts the lab's path on its own.
+The line before the last is a JSON object with one entry per kernel
+(``ops/_build.KERNELS``; K1-K3's launches summed over the paths of phases
+4-8 and the 2-way shard case under ``cases``; L1-L4's launches from the
+lab's path and each variant's times under ``cases``); the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero without printing that line.
 """
@@ -313,13 +332,6 @@ EXPECT_VISUAL_SHA256 = {
     "ply colors valid": (37800, "d6f3a447f916568ae03fe86cd48ff3273151255db"
                                 "6bdb3ccca4fb0f663bdea5b"),
 }
-
-# Published peaks of one H100 SXM at 700 W (NVIDIA's H100 datasheet):
-# HBM bytes per second and non-tensor f32 operations per second (the
-# integer adds of K1/K2 are counted at the same CUDA-core rate).
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-
 
 def check(cond: bool, what: str) -> None:
     if not cond:
@@ -636,66 +648,6 @@ def hold_to_twins(cases, errs, where: str) -> None:
               f"case(s), inputs " + ", ".join(
                   str(shapes(args)) for _, _, args in runs) +
               f", max_abs_err {errs[name]}")
-
-
-def bound_ms(name, args):
-    """(ms, "bytes" or "operations"): the least time the card could take
-    for the kernel's work on ``args``, the larger of its bytes (each input
-    read once, each output written once) over HBM_BYTES_PER_S and its
-    operations over F32_OPS_PER_S, counted on these inputs: K3 8 f32
-    operations a pair; K1 one integer add per live feature and output
-    position; K2 one integer add per plane byte that a live feature's
-    16x16 window reads (its row start on the plane, as the kernel gates
-    it), and of the planes only the distinct (channel, row, column) bytes
-    those windows read; the fused K2 reads its candidates' table rows,
-    slots, positions and bank entries, and writes the scores and 4 int32
-    per candidate."""
-    import torch
-    from fealess_tpu_torch.ops import score
-
-    def size(ts):
-        return sum(t.numel() * t.element_size() for a in ts
-                   for t in (a.values() if isinstance(a, dict) else [a]))
-
-    if name == "nearest_neighbor":
-        q, r = args
-        nbytes = size(args) + q.shape[0] * 8          # idx i32 + d2 f32
-        ops = 8 * q.shape[0] * r.shape[0]
-    elif name == "coarse_scores":
-        planes, table = args
-        n, nf = table["c"].shape
-        nbytes = size(args) + n * planes.shape[1] * planes.shape[2] * 4
-        ops = int(table["bstart"][:, -1].clamp(max=nf).sum()) * \
-            planes.shape[1] * planes.shape[2]
-    else:
-        if len(args) > 4:            # the fused entry: derive its windows
-            planes, table, tslot, x, y, width, height, _, level, t, _, \
-                hw = args
-            table, px0, py0, _, _ = score.local_window_inputs(
-                table, tslot, x, y, width, height, level, t, hw)
-            # slots, positions, 3 bank entries in; x, y, best, nf out
-            io = size([tslot, x, y]) + tslot.shape[0] * 7 * 4
-        else:
-            planes, table, px0, py0 = args
-            io = size([px0, py0])
-        k, nf = table["c"].shape
-        _, hd, wd = planes.shape
-        a = py0.clamp(min=0)[:, None] + table["ry"]
-        b = (px0.clamp(min=0)[:, None] + table["rx"]).clamp(max=wd)
-        live = torch.arange(nf, device=a.device)[None, :] < \
-            table["bstart"][:, -1:]
-        keep = (a >= 0) & (a <= hd) & live
-        win = torch.arange(16, device=a.device)
-        y = a[keep][:, None, None] + win[None, :, None]
-        x = b[keep][:, None, None] + win[None, None, :]
-        on = (y < hd) & (x >= 0) & (x < wd)
-        cell = (table["c"][keep][:, None, None].long() * hd + y) * wd + x
-        ops = int(on.sum())
-        nbytes = (size([table]) + io + k * 16 * 16 * 4 +
-                  int(torch.unique(cell[on]).numel()) * planes.element_size())
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1255,6 +1207,7 @@ def parallel_phase(eng, bgr_np, depth_np, cam, card, counts, errs):
     timed; 6a at world size 1 (NCCL); 6b on two ranks sharing the card.
     Returns the shard cases' timing entries for the kernels line."""
     import torch
+    from fealess_tpu_torch.ops.bounds import bound_ms
     from fealess_tpu_torch.utils.profiling import graph_ms
     bgr_b, depth_b, scene_k, clouds = parallel_inputs(eng, bgr_np, depth_np,
                                                       cam)
@@ -1336,6 +1289,7 @@ def zoom_phase(eng, bgr_np, depth_np, cam, card, counts,
     import numpy as np
     import torch
     from fealess_tpu_torch.apps import cli, fixture
+    from fealess_tpu_torch.ops import bounds
     from fealess_tpu_torch.utils.profiling import WARMUP, graph_ms, stage_ms
     from fealess_tpu_torch.engine import CamIntrinsics
     from fealess_tpu_torch.io import png
@@ -1452,6 +1406,7 @@ def zoom_phase(eng, bgr_np, depth_np, cam, card, counts,
     rs_events = cuda_ms(resize_both, 20)
     rs_graph = graph_ms(resize_both, 20)
     frame_bytes = big_bgr.nbytes + big_depth_i32.nbytes
+    hbm = bounds.HBM_BYTES_PER_S
     out_bytes = bgr_np.nbytes + 4 * depth_np.size
     print(f"time prepare stage (host clock, synchronised, mean of 20): "
           f"640x480 {prep['640x480']:.4f} ms, 1280x960 "
@@ -1460,7 +1415,7 @@ def zoom_phase(eng, bgr_np, depth_np, cam, card, counts,
           f"{frame_bytes} bytes, pageable): {up_ms:.4f} ms (events); "
           f"resize on the card (linear + nearest to 640x480): "
           f"{rs_events:.4f} ms (events), {rs_graph:.4f} ms (graph), bytes "
-          f"bound {(frame_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3:.6f} "
+          f"bound {(frame_bytes + out_bytes) / hbm * 1e3:.6f} "
           f"ms ({card})")
 
     # 7d. a Paeth-filtered 640x480 RGB PNG: the C un-filter and its twin
@@ -1733,6 +1688,256 @@ def surface_phase(eng, bgr_np, depth_np, cam, card, counts, default_icp,
           f"took {draw_ms:.1f} ms on the host ({card})")
 
 
+# -- phase 9: the kernel lab ------------------------------------------------
+
+def lab_coarse_cases(planes, table, slots: int = 4096):
+    """L1's and L2's cases on the lab's coarse inputs (bucketed, even
+    bucket starts), {name: [(kernel, twin, args)]}: each L1 mode and both
+    L2 settings on the inputs as they are; on a table of odd bucket counts
+    (``fixture_like``'s own draw, every mode but unroll2); on planes 37
+    columns wide and one row high; with every third template featureless;
+    with every feature in the last bucket at the largest offsets (rx = ry
+    = NB - 1, the bottom and right edges); with ``slots`` feature slots a
+    template in 4 buckets (4096: up to 1024 in one bucket, so the packed
+    lanes flush inside a bucket), on u8 up to 255; and on planes 1, 2 and
+    3 bytes past a 4-byte boundary.  noshift reads whole words, so only
+    where the planes start on a boundary and hold a multiple of 4
+    bytes."""
+    import torch
+    from fealess_tpu_torch.ops import lab
+    c, hd, wd = planes.shape
+    n, nf = table["c"].shape
+    nb = table["bstart"].shape[1] - 1
+    dev = planes.device
+    odd = lab.fixture_like(seed=2, n=n, f=nf, nb=nb, hd=hd, wd=wd, c=c,
+                           device=dev)[1]
+    none = {k: v.clone() for k, v in table.items()}
+    none["bstart"][::3] = 0
+    edge = {k: v.clone() for k, v in table.items()}
+    edge["bstart"][:, :-1] = 0
+    edge["rx"][:] = nb - 1
+    edge["ry"][:] = nb - 1
+    wide = lab.fixture_like(seed=3, n=8, f=slots, nb=4, hd=hd, wd=wd, c=c,
+                            device=dev)[1]
+    g = torch.Generator(device=dev).manual_seed(9)
+    loud = torch.randint(0, 256, planes.shape, generator=g,
+                         dtype=torch.uint8, device=dev)
+    flat = torch.cat([planes.new_zeros(3), planes.reshape(-1)])
+    inputs = [(planes, table), (planes, odd),
+              (planes[:, :, :37].contiguous(), table),
+              (planes[:, :1].contiguous(), table), (planes, none),
+              (planes, edge), (loud, wide)]
+    inputs += [(flat[k:k + planes.numel()].view(planes.shape), table)
+               for k in (1, 2, 3)]
+    cases = {"coarse_variant": [], "coarse_stride2": []}
+    for p, t in inputs:
+        even = bool((t["bstart"] % 2 == 0).all())
+        words = p.data_ptr() % 4 == 0 and p.numel() % 4 == 0
+        cases["coarse_variant"] += [
+            (lab.coarse_variant, lab.coarse_variant_plain, (p, t, mode))
+            for mode in lab.MODES
+            if (mode != "unroll2" or even) and (mode != "noshift" or words)]
+        cases["coarse_stride2"] += [
+            (lab.coarse_stride2, lab.coarse_stride2_plain, (p, t, skip))
+            for skip in (False, True)]
+    return cases
+
+
+def lab_local_cases(planes, table_k, px0, py0, slots: int = 4096):
+    """L3's cases in its four settings, [(kernel, twin, args)]: the lab's
+    origins; origins 20 cells up and left of them (negative, clamped) and
+    windows past the plane's right and bottom edges; planes 125 columns
+    wide (Wd not a multiple of 4); planes 1 byte past a 4-byte boundary;
+    ``slots`` feature slots a candidate (4096: up to 105 a bucket at the
+    lab's 39) on u8 up to 255; one candidate and none."""
+    import torch
+    from fealess_tpu_torch.ops import lab
+    c, hd, wd = planes.shape
+    k, nf = table_k["c"].shape
+    nb = table_k["bstart"].shape[1] - 1
+    dev = planes.device
+    far = torch.arange(k, device=dev, dtype=torch.int32) % 3 * 7
+    wide = lab.fixture_like(seed=5, n=8, f=slots, nb=nb, hd=hd, wd=wd, c=c,
+                            device=dev)[1]
+    g = torch.Generator(device=dev).manual_seed(10)
+    loud = torch.randint(0, 256, planes.shape, generator=g,
+                         dtype=torch.uint8, device=dev)
+    flat = torch.cat([planes.new_zeros(1), planes.reshape(-1)])
+    inputs = [(planes, table_k, px0, py0),
+              (planes, table_k, px0 - 20, py0 - 20),
+              (planes, table_k, wd - 16 + far, hd - 16 + far),
+              (planes[:, :, :125].contiguous(), table_k, px0, py0),
+              (flat[1:1 + planes.numel()].view(planes.shape), table_k, px0,
+               py0),
+              (loud, wide, px0[:8].contiguous(), py0[:8].contiguous()),
+              (planes, {key: v[:1] for key, v in table_k.items()}, px0[:1],
+               py0[:1]),
+              (planes, {key: v[:0] for key, v in table_k.items()}, px0[:0],
+               py0[:0])]
+    return [(lab.local_variant, lab.local_variant_plain,
+             args + (stride, cond)) for args in inputs
+            for stride, cond in ((1, False), (1, True), (2, False),
+                                 (2, True))]
+
+
+def lab_nn_cases(query, ref):
+    """L4's cases, [(query, ref, (tq, tr), planted)]: the lab's clouds;
+    reference rows duplicated across every 2048-row boundary b (row b =
+    row b - 1, the query ``planted[i]`` rows there, whose first index
+    b - 1 must win exactly); ragged counts (queries not a multiple of the
+    256-query block, references not of 2048, fewer than 2048, one, and
+    fewer queries than a warp's 32); and other tiles (64 queries a block,
+    1000 rows)."""
+    nq, nr = query.shape[0], ref.shape[0]
+    bounds = list(range(2048, nr, 2048))
+    straddle = ref.clone()
+    for b in bounds:
+        straddle[b] = straddle[b - 1]
+    planted = query.clone()
+    planted[:len(bounds)] = straddle[[b - 1 for b in bounds]]
+    ragged = query[:nq - 77].contiguous()
+    return [(query, ref, (256, 2048), None),
+            (planted, straddle, (256, 2048), [b - 1 for b in bounds]),
+            (ragged, ref[:nr - 333].contiguous(), (256, 2048), None),
+            (ragged, ref[:300].contiguous(), (256, 2048), None),
+            (query, ref[5:6].contiguous(), (256, 2048), None),
+            (query[:20].contiguous(), ref, (256, 2048), None),
+            (planted, straddle, (64, 1000), [b - 1 for b in bounds])]
+
+
+def hold_nn_mxu(cases, errs, where: str) -> None:
+    """L4 against its twin and against K3 by ``lab.near_tie`` in every
+    row (the lab's near-tie rule, and d2 within the matrix form's
+    rounding, ``lab.D2_CANCEL`` of |q|^2 + |r|^2), planted duplicates at
+    their first index exactly; prints the equal indices, the largest
+    relative d2 gap and the largest share of the d2 limit of each case;
+    ``errs["nn_mxu"]`` keeps the largest |d2 - d2_twin|."""
+    import torch
+    from fealess_tpu_torch.ops import lab, nn
+    errs.setdefault("nn_mxu", 0.0)
+    for i, (q, r, tiles, planted) in enumerate(cases):
+        idx, d2 = lab.nn_mxu(q, r, *tiles)
+        twin = lab.nn_mxu_plain(q, r)
+        k3 = nn.nearest_neighbor(q, r)
+        if q.is_cuda:
+            torch.cuda.synchronize()
+        check(idx.dtype == torch.int32 and d2.dtype == torch.float32
+              and idx.shape == twin[0].shape and d2.shape == twin[1].shape,
+              f"nn_mxu ({where}) case {i}: {idx.dtype}{tuple(idx.shape)}")
+        for what, want in (("twin", twin), ("K3", k3)):
+            ok, same, worst, share = lab.near_tie(idx, d2, *want, q, r)
+            check(ok, f"nn_mxu ({where}) case {i}: breaks the near-tie rule "
+                  f"or the d2 limit against its {what} (max_rel "
+                  f"{worst:.3e}, d2 share {share:.3e})")
+            print(f"kernel nn_mxu ({where}) case {i}, {q.shape[0]} x "
+                  f"{r.shape[0]}, tiles {tiles}: against its {what} "
+                  f"idx_equal={same}/{idx.numel()} max_rel={worst:.3e} "
+                  f"d2 share={share:.3e}")
+        if planted:
+            got = idx[:len(planted)].tolist()
+            check(got == planted and
+                  twin[0][:len(planted)].tolist() == planted,
+                  f"nn_mxu ({where}) case {i}: planted duplicates at "
+                  f"{got}, want the first index {planted}")
+        if d2.numel():
+            errs["nn_mxu"] = max(errs["nn_mxu"],
+                                 (d2 - twin[1]).abs().max().item())
+
+
+def hold_to_served(coarse_cases, local_cases) -> None:
+    """Every exact L1 mode and both L2 settings bitwise equal to K1, and
+    every L3 setting bitwise equal to K2, on the same inputs (every case
+    table is bucketed)."""
+    import torch
+    from fealess_tpu_torch.ops import lab, score
+    n = 0
+    for runs, served in ((coarse_cases["coarse_variant"] +
+                          coarse_cases["coarse_stride2"],
+                          score.coarse_scores),
+                         (local_cases, score.local_scores)):
+        for kernel, _, args in runs:
+            if kernel is lab.coarse_variant and \
+                    args[2] not in lab.EXACT_MODES:
+                continue
+            want = served(*args[:2 if served is score.coarse_scores
+                                else 4])
+            check(torch.equal(kernel(*args), want),
+                  f"{kernel.__name__} {args[2:]} differs from "
+                  f"{served.__name__}")
+            n += 1
+    print(f"kernel lab: {n} exact L1/L2/L3 runs bitwise equal to K1/K2 on "
+          f"the same inputs")
+
+
+def lab_phase(card, errs, floor_ms, coarse, local, clouds):
+    """Phase 9 on the lab's inputs (``coarse``: planes and table;
+    ``local``: planes, the candidates' table rows, px0, py0; ``clouds``:
+    query and reference): the lab's entry point (``apps/kernel_lab``'s
+    coarse, local2 and nn runs) with the launch counters zeroed before
+    and read after; each L kernel against its twin and the served kernels
+    on the lab's inputs and edge cases; each kernel, its twin and L4's
+    library call timed.  Returns the kernels line's L1-L4 entries (each
+    variant's times from the entry point under ``cases``; ``floor_ms`` the
+    launch floor of phase 5)."""
+    import torch
+    from fealess_tpu_torch.apps import kernel_lab
+    from fealess_tpu_torch.ops import _build, bounds, lab, nn, score
+    from fealess_tpu_torch.utils.profiling import graph_ms
+    counted = lab.LAUNCHED + (score.coarse_scores, score.local_scores,
+                              nn.nearest_neighbor)
+    # 9a. the lab's entry point
+    for fn in counted:
+        fn.launches = 0
+    rows = (kernel_lab.run_coarse(*coarse) + kernel_lab.run_local2(*local)
+            + kernel_lab.run_nn(*clouds))
+    launches = {fn.__name__: fn.launches for fn in counted}
+    print(f"launches on path kernel lab: {launches}")
+    for fn in lab.LAUNCHED:
+        check(launches[fn.__name__] > 0,
+              f"{fn.__name__} never launched on the kernel lab's path")
+    # 9b. against the twins and the served kernels
+    coarse_cases = lab_coarse_cases(*coarse)
+    local_cases = {"local_variant": lab_local_cases(*local)}
+    hold_to_twins(coarse_cases, errs, "kernel lab")
+    hold_to_twins(local_cases, errs, "kernel lab")
+    hold_nn_mxu(lab_nn_cases(*clouds), errs, "kernel lab")
+    hold_to_served(coarse_cases, local_cases["local_variant"])
+    # 9c. times of each kernel's first case
+    entry = {"coarse_variant": coarse_cases["coarse_variant"][0],
+             "coarse_stride2": coarse_cases["coarse_stride2"][1],
+             "local_variant": local_cases["local_variant"][0],
+             "nn_mxu": (lab.nn_mxu, lab.nn_mxu_plain, clouds)}
+    q, r = clouds
+    library_ms = cuda_ms(lambda: torch.cdist(
+        q, r, compute_mode="use_mm_for_euclid_dist").min(dim=1), 5)
+    out = []
+    for name, (kernel, plain, args) in entry.items():
+        ms = cuda_ms(lambda: kernel(*args), 20)
+        gms = graph_ms(lambda: kernel(*args), 20)
+        pms = cuda_ms(lambda: plain(*args), 3)
+        bound, by = bounds.bound_ms(name, args)
+        lib = library_ms if name == "nn_mxu" else None
+        shapes = [tuple(a["c"].shape) if isinstance(a, dict)
+                  else tuple(a.shape) if isinstance(a, torch.Tensor) else a
+                  for a in args]
+        print(f"time {name} {shapes}: kernel {ms:.4f} ms (events), "
+              f"{gms:.4f} ms (graph), twin {pms:.4f} ms, bound "
+              f"{bound:.6f} ms ({by}), {bound / gms:.3f} of it (graph)"
+              + (f", torch.cdist + min {lib:.4f} ms" if lib else "")
+              + f" ({card})")
+        source, replaces, _ = _build.KERNELS[name]
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": errs[name], "ms": ms, "graph_ms": gms,
+                    "launch_floor_ms": floor_ms, "plain_ms": pms,
+                    "bound_ms": bound, "bound_by": by, "library_ms": lib,
+                    "cases": [{"case": row["variant"],
+                               **{k: v for k, v in row.items()
+                                  if k not in ("variant", "kernel")}}
+                              for row in rows if row["kernel"] == name]})
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1749,11 +1954,12 @@ def run(dev) -> None:
     from fealess_tpu_torch import pipeline
     from fealess_tpu_torch.apps.track import (MultiTrackedRecognizer,
                                               TrackedRecognizer)
-    from fealess_tpu_torch.apps import fixture
+    from fealess_tpu_torch.apps import fixture, kernel_lab
     from fealess_tpu_torch.utils.profiling import graph_ms
     from fealess_tpu_torch.engine import ObjReco
     from fealess_tpu_torch.io.export import ServingArtifact
     from fealess_tpu_torch.ops import _build, nn, score
+    from fealess_tpu_torch.ops.bounds import bound_ms
     from fealess_tpu_torch.tracker.kcf import KcfTracker
 
     # -- 1. card and versions
@@ -2087,23 +2293,24 @@ def run(dev) -> None:
                   (zero_counts, read_counts, path_launches, counted),
                   default_icp, pkg)
     work.cleanup()
-    phase_clock("9 (the end)")
+    # -- 9. the kernel lab
+    phase_clock("9")
+    lab_entries = lab_phase(card, errs, floor_ms,
+                            kernel_lab.coarse_inputs(dev),
+                            kernel_lab.local2_inputs(dev),
+                            kernel_lab.nn_inputs(dev))
+    phase_clock("the end")
     launches = {fn.__name__: sum(v[k] for v in path_launches.values())
                 for k, fn in enumerate(counted)}
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
-    src = {"coarse_scores": ("fealess_tpu_torch/csrc/score.cu",
-                             "fealess_tpu/ops/score_pallas.py:153"),
-           "local_refine": ("fealess_tpu_torch/csrc/score.cu",
-                            "fealess_tpu/ops/score_pallas.py:277"),
-           "nearest_neighbor": ("fealess_tpu_torch/csrc/nn.cu",
-                                "fealess_tpu/ops/nn_pallas.py:35")}
+    src = _build.KERNELS
     print(card)
-    # library_ms: no one PyTorch call computes these functions.  K1 and K2
-    # are gathered, bounds-masked integer sums over feature tables; K3
-    # returns the first argmin with d2 rounded as above, and torch.cdist
-    # forms |q|^2 + |r|^2 - 2 q.r, which rounds differently.
+    # library_ms: no one PyTorch call computes K1-K3.  K1 and K2 are
+    # gathered, bounds-masked integer sums over feature tables; K3 returns
+    # the first argmin with d2 rounded as above, and torch.cdist forms
+    # |q|^2 + |r|^2 - 2 q.r, which rounds differently (L4's library call).
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1], "launches": launches[name],
@@ -2112,7 +2319,7 @@ def run(dev) -> None:
          "plain_ms": times[name][1], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None,
          "cases": [shard_timing[name]]}
-        for name in cases]}))
+        for name in cases] + lab_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2171,6 +2378,7 @@ def training_and_cli(dev, bgr_np, depth_np, card, zero_counts, read_counts,
     from fealess_tpu_torch import config as cfg
     from fealess_tpu_torch import training
     from fealess_tpu_torch.apps import cli, fixture, scan_package
+    from fealess_tpu_torch.ops.bounds import bound_ms
     from fealess_tpu_torch.ops import _build
     from fealess_tpu_torch.utils.profiling import graph_ms, profile_calls
     from fealess_tpu_torch.io import linemod_yaml

@@ -75,6 +75,47 @@ _SIGNATURES = {
     "fl_nearest_neighbor": (_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P),
     "fl_nn_query_tile": (),
     "fl_nn_ref_tile": (),
+    # planes, channels, hd, wd, c, ry, bstart, n, nf, nb1, mode, out, stream
+    "fl_lab_coarse": (_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    # stack, channels, hd, wd, c, ry, rx, starts, n, nf, nb1, skipempty,
+    # out, stream
+    "fl_lab_coarse_stride2": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _P, _P),
+    # stack, channels, hd, wd, c, ry, rx, starts, k, nf, nb1, stride,
+    # use_cond, px0, py0, out, stream
+    "fl_lab_local": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                     _P, _P, _P),
+    # query, nq, ref, nr, tq, tr, nchunks, part_idx, part_d2, idx, d2,
+    # stream
+    "fl_lab_nn_mma": (_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+}
+
+# Every TPU kernel of the repo (each function that reaches pl.pallas_call)
+# and its port: the wrapper's name -> (the CUDA source, the TPU kernel it
+# replaces, file:line of its pallas_call).  chip_smoke.py reports from it;
+# tests/test_torch_surface.py holds its calls to the repo's.
+KERNELS = {
+    "coarse_scores": ("fealess_tpu_torch/csrc/score.cu",
+                      "fealess_tpu/ops/score_pallas.py:153",
+                      "fealess_tpu/ops/score_pallas.py:213"),
+    "local_refine": ("fealess_tpu_torch/csrc/score.cu",
+                     "fealess_tpu/ops/score_pallas.py:277",
+                     "fealess_tpu/ops/score_pallas.py:342"),
+    "nearest_neighbor": ("fealess_tpu_torch/csrc/nn.cu",
+                         "fealess_tpu/ops/nn_pallas.py:35",
+                         "fealess_tpu/ops/nn_pallas.py:86"),
+    "coarse_variant": ("fealess_tpu_torch/csrc/lab.cu",
+                       "benchmarks/kernel_lab.py:151",
+                       "benchmarks/kernel_lab.py:151"),
+    "coarse_stride2": ("fealess_tpu_torch/csrc/lab.cu",
+                       "benchmarks/kernel_lab.py:226",
+                       "benchmarks/kernel_lab.py:226"),
+    "local_variant": ("fealess_tpu_torch/csrc/lab.cu",
+                      "benchmarks/kernel_lab.py:467",
+                      "benchmarks/kernel_lab.py:467"),
+    "nn_mxu": ("fealess_tpu_torch/csrc/lab.cu",
+               "benchmarks/kernel_lab.py:702",
+               "benchmarks/kernel_lab.py:702"),
 }
 
 _lib = None

@@ -48,5 +48,11 @@ def rng():
     return np.random.default_rng(0)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; its card fixture skips the "
+        "test without one")
+
+
 def has_reference() -> bool:
     return os.path.isdir(REFERENCE_DIR)

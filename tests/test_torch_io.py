@@ -515,23 +515,25 @@ def test_load_linemod_roundtrip_of_save_linemod(tmp_path):
 
 
 # Appended to each subprocess script: the names of jax, flax and cv2 and
-# of every module of the JAX package that the process loaded, whether by
-# import (``fealess_tpu``, ``fealess_tpu.*``) or from a file under
-# ``fealess_tpu/`` (``fealess_tpu_torch`` shares the prefix, not the
-# directory).
+# of every module of the JAX package or of ``benchmarks`` (the JAX kernel
+# lab) that the process loaded, whether by import (``fealess_tpu``,
+# ``fealess_tpu.*``, ``benchmarks.*``) or from a file under
+# ``fealess_tpu/`` or ``benchmarks/`` (``fealess_tpu_torch`` shares the
+# prefix, not the directory).
 LOADED = r"""
 def _loaded():
     import os
     import fealess_tpu_torch
     repo = os.path.dirname(os.path.dirname(os.path.realpath(
         fealess_tpu_torch.__file__)))
-    pkg = os.path.join(repo, "fealess_tpu") + os.sep
+    pkgs = tuple(os.path.join(repo, d) + os.sep
+                 for d in ("fealess_tpu", "benchmarks"))
     names = [m for m in ("jax", "flax", "cv2") if m in sys.modules]
     names += sorted(m for m in sys.modules
-                    if m == "fealess_tpu" or m.startswith("fealess_tpu."))
+                    if m.split(".")[0] in ("fealess_tpu", "benchmarks"))
     names += sorted(f for f in (getattr(m, "__file__", None)
                                 for m in list(sys.modules.values()))
-                    if f and os.path.realpath(f).startswith(pkg))
+                    if f and os.path.realpath(f).startswith(pkgs))
     return names
 """
 
@@ -541,6 +543,8 @@ import numpy as np
 import fealess_tpu_torch
 from fealess_tpu_torch import config as cfg
 from fealess_tpu_torch.apps import fixture, profile_reco, track  # noqa: F401
+from fealess_tpu_torch.apps import kernel_lab
+from fealess_tpu_torch.ops import lab
 from fealess_tpu_torch.parallel import (batch_recon, mesh, multihost,  # noqa: F401
                                         sharded_icp, sharded_match)
 from fealess_tpu_torch.engine import CamIntrinsics, ObjReco
@@ -571,10 +575,13 @@ drawn = visualize.draw_response(frame["bgr"].copy(), eng.bank, 0, (-4, 50))
 timer = profiling.StageTimer()
 with timer.stage("noop", eng.bank.feat_x):
     pass
+lab_rows = kernel_lab.run_coarse(*lab.fixture_like(
+    n=4, f=12, nb=3, hd=3, wd=8, c=4, even=True, device="cpu"))
 print(json.dumps({"n": len(res), "n_multi": len(multi),
                   "roi_ok": bool(np.isfinite(roi).all()),
                   "epnp_ok": bool(np.isfinite(pose).all()),
                   "drawn": bool((drawn != frame["bgr"]).any()),
+                  "lab_rows": len(lab_rows),
                   "loaded": _loaded()}))
 """
 
@@ -582,8 +589,9 @@ print(json.dumps({"n": len(res), "n_multi": len(multi),
 def test_port_runs_without_jax_flax_or_cv2(tmp_path):
     """A fresh interpreter imports the port (its apps included) and runs a
     small recognition, a multi-object recognition, a KCF update, an EPnP
-    pose, a match overlay, the logger and a stage timer; jax, flax, cv2 and
-    the JAX package (by name or by file) are never loaded."""
+    pose, a match overlay, the logger, a stage timer and the kernel lab's
+    coarse run (``ops/lab``, ``apps/kernel_lab``); jax, flax, cv2 and the
+    JAX package (by name or by file) are never loaded."""
     h, w = 80, 160
     rng = np.random.default_rng(2)
     bgr = rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
@@ -613,3 +621,4 @@ def test_port_runs_without_jax_flax_or_cv2(tmp_path):
     assert result["n"] in (0, 1)
     assert result["n_multi"] in (0, 1, 2) and result["roi_ok"]
     assert result["epnp_ok"] and result["drawn"]
+    assert result["lab_rows"] == 7

@@ -1,0 +1,432 @@
+"""The kernel lab's port (``fealess_tpu_torch/ops/lab.py``: kernels L1-L4
+and their plain twins; ``apps/kernel_lab.py``) held on the CPU against
+``benchmarks/kernel_lab.py`` and the JAX package's references.
+
+The lab's own L1-L3 cannot run: they call ``score_pallas._pack_planes``
+without the ``lanes`` argument it has taken since the multi-tile scorer,
+and they extract bytes where the planes are now nibble-packed (pinned by
+``test_lab_coarse_runs_are_stale``).  So their twins are held to what the
+lab asserts they compute, the JAX package's references: K1's sum
+``_coarse_scores_xla`` and K2's ``_local_scores_xla``.  L4's twin is held
+to the lab's ``nn_mxu`` run in Pallas interpret mode (``pallas_call``
+partial-applied in the test; no file of the JAX side changes) by the lab's
+near-tie rule.  The ``cuda`` tests hold each kernel to its twin and skip
+without a card; they import nothing of JAX, so they also run on the card
+(``python -m pytest --noconftest -m cuda tests/test_torch_kernel_lab.py``).
+"""
+
+import functools
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from fealess_tpu_torch.apps import kernel_lab as port_app
+from fealess_tpu_torch.ops import bounds, lab, score
+
+torch.set_num_threads(1)
+
+SMALL = dict(n=16, f=26, nb=4, hd=6, wd=10, c=16)
+TABLES = {"even": dict(SMALL, even=True, valid_frac=0.5),
+          "odd": dict(SMALL),
+          "wide": dict(seed=3, n=8, f=40, nb=5, hd=7, wd=13, c=9,
+                       valid_frac=0.7)}
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    """The JAX package's score references and the lab (imported here, so
+    that the ``cuda`` tests need no JAX)."""
+    import jax.numpy as jnp
+    from benchmarks import kernel_lab
+    from fealess_tpu.ops import score_pallas
+    return types.SimpleNamespace(jnp=jnp, lab=kernel_lab, sp=score_pallas)
+
+
+@pytest.fixture()
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the L kernels are CUDA C++, which "
+                    "has no interpret mode")
+    return torch.device("cuda", 0)
+
+
+def _jax_table(jnp, table):
+    return {k: jnp.asarray(v.numpy()) for k, v in table.items()}
+
+
+def _both(jax_side, **kw):
+    """The lab's inputs from both packages for the same arguments."""
+    pj, tj = jax_side.lab._fixture_like(**kw)
+    pp, tp = lab.fixture_like(**kw, device="cpu")
+    return (pj, tj), (pp, tp)
+
+
+@pytest.mark.parametrize("kw", [
+    {}, dict(even=True, valid_frac=0.5), dict(TABLES["wide"]),
+    dict(seed=1, n=40, f=126, nb=39, hd=96, wd=128, c=40, valid_frac=0.5)])
+def test_fixture_like_equals_lab(jax_side, kw):
+    (pj, tj), (pp, tp) = _both(jax_side, **kw)
+    assert pp.dtype == torch.uint8
+    np.testing.assert_array_equal(pp.numpy(), np.asarray(pj))
+    assert set(tp) == set(tj)
+    for key in tj:
+        assert tp[key].dtype == torch.int32
+        np.testing.assert_array_equal(tp[key].numpy(), np.asarray(tj[key]),
+                                      err_msg=key)
+
+
+@pytest.mark.parametrize("stride", [1, 2, 3])
+@pytest.mark.parametrize("name", ["even", "wide"])
+def test_bucket_starts_equal_jax(jax_side, stride, name):
+    (_, tj), (_, tp) = _both(jax_side, **TABLES[name])
+    np.testing.assert_array_equal(
+        lab.bucket_starts(tp["bstart"], stride).numpy(),
+        np.asarray(jax_side.sp._bucket_starts(tj["bstart"], stride)))
+
+
+@pytest.mark.parametrize("name", sorted(TABLES))
+def test_stride2_bucket_starts_equal_lab_rebucketing(jax_side, name):
+    """``stride2_bucket_starts`` against the lab's re-bucketing
+    (kernel_lab.py:211-223, which ``coarse_run_stride2`` reaches only past
+    its stale packing, so its lines are repeated here) and, on these
+    rx-sorted tables, against ``_bucket_starts(bstart, 2)``."""
+    jnp = jax_side.jnp
+    (_, tj), (_, tp) = _both(jax_side, **TABLES[name])
+    n, f = tj["c"].shape
+    nb2 = -(-(tj["bstart"].shape[1] - 1) // 2)
+    fid = jnp.arange(f)[None, :]
+    nvalid = tj["bstart"][:, -1][:, None]
+    key = jnp.where(fid < nvalid, tj["rx"] // 2, nb2)
+    counts = jnp.sum(key[:, None, :] == jnp.arange(nb2)[None, :, None],
+                     axis=2)
+    want = jnp.concatenate([jnp.zeros((n, 1), jnp.int32),
+                            jnp.cumsum(counts, axis=1, dtype=jnp.int32)],
+                           axis=1)
+    got = lab.stride2_bucket_starts(tp)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jax_side.sp._bucket_starts(tj["bstart"], 2)))
+
+
+def test_shifted_copy_and_plane_stack(jax_side):
+    """The shifted copy is the lab's (``jnp.concatenate([x[:, :, 1:],
+    zeros], axis=2)``, kernel_lab.py:204-205) on the planes, and the stack
+    holds the planes and that copy."""
+    jnp = jax_side.jnp
+    (pj, _), (pp, _) = _both(jax_side, **TABLES["wide"])
+    want = np.asarray(jnp.concatenate([pj[:, :, 1:],
+                                       jnp.zeros_like(pj[:, :, :1])], axis=2))
+    np.testing.assert_array_equal(lab.shifted_copy(pp).numpy(), want)
+    stack = lab.plane_stack(pp)
+    assert stack.shape == (2,) + tuple(pp.shape) and stack.is_contiguous()
+    assert torch.equal(stack[0], pp)
+    np.testing.assert_array_equal(stack[1].numpy(), want)
+
+
+COARSE_RUNS = [("even", "base"), ("even", "skipempty"), ("even", "unroll2"),
+               ("even", "stride2-se0"), ("even", "stride2-se1"),
+               ("odd", "base"), ("odd", "skipempty"), ("odd", "stride2-se1"),
+               ("wide", "base"), ("wide", "stride2-se0")]
+
+
+@pytest.mark.parametrize("name,mode", COARSE_RUNS)
+def test_coarse_twins_equal_xla(jax_side, name, mode):
+    """L1's exact modes and L2 in both settings: K1's sum bitwise, on the
+    CPU wrappers (which run the twins)."""
+    (pj, tj), (pp, tp) = _both(jax_side, **TABLES[name])
+    want = np.asarray(jax_side.sp._coarse_scores_xla(pj, tj))
+    if mode.startswith("stride2"):
+        got = lab.coarse_stride2(pp, tp, mode.endswith("1"))
+    else:
+        got = lab.coarse_variant(pp, tp, mode)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", sorted(TABLES))
+def test_halftrip_twin_equals_xla_on_halved_table(jax_side, name):
+    """``halftrip`` walks the first half of each bucket: K1's sum on the
+    table of those features."""
+    (pj, _), (pp, tp) = _both(jax_side, **TABLES[name])
+    half = lab.walked_table(tp, tp["bstart"], half=True)
+    lo, hi = tp["bstart"][:, :-1], tp["bstart"][:, 1:]
+    assert torch.equal(half["bstart"][:, -1], ((hi - lo) // 2).sum(1).int())
+    want = np.asarray(jax_side.sp._coarse_scores_xla(
+        pj, _jax_table(jax_side.jnp, half)))
+    np.testing.assert_array_equal(
+        lab.coarse_variant(pp, tp, "halftrip").numpy(), want)
+    assert not np.array_equal(want, np.asarray(jax_side.sp._coarse_scores_xla(
+        pj, _jax_table(jax_side.jnp, tp))))
+
+
+def test_noshift_twin_follows_its_word_rule():
+    """The ``noshift`` twin against its docstring's rule, walked in numpy
+    position by position: byte i of the aligned word q of the run."""
+    planes, table = lab.fixture_like(seed=7, n=3, f=12, nb=3, hd=4, wd=16,
+                                     c=4, device="cpu")
+    got = lab.coarse_variant(planes, table, "noshift").numpy()
+    flat = planes.numpy().reshape(-1)
+    c, hd, wd = planes.shape
+    want = np.zeros(got.shape, np.int64)
+    bstart = table["bstart"].numpy()
+    for n in range(3):
+        for b in range(bstart.shape[1] - 1):
+            for f in range(bstart[n, b], bstart[n, b + 1]):
+                cc, ry = int(table["c"][n, f]), int(table["ry"][n, f])
+                for y in range(hd):
+                    for x in range(wd):
+                        x0 = x - x % lab.RUN
+                        start = cc * hd * wd + (y + ry) * wd + x0 + b
+                        word = min(start // 4 + (x % lab.RUN) // 4,
+                                   flat.size // 4 - 1)
+                        want[n, y, x] += flat[4 * word + x % 4]
+    np.testing.assert_array_equal(got, want)
+
+
+def test_unroll2_raises_on_odd_bucket_starts():
+    planes, table = lab.fixture_like(**SMALL, device="cpu")
+    assert bool((table["bstart"] % 2 != 0).any())
+    with pytest.raises(ValueError, match="even bucket starts"):
+        lab.coarse_variant(planes, table, "unroll2")
+    with pytest.raises(ValueError, match="mode"):
+        lab.coarse_variant(planes, table, "unroll3")
+
+
+@pytest.mark.parametrize("origins", ["lab", "border"])
+@pytest.mark.parametrize("stride,use_cond", [(1, False), (1, True),
+                                             (2, False), (2, True)])
+def test_local_twins_equal_xla(jax_side, stride, use_cond, origins):
+    """L3's four settings: K2's window sums bitwise, at the lab's origins
+    and at negative and border ones (windows past every edge)."""
+    jnp = jax_side.jnp
+    hd, wd, k = 24, 32, 12
+    kw = dict(seed=1, n=32, f=30, nb=7, hd=hd, wd=wd, c=9, valid_frac=0.5)
+    (pj, tj), (pp, tp) = _both(jax_side, **kw)
+    rng = np.random.default_rng(1)
+    tslot = rng.integers(0, 32, (k,))
+    if origins == "lab":     # lab_local2's range
+        px0 = rng.integers(0, wd - 16, (k,)).astype(np.int32)
+        py0 = rng.integers(0, hd - 16, (k,)).astype(np.int32)
+    else:
+        px0 = rng.integers(-25, wd + 8, (k,)).astype(np.int32)
+        py0 = rng.integers(-20, hd + 6, (k,)).astype(np.int32)
+    want = np.asarray(jax_side.sp._local_scores_xla(
+        pj, {key: v[tslot] for key, v in tj.items()}, jnp.asarray(px0),
+        jnp.asarray(py0)))
+    table_k = {key: v[torch.from_numpy(tslot)].contiguous()
+               for key, v in tp.items()}
+    got = lab.local_variant(pp, table_k, torch.from_numpy(px0),
+                            torch.from_numpy(py0), stride, use_cond)
+    assert got.dtype == torch.int32 and got.shape == (k, 16, 16)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("nq,nr", [(600, 5000), (37, 2049)])
+def test_nn_mxu_twin_near_tie_with_jax_interpret(jax_side, monkeypatch, nq,
+                                                 nr):
+    """L4's twin against the lab's ``nn_mxu`` in Pallas interpret mode
+    (ragged against both 256 x 2048 tiles): ``lab.near_tie`` in every row
+    (the lab's near-tie rule and d2 within ``lab.D2_CANCEL`` of |q|^2 +
+    |r|^2; the worst relative d2 gap and share of the d2 limit printed),
+    and duplicate reference rows straddling each 2048-row tile edge (row
+    b = row b - 1, a query on it) resolved to the first index."""
+    jnp = jax_side.jnp
+    monkeypatch.setattr(jax_side.lab.pl, "pallas_call", functools.partial(
+        jax_side.lab.pl.pallas_call, interpret=True))
+    rng = np.random.default_rng(nq)
+    q = rng.normal(size=(nq, 3)).astype(np.float32) * 100
+    r = rng.normal(size=(nr, 3)).astype(np.float32) * 100
+    edges = list(range(2048, nr, 2048))
+    for i, b in enumerate(edges):
+        r[b] = r[b - 1]
+        q[i] = r[b - 1]
+    ij, dj = (np.asarray(v) for v in jax_side.lab.nn_mxu(jnp.asarray(q),
+                                                          jnp.asarray(r)))
+    ip, dp = lab.nn_mxu(torch.from_numpy(q), torch.from_numpy(r))
+    assert ip.dtype == torch.int32 and dp.dtype == torch.float32
+    ok, same, worst, share = lab.near_tie(
+        ip, dp, torch.from_numpy(ij.copy()), torch.from_numpy(dj.copy()),
+        torch.from_numpy(q), torch.from_numpy(r))
+    # the worst gap is at the queries planted on a reference row (d2 ~ 0,
+    # measured against max(d2, 1)), where the indices agree
+    print(f"nn_mxu twin vs interpret {nq} x {nr}: idx_equal={same}/{nq}, "
+          f"max_rel={worst:.3e}, d2 share={share:.3e}")
+    assert ok, (same, worst, share)
+    assert ip[:len(edges)].tolist() == [b - 1 for b in edges]
+    assert ij[:len(edges)].tolist() == [b - 1 for b in edges]
+
+
+@pytest.mark.parametrize("wrong", ["no_qn", "no_rn", "half_dot",
+                                   "out_of_range"])
+def test_near_tie_refuses_a_wrong_d2(wrong):
+    """A d2 that lacks a term of the matrix form keeps every index (|q|^2
+    is the same for every candidate of a query) and passes the lab's
+    near-tie rule alone; the d2 limit refuses it, as it refuses an index
+    past the reference rows."""
+    q, r = port_app.nn_inputs("cpu", n=700)
+    idx, d2 = lab.nn_mxu_plain(q, r)
+    ok, same, worst, share = lab.near_tie(idx, d2, idx, d2, q, r)
+    assert ok and same == 700 and worst == 0.0 and share == 0.0
+    rn = (r * r).sum(dim=1)[idx.long()]
+    qn = (q * q).sum(dim=1)
+    bad_idx, bad = idx.clone(), {
+        "no_qn": d2 - qn, "no_rn": d2 - rn, "half_dot": d2 + (
+            qn + rn - d2) / 2, "out_of_range": d2}[wrong]
+    if wrong == "out_of_range":
+        bad_idx[3] = r.shape[0]
+    ok, _, _, share = lab.near_tie(bad_idx, bad, idx, d2, q, r)
+    assert not ok
+    assert wrong == "out_of_range" or share > 1.0
+
+
+@pytest.mark.parametrize("run", ["coarse_run", "coarse_run_stride2",
+                                 "_local_variant_run"])
+def test_lab_coarse_runs_are_stale(jax_side, run):
+    """The finding this port rests on: the lab's L1-L3 call
+    ``_pack_planes(planes, hpad)`` without ``lanes``.  If this fails, the
+    lab runs again: hold the port to it directly."""
+    planes, table = jax_side.lab._fixture_like(**TABLES["even"])
+    args = {"coarse_run": (planes, table, "base"),
+            "coarse_run_stride2": (planes, table),
+            "_local_variant_run": (
+                planes, table, jax_side.jnp.zeros(16, jax_side.jnp.int32),
+                jax_side.jnp.zeros(16, jax_side.jnp.int32), 1, True)}[run]
+    with pytest.raises(TypeError, match="lanes"):
+        getattr(jax_side.lab, run)(*args)
+
+
+def test_wrappers_refuse_other_devices_and_bad_tiles():
+    planes, table = lab.fixture_like(**SMALL, device="cpu")
+    meta = {k: v.to("meta") for k, v in table.items()}
+    with pytest.raises(ValueError, match="no kernel"):
+        lab.coarse_variant(planes.to("meta"), meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        lab.coarse_stride2(planes.to("meta"), meta)
+    q = torch.zeros((4, 3))
+    with pytest.raises(ValueError, match="no kernel"):
+        lab.nn_mxu(q.to("meta"), q.to("meta"))
+    for tq, tr in ((48, 2048), (512, 2048), (256, 0)):
+        with pytest.raises(ValueError, match="tiles"):
+            lab.nn_mxu(q, q, tq, tr)
+    with pytest.raises(ValueError, match="stride"):
+        lab.local_variant(planes, table, q[:, 0].int(), q[:, 0].int(), 3)
+
+
+def test_bound_ms_counts():
+    """The bounds of the lab's kernels: L1/L2 K1's count (halftrip its own
+    features), L4 the f32 epilogue at 16384 x 16384 (~0.020 ms)."""
+    planes, table = lab.fixture_like(**TABLES["even"], device="cpu")
+    k1 = bounds.bound_ms("coarse_scores", (planes, table))
+    assert bounds.bound_ms("coarse_variant", (planes, table, "base")) == k1
+    assert bounds.bound_ms("coarse_stride2", (planes, table, True)) == k1
+    half = bounds.bound_ms("coarse_variant", (planes, table, "halftrip"))
+    assert half[0] <= k1[0]
+    q = torch.zeros((16384, 3))
+    ms, by = bounds.bound_ms("nn_mxu", (q, q))
+    assert by == "operations" and abs(ms - 5 * 16384 ** 2 / 67e12 * 1e3) \
+        < 1e-12
+    assert 0.0199 < ms < 0.0201
+    with pytest.raises(ValueError, match="no bound"):
+        bounds.bound_ms("nothing", ())
+
+
+@pytest.mark.parametrize("which", ["coarse", "local2", "nn"])
+def test_app_runs_on_cpu(which, capsys):
+    """``apps/kernel_lab``'s runs on CPU tensors at small shapes: the
+    twins, the lab's asserts and the equality with the served kernels'
+    twins, one line a variant, no timings."""
+    if which == "coarse":
+        rows = port_app.run_coarse(*lab.fixture_like(**TABLES["even"],
+                                                     device="cpu"))
+        want = [f"coarse/{m}" for m in lab.MODES] + \
+            ["coarse/stride2-se0", "coarse/stride2-se1"]
+    elif which == "local2":
+        planes, table = lab.fixture_like(seed=1, n=32, f=30, nb=7, hd=24,
+                                         wd=32, c=9, valid_frac=0.5,
+                                         device="cpu")
+        idx = torch.arange(0, 32, 3)
+        table_k = {k: v[idx].contiguous() for k, v in table.items()}
+        origin = (idx % 8).int()
+        rows = port_app.run_local2(planes, table_k, origin, origin)
+        want = ["local2/s1-cond0", "local2/s1-cond1", "local2/s2-cond0",
+                "local2/s2-cond1"]
+    else:
+        rows = port_app.run_nn(*port_app.nn_inputs("cpu", n=700))
+        want = ["nn/mxu-dot"]
+        assert rows[0]["idx_equal"] >= 690
+    assert [row["variant"] for row in rows] == want
+    assert all("graph_ms" not in row for row in rows)
+    out = capsys.readouterr().out
+    assert out.count("twin run (no timings on the CPU)") == len(want)
+
+
+def test_phase9_checks_rehearse_on_cpu(monkeypatch):
+    """chip_smoke's phase-9 checks on CPU tensors at small shapes (where
+    the wrappers run their twins): the edge cases build, every L1-L3 case
+    equals its twin and the served kernels', L4 meets the near-tie rule
+    against its twin and K3 with the planted first indices."""
+    import chip_smoke
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    coarse = lab.fixture_like(n=16, f=60, nb=13, hd=6, wd=40, c=32,
+                              even=True, valid_frac=0.5, device="cpu")
+    planes, table = lab.fixture_like(seed=1, n=64, f=40, nb=39, hd=24,
+                                     wd=48, c=20, valid_frac=0.5,
+                                     device="cpu")
+    idx = torch.arange(0, 64, 4)
+    local = (planes, {k: v[idx].contiguous() for k, v in table.items()},
+             (idx % 30).int(), (idx % 8).int())
+    errs = {}
+    coarse_cases = chip_smoke.lab_coarse_cases(*coarse, slots=600)
+    local_cases = chip_smoke.lab_local_cases(*local, slots=300)
+    assert len(coarse_cases["coarse_variant"]) == 45
+    assert len(coarse_cases["coarse_stride2"]) == 20
+    assert len(local_cases) == 32
+    chip_smoke.hold_to_twins(coarse_cases, errs, "CPU")
+    chip_smoke.hold_to_twins({"local_variant": local_cases}, errs, "CPU")
+    chip_smoke.hold_nn_mxu(chip_smoke.lab_nn_cases(
+        *port_app.nn_inputs("cpu", n=2100)), errs, "CPU")
+    chip_smoke.hold_to_served(coarse_cases, local_cases)
+    assert errs == {"coarse_variant": 0.0, "coarse_stride2": 0.0,
+                    "local_variant": 0.0, "nn_mxu": 0.0}
+
+
+# -- on the card --------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_coarse_kernels_equal_twins_on_card(card):
+    planes, table = lab.fixture_like(even=True, valid_frac=0.5, device=card)
+    for mode in lab.MODES:
+        got = lab.coarse_variant(planes, table, mode)
+        assert torch.equal(got, lab.coarse_variant_plain(planes, table,
+                                                         mode)), mode
+    want = score.coarse_scores(planes, table)
+    for skip in (False, True):
+        assert torch.equal(lab.coarse_stride2(planes, table, skip), want)
+
+
+@pytest.mark.cuda
+def test_local_kernel_equals_twin_on_card(card):
+    planes, table_k, px0, py0 = port_app.local2_inputs(card)
+    want = score.local_scores(planes, table_k, px0, py0)
+    for stride in (1, 2):
+        for use_cond in (False, True):
+            for dx in (0, -20):
+                args = (planes, table_k, px0 + dx, py0 + dx, stride,
+                        use_cond)
+                assert torch.equal(lab.local_variant(*args),
+                                   lab.local_variant_plain(*args))
+            assert torch.equal(lab.local_variant(
+                planes, table_k, px0, py0, stride, use_cond), want)
+
+
+@pytest.mark.cuda
+def test_nn_mma_near_tie_on_card(card):
+    q, r = port_app.nn_inputs(card, n=5000)
+    idx, d2 = lab.nn_mxu(q, r)
+    ok, same, worst, share = lab.near_tie(idx, d2, *lab.nn_mxu_plain(q, r),
+                                          q, r)
+    assert ok, (same, worst, share)

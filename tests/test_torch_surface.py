@@ -252,3 +252,51 @@ def test_inherited_methods_count_as_present(surfaces):
     _, port = surfaces
     assert "ServingArtifact.recognition" in port["io/export.py"]
     assert "ObjReco.compute_pose_epnp" in port["engine.py"]
+
+
+def _pallas_calls():
+    """file:line of every ``pallas_call(...)`` in ``fealess_tpu/`` and
+    ``benchmarks/`` (read as source), each a TPU kernel of the repo."""
+    out = set()
+    for top in ("fealess_tpu", "benchmarks"):
+        for mod, path in _modules(os.path.join(REPO, top)).items():
+            for node in ast.walk(_parse(path)):
+                fn = getattr(node, "func", None)
+                if isinstance(node, ast.Call) and (
+                        getattr(fn, "attr", None) == "pallas_call"
+                        or getattr(fn, "id", None) == "pallas_call"):
+                    out.add(f"{top}/{mod}:{node.lineno}")
+    return out
+
+
+def _kernel_map():
+    """``fealess_tpu_torch/ops/_build.KERNELS``, read as source."""
+    tree = _parse(os.path.join(PORT, "ops", "_build.py"))
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "KERNELS" for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise AssertionError("ops/_build.py defines no KERNELS")
+
+
+def _line_exists(location):
+    path, line = location.rsplit(":", 1)
+    with open(os.path.join(REPO, path)) as f:
+        return 1 <= int(line) <= len(f.readlines())
+
+
+def test_every_tpu_kernel_has_a_port():
+    """Each ``pallas_call`` of the repo is the call of one kernel of the
+    port's map (``ops/_build.KERNELS``, which chip_smoke.py reports from),
+    the map names no other, and its sources and lines exist."""
+    kernels = _kernel_map()
+    calls = _pallas_calls()
+    assert len(calls) == 7, sorted(calls)
+    mapped = [call for _, _, call in kernels.values()]
+    assert sorted(mapped) == sorted(calls), (
+        f"TPU kernels without a port: {sorted(calls - set(mapped))}; "
+        f"ports of no TPU kernel: {sorted(set(mapped) - calls)}")
+    for name, (source, replaces, call) in kernels.items():
+        assert source.startswith("fealess_tpu_torch/csrc/") and \
+            os.path.isfile(os.path.join(REPO, source)), (name, source)
+        assert _line_exists(replaces) and _line_exists(call), name
