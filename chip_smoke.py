@@ -138,9 +138,12 @@ Phases, one line of output each (or a few):
    125, misaligned planes, 4096 slots, K = 1 and 0), L4 against its twin
    and K3 by the lab's near-tie rule on ``lab_nn_cases`` (16384 x 16384,
    duplicates across every 2048-row tile whose first index must win,
-   ragged counts, other tiles); every exact L1/L2/L3 run bitwise equal to
-   K1/K2 on the same inputs; and each L kernel, its twin and L4's library
-   call (``torch.cdist`` and a min) timed.
+   ragged counts, other tiles); L4's operand kernel bitwise equal to its
+   twin (TF32 rounding edges included) and ``HGMMA`` (``wgmma``) in its
+   kernel's SASS where ``cuobjdump`` is present; every exact L1/L2/L3 run
+   bitwise equal to K1/K2 on the same inputs; and each L kernel, its twin
+   and L4's library call (``torch.cdist`` and a min) timed, L4 also at
+   longer reference chunks.
 
 Each path of phases 4-4c, 6, 7 and 8 runs with the kernels' launch counters
 set to 0 just before it and read just after; every kernel must have run
@@ -1844,6 +1847,37 @@ def hold_nn_mxu(cases, errs, where: str) -> None:
                                  (d2 - twin[1]).abs().max().item())
 
 
+def hold_nn_operands(query, ref, where: str) -> None:
+    """L4's operand kernel (``lab.nn_operands``) bitwise equal to its twin
+    (``lab.nn_operands_plain`` in ``lab.tile_order``) on the lab's clouds,
+    on ragged counts, and on points made of the finite TF32 rounding edges
+    (``lab.TF32_EDGE_BITS`` under 1e18, so the norms stay finite): the card's
+    cvt.rna against the twin's rule on the bits."""
+    import torch
+    from fealess_tpu_torch.ops import lab
+    bits = torch.tensor(lab.TF32_EDGE_BITS, dtype=torch.int64)
+    edges = (bits - (bits >> 31 << 32)).to(torch.int32).view(torch.float32)
+    edges = edges[torch.isfinite(edges) & (edges.abs() < 1e18)]
+    pts = torch.cat([edges, edges.flip(0), edges.roll(1)])
+    pts = pts[:pts.numel() // 3 * 3].reshape(-1, 3).to(query.device)
+    cases = [(query, ref), (query[:77].contiguous(), ref[:1001].contiguous()),
+             (pts, pts.flip(0).contiguous())]
+    for i, (q, r) in enumerate(cases):
+        a, b = lab.nn_operands(q, r)
+        want_a, want_b = lab.nn_operands_plain(q, r)
+        if q.is_cuda:
+            torch.cuda.synchronize()
+        for name, got, want in (("A", a, want_a),
+                                ("B", b, lab.tile_order(want_b))):
+            check(got.shape == want.shape and torch.equal(
+                got.view(torch.int32), want.view(torch.int32)),
+                f"nn_operands ({where}) case {i}: {name} differs from its "
+                f"twin")
+    print(f"kernel nn_mxu ({where}): operands bitwise equal to their twin "
+          f"on {len(cases)} cases (the last {pts.shape[0]} points of TF32 "
+          f"rounding edges)")
+
+
 def hold_to_served(coarse_cases, local_cases) -> None:
     """Every exact L1 mode and both L2 settings bitwise equal to K1, and
     every L3 setting bitwise equal to K2, on the same inputs (every case
@@ -1895,12 +1929,16 @@ def lab_phase(card, errs, floor_ms, coarse, local, clouds):
     for fn in lab.LAUNCHED:
         check(launches[fn.__name__] > 0,
               f"{fn.__name__} never launched on the kernel lab's path")
+    hgmma = [row.get("hgmma") for row in rows if row["kernel"] == "nn_mxu"]
+    check(all(h is None or h > 0 for h in hgmma),
+          f"L4's kernel has no HGMMA in its SASS: {hgmma}")
     # 9b. against the twins and the served kernels
     coarse_cases = lab_coarse_cases(*coarse)
     local_cases = {"local_variant": lab_local_cases(*local)}
     hold_to_twins(coarse_cases, errs, "kernel lab")
     hold_to_twins(local_cases, errs, "kernel lab")
     hold_nn_mxu(lab_nn_cases(*clouds), errs, "kernel lab")
+    hold_nn_operands(*clouds, "kernel lab")
     hold_to_served(coarse_cases, local_cases["local_variant"])
     # 9c. times of each kernel's first case
     entry = {"coarse_variant": coarse_cases["coarse_variant"][0],
@@ -1910,6 +1948,10 @@ def lab_phase(card, errs, floor_ms, coarse, local, clouds):
     q, r = clouds
     library_ms = cuda_ms(lambda: torch.cdist(
         q, r, compute_mode="use_mm_for_euclid_dist").min(dim=1), 5)
+    for tr in (2048, 4096, 8192):   # L4's reference chunk a block walks
+        print(f"time nn_mxu tiles (256, {tr}): "
+              f"{graph_ms(lambda: lab.nn_mxu(q, r, 256, tr), 20):.4f} ms "
+              f"(graph) ({card})")
     out = []
     for name, (kernel, plain, args) in entry.items():
         ms = cuda_ms(lambda: kernel(*args), 20)

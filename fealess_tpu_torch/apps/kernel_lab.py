@@ -17,13 +17,16 @@ Usage (from the repository root, on a machine with a CUDA card):
   candidates at origins in [0, Wd - 16) x [0, Hd - 16)); L3 at stride 1
   and 2, with and without the skip, against K2 (``ops.score.local_scores``);
 - ``nn``: 16384 x 16384 normal(0, 100) points; L4 against K3
-  (``ops.nn.nearest_neighbor``).
+  (``ops.nn.nearest_neighbor``), and the count of ``HGMMA`` (``wgmma``)
+  instructions in L4's kernel (``cuobjdump -sass`` of the built library,
+  where the tool is present).
 
 Each variant prints one line: its milliseconds a call from a CUDA graph of
 :data:`REPS` launches (``utils.profiling.graph_ms``, the stand-in for
 the lab's chain slope), the served kernel's on the same inputs, and the
-variant's bound (``ops/bounds.bound_ms``).  L2 and L3 also print the
-kernel alone, without the wrapper's plane stack and bucket starts.  It
+variant's bound (``ops/bounds.bound_ms``).  L2, L3 and L4 also print the
+kernel alone, without the wrapper's plane stack and bucket starts (L2,
+L3) or operands (L4).  It
 asserts what the lab asserts (base == skipempty == unroll2 == both
 stride-2 settings; the four L3 settings equal; L4 against K3 by the
 near-tie rule, with the number of equal indices printed, and its d2
@@ -35,11 +38,14 @@ the plain twins, without timings.
 from __future__ import annotations
 
 import argparse
+import os
+import shutil
+import subprocess
 
 import numpy as np
 import torch
 
-from fealess_tpu_torch.ops import lab, nn, score
+from fealess_tpu_torch.ops import _build, lab, nn, score
 from fealess_tpu_torch.ops.bounds import bound_ms
 from fealess_tpu_torch.utils.profiling import graph_ms
 
@@ -155,6 +161,26 @@ def run_local2(planes, table_k, px0, py0) -> list:
     return rows
 
 
+def sass_count(kernel: str, opcode: str):
+    """Instructions named ``opcode`` in ``kernel``'s SASS in the built
+    kernel library (``cuobjdump -sass``), or None without cuobjdump."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        tool = shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(_build.build())],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and opcode in line:
+            count += 1
+    return count
+
+
 def run_nn(query, ref) -> list:
     """L4 against K3; asserts ``lab.near_tie`` (the near-tie rule and the
     d2 limit) in every row and prints the equal indices, the largest
@@ -169,9 +195,17 @@ def run_nn(query, ref) -> list:
           f"max_rel={worst:.2e} max_d2_share={share:.2e}", flush=True)
     assert ok, "nn_mxu breaks the near-tie rule or the d2 limit against K3"
     rows = []
+    prepared = lab.nn_operands(query, ref) if query.is_cuda else None
     _row(rows, "nn/mxu-dot", "nn_mxu", (query, ref),
-         lambda: lab.nn_mxu(query, ref), k3_ms)
+         lambda: lab.nn_mxu(query, ref), k3_ms,
+         alone=lambda: lab.nn_mxu(query, ref, prepared=prepared))
     rows[-1].update(idx_equal=same, max_rel=worst, max_d2_share=share)
+    if query.is_cuda:
+        hgmma = sass_count("lab_nn_mma_kernel", "HGMMA")
+        print("nn/mxu SASS: " + ("cuobjdump not found" if hgmma is None else
+                                 f"{hgmma} HGMMA in lab_nn_mma_kernel"),
+              flush=True)
+        rows[-1]["hgmma"] = hgmma
     return rows
 
 

@@ -43,10 +43,14 @@
 // issue and L1/L2 load throughput, as K1.  The bucket walk adds a set-up
 // and a flush per bucket (13 at the lab's shapes, ~2 features each).  L3
 // is K2's tiny work (64 windows), bound by latency.  L4 at 16384 x 16384
-// is 2.7e8 pairs: the dot's three TF32 passes (6 operations a pair each)
-// take ~0.01 ms at 495 TFLOP/s, the float32 epilogue (add of the norms,
-// the scaled dot, compare, select: ~5 a pair) ~0.02 ms at 67 TFLOP/s, so
-// the epilogue on the CUDA cores is the bound.
+// is 2.7e8 pairs.  Any form needs the dot at float32 accuracy (three TF32
+// passes of a 3-long dot, 18 operations a pair: ~0.0098 ms at 495 TFLOP/s)
+// and one compare and one select a pair on the CUDA cores (~0.0080 ms at
+// 67 TFLOP/s); the norms and the -2 can ride in the product, as here.  So
+// the dot bounds it (ops/bounds.py).  This kernel's product has 16 slots
+// (32 operations a pair, 0.0174 ms at the peak).  On the card compares
+// and selects run on the half-rate ALU pipe, so the epilogue keeps one
+// compare a pair there and moves the rest to the FMA pipe (scan, below).
 //
 // L1/L2 design: K1's mapping (a block a template, a thread kRun adjacent x
 // positions of a row, the table staged in shared memory, kRun/4 + 1
@@ -70,22 +74,48 @@
 // whole buckets (s, s + 8, ...): the window columns' start, alignment and
 // masks are set once per bucket, the row gate per feature.
 //
-// L4 design: the dot on the tensor cores, in the kernel's own body.  A
-// block of tq threads holds tq queries (a warp 32: two m16 tiles) and
-// scans tr reference rows, staged kStage at a time in shared memory as
-// (x, y, z, 0) split into TF32 high and low parts (cvt.rna) and |r|^2.
-// For every 8 reference rows a warp issues, per m16 tile, three
-// mma.sync.m16n8k8 TF32 products with float32 accumulation (lo.hi, hi.lo,
-// hi.hi; K = 3 padded to 8 with zeros), which carry the dot to float32
-// accuracy as Precision.HIGHEST does on the TPU.  The epilogue forms
-// (qn + rn) - 2 * dot (one fused multiply-add: 2 * dot is exact, so it
-// rounds as the separate product and subtraction) and keeps, per thread,
-// a running (min, first index) in reference order with a strict "<".  The
-// four threads that hold a query's columns then take the (value, index)
-// minimum, so a block writes the first minimum of its tr rows; a merge
-// kernel takes the blocks' minima in reference order with a strict "<"
-// (the TPU kernel's walk across tiles).  Reference rows past the end are
-// staged with |r|^2 = +inf and never win.  wgmma and TMA are later work.
+// L4 design: d2 is the accumulator of one TF32 product on the tensor cores.
+// Each point becomes 16 TF32 operand slots, two k8 steps (hi/lo the cvt.rna
+// split of a coordinate, lo = tf32(x - hi); n0 + n1 + n2 the float32 norm
+// (x*x + y*y) + z*z exactly, in three TF32 pieces):
+//   step 0: A = [-2q_hi (3), -2q_lo (3), qn0, qn1],
+//           B = [r_hi (3), r_hi (3), 1, 1];
+//   step 1: A = [-2q_hi (3), qn2, 1, 1, 1, 0],
+//           B = [r_lo (3), 1, rn0, rn1, rn2, 0],
+// so the product is qn + rn - 2 (hi.hi + lo.hi + hi.lo): three passes,
+// the dot at float32 accuracy as Precision.HIGHEST; -2 x is exact
+// and every product of two TF32 values is exact in float32.  Error model
+// against the float32 d2 of the same norms: the dot lacks lo.lo and the
+// lo parts' own TF32 rounding, each <= 2^-22 |q||r|, so 2 dot is off by
+// <= 6 * 2^-22 |q||r| <= 3 * 2^-22 (|q|^2 + |r|^2); the norms are exact;
+// the tensor core's float32 sums of terms up to |q|^2 + |r|^2 add a few
+// 2^-23 of it.  About 1e-6 (|q|^2 + |r|^2) in all, ~0.1 of the lab's d2
+// limit (ops/lab.D2_CANCEL, 1e-5); the epilogue only compares and selects.
+// A small kernel writes the operands once a call (lab_nn_operands_kernel;
+// its twin ops/lab.nn_operands_plain): A (nq, 16) row-major, B in the tile
+// order of wgmma's no-swizzle K-major layout (8-row groups of 512 bytes:
+// k step, k half, row, 4 floats), rows past nr zero.
+//
+// A block is `groups` = ceil(tq / 64) warpgroups of 64 queries and walks
+// the reference rows of its chunk (tr rounded up to 128) in tiles of 128
+// rows x 16 slots (8 KB).  Thread 0 starts the first kStages tiles with
+// cp.async.bulk (TMA), each on an mbarrier; the warpgroup that is the last
+// to release a stage (a count in shared memory) starts the copy of the
+// tile kStages on, so no warp waits to produce.  A warpgroup holds its
+// queries' A in registers for the whole walk and starts
+// wgmma.mma_async.m64n128k8.f32.tf32.tf32 twice a tile (B by descriptor
+// from the stage), waits for it, then scans the accumulator while the
+// block's other warpgroups run.  (Two accumulator sets, a tile's product
+// in flight during the previous scan, measured slower on the card: at 512
+// threads a block they leave room for 64-row tiles only, whose per-tile
+// fences and waits cost more.)  Each
+// thread keeps, per query row and column parity of the 8-column blocks, a
+// running (d2, first index) with a strict "<" in reference order; the
+// partials and the four threads of a row are merged by (d2, index), so a
+// block writes its chunk's first minimum.  Columns past nr (the last tile
+// of the last chunk only) are never compared.  A merge kernel takes the
+// chunks' minima in reference order with a strict "<" (the TPU kernel's
+// walk across tiles).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -413,142 +443,357 @@ lab_local_kernel(const LocalArgs p) {
 
 // ---- L4 -------------------------------------------------------------------
 
-constexpr int kStage = 512;          // reference rows a shared-memory stage
-constexpr int kMaxQueries = 256;     // tq at most (ops/lab.MAX_TQ)
+constexpr int kNnSlots = 16;         // TF32 operand slots a point (ops/lab)
+constexpr int kTileRows = 128;       // reference rows a tile: wgmma's n128
+constexpr int kTileBytes = kTileRows * kNnSlots * 4;
+constexpr int kStepBytes = 256;      // one k8 step of an 8-row group
+constexpr int kGroupBytes = 8 * kNnSlots * 4;   // an 8-row group's operand
+constexpr int kStages = 4;           // tiles in flight a block
+constexpr int kMaxGroups = 4;        // warpgroups a block: tq 256
+constexpr int kNnThreads = 128 * kMaxGroups;
+constexpr int kAcc = kTileRows / 2;  // accumulator floats a thread
+constexpr int kPartials = 2;         // running minima a query row
+constexpr int kPrepThreads = 256;
+constexpr uint32_t kWaitLimit = 1u << 26;   // polls before a trap
 constexpr int kMergeThreads = 256;
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
+// cvt.rna: round to TF32 (10 mantissa bits), ties away from zero; the low
+// 13 bits of the result are 0, so the tensor core's truncation keeps it.
+__device__ __forceinline__ float tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
+  return __uint_as_float(r);
 }
 
-// c += A B for one m16n8k8 TF32 tile whose K columns 4..7 are zero: the
-// thread's A elements (row g, col t) and (row g + 8, col t) and its B
-// element (row t, col g), g = lane / 4, t = lane % 4.
-__device__ __forceinline__ void mma_k4(float (&c)[4], uint32_t a0,
-                                       uint32_t a1, uint32_t b0) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(0u), "r"(0u), "r"(b0), "r"(0u));
+// (x*x + y*y) + z*z in three TF32 pieces whose sum is it exactly: each
+// remainder is exact in float32 and the third has at most 2 bits.
+__device__ __forceinline__ void norm_pieces(const float (&p)[3],
+                                            float (&n)[3]) {
+  const float v = __fadd_rn(__fadd_rn(__fmul_rn(p[0], p[0]),
+                                      __fmul_rn(p[1], p[1])),
+                            __fmul_rn(p[2], p[2]));
+  n[0] = tf32(v);
+  const float r = __fsub_rn(v, n[0]);
+  n[1] = tf32(r);
+  n[2] = tf32(__fsub_rn(r, n[1]));
 }
 
-// (qn + rn) - 2 * dot; 2 * dot is exact, so the fused form rounds once,
-// as the separate product and subtraction do.  Strict "<": the first
-// minimum in the thread's reference order.
-__device__ __forceinline__ void take(float& best, int& bj, float qn,
-                                     float rn, float dot, int j) {
-  const float d2 = __fmaf_rn(-2.f, dot, __fadd_rn(qn, rn));
-  if (d2 < best) {
-    best = d2;
-    bj = j;
+__device__ __forceinline__ void split(const float* src, float (&p)[3],
+                                      float (&hi)[3], float (&lo)[3]) {
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    p[d] = src[d];
+    hi[d] = tf32(p[d]);
+    lo[d] = tf32(__fsub_rn(p[d], hi[d]));
   }
 }
 
-__global__ void __launch_bounds__(kMaxQueries)
-lab_nn_mma_kernel(const float* __restrict__ query, int nq,
-                  const float* __restrict__ ref, int nr, int chunk,
-                  int32_t* __restrict__ idx_out, float* __restrict__ d2_out) {
-  __shared__ uint32_t s_hi[kStage * 4];
-  __shared__ uint32_t s_lo[kStage * 4];
-  __shared__ float s_rn[kStage];
+// The operands (ops/lab.nn_operands_plain): query row i of A (nq, 16),
+// reference row j of B in the tile order (nr_pad / 8, k step, k half, row
+// in the group, 4): the no-swizzle K-major layout of wgmma's B, 8-row core
+// matrices of 16 bytes a row.  Rows nr..nr_pad - 1 are 0.
+__global__ void lab_nn_operands_kernel(const float* __restrict__ query,
+                                       int nq, const float* __restrict__ ref,
+                                       int nr, int nr_pad,
+                                       float4* __restrict__ a_op,
+                                       float4* __restrict__ b_op) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float p[3], hi[3], lo[3], n[3];
+  if (i < nq) {
+    split(query + 3 * (size_t)i, p, hi, lo);
+    norm_pieces(p, n);
+    float h2[3], l2[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      h2[d] = __fmul_rn(-2.f, hi[d]);   // exact
+      l2[d] = __fmul_rn(-2.f, lo[d]);
+    }
+    float4* a = a_op + 4 * (size_t)i;
+    a[0] = make_float4(h2[0], h2[1], h2[2], l2[0]);
+    a[1] = make_float4(l2[1], l2[2], n[0], n[1]);
+    a[2] = make_float4(h2[0], h2[1], h2[2], n[2]);
+    a[3] = make_float4(1.f, 1.f, 1.f, 0.f);
+  }
+  if (i < nr_pad) {
+    float one = 0.f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) hi[d] = lo[d] = n[d] = 0.f;
+    if (i < nr) {
+      split(ref + 3 * (size_t)i, p, hi, lo);
+      norm_pieces(p, n);
+      one = 1.f;
+    }
+    float4* b = b_op + (size_t)(i / 8) * 32 + i % 8;
+    b[0] = make_float4(hi[0], hi[1], hi[2], hi[0]);    // step 0, half 0
+    b[8] = make_float4(hi[1], hi[2], one, one);        // step 0, half 1
+    b[16] = make_float4(lo[0], lo[1], lo[2], one);     // step 1, half 0
+    b[24] = make_float4(n[0], n[1], n[2], 0.f);        // step 1, half 1
+  }
+}
+
+__device__ __forceinline__ uint32_t smem(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// A wait that never ends (a lost copy) traps, so the launch fails instead
+// of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t n = 0;; ++n) {
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (n == kWaitLimit) __trap();
+  }
+}
+
+// Arm ``bar`` with one tile's bytes and start its bulk copy (TMA).
+__device__ __forceinline__ void load_tile(uint32_t dst, const void* src,
+                                          uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(kTileBytes) : "memory");
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+               "::bytes [%0], [%1], %2, [%3];\n"
+               :: "r"(dst), "l"(src), "r"(kTileBytes), "r"(bar) : "memory");
+}
+
+// wgmma's shared-memory descriptor of one k8 step of a tile: no swizzle,
+// K-major core matrices of 8 rows x 16 bytes; the K-adjacent one (leading
+// byte offset) 128 bytes on, the next 8 rows (stride byte offset) one
+// 8-row group on.
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(kGroupBytes >> 4) << 32);
+}
+
+// d = A B (scale_d 0) or d += A B (1) for a 64 x 128 x 8 TF32 step, A
+// from registers (thread: rows g, g + 8 of its warp's 16, columns t, t + 4),
+// B by descriptor; d[4i + 2h + e] = (row g + 8h, column 8i + 2t + e).
+__device__ __forceinline__ void wgmma_step(float (&d)[kAcc],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+// The accumulator is written behind the compiler's back until the wait:
+// make every read come after it.
+__device__ __forceinline__ void hold(float (&d)[kAcc]) {
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// Tile t of the block's walk into d: wait for its bytes, both k8 steps,
+// and wait for the product.
+__device__ __forceinline__ void product(float (&d)[kAcc],
+                                        const uint32_t (&a)[2][4],
+                                        uint32_t tiles, uint32_t full,
+                                        int t) {
+  const int s = t % kStages;
+  mbar_wait(full + 8 * s, (t / kStages) & 1);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  const uint32_t tile = tiles + s * kTileBytes;
+  wgmma_step(d, a[0], b_desc(tile), 0);
+  wgmma_step(d, a[1], b_desc(tile + kStepBytes), 1);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  hold(d);
+}
+
+// The epilogue: per row h and column parity of the 8-column block, the
+// running (d2, column in its tile, tile), strict "<" in reference order.  A
+// pair costs a compare on the ALU pipe and two predicated moves on the FMA
+// pipe: d2 + -0 (exact for every value) and col * 0 + k, with a 0 that
+// ptxas cannot fold (as selects, or as an FFMA it could hoist, both would
+// take the half-rate ALU pipe too).  The tile is taken once a tile, where
+// the minimum moved.  With kMask only columns < lim.
+template <bool kMask>
+__device__ __forceinline__ void scan(const float (&c)[kAcc], int lim, int t,
+                                     float (&best)[2][kPartials],
+                                     float (&col)[2][kPartials],
+                                     int (&bt)[2][kPartials]) {
+  const float zero = __int_as_float(t >> 30);   // +0: t < 2^30
+  float was[2][kPartials];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int p = 0; p < kPartials; ++p) was[h][p] = best[h][p];
+#pragma unroll
+  for (int i = 0; i < kTileRows / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = 8 * i + e;
+        if (kMask && k >= lim) continue;
+        asm("{\n.reg .pred p;\nsetp.lt.f32 p, %2, %0;\n"
+            "@p add.rn.f32 %0, %2, 0f80000000;\n"
+            "@p fma.rn.f32 %1, %1, %3, %4;\n}\n"
+            : "+f"(best[h][i % kPartials]), "+f"(col[h][i % kPartials])
+            : "f"(c[4 * i + 2 * h + e]), "f"(zero),
+              "f"(static_cast<float>(k)));
+      }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int p = 0; p < kPartials; ++p)
+      if (best[h][p] != was[h][p]) bt[h][p] = t;
+}
+
+// Warpgroup done with tile t: one thread counts it on the stage; the
+// warpgroup that completes the count starts the copy of tile t + kStages
+// into the stage.
+__device__ __forceinline__ void release(uint32_t done, uint32_t tiles,
+                                        uint32_t full, const char* src,
+                                        int t, int ntiles, int groups,
+                                        bool signals) {
+  if (signals) {
+    const int s = t % kStages;
+    uint32_t n;
+    asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;\n"
+                 : "=r"(n) : "r"(done + 4 * s) : "memory");
+    if (n + 1 == static_cast<uint32_t>(groups * (t / kStages + 1)) &&
+        t + kStages < ntiles)
+      load_tile(tiles + s * kTileBytes,
+                src + (size_t)(t + kStages) * kTileBytes, full + 8 * s);
+  }
+  __syncwarp();
+}
+
+// (v, i) <- (ov, oi) if that is the smaller d2, or equal at a lower index.
+__device__ __forceinline__ void take_min(float& v, int& i, float ov, int oi) {
+  if (ov < v || (ov == v && oi < i)) {
+    v = ov;
+    i = oi;
+  }
+}
+
+// A block: `groups` warpgroups of 64 queries (the block's tq of them); it
+// walks the reference rows [lo, hi) of its chunk in tiles, kStages tiles
+// in flight.
+__global__ void __launch_bounds__(kNnThreads, 1)
+lab_nn_mma_kernel(const float* __restrict__ a_op, int nq,
+                  const char* __restrict__ b_op, int nr, int tq, int chunk,
+                  int groups, int32_t* __restrict__ idx_out,
+                  float* __restrict__ d2_out) {
+  __shared__ __align__(128) uint8_t s_tiles[kStages * kTileBytes];
+  __shared__ __align__(8) uint64_t s_full[kStages];
+  __shared__ uint32_t s_done[kStages];
+  const int lo = blockIdx.y * chunk;
+  const int hi = min(nr, lo + chunk);
+  const int ntiles = (hi - lo + kTileRows - 1) / kTileRows;
+  const uint32_t full = smem(s_full);
+  const uint32_t done = smem(s_done);
+  const uint32_t tiles = smem(s_tiles);
+  const char* src = b_op + (size_t)lo * kNnSlots * 4;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      s_done[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int t = 0; t < ntiles && t < kStages; ++t)
+      load_tile(tiles + t * kTileBytes, src + (size_t)t * kTileBytes,
+                full + 8 * t);
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int tg = lane & 3;
-  // a warp's 32 queries: m16 tiles u = 0, 1; row halves h = 0 (g), 1 (g+8)
-  const int qw = blockIdx.x * blockDim.x + (threadIdx.x & ~31);
-  uint32_t a_hi[2][2], a_lo[2][2];
-  float qn[2][2], best[2][2];
-  int bj[2][2];
+  const int row = 16 * (threadIdx.x >> 5) + g;   // of the block's queries
+  const int q0 = blockIdx.x * tq + row;
+  uint32_t a[2][4];
 #pragma unroll
-  for (int u = 0; u < 2; ++u)
+  for (int s = 0; s < 2; ++s)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = qw + 16 * u + 8 * h + g;
-      float x = 0.f, y = 0.f, z = 0.f;
-      if (i < nq) {
-        x = query[3 * (size_t)i];
-        y = query[3 * (size_t)i + 1];
-        z = query[3 * (size_t)i + 2];
-      }
-      const float v = tg == 0 ? x : tg == 1 ? y : tg == 2 ? z : 0.f;
-      a_hi[u][h] = to_tf32(v);
-      a_lo[u][h] = to_tf32(__fsub_rn(v, __uint_as_float(a_hi[u][h])));
-      qn[u][h] = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
-                           __fmul_rn(z, z));
-      best[u][h] = inf_f();
-      bj[u][h] = 0;
+    for (int v = 0; v < 4; ++v) {
+      const int i = q0 + 8 * (v & 1);
+      a[s][v] = i < nq ? __float_as_uint(
+                             a_op[kNnSlots * (size_t)i + 8 * s + 4 * (v >> 1) +
+                                  tg])
+                       : 0u;
     }
-  const int lo = blockIdx.y * chunk;
-  const int hi = min(nr, lo + chunk);
-  for (int s0 = lo; s0 < hi; s0 += kStage) {
-    __syncthreads();   // the previous stage is read
-    for (int e = threadIdx.x; e < kStage; e += blockDim.x) {
-      const int j = s0 + e;
-      float r[3] = {0.f, 0.f, 0.f};
-      float rn = inf_f();   // rows past the end never win
-      if (j < hi) {
+  float best[2][kPartials], col[2][kPartials];
+  int bt[2][kPartials];
 #pragma unroll
-        for (int d = 0; d < 3; ++d) r[d] = ref[3 * (size_t)j + d];
-        rn = __fadd_rn(__fadd_rn(__fmul_rn(r[0], r[0]), __fmul_rn(r[1], r[1])),
-                       __fmul_rn(r[2], r[2]));
-      }
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const uint32_t h = to_tf32(r[d]);
-        s_hi[4 * e + d] = h;
-        s_lo[4 * e + d] = to_tf32(__fsub_rn(r[d], __uint_as_float(h)));
-      }
-      s_hi[4 * e + 3] = 0u;
-      s_lo[4 * e + 3] = 0u;
-      s_rn[e] = rn;
+    for (int p = 0; p < kPartials; ++p) {
+      best[h][p] = inf_f();
+      col[h][p] = 0.f;
+      bt[h][p] = 0;
     }
-    __syncthreads();
-    const int rows = min(kStage, hi - s0);
-    for (int n0 = 0; n0 < rows; n0 += 8) {
-      const uint32_t b_hi = s_hi[4 * (n0 + g) + tg];
-      const uint32_t b_lo = s_lo[4 * (n0 + g) + tg];
-      const float2 rn = *reinterpret_cast<const float2*>(&s_rn[n0 + 2 * tg]);
-      const int j0 = s0 + n0 + 2 * tg;
+  const bool signals = threadIdx.x % 128 == 0;
+  float c[kAcc];
+  for (int t = 0; t < ntiles; ++t) {
+    product(c, a, tiles, full, t);
+    release(done, tiles, full, src, t, ntiles, groups, signals);
+    const int j0 = lo + kTileRows * t;
+    if (hi - j0 >= kTileRows)
+      scan<false>(c, 0, t, best, col, bt);
+    else   // the last tile of the last chunk: rows past nr never compared
+      scan<true>(c, hi - j0 - 2 * tg, t, best, col, bt);
+  }
+  // a row's four threads hold its columns 2t, 2t + 1 of every 8: the least
+  // (d2, index) of the partials and lanes is the chunk's first minimum
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_k4(c, a_lo[u][0], a_lo[u][1], b_hi);
-        mma_k4(c, a_hi[u][0], a_hi[u][1], b_lo);
-        mma_k4(c, a_hi[u][0], a_hi[u][1], b_hi);
-        take(best[u][0], bj[u][0], qn[u][0], rn.x, c[0], j0);
-        take(best[u][0], bj[u][0], qn[u][0], rn.y, c[1], j0 + 1);
-        take(best[u][1], bj[u][1], qn[u][1], rn.x, c[2], j0);
-        take(best[u][1], bj[u][1], qn[u][1], rn.y, c[3], j0 + 1);
-      }
+  for (int h = 0; h < 2; ++h) {
+    float v = best[h][0];
+    int bi = lo + kTileRows * bt[h][0] + 2 * tg + static_cast<int>(col[h][0]);
+#pragma unroll
+    for (int p = 1; p < kPartials; ++p)
+      take_min(v, bi, best[h][p],
+               lo + kTileRows * bt[h][p] + 2 * tg +
+                   static_cast<int>(col[h][p]));
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1)
+      take_min(v, bi, __shfl_xor_sync(0xFFFFFFFFu, v, o),
+               __shfl_xor_sync(0xFFFFFFFFu, bi, o));
+    const int i = q0 + 8 * h;
+    if (tg == 0 && row + 8 * h < tq && i < nq) {
+      idx_out[(size_t)blockIdx.y * nq + i] = bi;
+      d2_out[(size_t)blockIdx.y * nq + i] = v;
     }
   }
-  // the four threads of a row hold its columns 2t, 2t + 1 of every 8:
-  // the least (d2, index) is the first minimum of the block's rows
-#pragma unroll
-  for (int u = 0; u < 2; ++u)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float v = best[u][h];
-      int bi = bj[u][h];
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        const float ov = __shfl_xor_sync(0xFFFFFFFFu, v, o);
-        const int oi = __shfl_xor_sync(0xFFFFFFFFu, bi, o);
-        if (ov < v || (ov == v && oi < bi)) {
-          v = ov;
-          bi = oi;
-        }
-      }
-      const int i = qw + 16 * u + 8 * h + g;
-      if (tg == 0 && i < nq) {
-        idx_out[(size_t)blockIdx.y * nq + i] = bi;
-        d2_out[(size_t)blockIdx.y * nq + i] = v;
-      }
-    }
 }
 
 __global__ void lab_nn_merge_kernel(const int32_t* __restrict__ part_idx,
@@ -640,20 +885,41 @@ extern "C" int fl_lab_local(const void* stack, int c, int hd, int wd,
   return static_cast<int>(cudaGetLastError());
 }
 
-// query (nq, 3) and ref (nr, 3) f32; blocks of tq queries (a multiple of
-// 32, at most kMaxQueries) each scan tr reference rows; with nchunks =
-// ceil(nr / tr) > 1, part_idx/part_d2 hold the (nchunks, nq) minima for
-// the merge.
-extern "C" int fl_lab_nn_mma(const void* query, int nq, const void* ref,
-                             int nr, int tq, int tr, int nchunks,
+// query (nq, 3) and ref (nr, 3) f32 -> a_op (nq, 16) and b_op (nr_pad,
+// 16) f32 in the tile order, nr_pad = nr rounded up to 64
+// (ops/lab.nn_operands).
+extern "C" int fl_lab_nn_operands(const void* query, int nq, const void* ref,
+                                  int nr, int nr_pad, void* a_op, void* b_op,
+                                  void* stream) {
+  if (nr_pad % kTileRows || nr_pad < nr) return cudaErrorInvalidValue;
+  const int n = nq > nr_pad ? nq : nr_pad;
+  if (n == 0) return cudaSuccess;
+  lab_nn_operands_kernel<<<(n + kPrepThreads - 1) / kPrepThreads,
+                           kPrepThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(query), nq, static_cast<const float*>(ref),
+      nr, nr_pad, static_cast<float4*>(a_op), static_cast<float4*>(b_op));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The operands of fl_lab_nn_operands; blocks of tq queries (at most 256:
+// ceil(tq / 64) warpgroups) each walk `chunk` reference rows (a multiple
+// of 64); with nchunks = ceil(nr / chunk) > 1, part_idx/part_d2 hold the
+// (nchunks, nq) minima for the merge.
+extern "C" int fl_lab_nn_mma(const void* a_op, int nq, const void* b_op,
+                             int nr, int tq, int chunk, int nchunks,
                              void* part_idx, void* part_d2, void* idx,
                              void* d2, void* stream) {
+  const int groups = (tq + 63) / 64;
+  if (tq < 1 || groups > kMaxGroups || chunk < 1 || chunk % kTileRows ||
+      nr < 1 || nchunks != (nr + chunk - 1) / chunk)
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool merge = nchunks > 1;
   const dim3 grid((nq + tq - 1) / tq, nchunks);
-  lab_nn_mma_kernel<<<grid, tq, 0, s>>>(
-      static_cast<const float*>(query), nq, static_cast<const float*>(ref),
-      nr, tr, static_cast<int32_t*>(merge ? part_idx : idx),
+  lab_nn_mma_kernel<<<grid, 128 * groups, 0, s>>>(
+      static_cast<const float*>(a_op), nq, static_cast<const char*>(b_op),
+      nr, tq, chunk, groups, static_cast<int32_t*>(merge ? part_idx : idx),
       static_cast<float*>(merge ? part_d2 : d2));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !merge) return static_cast<int>(err);

@@ -85,7 +85,9 @@ _SIGNATURES = {
     # use_cond, px0, py0, out, stream
     "fl_lab_local": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                      _P, _P, _P),
-    # query, nq, ref, nr, tq, tr, nchunks, part_idx, part_d2, idx, d2,
+    # query, nq, ref, nr, nr_pad, a_op, b_op, stream
+    "fl_lab_nn_operands": (_P, _I, _P, _I, _I, _P, _P, _P),
+    # a_op, nq, b_op, nr, tq, chunk, nchunks, part_idx, part_d2, idx, d2,
     # stream
     "fl_lab_nn_mma": (_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
 }

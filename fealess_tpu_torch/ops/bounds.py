@@ -17,8 +17,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
 
-NN_EPILOGUE_OPS = 5   # L4 a pair: the norms' add, the scaled dot, the
-# subtraction, a compare and a select
+NN_EPILOGUE_OPS = 2   # L4 a pair on the CUDA cores: a compare and a
+# select (the norms, the -2 and the subtraction can ride in the product)
 NN_DOT_OPS = 3 * 2 * 3   # L4 a pair: three TF32 passes of a 3-long dot
 
 
@@ -73,9 +73,10 @@ def bound_ms(name: str, args) -> tuple:
     and L3 ``local_variant``: :func:`_local_count`; the fused
     ``local_refine`` also reads its slots, positions and bank entries and
     writes 4 int32 a candidate.  K3 ``nearest_neighbor``: 8 f32
-    operations a pair.  L4 ``nn_mxu``: the larger of NN_EPILOGUE_OPS f32
-    operations a pair and NN_DOT_OPS TF32 operations a pair at
-    TF32_OPS_PER_S."""
+    operations a pair.  L4 ``nn_mxu``: the least work of any form, the
+    larger of the dot at float32 accuracy (NN_DOT_OPS TF32 operations a
+    pair at TF32_OPS_PER_S) and NN_EPILOGUE_OPS f32 operations a pair (a
+    compare and a select)."""
     t_ops = None
     if name == "nearest_neighbor":
         q, r = args[:2]

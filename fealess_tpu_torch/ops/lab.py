@@ -16,7 +16,9 @@ The lab weighs kernel designs against the served kernels in one process:
   at given origins, bucket by bucket with ``stride`` 1 or 2 (through the
   shifted copy) and ``use_cond`` (skip empty buckets);
 - L4 :func:`nn_mxu` (``nn_mxu``): the nearest neighbour in matrix form,
-  ``d2 = (|q|^2 + |r|^2) - 2 q.r`` with the dot on the tensor cores.
+  ``d2 = (|q|^2 + |r|^2) - 2 q.r`` as one TF32 product on the tensor cores
+  (``wgmma``): the norms and the -2 ride in 16-slot operands
+  (:func:`nn_operands`), so the product's accumulator is d2.
 
 Each wrapper launches its CUDA kernel (``csrc/lab.cu``) for CUDA tensors,
 counts the launch in ``.launches``, and runs its plain twin only for CPU
@@ -46,11 +48,24 @@ MODES = ("base", "noshift", "halftrip", "skipempty", "unroll2")  # L1, in
 # the order of csrc/lab.cu's modes
 EXACT_MODES = ("base", "skipempty", "unroll2")
 RUN = 8               # adjacent x positions an L1/L2 thread owns (kRun)
-MAX_TQ = 256          # queries an L4 block holds at most (kMaxQueries)
+MAX_TQ = 256          # queries an L4 block holds at most (4 warpgroups)
+NN_SLOTS = 16         # L4's TF32 operand slots a point: two k8 steps
+NN_TILE = 128         # reference rows a tile of L4's walk (wgmma's n128)
 PLAIN_BLOCK = 1024    # queries a step of L4's twin takes
 NEAR_TIE_REL = 1e-3   # the lab's near-tie rule: d2 gap / max(d2, 1)
 D2_CANCEL = 1e-5      # L4's d2 limit, a share of |q|^2 + |r|^2 (near_tie)
 _SMEM_LIMIT = 48 * 1024   # dynamic shared memory without an opt-in
+# float32 bit patterns at the edges of TF32 rounding (:func:`tf32_round`):
+# exact, halfway (ties away from zero), a bit under and over halfway, both
+# signs, +-0, just under a power of two (rounding up carries into the
+# exponent), a subnormal halfway, the TPU lab's padding value 3e9, -100,
+# and past the largest finite TF32 value (rounds to infinity); infinity and
+# NaN stay as they are.
+TF32_EDGE_BITS = (0x3F800000, 0x3F801000, 0x3F800FFF, 0x3F801001,
+                  0x3F803000, 0xBF801000, 0xBF800FFF, 0xBF803000,
+                  0x00000000, 0x80000000, 0x3F7FF000, 0x3F7FEFFF,
+                  0xBF7FF000, 0x00001000, 0x4F32D05E, 0xC2C80000,
+                  0x7F7FFFFF, 0x7F800000, 0x7FC00000)
 
 
 def fixture_like(seed=0, n=1024, f=126, nb=13, hd=30, wd=40, c=1024,
@@ -447,17 +462,120 @@ def local_variant(planes: torch.Tensor, table_k, px0: torch.Tensor,
 local_variant.launches = 0
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    10 mantissa bits, to nearest with ties away from zero, on the bits
+    (magnitude + 2^12, the low 13 bits cleared; a carry into the exponent
+    is the next binade, past the largest finite value infinity).  The
+    tensor core reads a float32 register as TF32 by dropping those 13 bits,
+    so it reads the rounded value as it is.  NaN stays NaN."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    mag = u & 0x7FFFFFFF
+    out = torch.where(mag > 0x7F800000, u,
+                      (u & 0x80000000) | ((mag + 0x1000) & 0x7FFFE000))
+    return (out - ((out >> 31) << 32)).to(torch.int32).view(torch.float32)
+
+
+def _split(p: torch.Tensor):
+    """(hi, lo): hi = tf32(p), lo = tf32(p - hi) (the difference exact)."""
+    hi = tf32_round(p)
+    return hi, tf32_round(p - hi)
+
+
+def _norm_pieces(p: torch.Tensor) -> torch.Tensor:
+    """(N, 3): the float32 norm (x*x + y*y) + z*z in three TF32 pieces
+    that sum to it exactly (each remainder is exact in float32)."""
+    v = p[:, 0] * p[:, 0] + p[:, 1] * p[:, 1] + p[:, 2] * p[:, 2]
+    n0 = tf32_round(v)
+    r = v - n0
+    n1 = tf32_round(r)
+    return torch.stack([n0, n1, tf32_round(r - n1)], dim=1)
+
+
+def nn_operands_plain(query: torch.Tensor, ref: torch.Tensor):
+    """Twin of L4's operand kernel, in logical order: (A (Nq, 16), B
+    (Nr_pad, 16)) float32 holding TF32 values, Nr_pad = Nr rounded up to
+    :data:`NN_TILE` (rows past Nr 0).  Two k8 steps (hi/lo of
+    :func:`_split`, n0..n2 of :func:`_norm_pieces`)::
+
+        A = [-2q_hi, -2q_lo, qn0, qn1 | -2q_hi, qn2, 1, 1, 1, 0]
+        B = [r_hi, r_hi, 1, 1         | r_lo, 1, rn0, rn1, rn2, 0]
+
+    so A @ B.T = (|q|^2 + |r|^2) - 2 (hi.hi + lo.hi + hi.lo): d2 with the
+    dot at float32 accuracy; every product is exact in float32."""
+    nr = ref.shape[0]
+    nr_pad = -(-nr // NN_TILE) * NN_TILE
+    qh, ql = _split(query)
+    rh, rl = _split(ref)
+    qn, rn = _norm_pieces(query), _norm_pieces(ref)
+
+    def const(n, v, k):
+        return torch.full((n, k), v, dtype=torch.float32, device=ref.device)
+
+    nq = query.shape[0]
+    a = torch.cat([-2 * qh, -2 * ql, qn[:, :2], -2 * qh, qn[:, 2:],
+                   const(nq, 1.0, 3), const(nq, 0.0, 1)], dim=1)
+    b = torch.zeros((nr_pad, NN_SLOTS), dtype=torch.float32,
+                    device=ref.device)
+    b[:nr] = torch.cat([rh, rh, const(nr, 1.0, 2), rl, const(nr, 1.0, 1),
+                        rn, const(nr, 0.0, 1)], dim=1)
+    return a, b
+
+
+def tile_order(b: torch.Tensor) -> torch.Tensor:
+    """Logical (Nr_pad, 16) B -> the kernel's tile order, (Nr_pad / 8, k
+    step, k half, row, 4): wgmma's no-swizzle K-major layout, 8-row core
+    matrices of 16 bytes a row, so a tile of :data:`NN_TILE` rows is one
+    piece of 64 bytes a row."""
+    return b.reshape(-1, 8, 2, 2, 4).permute(0, 2, 3, 1, 4).contiguous()
+
+
+def _require_points(query: torch.Tensor, ref: torch.Tensor, dev) -> None:
+    for name, t in (("query", query), ("ref", ref)):
+        _build.require(t, name, torch.float32, 2, dev)
+        if t.shape[1] != 3:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"(N, 3)")
+
+
+def nn_operands(query: torch.Tensor, ref: torch.Tensor):
+    """L4's operands, written once a call: (A (Nq, 16), B in
+    :func:`tile_order`, (Nr_pad / 8, 2, 2, 8, 4)) float32.  CUDA tensors
+    run ``fl_lab_nn_operands``; CPU tensors :func:`nn_operands_plain`."""
+    if query.device.type == "cpu":
+        a, b = nn_operands_plain(query, ref)
+        return a, tile_order(b)
+    _require_device(query, "nn_operands")
+    dev = query.device
+    _require_points(query, ref, dev)
+    nq, nr = query.shape[0], ref.shape[0]
+    nr_pad = -(-nr // NN_TILE) * NN_TILE
+    a = torch.empty((nq, NN_SLOTS), dtype=torch.float32, device=dev)
+    b = torch.empty((nr_pad // 8, 2, 2, 8, 4), dtype=torch.float32,
+                    device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.fl_lab_nn_operands(query.data_ptr(), nq, ref.data_ptr(), nr,
+                                    nr_pad, a.data_ptr(), b.data_ptr(),
+                                    _stream(dev))
+    _build.check(rc, "nn_operands")
+    return a, b
+
+
 def nn_mxu(query: torch.Tensor, ref: torch.Tensor, tq: int = 256,
-           tr: int = 2048):
+           tr: int = 2048, prepared=None):
     """L4: index and squared distance of the nearest ``ref`` row per
     ``query`` row, (idx (Nq,) int32, d2 (Nq,) f32), both (N, 3) float32,
     d2 in the matrix form of :func:`nn_mxu_plain`.  A block takes ``tq``
-    queries (a multiple of 32, at most :data:`MAX_TQ`) against ``tr``
-    reference rows (the lab's tiles), keeping the first minimum within
-    them; blocks are merged in reference order with a strict "<".  CUDA
-    tensors run ``fl_lab_nn_mma`` (tensor cores, three TF32 passes); CPU
-    tensors :func:`nn_mxu_plain`.  Near-ties may pick another index than
-    K3's."""
+    queries (a multiple of 32, at most :data:`MAX_TQ`; ceil(tq / 64)
+    warpgroups of 64) against ``tr`` reference rows (the lab's tiles; the
+    kernel walks ``tr`` rounded up to :data:`NN_TILE`), keeping the first
+    minimum within them; blocks are merged in reference order with a
+    strict "<".  The wrapper writes the operands (:func:`nn_operands`)
+    unless ``prepared`` gives them (the kernel alone).  CUDA tensors run
+    ``fl_lab_nn_mma`` (one TF32 wgmma product whose accumulator is d2);
+    CPU tensors :func:`nn_mxu_plain`.  Near-ties may pick another index
+    than K3's."""
     if tq % 32 or not 32 <= tq <= MAX_TQ or tr < 1:
         raise ValueError(f"tiles tq={tq}, tr={tr}: tq must be a multiple of "
                          f"32 in [32, {MAX_TQ}] and tr positive")
@@ -467,20 +585,26 @@ def nn_mxu(query: torch.Tensor, ref: torch.Tensor, tq: int = 256,
         return nn_mxu_plain(query, ref)
     _require_device(query, "nn_mxu")
     dev = query.device
-    for name, t in (("query", query), ("ref", ref)):
-        _build.require(t, name, torch.float32, 2, dev)
-        if t.shape[1] != 3:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"(N, 3)")
+    _require_points(query, ref, dev)
     nq, nr = query.shape[0], ref.shape[0]
     idx = torch.empty(nq, dtype=torch.int32, device=dev)
     d2 = torch.empty(nq, dtype=torch.float32, device=dev)
     if nq == 0:
         return idx, d2
-    nchunks = -(-nr // tr)
+    chunk = -(-tr // NN_TILE) * NN_TILE
+    nchunks = -(-nr // chunk)
     if nchunks > 65535:
         raise ValueError(f"{nr} reference rows make {nchunks} blocks of "
-                         f"{tr}, more than a grid's 65535")
+                         f"{chunk}, more than a grid's 65535")
+    a_op, b_op = prepared if prepared is not None else \
+        nn_operands(query, ref)
+    _build.require(a_op, "A operand", torch.float32, 2, dev)
+    _build.require(b_op, "B operand", torch.float32, 5, dev)
+    if a_op.shape != (nq, NN_SLOTS) or \
+            b_op.shape != (-(-nr // NN_TILE) * NN_TILE // 8, 2, 2, 8, 4):
+        raise ValueError(f"prepared {tuple(a_op.shape)}, "
+                         f"{tuple(b_op.shape)} do not fit {nq} queries and "
+                         f"{nr} reference rows")
     part_idx = part_d2 = None
     if nchunks > 1:
         part_idx = torch.empty((nchunks, nq), dtype=torch.int32, device=dev)
@@ -488,7 +612,7 @@ def nn_mxu(query: torch.Tensor, ref: torch.Tensor, tq: int = 256,
     lib = _build.library()
     with torch.cuda.device(dev):
         rc = lib.fl_lab_nn_mma(
-            query.data_ptr(), nq, ref.data_ptr(), nr, tq, tr, nchunks,
+            a_op.data_ptr(), nq, b_op.data_ptr(), nr, tq, chunk, nchunks,
             None if part_idx is None else part_idx.data_ptr(),
             None if part_d2 is None else part_d2.data_ptr(),
             idx.data_ptr(), d2.data_ptr(), _stream(dev))
