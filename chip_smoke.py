@@ -133,7 +133,8 @@ Phases, one line of output each (or a few):
    bitwise equal to their twins on the lab's coarse inputs and edge cases
    (``lab_coarse_cases``: odd bucket counts, Wd = 37, Hd = 1,
    featureless templates, every feature at the largest offsets, 4096
-   feature slots on u8 up to 255, misaligned planes), L3 (its four
+   feature slots on u8 up to 255, 300 features a bucket on planes all
+   255, misaligned planes), L3 (its four
    settings) on ``lab_local_cases`` (negative and border origins, Wd =
    125, misaligned planes, 4096 slots, K = 1 and 0), L4 against its twin
    and K3 by the lab's near-tie rule on ``lab_nn_cases`` (16384 x 16384,
@@ -1702,8 +1703,11 @@ def lab_coarse_cases(planes, table, slots: int = 4096):
     with every feature in the last bucket at the largest offsets (rx = ry
     = NB - 1, the bottom and right edges); with ``slots`` feature slots a
     template in 4 buckets (4096: up to 1024 in one bucket, so the packed
-    lanes flush inside a bucket), on u8 up to 255; and on planes 1, 2 and
-    3 bytes past a 4-byte boundary.  noshift reads whole words, so only
+    lanes flush inside a bucket), on u8 up to 255; on planes all 255 with
+    300 live features in each bucket (``lab.crowded_table``: a lane that
+    takes more than 257 adds between flushes overflows, so a flush count
+    carried wrongly across buckets shows); and on planes 1, 2 and 3 bytes
+    past a 4-byte boundary.  noshift reads whole words, so only
     where the planes start on a boundary and hold a multiple of 4
     bytes."""
     import torch
@@ -1722,6 +1726,8 @@ def lab_coarse_cases(planes, table, slots: int = 4096):
     edge["ry"][:] = nb - 1
     wide = lab.fixture_like(seed=3, n=8, f=slots, nb=4, hd=hd, wd=wd, c=c,
                             device=dev)[1]
+    crowded = lab.crowded_table(n=8, per_bucket=min(300, slots // nb),
+                                nb=nb, f=slots, c=c, device=dev)
     g = torch.Generator(device=dev).manual_seed(9)
     loud = torch.randint(0, 256, planes.shape, generator=g,
                          dtype=torch.uint8, device=dev)
@@ -1729,7 +1735,8 @@ def lab_coarse_cases(planes, table, slots: int = 4096):
     inputs = [(planes, table), (planes, odd),
               (planes[:, :, :37].contiguous(), table),
               (planes[:, :1].contiguous(), table), (planes, none),
-              (planes, edge), (loud, wide)]
+              (planes, edge), (loud, wide),
+              (torch.full_like(planes, 255), crowded)]
     inputs += [(flat[k:k + planes.numel()].view(planes.shape), table)
                for k in (1, 2, 3)]
     cases = {"coarse_variant": [], "coarse_stride2": []}

@@ -13,14 +13,15 @@
 // rx % stride.  L1 (stride 1) reads the table's starts; on a bucketed
 // table (rx == b in bucket b) col is the feature's rx and the sum is K1's.
 // Modes (ops/lab.MODES): base; skipempty (an empty bucket is skipped
-// before its set-up); unroll2 (two features an iteration; even starts);
-// halftrip (rows [lo, lo + (hi - lo) / 2) of each bucket); noshift (no
-// byte alignment and no mask: the aligned words holding the run,
-// unshifted; wrong by design).  L2 (stride 2) reads the lab's stride-2
-// starts over a stack of two copies, the planes and the planes shifted
-// one column (out[..., x] = in[..., x + 1], 0 at Wd - 1): an odd-rx
-// feature's offset moves by one copy, so both columns of a bucket share
-// one alignment.
+// before its set-up: the walk below reaches no empty bucket in any mode,
+// so it runs base's code); unroll2 (two features an iteration, one
+// bucket check a pair; even starts); halftrip (rows [lo, lo + (hi - lo) /
+// 2) of each bucket); noshift (no byte alignment and no mask: the aligned
+// words holding the run, unshifted; wrong by design).  L2 (stride 2)
+// reads the lab's stride-2 starts over a stack of two copies, the planes
+// and the planes shifted one column (out[..., x] = in[..., x + 1], 0 at
+// Wd - 1): an odd-rx feature's offset moves by one copy, so both columns
+// of a bucket share one alignment.
 //
 // L3 fl_lab_local replaces kernel_lab.py:419 _local_variant_run (call
 // :467).  Contract: K2's (score.cu, fl_local_scores), the 16 x 16 window
@@ -38,35 +39,54 @@
 // max(d2_K3, 1)).
 //
 // What bounds them on this card.  L1/L2 are K1's work (one integer add per
-// live feature and output position, ~7.6e7 at the lab's 1024 x 30 x 40 x
+// live feature and output position, ~3.2e7 at the lab's 1024 x 30 x 40 x
 // ~26 features) out of an L2-resident 1.2 MB plane stack: instruction
-// issue and L1/L2 load throughput, as K1.  The bucket walk adds a set-up
-// and a flush per bucket (13 at the lab's shapes, ~2 features each).  L3
-// is K2's tiny work (64 windows), bound by latency.  L4 at 16384 x 16384
-// is 2.7e8 pairs.  Any form needs the dot at float32 accuracy (three TF32
-// passes of a 3-long dot, 18 operations a pair: ~0.0098 ms at 495 TFLOP/s)
-// and one compare and one select a pair on the CUDA cores (~0.0080 ms at
-// 67 TFLOP/s); the norms and the -2 can ride in the product, as here.  So
-// the dot bounds it (ops/bounds.py).  This kernel's product has 16 slots
-// (32 operations a pair, 0.0174 ms at the peak).  On the card compares
-// and selects run on the half-rate ALU pipe, so the epilogue keeps one
-// compare a pair there and moves the rest to the FMA pipe (scan, below).
+// issue, L1 load throughput and the latency of each thread's chain of
+// loads, as K1.  L3 is K2's tiny work (64 windows), bound by latency.
+// L4 at 16384 x 16384 is 2.7e8 pairs.  Any form needs the dot at float32
+// accuracy (three TF32 passes of a 3-long dot, 18 operations a pair:
+// ~0.0098 ms at 495 TFLOP/s) and one compare and one select a pair on
+// the CUDA cores (~0.0080 ms at 67 TFLOP/s); the norms and the -2 can
+// ride in the product, as here.  So the dot bounds it (ops/bounds.py).
+// This kernel's product has 16 slots (32 operations a pair, 0.0174 ms at
+// the peak).  On the card compares and selects run on the half-rate ALU
+// pipe, so the epilogue keeps one compare a pair there and moves the rest
+// to the FMA pipe (scan, below).
 //
-// L1/L2 design: K1's mapping (a block a template, a thread kRun adjacent x
-// positions of a row, the table staged in shared memory, kRun/4 + 1
-// aligned 32-bit loads and a funnel shift a feature, bytes added as packed
-// 16-bit lanes).  What changes is the walk: the bucket starts are staged
-// too, and a bucket's column, alignment and row-end masks for x0 + col
-// are worked out once per bucket (the Hopper meaning of the TPU's
-// per-bucket lane shift).  Where Wd is a multiple of 4 every staged
-// offset (c*Hd*Wd + ry*Wd, plus a copy for odd rx) is too, so the funnel
-// shift amount and the aligned start are per bucket; otherwise the shift
-// is taken per feature as in K1.  A feature then costs a broadcast load,
-// an add, the loads and shifts, and a row compare that selects the
-// bucket's mask or 0.  The packed lanes are flushed into int32 totals at
-// the end of each bucket (and every kFlush features within one), so no
-// lane overflows for any u8 input; integer sums are order-free, so the
-// results are bitwise equal to the twins.
+// L1/L2 design: K1's mapping (a block a template, 160 threads at the
+// lab's shapes, a thread kRun adjacent x positions of a row, kRun/4 + 1
+// aligned 32-bit loads and a funnel shift a feature, bytes added as
+// packed 16-bit lanes), with the walk rebuilt so that no bucket boundary
+// stops the loads:
+// - The block stages only the live slots [starts[0], starts[NB]) (K1
+//   stages its nvalid): the starts first, then the slots in walk order,
+//   each with its bucket's column folded into its offset (where Wd is a
+//   multiple of 4, the column's word part: every offset c*Hd*Wd + ry*Wd,
+//   a copy and y*Wd + x0 is then a multiple of 4) and the bucket's index
+//   beside ry.  A feature's load address is then its entry plus the
+//   thread's y*Wd + x0, whatever its bucket.
+// - The walk is one loop over the staged features in groups of kDepth = 4:
+//   the group's 12 loads issue before any of its adds, across bucket
+//   boundaries.  A thread sets a bucket up once, when the walk reaches its
+//   first feature (a uniform branch, the same for every thread): the
+//   funnel shift (where Wd is a multiple of 4 the byte alignment of x0 +
+//   col is the bucket's, the Hopper meaning of the TPU's per-bucket lane
+//   shift; otherwise the shift is taken per feature as in K1) and the
+//   row-end masks for x0 + col as even- and odd-lane masks.  A feature
+//   then costs a broadcast load, an add and three clamped loads, two
+//   funnel shifts, and four three-input ANDs (lane, mask, row past the
+//   plane as a sign mask) into the lanes.
+// - The lanes are flushed once every kFlush = 256 features of the whole
+//   walk, wherever the buckets end (a 16-bit lane holds 257 adds of 255);
+//   a flush before the last adds to the partial sums kept in out, and the
+//   last writes out with 16-byte stores where Wd is a multiple of 4.
+//   Integer sums are order-free, so the results are bitwise equal to the
+//   twins.
+// - Tried on the card and slower (PERF.md §6): loads predicated on the
+//   row instead of the mask, 8-byte load pairs, deeper groups or two
+//   groups in flight (more registers, fewer blocks a SM), skipping the
+//   third word of a 4-aligned bucket, and unclamped loads behind a
+//   staged bound check (the branch breaks the group's batch of loads).
 //
 // L3 design: K2's block (256 threads: 8 slices x 16 window rows x 2 lanes,
 // 8 window columns a thread, 3 word loads and funnel shifts a feature,
@@ -128,6 +148,7 @@ constexpr int kRun = 8;              // adjacent x positions a thread
 constexpr int kWords = kRun / 4;
 constexpr int kMaxThreads = 256;
 constexpr int kFlush = 256;          // features per packed-lane flush
+constexpr int kDepth = 4;            // features whose loads issue together
 
 enum Mode { kBase = 0, kNoShift = 1, kHalfTrip = 2, kSkipEmpty = 3,
             kUnroll2 = 4 };          // ops/lab.MODES
@@ -145,123 +166,199 @@ struct CoarseArgs {
   int32_t* out;
 };
 
-template <int kMode, bool kAligned>
-__device__ __forceinline__ void coarse_feature(
-    const int2 e, const uint8_t* base, unsigned lim, int ylim, unsigned tb,
-    unsigned ab, unsigned shb, const uint32_t (&mask)[kWords],
-    uint32_t (&lo)[kWords], uint32_t (&hi)[kWords]) {
-  unsigned a, sh;
-  if (kAligned) {
-    a = static_cast<unsigned>(e.x) + ab;
-    sh = shb;
-  } else {
-    const unsigned t = static_cast<unsigned>(e.x) + tb;
-    a = t & ~3u;
-    sh = t << 3;
+// A bucket's set-up for one thread: the funnel shift that brings the run's
+// first byte to bit 0 (aligned planes; otherwise it is taken per feature)
+// and the valid bits of the run's words, 8 * (Wd - x0 - col) from its
+// first byte, as the even and the odd bytes' 16-bit lanes.
+struct Setup {
+  unsigned sh;
+  uint32_t even[kWords], odd[kWords];
+};
+
+__device__ __forceinline__ Setup bucket_setup(int col, int xlim,
+                                              unsigned mis) {
+  Setup s;
+  s.sh = ((mis + static_cast<unsigned>(col)) & 3u) << 3;
+  const int n8 = (xlim - col) * 8;
+#pragma unroll
+  for (int q = 0; q < kWords; ++q) {
+    const uint32_t m = __funnelshift_lc(
+        0xFFFFFFFFu, 0u, static_cast<unsigned>(max(n8 - 32 * q, 0)));
+    s.even[q] = m & 0x00FF00FFu;
+    s.odd[q] = (m >> 8) & 0x00FF00FFu;
   }
+  return s;
+}
+
+// A feature's loads, which need no set-up: kWords + 1 aligned words from
+// the one holding the run's first byte (noshift: kWords), each clamped to
+// the stack's last word.  t: the run's first byte.
+template <int kMode, bool kAligned>
+__device__ __forceinline__ void feature_words(
+    const int2 e, const uint8_t* __restrict__ base, unsigned run, unsigned lim,
+    uint32_t (&w)[kWords + 1], unsigned& t) {
+  t = static_cast<unsigned>(e.x) + run;
+  const unsigned a = kAligned ? t : (t & ~3u);
+  w[kWords] = 0u;
+#pragma unroll
+  for (int q = 0; q < (kMode == kNoShift ? kWords : kWords + 1); ++q)
+    w[q] = __ldg(reinterpret_cast<const unsigned int*>(
+        base + min(a + 4u * q, lim)));
+}
+
+// A feature's adds into the packed 16-bit lanes, under the set-up of its
+// bucket; a row past the plane (ry >= Hd - y) adds nothing.
+template <int kMode, bool kAligned>
+__device__ __forceinline__ void feature_add(
+    const uint32_t (&w)[kWords + 1], unsigned t, int ey, int ylim16,
+    const Setup& s, uint32_t (&lo)[kWords], uint32_t (&hi)[kWords]) {
   if (kMode == kNoShift) {
 #pragma unroll
     for (int q = 0; q < kWords; ++q) {
-      const uint32_t v =
-          *reinterpret_cast<const uint32_t*>(base + min(a + 4u * q, lim));
-      lo[q] += v & 0x00FF00FFu;
-      hi[q] += (v >> 8) & 0x00FF00FFu;
+      lo[q] += w[q] & 0x00FF00FFu;
+      hi[q] += (w[q] >> 8) & 0x00FF00FFu;
     }
     return;
   }
-  const bool live = e.y < ylim;   // the row y + ry lies on the plane
-  uint32_t w[kWords + 1];
-#pragma unroll
-  for (int q = 0; q <= kWords; ++q)
-    w[q] = *reinterpret_cast<const uint32_t*>(base + min(a + 4u * q, lim));
+  const uint32_t live = static_cast<uint32_t>((ey - ylim16) >> 31);
+  const unsigned sh = kAligned ? s.sh : t << 3;
 #pragma unroll
   for (int q = 0; q < kWords; ++q) {
-    const uint32_t v =
-        __funnelshift_r(w[q], w[q + 1], sh) & (live ? mask[q] : 0u);
-    lo[q] += v & 0x00FF00FFu;
-    hi[q] += (v >> 8) & 0x00FF00FFu;
+    const uint32_t v = __funnelshift_r(w[q], w[q + 1], sh);
+    lo[q] += v & s.even[q] & live;
+    hi[q] += (v >> 8) & s.odd[q] & live;
   }
 }
 
 template <int kMode, bool kAligned>
 __global__ void __launch_bounds__(kMaxThreads)
 lab_coarse_kernel(const CoarseArgs p) {
-  extern __shared__ int2 tab[];   // nf staged features, then nb1 starts
+  extern __shared__ int2 tab[];   // the walk's features, then nb1 starts
   int* sb = reinterpret_cast<int*>(tab + p.nf);
   const int n = blockIdx.x;
+  const int nbk = p.nb1 - 1;
+  const int32_t* st = p.starts + (size_t)n * p.nb1;
+  for (int b = threadIdx.x; b < p.nb1; b += blockDim.x)
+    sb[b] = min(max(st[b], 0), p.nf);
+  const int f0 = min(max(st[0], 0), p.nf);
+  const int f1 = max(min(max(st[nbk], 0), p.nf), f0);
+  const unsigned mis = static_cast<unsigned>(
+      reinterpret_cast<uintptr_t>(p.stack) & 3u);
   const unsigned plane = static_cast<unsigned>(p.hd * p.wd);
   const size_t row = (size_t)n * p.nf;
-  for (int f = threadIdx.x; f < p.nf; f += blockDim.x) {
+  __syncthreads();
+  // Stage the live slots [f0, f1) in walk order (halftrip: the first half
+  // of each bucket, compacted): {c*Hd*Wd + ry*Wd (+ a copy for an odd rx
+  // in L2) + the bucket's column (aligned planes: its word part); ry << 16
+  // | bucket}.
+  int nwalk = f1 - f0;
+  if (kMode == kHalfTrip) {
+    nwalk = 0;
+    for (int k = 0; k < nbk; ++k) nwalk += max((sb[k + 1] - sb[k]) / 2, 0);
+    nwalk = min(nwalk, p.nf);
+  }
+  for (int f = f0 + threadIdx.x; f < f1; f += blockDim.x) {
     const int ry = p.tr[row + f];
     unsigned off = static_cast<unsigned>(p.tc[row + f]) * plane +
                    static_cast<unsigned>(ry * p.wd);
     if (p.stride == 2)
       off += static_cast<unsigned>(p.tx[row + f] & 1) * p.copy;
-    tab[f] = make_int2(static_cast<int>(off), ry);
+    int j = 0;   // the feature's bucket: the last start at or below it
+    for (int k = 1; k < nbk; ++k) j += sb[k] <= f;
+    int pos = f - f0;
+    if (kMode == kHalfTrip) {
+      const int lo = sb[j], half = (sb[j + 1] - lo) / 2;
+      if (f < lo || f - lo >= half) continue;
+      pos = f - lo;
+      for (int k = 0; k < j; ++k) pos += max((sb[k + 1] - sb[k]) / 2, 0);
+      if (pos >= nwalk) continue;
+    }
+    const unsigned col = mis + static_cast<unsigned>(p.stride * j);
+    tab[pos] = make_int2(static_cast<int>(off + (kAligned ? col & ~3u : col)),
+                         (ry << 16) | j);
   }
-  for (int b = threadIdx.x; b < p.nb1; b += blockDim.x)
-    sb[b] = min(max(p.starts[(size_t)n * p.nb1 + b], 0), p.nf);
   __syncthreads();
   const int g = blockIdx.y * blockDim.x + threadIdx.x;
   if (g >= p.hd * p.groups) return;
   const int y = g / p.groups;
   const int x0 = (g - y * p.groups) * kRun;
   // byte offsets from the 4-byte-aligned address at or below the stack
-  const unsigned mis = static_cast<unsigned>(
-      reinterpret_cast<uintptr_t>(p.stack) & 3u);
   const uint8_t* base = p.stack - mis;
   const unsigned lim = (mis + p.last_byte) & ~3u;
-  const unsigned run0 = mis + static_cast<unsigned>(y * p.wd + x0);
-  const int ylim = p.hd - y;
-  int32_t total[kRun] = {};
-  const int nbk = p.nb1 - 1;
-  for (int j = 0; j < nbk; ++j) {
-    const int lo_f = sb[j];
-    int hi_f = sb[j + 1];
-    if (kMode == kHalfTrip) hi_f = lo_f + (hi_f - lo_f) / 2;
-    if (kMode == kSkipEmpty && lo_f >= hi_f) continue;
-    // the bucket's set-up: its column, the alignment of x0 + col, and the
-    // valid bits of the run from its first byte, 8 * (Wd - x0 - col)
-    const int col = p.stride * j;
-    const unsigned tb = run0 + static_cast<unsigned>(col);
-    const unsigned ab = tb & ~3u;
-    const unsigned shb = tb << 3;
-    const int n8 = (p.wd - x0 - col) * 8;
-    uint32_t mask[kWords];
-#pragma unroll
-    for (int q = 0; q < kWords; ++q)
-      mask[q] = __funnelshift_lc(0xFFFFFFFFu, 0u,
-                                 static_cast<unsigned>(max(n8 - 32 * q, 0)));
-    int f = lo_f;
-    do {
-      const int f1 = min(f + kFlush, hi_f);
-      uint32_t lo[kWords] = {}, hi[kWords] = {};
-      if (kMode == kUnroll2) {
-        for (; f < f1; f += 2) {
-          coarse_feature<kMode, kAligned>(tab[f], base, lim, ylim, tb, ab,
-                                          shb, mask, lo, hi);
-          coarse_feature<kMode, kAligned>(tab[f + 1], base, lim, ylim, tb,
-                                          ab, shb, mask, lo, hi);
-        }
-      } else {
-#pragma unroll 4
-        for (; f < f1; ++f)
-          coarse_feature<kMode, kAligned>(tab[f], base, lim, ylim, tb, ab,
-                                          shb, mask, lo, hi);
-      }
-#pragma unroll
-      for (int q = 0; q < kWords; ++q) {
-        total[4 * q] += lo[q] & 0xFFFFu;
-        total[4 * q + 1] += hi[q] & 0xFFFFu;
-        total[4 * q + 2] += lo[q] >> 16;
-        total[4 * q + 3] += hi[q] >> 16;
-      }
-    } while (f < hi_f);
-  }
+  const unsigned run = static_cast<unsigned>(y * p.wd + x0);
+  const int ylim16 = (p.hd - y) << 16;
+  const int xlim = p.wd - x0;
+  int jc = -1;        // the bucket of the set-up in hand
+  Setup s = {};
+  const auto enter = [&](int ey) {   // uniform: one walk for all threads
+    const int j = ey & 0xFFFF;
+    if (j != jc) {
+      jc = j;
+      s = bucket_setup(p.stride * j, xlim, mis);
+    }
+  };
   int32_t* o = p.out + (size_t)n * plane + (size_t)y * p.wd + x0;
+  int c0 = 0;
+  do {   // chunks of kFlush features, whatever buckets they span
+    const int c1 = min(c0 + kFlush, nwalk);
+    uint32_t lo[kWords] = {}, hi[kWords] = {};
+    int f = c0;
+    for (; f + kDepth <= c1; f += kDepth) {
+      uint32_t w[kDepth][kWords + 1];
+      unsigned t[kDepth];
+      int ey[kDepth];
 #pragma unroll
-  for (int k = 0; k < kRun; ++k)
-    if (x0 + k < p.wd) o[k] = total[k];
+      for (int u = 0; u < kDepth; ++u) {
+        const int2 e = tab[f + u];
+        ey[u] = e.y;
+        feature_words<kMode, kAligned>(e, base, run, lim, w[u], t[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kDepth; ++u) {
+        if (kMode != kUnroll2 || u % 2 == 0) enter(ey[u]);
+        feature_add<kMode, kAligned>(w[u], t[u], ey[u], ylim16, s, lo, hi);
+      }
+    }
+    for (; f < c1; ++f) {
+      uint32_t w[kWords + 1];
+      unsigned t;
+      const int2 e = tab[f];
+      feature_words<kMode, kAligned>(e, base, run, lim, w, t);
+      enter(e.y);
+      feature_add<kMode, kAligned>(w, t, e.y, ylim16, s, lo, hi);
+    }
+    // the flush: the lanes' sums plus the earlier chunks' (kept in out)
+    int32_t v[kRun];
+#pragma unroll
+    for (int q = 0; q < kWords; ++q) {
+      v[4 * q] = lo[q] & 0xFFFFu;
+      v[4 * q + 1] = hi[q] & 0xFFFFu;
+      v[4 * q + 2] = lo[q] >> 16;
+      v[4 * q + 3] = hi[q] >> 16;
+    }
+    if (kAligned) {   // o is 16-byte aligned; x0 + 4k < Wd holds 4 more
+#pragma unroll
+      for (int k = 0; k < kRun / 4; ++k) {
+        if (x0 + 4 * k >= p.wd) break;
+        int4* o4 = reinterpret_cast<int4*>(o) + k;
+        int4 r = make_int4(v[4 * k], v[4 * k + 1], v[4 * k + 2],
+                           v[4 * k + 3]);
+        if (c0 > 0) {
+          const int4 prev = *o4;
+          r.x += prev.x;
+          r.y += prev.y;
+          r.z += prev.z;
+          r.w += prev.w;
+        }
+        *o4 = r;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kRun; ++k)
+        if (x0 + k < p.wd) o[k] = v[k] + (c0 > 0 ? o[k] : 0);
+    }
+    c0 = c1;
+  } while (c0 < nwalk);
 }
 
 template <int kMode>

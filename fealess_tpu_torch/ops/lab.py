@@ -98,6 +98,26 @@ def fixture_like(seed=0, n=1024, f=126, nb=13, hd=30, wd=40, c=1024,
     return torch.from_numpy(planes).to(device), table
 
 
+def crowded_table(seed=11, n=8, per_bucket=300, nb=13, f=4096, c=1024,
+                  device="cuda"):
+    """A bucketed table of N templates x F slots with ``per_bucket`` live
+    features in every one of its ``nb`` buckets (rx the bucket, ry 0, c
+    drawn in [0, C) from ``seed``): on planes all 255 a walk that flushed
+    its packed 16-bit lanes only at bucket ends would overflow them (300
+    adds of 255 > 65535), so only a flush every 256 features of the whole
+    walk keeps the sums exact."""
+    if per_bucket * nb > f:
+        raise ValueError(f"{per_bucket} x {nb} features exceed {f} slots")
+    rng = np.random.default_rng(seed)
+    rx = np.zeros((n, f), np.int64)
+    rx[:, :per_bucket * nb] = np.repeat(np.arange(nb), per_bucket)
+    arrays = (("c", rng.integers(0, c, (n, f))), ("ry", np.zeros((n, f))),
+              ("rx", rx),
+              ("bstart", np.tile(per_bucket * np.arange(nb + 1), (n, 1))))
+    return {k: torch.from_numpy(v.astype(np.int32)).to(device)
+            for k, v in arrays}
+
+
 def bucket_starts(bstart: torch.Tensor, stride: int) -> torch.Tensor:
     """Stride-1 bucket starts -> stride-``stride`` ones (bucket j spans rx
     in [stride*j, stride*(j+1)): rows bstart[stride*j] to

@@ -162,6 +162,43 @@ def test_halftrip_twin_equals_xla_on_halved_table(jax_side, name):
         pj, _jax_table(jax_side.jnp, tp))))
 
 
+CROWDED = dict(n=2, per_bucket=300, nb=13, f=4000, c=8)
+
+
+def test_crowded_table_fills_every_bucket():
+    table = lab.crowded_table(**CROWDED, device="cpu")
+    bstart = table["bstart"]
+    assert bstart.shape == (2, 14) and bool((bstart == 300 * torch.arange(
+        14, dtype=torch.int32)).all())
+    for b in range(13):
+        assert bool((table["rx"][:, 300 * b:300 * (b + 1)] == b).all())
+    assert bool((table["ry"] == 0).all())
+    assert int(table["c"].min()) >= 0 and int(table["c"].max()) < 8
+    with pytest.raises(ValueError, match="exceed"):
+        lab.crowded_table(per_bucket=316, nb=13, f=4096, device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["base", "skipempty", "unroll2",
+                                  "stride2-se0", "stride2-se1"])
+def test_crowded_twins_equal_xla(jax_side, mode):
+    """Planes all 255 and 300 live features in each of 13 buckets (the
+    flush case of chip_smoke's lab_coarse_cases): the exact twins equal
+    K1's sum, and the sums exceed what a 16-bit lane holds, 257 adds of
+    255, so a walk that flushed less often than every 257 features
+    would differ."""
+    planes = torch.full((8, 6, 16), 255, dtype=torch.uint8)
+    table = lab.crowded_table(**CROWDED, device="cpu")
+    want = np.asarray(jax_side.sp._coarse_scores_xla(
+        jax_side.jnp.asarray(planes.numpy()),
+        _jax_table(jax_side.jnp, table)))
+    assert want.max() > 257 * 255
+    if mode.startswith("stride2"):
+        got = lab.coarse_stride2(planes, table, mode.endswith("1"))
+    else:
+        got = lab.coarse_variant(planes, table, mode)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_noshift_twin_follows_its_word_rule():
     """The ``noshift`` twin against its docstring's rule, walked in numpy
     position by position: byte i of the aligned word q of the run."""
@@ -506,8 +543,8 @@ def test_phase9_checks_rehearse_on_cpu(monkeypatch):
     errs = {}
     coarse_cases = chip_smoke.lab_coarse_cases(*coarse, slots=600)
     local_cases = chip_smoke.lab_local_cases(*local, slots=300)
-    assert len(coarse_cases["coarse_variant"]) == 45
-    assert len(coarse_cases["coarse_stride2"]) == 20
+    assert len(coarse_cases["coarse_variant"]) == 50
+    assert len(coarse_cases["coarse_stride2"]) == 22
     assert len(local_cases) == 32
     chip_smoke.hold_to_twins(coarse_cases, errs, "CPU")
     chip_smoke.hold_to_twins({"local_variant": local_cases}, errs, "CPU")
@@ -531,6 +568,18 @@ def test_coarse_kernels_equal_twins_on_card(card):
     want = score.coarse_scores(planes, table)
     for skip in (False, True):
         assert torch.equal(lab.coarse_stride2(planes, table, skip), want)
+    full = torch.full_like(planes, 255)
+    crowded = lab.crowded_table(device=card)
+    want = score.coarse_scores(full, crowded)
+    assert int(want.max()) > 257 * 255
+    for mode in lab.MODES:
+        got = lab.coarse_variant(full, crowded, mode)
+        assert torch.equal(got, lab.coarse_variant_plain(full, crowded,
+                                                         mode)), mode
+        if mode in lab.EXACT_MODES:
+            assert torch.equal(got, want), mode
+    for skip in (False, True):
+        assert torch.equal(lab.coarse_stride2(full, crowded, skip), want)
 
 
 @pytest.mark.cuda
