@@ -1759,7 +1759,14 @@ def lab_local_cases(planes, table_k, px0, py0, slots: int = 4096):
     windows past the plane's right and bottom edges; planes 125 columns
     wide (Wd not a multiple of 4); planes 1 byte past a 4-byte boundary;
     ``slots`` feature slots a candidate (4096: up to 105 a bucket at the
-    lab's 39) on u8 up to 255; one candidate and none."""
+    lab's 39) on u8 up to 255; one candidate and none; planes all 255 with
+    300 live features in each of 13 buckets (``lab.crowded_table``, 3900
+    a candidate: each slice's range holds 488, so a slice that flushed its
+    packed lanes less often than every 257 features would overflow them);
+    and the stride-2 edges where the TPU's shifted copy zeroed the last
+    column, candidate i's stride-2 bucket j = i % ceil(NB / 2) read from
+    px0 + 2j + 1 = Wd - 1 and = Wd, on the planes, at Wd = 125 and 1 byte
+    past a 4-byte boundary."""
     import torch
     from fealess_tpu_torch.ops import lab
     c, hd, wd = planes.shape
@@ -1769,21 +1776,30 @@ def lab_local_cases(planes, table_k, px0, py0, slots: int = 4096):
     far = torch.arange(k, device=dev, dtype=torch.int32) % 3 * 7
     wide = lab.fixture_like(seed=5, n=8, f=slots, nb=nb, hd=hd, wd=wd, c=c,
                             device=dev)[1]
+    crowded = lab.crowded_table(n=8, per_bucket=min(300, slots // 13),
+                                nb=13, f=slots, c=c, device=dev)
     g = torch.Generator(device=dev).manual_seed(10)
     loud = torch.randint(0, 256, planes.shape, generator=g,
                          dtype=torch.uint8, device=dev)
     flat = torch.cat([planes.new_zeros(1), planes.reshape(-1)])
+    narrow = planes[:, :, :125].contiguous()
+    shifted = flat[1:1 + planes.numel()].view(planes.shape)
     inputs = [(planes, table_k, px0, py0),
               (planes, table_k, px0 - 20, py0 - 20),
               (planes, table_k, wd - 16 + far, hd - 16 + far),
-              (planes[:, :, :125].contiguous(), table_k, px0, py0),
-              (flat[1:1 + planes.numel()].view(planes.shape), table_k, px0,
-               py0),
+              (narrow, table_k, px0, py0),
+              (shifted, table_k, px0, py0),
               (loud, wide, px0[:8].contiguous(), py0[:8].contiguous()),
               (planes, {key: v[:1] for key, v in table_k.items()}, px0[:1],
                py0[:1]),
               (planes, {key: v[:0] for key, v in table_k.items()}, px0[:0],
-               py0[:0])]
+               py0[:0]),
+              (torch.full_like(planes, 255), crowded, px0[:8].contiguous(),
+               py0[:8].contiguous())]
+    j = torch.arange(k, device=dev, dtype=torch.int32) % -(-nb // 2)
+    for p in (planes, narrow, shifted):
+        inputs += [(p, table_k, p.shape[2] - 1 - end - 2 * j, py0)
+                   for end in (1, 0)]
     return [(lab.local_variant, lab.local_variant_plain,
              args + (stride, cond)) for args in inputs
             for stride, cond in ((1, False), (1, True), (2, False),
@@ -1910,6 +1926,34 @@ def hold_to_served(coarse_cases, local_cases) -> None:
           f"the same inputs")
 
 
+STRIDE2_EVENTS = """
+import json
+from fealess_tpu_torch.apps import kernel_lab
+from fealess_tpu_torch.ops import lab
+from fealess_tpu_torch.utils.profiling import profile_calls
+local = kernel_lab.local2_inputs("cuda")
+lab.local_variant(*local, 2, False)
+events = profile_calls(lambda: lab.local_variant(*local, 2, False),
+                       1).device_events
+print(json.dumps([e.name for e in events]))
+"""
+
+
+def stride2_call_events() -> list:
+    """The device events of one profiled stride-2 L3 call on the lab's
+    local2 inputs (``utils/profiling.profile_calls``), in a process of its
+    own.  In a process whose last profiler session ended 30 s or more
+    before (idle or busy in between), each later session loses the device
+    records of its first 0-4 kernels, while a process's first session
+    records every one (``apps/profile_check``); this process profiles in
+    phase 8, long before."""
+    out = subprocess.run([sys.executable, "-c", STRIDE2_EVENTS], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"the profiled stride-2 call failed: "
+          f"{out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 def lab_phase(card, errs, floor_ms, coarse, local, clouds):
     """Phase 9 on the lab's inputs (``coarse``: planes and table;
     ``local``: planes, the candidates' table rows, px0, py0; ``clouds``:
@@ -1947,6 +1991,14 @@ def lab_phase(card, errs, floor_ms, coarse, local, clouds):
     hold_nn_mxu(lab_nn_cases(*clouds), errs, "kernel lab")
     hold_nn_operands(*clouds, "kernel lab")
     hold_to_served(coarse_cases, local_cases["local_variant"])
+    # One stride-2 L3 call is one launch on the planes: no copy, no torch
+    # op (the parent's call was 5 device events).
+    names = stride2_call_events()
+    check(len(names) == 1 and "lab_local_kernel" in names[0],
+          f"a stride-2 local_variant call ran {len(names)} device events, "
+          f"want 1, L3's kernel: {names}")
+    print(f"kernel local_variant: one stride-2 call, 1 device event "
+          f"({names[0]})")
     # 9c. times of each kernel's first case
     entry = {"coarse_variant": coarse_cases["coarse_variant"][0],
              "coarse_stride2": coarse_cases["coarse_stride2"][1],

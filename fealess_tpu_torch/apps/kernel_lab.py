@@ -24,12 +24,12 @@ Usage (from the repository root, on a machine with a CUDA card):
 Each variant prints one line: its milliseconds a call from a CUDA graph of
 :data:`REPS` launches (``utils.profiling.graph_ms``, the stand-in for
 the lab's chain slope), the served kernel's on the same inputs, and the
-variant's bound (``ops/bounds.bound_ms``).  L2, L3 and L4 also print the
-kernel alone, without the wrapper's plane stack and bucket starts (L2,
-L3) or operands (L4).  It
-asserts what the lab asserts (base == skipempty == unroll2 == both
-stride-2 settings; the four L3 settings equal; L4 against K3 by the
-near-tie rule, with the number of equal indices printed, and its d2
+variant's bound (``ops/bounds.bound_ms``).  L2 and L4 also print the
+kernel alone, without the wrapper's plane stack and bucket starts (L2)
+or operands (L4); L3's call is one launch at either stride, so it
+prints one time a setting.  It asserts what the lab asserts (base == skipempty == unroll2
+== both stride-2 settings; the four L3 settings equal; L4 against K3 by
+the near-tie rule, with the number of equal indices printed, and its d2
 within the rounding of the matrix form, ``ops/lab.near_tie``) and also
 that each exact variant equals the served kernel.  ``--device cpu`` runs
 the plain twins, without timings.
@@ -151,13 +151,10 @@ def run_local2(planes, table_k, px0, py0) -> list:
     for stride, cond in ((1, False), (1, True), (2, False), (2, True)):
         out = lab.local_variant(planes, table_k, px0, py0, stride, cond)
         assert torch.equal(out, k2), f"local2 s{stride} cond{int(cond)}"
-        prepared = lab.local_inputs(planes, table_k, stride)
         _row(rows, f"local2/s{stride}-cond{int(cond)}", "local_variant",
              (planes, table_k, px0, py0, stride, cond),
              lambda s=stride, c=cond: lab.local_variant(
-                 planes, table_k, px0, py0, s, c), k2_ms,
-             alone=lambda s=stride, c=cond, p=prepared: lab.local_variant(
-                 planes, table_k, px0, py0, s, c, p))
+                 planes, table_k, px0, py0, s, c), k2_ms)
     return rows
 
 

@@ -27,9 +27,13 @@
 // :467).  Contract: K2's (score.cu, fl_local_scores), the 16 x 16 window
 // sums at origins (max(px0, 0), max(py0, 0)), features whose row start
 // a = py0c + ry lies outside [0, Hd] dropped, column start min(px0c + col,
-// Wd), reads past the plane 0; col as above, at stride 1 (the table's
-// starts over the planes) or 2 (_bucket_starts(bstart, 2) over the
-// two-copy stack); use_cond skips empty buckets.
+// Wd), reads past the plane 0; col as above, at stride 1 or 2 over the
+// stride's buckets of the table's starts (bucket j from bstart[min(stride
+// * j, NB)], ops/lab.bucket_starts, taken in the kernel), always on the
+// planes themselves: an odd-rx feature of a stride-2 bucket is read one
+// byte on, where the TPU needed a copy shifted one column.  The lab's
+// use_cond (skip empty buckets) is not an argument: the walk below reaches
+// no empty bucket, so both settings are this one launch.
 //
 // L4 fl_lab_nn_mma replaces kernel_lab.py:690 nn_mxu (kernel
 // _nn_mxu_kernel :664, call :702).  Contract: per query i, the first j
@@ -88,12 +92,44 @@
 //   third word of a 4-aligned bucket, and unclamped loads behind a
 //   staged bound check (the branch breaks the group's batch of loads).
 //
-// L3 design: K2's block (256 threads: 8 slices x 16 window rows x 2 lanes,
-// 8 window columns a thread, 3 word loads and funnel shifts a feature,
-// partial rows summed in shared memory in a fixed order).  A slice walks
-// whole buckets (s, s + 8, ...): the window columns' start, alignment and
-// masks are set once per bucket, the row gate per feature.
-//
+// L3 design.  A block is one candidate, K2's block: 256 threads, 8 slices
+// (warps) x 16 window rows x 2 lanes of kRun = 8 window columns.  Its work
+// is tiny (~20 live features x 256 adds at the lab's local2 inputs, a
+// 0.00012 ms bound), so what bounds it is latency: the dependent round
+// trips to L2 (the table, then the plane rows) and the barriers, over the
+// graph's launch floor.  The design keeps a block to those two trips:
+// - Staging: the walk's bounds, the origins, thread b's bucket bounds (at
+//   stride 2 the stride-2 starts, bstart[min(2b, NB)]) and slot b of the
+//   table load together.  Each bucket's thread then marks its slots with
+//   its index (atomicMax in shared memory: where starts decrease, the
+//   largest index that claims a slot takes it), and the live slots
+//   [starts[0], starts[NB]) are staged in walk order as L1's entries are:
+//   the plane offset of the window row's start with its column min(px0c +
+//   col, Wd) folded in (where Wd is a multiple of 4, the column's word
+//   part), and (16 - valid rows) << 16 | col, col = stride * j + rx %
+//   stride the walk's key (a dropped feature has 0 valid rows).
+// - One walk, split evenly: slice s takes the staged features [s * per,
+//   (s + 1) * per), per = ceil(n / 8), whatever buckets they lie in, in
+//   groups of kDepth whose loads (L1's feature_words: 3 clamped words)
+//   issue before any of their adds, a group's tail guarded rather than
+//   walked one by one.  A slice sets a column up (L1's bucket_setup: the
+//   funnel shift where Wd is a multiple of 4, the row-end masks) once,
+//   when its range reaches a new key, a branch uniform in the warp; the
+//   row gate is a sign mask per feature (L1's feature_add).  At stride 2
+//   the key is the column itself, so a bucket's even and odd runs each get
+//   one set-up with its own alignment and masks (a bucketed table holds a
+//   stride-2 bucket's even rx before its odd), and no feature selects.
+// - The packed 16-bit lanes flush into 32-bit totals every kFlush = 256
+//   features of a slice's range, wherever the buckets end (a lane holds
+//   257 adds of 255); the 8 slices' partial rows are summed in shared
+//   memory in a fixed order.  Integer sums are order-free, so the results
+//   are bitwise equal to the twin's.
+// - Measured on the card and not kept (PERF.md §6): each slot's bucket by
+//   a scan of the starts (slower: 38 compares on the critical path at
+//   stride 1), the shift taken per feature at Wd = 128 (no faster),
+//   groups of 8 (72-80 registers, slower) and set-ups hoisted ahead of
+//   the group's adds (74 registers, no faster).
+
 // L4 design: d2 is the accumulator of one TF32 product on the tensor cores.
 // Each point becomes 16 TF32 operand slots, two k8 steps (hi/lo the cvt.rna
 // split of a coordinate, lo = tf32(x - hi); n0 + n1 + n2 the float32 norm
@@ -411,131 +447,160 @@ CoarseArgs coarse_args(const void* stack, int copies, int c, int hd, int wd,
 // ---- L3 -------------------------------------------------------------------
 
 constexpr int kWin = 16;             // LOCAL_WINDOW
-constexpr int kLanes = 2;            // threads a window row
-constexpr int kLWords = 4 / kLanes;  // 32-bit words a thread
-constexpr int kSlices = 8;           // bucket slices of a block
+constexpr int kLanes = kWin / kRun;  // threads a window row
+constexpr int kSlices = 8;           // warps of a block, each a range
 constexpr int kLThreads = kSlices * kWin * kLanes;
 constexpr int kPartStride = kWin + 1;   // padded partial rows
+static_assert(kWin * kLanes == 32, "a slice is one warp");
 
 struct LocalArgs {
-  const uint8_t* stack;
+  const uint8_t* planes;
   int hd, wd, stride;
-  unsigned last_byte, copy;
+  unsigned last_byte;     // of the planes
   const int32_t* tc;
   const int32_t* tr;
-  const int32_t* tx;
-  const int32_t* starts;
+  const int32_t* tx;      // stride 2 only: rx, for its parity
+  const int32_t* bstart;  // (K, nb1) the table's own starts
   int nf, nb1;
   const int32_t* px0;
   const int32_t* py0;
   int32_t* out;   // (K, 16, 16)
 };
 
-template <bool kCond, bool kAligned>
+template <bool kAligned>
 __global__ void __launch_bounds__(kLThreads)
 lab_local_kernel(const LocalArgs p) {
-  extern __shared__ uint2 ltab[];   // features, starts; then the partials
-  int* sb = reinterpret_cast<int*>(ltab + p.nf);
+  extern __shared__ int2 ltab[];   // the walk's features; then the partials
+  const int nb = p.nb1 - 1;
+  const int nbk = (nb + p.stride - 1) / p.stride;   // the stride's buckets
   const int k = blockIdx.x;
+  const int32_t* st = p.bstart + (size_t)k * p.nb1;
+  const auto start = [&](int j) {   // ops/lab.bucket_starts(bstart, stride)
+    return min(max(st[min(p.stride * j, nb)], 0), p.nf);
+  };
+  // One round trip: the walk's bounds, the origins, thread b's bucket
+  // bounds and slot b (the first staged, where the walk starts at slot 0
+  // as a bucketed table's does).
+  const int f0 = start(0);
+  const int nwalk = max(start(nbk), f0) - f0;
   const int px0c = max(p.px0[k], 0);
   const int py0c = max(p.py0[k], 0);
+  const int tid = threadIdx.x;
   const size_t trow = (size_t)k * p.nf;
-  const unsigned plane = static_cast<unsigned>(p.hd * p.wd);
-  // {plane offset of the window row's start without its column, valid
-  // rows min(Hd - a, 16) or 0 for a dropped feature}
-  for (int f = threadIdx.x; f < p.nf; f += blockDim.x) {
-    const int a = py0c + p.tr[trow + f];
-    const bool ok = a >= 0 && a <= p.hd;
-    unsigned off = static_cast<unsigned>(p.tc[trow + f]) * plane +
-                   static_cast<unsigned>(a * p.wd);
-    if (p.stride == 2)
-      off += static_cast<unsigned>(p.tx[trow + f] & 1) * p.copy;
-    ltab[f] = make_uint2(ok ? off : 0u,
-                         ok ? static_cast<unsigned>(min(p.hd - a, kWin)) : 0u);
+  int blo = 0, bhi = 0, c_first = 0, ry_first = 0, rx_first = 0;
+  if (tid < nbk) {
+    blo = start(tid);
+    bhi = start(tid + 1);
   }
-  for (int b = threadIdx.x; b < p.nb1; b += blockDim.x)
-    sb[b] = min(max(p.starts[(size_t)k * p.nb1 + b], 0), p.nf);
+  if (tid < p.nf) {
+    c_first = p.tc[trow + tid];
+    ry_first = p.tr[trow + tid];
+    if (p.stride == 2) rx_first = p.tx[trow + tid];
+  }
+  for (int i = tid; i < p.nf; i += blockDim.x) ltab[i].y = 0;
   __syncthreads();
-  const int jl = threadIdx.x % kLanes;
-  const int r = threadIdx.x / kLanes % kWin;
-  const int s = threadIdx.x / (kLanes * kWin);
+  // Each bucket marks its slots with its index (a bucketed table's
+  // buckets are disjoint; where starts decrease, the largest index that
+  // claims a slot takes it).
+  for (int b = tid; b < nbk; b += blockDim.x) {
+    if (b != tid) {
+      blo = start(b);
+      bhi = start(b + 1);
+    }
+    for (int i = max(blo - f0, 0); i < min(bhi - f0, nwalk); ++i)
+      atomicMax(&ltab[i].y, b);
+  }
+  __syncthreads();
   const unsigned mis = static_cast<unsigned>(
-      reinterpret_cast<uintptr_t>(p.stack) & 3u);
-  const uint8_t* base = p.stack - mis;
+      reinterpret_cast<uintptr_t>(p.planes) & 3u);
+  const unsigned plane = static_cast<unsigned>(p.hd * p.wd);
+  // Stage the live slots [f0, f0 + nwalk) in walk order: {c*Hd*Wd + a*Wd +
+  // mis + the column (aligned planes: its word part), or 0 if dropped;
+  // (16 - valid rows) << 16 | col}.
+  for (int i = tid; i < nwalk; i += blockDim.x) {
+    const int f = f0 + i;
+    int cc = c_first, ry = ry_first, rx = rx_first;
+    if (f != tid) {
+      cc = p.tc[trow + f];
+      ry = p.tr[trow + f];
+      rx = p.stride == 2 ? p.tx[trow + f] : 0;
+    }
+    const int col = p.stride * ltab[i].y + (rx & (p.stride - 1));
+    const int a = py0c + ry;
+    const bool ok = a >= 0 && a <= p.hd;
+    const unsigned cb = mis + static_cast<unsigned>(min(px0c + col, p.wd));
+    const unsigned off = static_cast<unsigned>(cc) * plane +
+                         static_cast<unsigned>(a * p.wd) +
+                         (kAligned ? cb & ~3u : cb);
+    const int rows = ok ? min(p.hd - a, kWin) : 0;
+    ltab[i] = make_int2(ok ? static_cast<int>(off) : 0,
+                        ((kWin - rows) << 16) | col);
+  }
+  __syncthreads();
+  const int jl = tid % kLanes;
+  const int r = tid / kLanes % kWin;
+  const int s = tid / (kLanes * kWin);
+  const uint8_t* base = p.planes - mis;
   const unsigned lim = (mis + p.last_byte) & ~3u;
-  const unsigned roff = mis + static_cast<unsigned>(r * p.wd) +
-                        4u * kLWords * jl;
-  uint32_t total[4 * kLWords] = {};
-  const int nbk = p.nb1 - 1;
-  for (int j = s; j < nbk; j += kSlices) {
-    const int lo_f = sb[j];
-    const int hi_f = sb[j + 1];
-    if (kCond && lo_f >= hi_f) continue;
-    // the bucket's set-up: the window's column start, its alignment and
-    // this thread's valid bits, 8 * min(Wd - bc, 16) from the row start
-    const int bc = min(px0c + p.stride * j, p.wd);
-    const int n8 = 8 * min(p.wd - bc, kWin) - 32 * kLWords * jl;
-    uint32_t mask[kLWords];
+  const unsigned run = static_cast<unsigned>(r * p.wd + kRun * jl);
+  const int ylim16 = (kWin - r) << 16;   // live: valid rows > r
+  const int xlim = p.wd - kRun * jl;
+  const int per = (nwalk + kSlices - 1) / kSlices;
+  const int first = min(s * per, nwalk);
+  const int last = min(first + per, nwalk);
+  int kc = -1;        // the column of the set-up in hand
+  Setup su = {};
+  const auto enter = [&](int ey) {   // uniform: one range for the warp
+    const int key = ey & 0xFFFF;
+    if (key != kc) {
+      kc = key;
+      su = bucket_setup(min(px0c + key, p.wd), xlim, mis);
+    }
+  };
+  uint32_t total[kRun] = {};
+  for (int c0 = first; c0 < last; c0 += kFlush) {   // whatever buckets
+    const int c1 = min(c0 + kFlush, last);
+    uint32_t lo[kWords] = {}, hi[kWords] = {};
+    for (int f = c0; f < c1; f += kDepth) {
+      uint32_t w[kDepth][kWords + 1];
+      unsigned t[kDepth];
+      int ey[kDepth];
 #pragma unroll
-    for (int q = 0; q < kLWords; ++q)
-      mask[q] = __funnelshift_lc(0xFFFFFFFFu, 0u,
-                                 static_cast<unsigned>(max(n8 - 32 * q, 0)));
-    const unsigned tb = roff + static_cast<unsigned>(bc);
-    const unsigned ab = tb & ~3u;
-    const unsigned shb = tb << 3;
-    int f = lo_f;
-    do {
-      const int f1 = min(f + kFlush, hi_f);
-      uint32_t lo[kLWords] = {}, hi[kLWords] = {};
-#pragma unroll 4
-      for (; f < f1; ++f) {
-        const uint2 e = ltab[f];
-        const bool live = r < static_cast<int>(e.y);
-        unsigned a, sh;
-        if (kAligned) {
-          a = e.x + ab;
-          sh = shb;
-        } else {
-          const unsigned t = e.x + tb;
-          a = t & ~3u;
-          sh = t << 3;
+      for (int u = 0; u < kDepth; ++u)
+        if (f + u < c1) {
+          const int2 e = ltab[f + u];
+          ey[u] = e.y;
+          feature_words<kBase, kAligned>(e, base, run, lim, w[u], t[u]);
         }
-        uint32_t w[kLWords + 1];
 #pragma unroll
-        for (int q = 0; q <= kLWords; ++q)
-          w[q] = *reinterpret_cast<const uint32_t*>(base + min(a + 4u * q,
-                                                               lim));
-#pragma unroll
-        for (int q = 0; q < kLWords; ++q) {
-          const uint32_t v =
-              __funnelshift_r(w[q], w[q + 1], sh) & (live ? mask[q] : 0u);
-          lo[q] += v & 0x00FF00FFu;
-          hi[q] += (v >> 8) & 0x00FF00FFu;
+      for (int u = 0; u < kDepth; ++u)
+        if (f + u < c1) {
+          enter(ey[u]);
+          feature_add<kBase, kAligned>(w[u], t[u], ey[u], ylim16, su, lo,
+                                       hi);
         }
-      }
+    }
 #pragma unroll
-      for (int q = 0; q < kLWords; ++q) {
-        total[4 * q] += lo[q] & 0xFFFFu;
-        total[4 * q + 1] += hi[q] & 0xFFFFu;
-        total[4 * q + 2] += lo[q] >> 16;
-        total[4 * q + 3] += hi[q] >> 16;
-      }
-    } while (f < hi_f);
+    for (int q = 0; q < kWords; ++q) {   // the flush
+      total[4 * q] += lo[q] & 0xFFFFu;
+      total[4 * q + 1] += hi[q] & 0xFFFFu;
+      total[4 * q + 2] += lo[q] >> 16;
+      total[4 * q + 3] += hi[q] >> 16;
+    }
   }
   __syncthreads();   // every thread is done with the staged table
   uint32_t* part = reinterpret_cast<uint32_t*>(ltab);
 #pragma unroll
-  for (int q = 0; q < 4 * kLWords; ++q)
-    part[(s * kWin + r) * kPartStride + 4 * kLWords * jl + q] = total[q];
+  for (int q = 0; q < kRun; ++q)
+    part[(s * kWin + r) * kPartStride + kRun * jl + q] = total[q];
   __syncthreads();
-  const int t = threadIdx.x;
-  const int orow = t / kWin;
-  const int ocol = t - orow * kWin;
+  const int orow = tid / kWin;
+  const int ocol = tid - orow * kWin;
   uint32_t sum = 0;
 #pragma unroll
   for (int q = 0; q < kSlices; ++q)
     sum += part[(q * kWin + orow) * kPartStride + ocol];
-  p.out[(size_t)k * kWin * kWin + t] = static_cast<int32_t>(sum);
+  p.out[(size_t)k * kWin * kWin + tid] = static_cast<int32_t>(sum);
 }
 
 // ---- L4 -------------------------------------------------------------------
@@ -940,45 +1005,40 @@ extern "C" int fl_lab_coarse_stride2(const void* stack, int c, int hd,
   return launch_coarse(p, n, skipempty ? kSkipEmpty : kBase, stream);
 }
 
-// stack: the planes (stride 1) or their two copies (stride 2); c/ry/rx
-// (K, nf); the stride's bucket starts (K, nb1); origins px0/py0 (K,).
-extern "C" int fl_lab_local(const void* stack, int c, int hd, int wd,
+// planes (C, Hd, Wd) u8 at either stride; c/ry/rx (K, nf); the table's own
+// bucket starts (K, nb1); stride 1 or 2; origins px0/py0 (K,).  The lab's
+// use_cond stays in ops/lab.local_variant: the walk meets no empty bucket,
+// so the kernel has nothing to skip.
+extern "C" int fl_lab_local(const void* planes, int c, int hd, int wd,
                             const void* tc, const void* tr, const void* tx,
-                            const void* starts, int k, int nf, int nb1,
-                            int stride, int use_cond, const void* px0,
-                            const void* py0, void* out, void* stream) {
+                            const void* bstart, int k, int nf, int nb1,
+                            int stride, const void* px0, const void* py0,
+                            void* out, void* stream) {
+  if ((stride != 1 && stride != 2) || nb1 < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   LocalArgs p = {};
-  p.stack = static_cast<const uint8_t*>(stack);
+  p.planes = static_cast<const uint8_t*>(planes);
   p.hd = hd;
   p.wd = wd;
   p.stride = stride;
-  p.copy = static_cast<unsigned>((size_t)c * hd * wd);
-  p.last_byte = static_cast<unsigned>((size_t)stride * c * hd * wd - 1);
+  p.last_byte = static_cast<unsigned>((size_t)c * hd * wd - 1);
   p.tc = static_cast<const int32_t*>(tc);
   p.tr = static_cast<const int32_t*>(tr);
   p.tx = static_cast<const int32_t*>(tx);
-  p.starts = static_cast<const int32_t*>(starts);
+  p.bstart = static_cast<const int32_t*>(bstart);
   p.nf = nf;
   p.nb1 = nb1;
   p.px0 = static_cast<const int32_t*>(px0);
   p.py0 = static_cast<const int32_t*>(py0);
   p.out = static_cast<int32_t*>(out);
   const size_t part = (size_t)kSlices * kWin * kPartStride * 4;
-  const size_t staged = (size_t)nf * sizeof(uint2) + (size_t)nb1 * 4;
+  const size_t staged = (size_t)nf * sizeof(int2);
   const size_t smem = staged > part ? staged : part;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool aligned = wd % 4 == 0;
-  if (use_cond) {
-    if (aligned)
-      lab_local_kernel<true, true><<<k, kLThreads, smem, s>>>(p);
-    else
-      lab_local_kernel<true, false><<<k, kLThreads, smem, s>>>(p);
-  } else {
-    if (aligned)
-      lab_local_kernel<false, true><<<k, kLThreads, smem, s>>>(p);
-    else
-      lab_local_kernel<false, false><<<k, kLThreads, smem, s>>>(p);
-  }
+  if (wd % 4 == 0)
+    lab_local_kernel<true><<<k, kLThreads, smem, s>>>(p);
+  else
+    lab_local_kernel<false><<<k, kLThreads, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -81,10 +81,10 @@ _SIGNATURES = {
     # out, stream
     "fl_lab_coarse_stride2": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
                               _I, _P, _P),
-    # stack, channels, hd, wd, c, ry, rx, starts, k, nf, nb1, stride,
-    # use_cond, px0, py0, out, stream
-    "fl_lab_local": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                     _P, _P, _P),
+    # planes, channels, hd, wd, c, ry, rx, bstart, k, nf, nb1, stride,
+    # px0, py0, out, stream
+    "fl_lab_local": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                     _P, _P),
     # query, nq, ref, nr, nr_pad, a_op, b_op, stream
     "fl_lab_nn_operands": (_P, _I, _P, _I, _I, _P, _P, _P),
     # a_op, nq, b_op, nr, tq, chunk, nchunks, part_idx, part_d2, idx, d2,

@@ -13,8 +13,9 @@ The lab weighs kernel designs against the served kernels in one process:
   buckets two columns wide; odd-``rx`` features read a copy of the planes
   shifted one column (:func:`shifted_copy`), so one alignment serves both;
 - L3 :func:`local_variant` (``_local_variant_run``): K2's 16x16 window sum
-  at given origins, bucket by bucket with ``stride`` 1 or 2 (through the
-  shifted copy) and ``use_cond`` (skip empty buckets);
+  at given origins, bucket by bucket with ``stride`` 1 or 2 (an odd-``rx``
+  feature of a stride-2 bucket read one column on, straight from the
+  planes) and ``use_cond`` (skip empty buckets);
 - L4 :func:`nn_mxu` (``nn_mxu``): the nearest neighbour in matrix form,
   ``d2 = (|q|^2 + |r|^2) - 2 q.r`` as one TF32 product on the tensor cores
   (``wgmma``): the norms and the -2 ride in 16-slot operands
@@ -319,10 +320,13 @@ def _require_device(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: no kernel for device {t.device}")
 
 
-def _require_inputs(planes, table, rows: int, copies: int, name: str):
+def _require_inputs(planes, table, rows: int, copies: int, name: str,
+                    staged_starts: bool = True):
     """Raise unless the planes (u8, 3-D, ``copies`` of them within 32-bit
     offsets) and the table are what the scorers take, and the table fits
-    the shared memory a block stages it in."""
+    the shared memory a block stages it in: 8 bytes a feature, and the
+    bucket starts beside them where ``staged_starts`` (L1, L2; L3 keeps a
+    bucket's bounds in its thread's registers)."""
     dev = planes.device
     _build.require(planes, "planes", torch.uint8, 3, dev)
     score._require_table(table, rows, dev)
@@ -330,11 +334,11 @@ def _require_inputs(planes, table, rows: int, copies: int, name: str):
         raise ValueError(f"{name}: planes {tuple(planes.shape)} exceed the "
                          f"kernel's 32-bit offsets")
     nf = table["c"].shape[1]
-    smem = nf * 8 + table["bstart"].shape[1] * 4
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{name}: {nf} features and "
-                         f"{table['bstart'].shape[1]} bucket starts exceed "
-                         f"{_SMEM_LIMIT} bytes of staged table")
+    nb1 = table["bstart"].shape[1] if staged_starts else 0
+    if nf * 8 + nb1 * 4 > _SMEM_LIMIT:
+        raise ValueError(f"{name}: {nf} features and {nb1} staged bucket "
+                         f"starts exceed {_SMEM_LIMIT} bytes of staged "
+                         f"table")
 
 
 def _stream(dev) -> int:
@@ -424,24 +428,21 @@ def coarse_stride2(planes: torch.Tensor, table, skipempty: bool = True,
 coarse_stride2.launches = 0
 
 
-def local_inputs(planes: torch.Tensor, table_k, stride: int):
-    """L3's prepared inputs for ``stride``: (the planes, or with stride 2
-    their :func:`plane_stack`; :func:`bucket_starts`)."""
-    _check_stride(stride)
-    stack = planes if stride == 1 else plane_stack(planes)
-    return stack, bucket_starts(table_k["bstart"], stride)
-
-
 def local_variant(planes: torch.Tensor, table_k, px0: torch.Tensor,
-                  py0: torch.Tensor, stride: int = 1, use_cond: bool = True,
-                  prepared=None) -> torch.Tensor:
+                  py0: torch.Tensor, stride: int = 1,
+                  use_cond: bool = True) -> torch.Tensor:
     """L3: (K, 16, 16) int32 window sums at the origins (K2's contract:
     origins clamped non-negative, rows outside [0, Hd] dropped, reads past
-    the plane 0), features walked bucket by bucket at ``stride`` 1 or 2,
-    empty buckets skipped with ``use_cond``.  The wrapper builds the plane
-    stack and the bucket starts (:func:`local_inputs`) unless ``prepared``
-    gives them.  ``table_k``: the candidates' bucketed table rows.  CUDA
-    tensors run ``fl_lab_local``; CPU tensors :func:`local_variant_plain`."""
+    the plane 0), features walked bucket by bucket at ``stride`` 1 or 2
+    (the stride's buckets of :func:`bucket_starts`, bucket j's features at
+    column stride*j + rx % stride), empty buckets skipped with
+    ``use_cond`` (the JAX lab's knob: the kernel's walk meets no empty
+    bucket, so it takes no such argument and both settings run the same
+    launch).  ``table_k``: the candidates' bucketed table rows.  CUDA
+    tensors run ``fl_lab_local``, one launch on the planes and the table's
+    own starts at either stride (the kernel takes the stride's starts
+    itself), ``out`` the only allocation; CPU tensors
+    :func:`local_variant_plain`."""
     _check_stride(stride)
     if planes.device.type == "cpu":
         return local_variant_plain(planes, table_k, px0, py0, stride,
@@ -449,30 +450,24 @@ def local_variant(planes: torch.Tensor, table_k, px0: torch.Tensor,
     _require_device(planes, "local_variant")
     dev = planes.device
     k, nf = table_k["c"].shape
-    _require_inputs(planes, table_k, k, stride, "local_variant")
+    _require_inputs(planes, table_k, k, 1, "local_variant",
+                    staged_starts=False)
     for name, t in (("px0", px0), ("py0", py0)):
         _build.require(t, name, torch.int32, 1, dev)
         if t.shape[0] != k:
             raise ValueError(f"{name} has {t.shape[0]} entries, expected {k}")
-    stack, starts = prepared if prepared is not None else \
-        local_inputs(planes, table_k, stride)
-    _build.require(starts, "bucket starts", torch.int32, 2, dev)
-    if stack.numel() != stride * planes.numel() or starts.shape[0] != k:
-        raise ValueError(f"prepared {tuple(stack.shape)}, "
-                         f"{tuple(starts.shape)} do not fit planes "
-                         f"{tuple(planes.shape)} at stride {stride}")
     ch, hd, wd = planes.shape
     w16 = score.LOCAL_WINDOW
     out = torch.empty((k, w16, w16), dtype=torch.int32, device=dev)
-    if k == 0:
-        return out
+    if k == 0 or planes.numel() == 0:
+        return out.zero_()
     lib = _build.library()
     with torch.cuda.device(dev):
         rc = lib.fl_lab_local(
-            stack.data_ptr(), ch, hd, wd, table_k["c"].data_ptr(),
+            planes.data_ptr(), ch, hd, wd, table_k["c"].data_ptr(),
             table_k["ry"].data_ptr(), table_k["rx"].data_ptr(),
-            starts.data_ptr(), k, nf, starts.shape[1], stride,
-            int(use_cond), px0.data_ptr(), py0.data_ptr(), out.data_ptr(),
+            table_k["bstart"].data_ptr(), k, nf, table_k["bstart"].shape[1],
+            stride, px0.data_ptr(), py0.data_ptr(), out.data_ptr(),
             _stream(dev))
     _build.check(rc, "local_variant")
     local_variant.launches += 1

@@ -199,6 +199,28 @@ def test_crowded_twins_equal_xla(jax_side, mode):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("stride,use_cond", [(1, False), (1, True),
+                                             (2, False), (2, True)])
+def test_crowded_local_twins_equal_xla(jax_side, stride, use_cond):
+    """L3's twin on the crowded table (300 live features in each of 13
+    buckets; chip_smoke's lab_local_cases holds the kernel to it on the
+    lab's planes, all 255) equals K2's window sums, which exceed what a
+    16-bit lane holds, 257 adds of 255: a slice that flushed its lanes
+    less often than every 257 features would differ."""
+    jnp = jax_side.jnp
+    planes = torch.full((8, 24, 32), 255, dtype=torch.uint8)
+    table = lab.crowded_table(**CROWDED, device="cpu")
+    px0 = np.array([0, 3], np.int32)
+    py0 = np.array([0, 5], np.int32)
+    want = np.asarray(jax_side.sp._local_scores_xla(
+        jnp.asarray(planes.numpy()), _jax_table(jnp, table),
+        jnp.asarray(px0), jnp.asarray(py0)))
+    assert want.max() > 257 * 255
+    got = lab.local_variant(planes, table, torch.from_numpy(px0),
+                            torch.from_numpy(py0), stride, use_cond)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_noshift_twin_follows_its_word_rule():
     """The ``noshift`` twin against its docstring's rule, walked in numpy
     position by position: byte i of the aligned word q of the run."""
@@ -232,12 +254,16 @@ def test_unroll2_raises_on_odd_bucket_starts():
         lab.coarse_variant(planes, table, "unroll3")
 
 
-@pytest.mark.parametrize("origins", ["lab", "border"])
+@pytest.mark.parametrize("origins", ["lab", "border", "edge-1", "edge0"])
 @pytest.mark.parametrize("stride,use_cond", [(1, False), (1, True),
                                              (2, False), (2, True)])
 def test_local_twins_equal_xla(jax_side, stride, use_cond, origins):
-    """L3's four settings: K2's window sums bitwise, at the lab's origins
-    and at negative and border ones (windows past every edge)."""
+    """L3's four settings: K2's window sums bitwise, at the lab's origins,
+    at negative and border ones (windows past every edge), and at the
+    stride-2 edges of ``chip_smoke.lab_local_cases`` (candidate i's
+    stride-2 bucket j = i % ceil(NB / 2) has its odd column at Wd - 1,
+    ``edge-1``, or at Wd, ``edge0``: where the TPU's shifted copy zeroed
+    its last column), some of them on a live odd-rx feature."""
     jnp = jax_side.jnp
     hd, wd, k = 24, 32, 12
     kw = dict(seed=1, n=32, f=30, nb=7, hd=hd, wd=wd, c=9, valid_frac=0.5)
@@ -247,9 +273,19 @@ def test_local_twins_equal_xla(jax_side, stride, use_cond, origins):
     if origins == "lab":     # lab_local2's range
         px0 = rng.integers(0, wd - 16, (k,)).astype(np.int32)
         py0 = rng.integers(0, hd - 16, (k,)).astype(np.int32)
-    else:
+    elif origins == "border":
         px0 = rng.integers(-25, wd + 8, (k,)).astype(np.int32)
         py0 = rng.integers(-20, hd + 6, (k,)).astype(np.int32)
+    else:
+        j = np.arange(k) % -(-kw["nb"] // 2)
+        end = 1 if origins == "edge-1" else 0
+        px0 = (wd - 1 - end - 2 * j).astype(np.int32)
+        py0 = rng.integers(0, hd - 16, (k,)).astype(np.int32)
+        bstart = tp["bstart"].numpy()[tslot]
+        odd = 2 * j + 1 < kw["nb"]
+        live = bstart[np.arange(k), np.minimum(2 * j + 2, kw["nb"])] > \
+            bstart[np.arange(k), np.minimum(2 * j + 1, kw["nb"])]
+        assert (odd & live).any(), "no live odd-rx feature at the edge"
     want = np.asarray(jax_side.sp._local_scores_xla(
         pj, {key: v[tslot] for key, v in tj.items()}, jnp.asarray(px0),
         jnp.asarray(py0)))
@@ -474,6 +510,22 @@ def test_wrappers_refuse_other_devices_and_bad_tiles():
         lab.local_variant(planes, table, q[:, 0].int(), q[:, 0].int(), 3)
 
 
+def test_staged_table_limits():
+    """L1/L2 stage 8 bytes a feature and the bucket starts in 48 KiB; L3
+    only the features (its bucket bounds stay in registers): 4096
+    features in 4096 buckets fit L3 and not L1."""
+    planes = torch.zeros((1, 4, 4), dtype=torch.uint8)
+    table = lab.crowded_table(n=1, per_bucket=1, nb=4096, f=4096, c=1,
+                              device="cpu")
+    lab._require_inputs(planes, table, 1, 1, "local_variant",
+                        staged_starts=False)
+    with pytest.raises(ValueError, match="4096 features and 4097 staged"):
+        lab._require_inputs(planes, table, 1, 1, "coarse_variant")
+    small = lab.crowded_table(n=1, per_bucket=1, nb=4095, f=4096, c=1,
+                              device="cpu")
+    lab._require_inputs(planes, small, 1, 1, "coarse_variant")
+
+
 def test_bound_ms_counts():
     """The bounds of the lab's kernels: L1/L2 K1's count (halftrip its own
     features); L4 the least work of any form at 16384 x 16384, the dot at
@@ -545,7 +597,7 @@ def test_phase9_checks_rehearse_on_cpu(monkeypatch):
     local_cases = chip_smoke.lab_local_cases(*local, slots=300)
     assert len(coarse_cases["coarse_variant"]) == 50
     assert len(coarse_cases["coarse_stride2"]) == 22
-    assert len(local_cases) == 32
+    assert len(local_cases) == 60
     chip_smoke.hold_to_twins(coarse_cases, errs, "CPU")
     chip_smoke.hold_to_twins({"local_variant": local_cases}, errs, "CPU")
     chip_smoke.hold_nn_mxu(chip_smoke.lab_nn_cases(
@@ -586,15 +638,23 @@ def test_coarse_kernels_equal_twins_on_card(card):
 def test_local_kernel_equals_twin_on_card(card):
     planes, table_k, px0, py0 = port_app.local2_inputs(card)
     want = score.local_scores(planes, table_k, px0, py0)
+    full = torch.full_like(planes, 255)
+    crowded = lab.crowded_table(c=planes.shape[0], device=card)
+    o8 = (px0[:8].contiguous(), py0[:8].contiguous())
+    want_crowded = score.local_scores(full, crowded, *o8)
+    assert int(want_crowded.max()) > 257 * 255
+    j = torch.arange(px0.shape[0], device=card, dtype=torch.int32) % 20
     for stride in (1, 2):
         for use_cond in (False, True):
-            for dx in (0, -20):
-                args = (planes, table_k, px0 + dx, py0 + dx, stride,
-                        use_cond)
+            for ox, oy in ((px0, py0), (px0 - 20, py0 - 20),
+                           (126 - 2 * j, py0), (127 - 2 * j, py0)):
+                args = (planes, table_k, ox, oy, stride, use_cond)
                 assert torch.equal(lab.local_variant(*args),
                                    lab.local_variant_plain(*args))
             assert torch.equal(lab.local_variant(
                 planes, table_k, px0, py0, stride, use_cond), want)
+            assert torch.equal(lab.local_variant(
+                full, crowded, *o8, stride, use_cond), want_crowded)
 
 
 @pytest.mark.cuda
