@@ -127,9 +127,18 @@ Phases, one line of output each (or a few):
 
 9. the kernel lab (``fealess_tpu_torch.apps.kernel_lab``, kernels L1-L4
    of ``ops/lab.py``, the counterparts of ``benchmarks/kernel_lab.py``'s
-   Pallas calls): its ``coarse``, ``local2`` and ``nn`` runs on the lab's
-   inputs (each variant's graph time beside K1, K2 or K3 on the same
-   inputs, and its bound); then L1 (every mode) and L2 (both settings)
+   Pallas calls): all seven of its runs on the lab's inputs (``coarse``,
+   ``local2`` and ``nn``: each variant's graph time beside K1, K2 or K3 on
+   the same inputs, and its bound; ``topk``, ``frontend``, ``local`` and
+   ``local3``: the flat and per-row exact top-k, the front end at its
+   working types, K2 behind the table gather and behind the real front
+   end, each row's graph time, K2's rows with K2's bound), with
+   ``score.local_scores`` required to launch in ``local`` and in
+   ``local3``; the top-k on the lab's scores and on a tie-heavy input
+   (integer scores, most -inf), the three front-end rows and K2 on the
+   ``local`` and ``local3`` paths bitwise equal to the same functions on
+   CPU copies of the inputs (K2 to its twin; the top-k also to numpy's
+   stable argsort); then L1 (every mode) and L2 (both settings)
    bitwise equal to their twins on the lab's coarse inputs and edge cases
    (``lab_coarse_cases``: odd bucket counts, Wd = 37, Hd = 1,
    featureless templates, every feature at the largest offsets, 4096
@@ -151,8 +160,10 @@ set to 0 just before it and read just after; every kernel must have run
 on the paths that reach it; phase 9 counts the lab's path on its own.
 The line before the last is a JSON object with one entry per kernel
 (``ops/_build.KERNELS``; K1-K3's launches summed over the paths of phases
-4-8 and the 2-way shard case under ``cases``; L1-L4's launches from the
-lab's path and each variant's times under ``cases``); the last line is
+4-8 and the 2-way shard case under ``cases``, K2's also the lab's K2 rows
+under ``cases`` and its launches on the lab's path as ``lab_launches``;
+L1-L4's launches from the lab's path and each variant's times under
+``cases``); the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero without printing that line.
 """
@@ -1926,6 +1937,95 @@ def hold_to_served(coarse_cases, local_cases) -> None:
           f"the same inputs")
 
 
+def hold_topk(cases, where: str) -> None:
+    """The coarse stage's exact top-k (``detector.exact_top_k_flat``) and
+    the per-row form (``exact_top_k_rows`` at each row count) on each case
+    (flat scores, k, row counts): bitwise equal on ``flat``'s device and on
+    a CPU copy, and equal to numpy's stable argsort of the negated scores
+    (value descending, flat index ascending: ``jax.lax.top_k``'s order)."""
+    import numpy as np
+    import torch
+    from fealess_tpu_torch import detector
+    for i, (flat, k, rows_list) in enumerate(cases):
+        cpu = flat.cpu()
+        ref = np.argsort(-cpu.numpy(), kind="stable")[:k]
+        forms = [("flat", detector.exact_top_k_flat, ())] + [
+            (f"rows={r}", detector.exact_top_k_rows, (r,))
+            for r in rows_list]
+        for name, form, extra in forms:
+            s, idx = form(flat, k, *extra)
+            s_cpu, idx_cpu = form(cpu, k, *extra)
+            check(torch.equal(s.cpu(), s_cpu) and
+                  torch.equal(idx.cpu(), idx_cpu),
+                  f"top-k {name} ({where}) case {i}: differs from its CPU "
+                  f"run")
+            check(idx_cpu.tolist() == ref.tolist() and torch.equal(
+                s_cpu, cpu[torch.from_numpy(ref)]),
+                f"top-k {name} ({where}) case {i}: not in (value desc, "
+                f"index asc) order")
+        top = cpu[torch.from_numpy(ref)]
+        print(f"top-k ({where}) case {i}: {flat.numel()} scores, k = {k}, "
+              f"the flat form and rows {list(rows_list)} bitwise equal to "
+              f"their CPU runs and to a stable argsort; "
+              f"{int((cpu == top[-1]).sum())} scores tie the k-th")
+
+
+def hold_front(q0, q1, where: str) -> None:
+    """The front end's three rows (``kernel_lab.FRONT_BUILDS``) at both
+    levels bitwise equal on the images' device and on CPU copies."""
+    import torch
+    from fealess_tpu_torch.apps import kernel_lab
+    images = (q0, q1)
+    for name, build in kernel_lab.FRONT_BUILDS.items():
+        for i, t in kernel_lab.FRONT_LEVELS:
+            got = build(images[i], t)
+            want = build(images[i].cpu(), t)
+            check(got.dtype == want.dtype and torch.equal(got.cpu(), want),
+                  f"{name} ({where}) at T = {t}: differs from its CPU run")
+    print(f"front end ({where}): {list(kernel_lab.FRONT_BUILDS)} at T = 5 "
+          f"and 8 bitwise equal to their CPU runs")
+
+
+def hold_local_lab(local, local3, errs, where: str) -> None:
+    """K2 on the lab's ``local`` path (the table gather, then
+    ``score.local_scores``) and ``local3`` path (both modalities through the
+    front end and its strided-slices form, then K2) bitwise equal to K2's
+    twin (``score.local_scores_plain``) on CPU copies of the inputs;
+    ``errs["local_refine"]`` keeps the largest difference."""
+    import torch
+    from fealess_tpu_torch.apps import kernel_lab
+    from fealess_tpu_torch.ops import lab, response, score
+
+    def cpu(x):
+        return ({k: v.cpu() for k, v in x.items()} if isinstance(x, dict)
+                else x.cpu())
+
+    planes, table, tslot, px0, py0 = local
+    runs = [("local", score.local_scores(planes, lab.gather_rows(
+        table, tslot), px0, py0), score.local_scores_plain(
+            cpu(planes), lab.gather_rows(cpu(table), cpu(tslot)), cpu(px0),
+            cpu(py0)))]
+    img0, img1, table_k, px0, py0 = local3
+    for name, build in (("local3", response.build_level_2d),
+                        ("local3 slices", lab.build_level_2d_slices)):
+        got_planes = kernel_lab.front_planes(img0, img1, build)
+        want_planes = kernel_lab.front_planes(cpu(img0), cpu(img1), build)
+        check(torch.equal(got_planes.cpu(), want_planes),
+              f"{name} ({where}): the planes differ from their CPU run")
+        runs.append((name, score.local_scores(got_planes, table_k, px0, py0),
+                     score.local_scores_plain(want_planes, cpu(table_k),
+                                              cpu(px0), cpu(py0))))
+    errs.setdefault("local_refine", 0.0)
+    for name, got, want in runs:
+        err = (got.cpu() - want).abs().max().item()
+        errs["local_refine"] = max(errs["local_refine"], float(err))
+        check(got.dtype == torch.int32 and torch.equal(got.cpu(), want),
+              f"K2 on the lab's {name} path ({where}) differs from its twin "
+              f"(max |diff| {err})")
+    print(f"kernel local_scores ({where}): the lab's local, local3 and "
+          f"local3-slices paths bitwise equal to K2's twin on CPU copies")
+
+
 STRIDE2_EVENTS = """
 import json
 from fealess_tpu_torch.apps import kernel_lab
@@ -1954,36 +2054,49 @@ def stride2_call_events() -> list:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def lab_phase(card, errs, floor_ms, coarse, local, clouds):
-    """Phase 9 on the lab's inputs (``coarse``: planes and table;
-    ``local``: planes, the candidates' table rows, px0, py0; ``clouds``:
-    query and reference): the lab's entry point (``apps/kernel_lab``'s
-    coarse, local2 and nn runs) with the launch counters zeroed before
-    and read after; each L kernel against its twin and the served kernels
-    on the lab's inputs and edge cases; each kernel, its twin and L4's
-    library call timed.  Returns the kernels line's L1-L4 entries (each
-    variant's times from the entry point under ``cases``; ``floor_ms`` the
-    launch floor of phase 5)."""
+def lab_phase(card, errs, floor_ms, inputs):
+    """Phase 9 on the lab's inputs (``inputs``: each subcommand of
+    ``apps/kernel_lab.RUNS`` -> its inputs on the card): the lab's entry
+    point (every run of ``apps/kernel_lab``) with the launch counters
+    zeroed before and read after; each L kernel against its twin and the
+    served kernels on the lab's inputs and edge cases; the top-k, front-end
+    and K2 paths of the runs that add no kernel against their CPU runs; each
+    kernel, its twin and L4's library call timed.  Returns (the kernels
+    line's L1-L4 entries, each variant's times from the entry point under
+    ``cases``; the rows that launched K2, for K2's entry; K2's launches on
+    the lab's path).  ``floor_ms`` is the launch floor of phase 5."""
     import torch
     from fealess_tpu_torch.apps import kernel_lab
     from fealess_tpu_torch.ops import _build, bounds, lab, nn, score
     from fealess_tpu_torch.utils.profiling import graph_ms
     counted = lab.LAUNCHED + (score.coarse_scores, score.local_scores,
                               nn.nearest_neighbor)
+    coarse, local, clouds = (inputs[k] for k in ("coarse", "local2", "nn"))
     # 9a. the lab's entry point
     for fn in counted:
         fn.launches = 0
-    rows = (kernel_lab.run_coarse(*coarse) + kernel_lab.run_local2(*local)
-            + kernel_lab.run_nn(*clouds))
+    rows, k2_runs = [], {}
+    for which, (_, run) in kernel_lab.RUNS.items():
+        before = score.local_scores.launches
+        rows += run(*inputs[which])
+        k2_runs[which] = score.local_scores.launches - before
     launches = {fn.__name__: fn.launches for fn in counted}
-    print(f"launches on path kernel lab: {launches}")
+    print(f"launches on path kernel lab: {launches}; K2 by run: {k2_runs}")
     for fn in lab.LAUNCHED:
         check(launches[fn.__name__] > 0,
               f"{fn.__name__} never launched on the kernel lab's path")
+    for which in ("local", "local3"):
+        check(k2_runs[which] > 0,
+              f"local_scores never launched on the kernel lab's {which} run")
     hgmma = [row.get("hgmma") for row in rows if row["kernel"] == "nn_mxu"]
     check(all(h is None or h > 0 for h in hgmma),
           f"L4's kernel has no HGMMA in its SASS: {hgmma}")
-    # 9b. against the twins and the served kernels
+    # 9b. the runs that add no kernel against their CPU runs
+    hold_topk([inputs["topk"], kernel_lab.topk_tie_inputs(
+        inputs["topk"][0].device)], "kernel lab")
+    hold_front(*inputs["frontend"], "kernel lab")
+    hold_local_lab(inputs["local"], inputs["local3"], errs, "kernel lab")
+    # 9c. the L kernels against their twins and the served kernels
     coarse_cases = lab_coarse_cases(*coarse)
     local_cases = {"local_variant": lab_local_cases(*local)}
     hold_to_twins(coarse_cases, errs, "kernel lab")
@@ -1999,7 +2112,7 @@ def lab_phase(card, errs, floor_ms, coarse, local, clouds):
           f"want 1, L3's kernel: {names}")
     print(f"kernel local_variant: one stride-2 call, 1 device event "
           f"({names[0]})")
-    # 9c. times of each kernel's first case
+    # 9d. times of each kernel's first case
     entry = {"coarse_variant": coarse_cases["coarse_variant"][0],
              "coarse_stride2": coarse_cases["coarse_stride2"][1],
              "local_variant": local_cases["local_variant"][0],
@@ -2036,7 +2149,10 @@ def lab_phase(card, errs, floor_ms, coarse, local, clouds):
                                **{k: v for k, v in row.items()
                                   if k not in ("variant", "kernel")}}
                               for row in rows if row["kernel"] == name]})
-    return out
+    k2_rows = [{"case": row["variant"], **{k: v for k, v in row.items()
+                                           if k not in ("variant", "kernel")}}
+               for row in rows if row["kernel"] == "local_scores"]
+    return out, k2_rows, launches["local_scores"]
 
 
 def main() -> None:
@@ -2396,10 +2512,9 @@ def run(dev) -> None:
     work.cleanup()
     # -- 9. the kernel lab
     phase_clock("9")
-    lab_entries = lab_phase(card, errs, floor_ms,
-                            kernel_lab.coarse_inputs(dev),
-                            kernel_lab.local2_inputs(dev),
-                            kernel_lab.nn_inputs(dev))
+    lab_entries, lab_k2_rows, lab_k2_launches = lab_phase(
+        card, errs, floor_ms, {which: make(dev) for which, (make, _)
+                               in kernel_lab.RUNS.items()})
     phase_clock("the end")
     launches = {fn.__name__: sum(v[k] for v in path_launches.values())
                 for k, fn in enumerate(counted)}
@@ -2412,6 +2527,9 @@ def run(dev) -> None:
     # gathered, bounds-masked integer sums over feature tables; K3 returns
     # the first argmin with d2 rounded as above, and torch.cdist forms
     # |q|^2 + |r|^2 - 2 q.r, which rounds differently (L4's library call).
+    # K2's entry also carries the kernel lab's K2 rows (local, local3) and
+    # its launches there (``lab_launches``, not in ``launches``).
+    lab_k2 = {"local_refine": {"lab_launches": lab_k2_launches}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1], "launches": launches[name],
@@ -2419,7 +2537,9 @@ def run(dev) -> None:
          "graph_ms": graph[name], "launch_floor_ms": floor_ms,
          "plain_ms": times[name][1], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None,
-         "cases": [shard_timing[name]]}
+         **lab_k2.get(name, {}),
+         "cases": [shard_timing[name]] + (
+             lab_k2_rows if name == "local_refine" else [])}
         for name in cases] + lab_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ Reproduces ``Detector::match``/``matchClass`` (linemod/linemod.cpp:
 - coarse whole-image scores for every template at the coarsest level
   (kernel K1, :func:`fealess_tpu_torch.ops.score.coarse_scores`),
 - exact top-K candidates, ordered (score desc, flat index asc) — the tie
-  order of ``jax.lax.top_k``,
+  order of ``jax.lax.top_k`` (:func:`exact_top_k_flat`; the per-row form
+  :func:`exact_top_k_rows` gives the same),
 - per-level 16x16 local refinement (kernel K2, one launch a level) with
   matchClass's clamp, offset and score arithmetic (linemod.cpp:1509-1573),
 - final (similarity desc, template_id asc) order with duplicate
@@ -162,6 +163,36 @@ def build_match_tables(bank: TemplateBank, det: cfg.DetectorConfig,
     return tuple(tables)
 
 
+def exact_top_k_flat(flat: torch.Tensor, k: int):
+    """The ``k`` largest entries of the 1-D ``flat`` and their int64 flat
+    indices, in ``jax.lax.top_k``'s order (value descending, then flat index
+    ascending): one stable descending sort, then its first ``k``.
+    ``torch.topk`` promises no tie order; the coarse stage serves this
+    form."""
+    scores, idx = torch.sort(flat, descending=True, stable=True)
+    return scores[:k], idx[:k]
+
+
+def exact_top_k_rows(flat: torch.Tensor, k: int, rows: int):
+    """Exact global top-k of the 1-D ``flat`` (equal to
+    :func:`exact_top_k_flat`, tie order included) as a top-k of each row of
+    its ``(rows, cols)`` reshape and a merge of the rows' survivors.  Each
+    row's top-k is a stable descending sort, so ties keep column order, and
+    the merge is a second stable sort over the survivors laid out in (row,
+    rank) order, which is flat-index order among equal values.  Falls back
+    to the flat form when the rows are too small to cover ``k``."""
+    p = flat.shape[0] // rows
+    kk = min(k, p)
+    if rows * kk < k or p <= 1:
+        return exact_top_k_flat(flat, k)
+    s2, i2 = torch.sort(flat.reshape(rows, p), dim=1, descending=True,
+                        stable=True)
+    gidx = (torch.arange(rows, device=flat.device)[:, None] * p
+            + i2[:, :kk])
+    top, im = exact_top_k_flat(s2[:, :kk].reshape(-1), k)
+    return top, gidx.reshape(-1)[im]
+
+
 def match_bank(bank: TemplateBank, bgr: torch.Tensor, depth_mm: torch.Tensor,
                threshold: float, det: cfg.DetectorConfig,
                masks: Optional[List] = None, kernels=None, class_mask=None,
@@ -228,11 +259,7 @@ def coarse_candidates(bank: TemplateBank, planes, threshold: float,
     flat = torch.where(cand_ok,
                        raw_i.to(torch.float32) * scale[:, None, None] + 0.5,
                        float("-inf")).reshape(-1)
-    # exact top-K in jax.lax.top_k's order (score desc, flat index asc):
-    # torch.topk promises no tie order, a stable descending sort does
-    top_scores, top_idx = torch.sort(flat, descending=True, stable=True)
-    top_scores = top_scores[:det.max_candidates]
-    top_idx = top_idx[:det.max_candidates]
+    top_scores, top_idx = exact_top_k_flat(flat, det.max_candidates)
     tslot = top_idx // p
     pidx = top_idx % p
     off_c = _offset(t_c)

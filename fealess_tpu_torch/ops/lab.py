@@ -21,6 +21,12 @@ The lab weighs kernel designs against the served kernels in one process:
   (``wgmma``): the norms and the -2 ride in 16-slot operands
   (:func:`nn_operands`), so the product's accumulator is d2.
 
+Beside them, the plain-torch functions of the lab's runs that add no
+kernel: :func:`build_level_2d_dtype` and :func:`build_level_2d_slices`
+(``frontend`` and ``local3``: the served front end's other working type
+and decimation) and :func:`gather_rows` (``local``: the candidates' table
+rows gathered before K2).
+
 Each wrapper launches its CUDA kernel (``csrc/lab.cu``) for CUDA tensors,
 counts the launch in ``.launches``, and runs its plain twin only for CPU
 tensors; any other device raises.  Nothing on a serving path imports this
@@ -43,7 +49,7 @@ import contextlib
 import numpy as np
 import torch
 
-from fealess_tpu_torch.ops import _build, score
+from fealess_tpu_torch.ops import _build, response, score
 
 MODES = ("base", "noshift", "halftrip", "skipempty", "unroll2")  # L1, in
 # the order of csrc/lab.cu's modes
@@ -668,3 +674,43 @@ def near_tie(idx, d2, idx_ref, d2_ref, query, ref):
     if not gap.numel():
         return ok, 0, 0.0, 0.0
     return ok, int(same.sum()), float(gap.max()), float(share.max())
+
+
+# -- the lab's plain-torch rows (no kernel of their own) ----------------------
+
+
+def build_level_2d_dtype(quantized: torch.Tensor, t: int,
+                         work_dtype: torch.dtype) -> torch.Tensor:
+    """``response.build_level_2d`` with the decimation and the spread in
+    ``work_dtype`` (``kernel_lab._build_level_2d_dtype``): the spread byte
+    cast to int32 for the rotations, the (8*T*T, H/T, W/T) responses cast
+    back to ``work_dtype``."""
+    h, w = quantized.shape
+    hd, wd = h // t, w // t
+    q = quantized.to(work_dtype)
+    q_dec = response.decimate_quant(q, t).reshape(t, t, hd, wd)
+    sd = response.spread_decimated(q_dec, t).reshape(t * t, hd, wd)
+    b = sd.to(torch.int32)
+    return response._response_stack_i32(b).to(work_dtype).reshape(
+        8 * t * t, hd, wd)
+
+
+def build_level_2d_slices(quantized: torch.Tensor, t: int) -> torch.Tensor:
+    """``response.build_level_2d`` with the decimation as T*T strided slices
+    stacked, no 4-D permute (``lab_local3``'s ``build_level_2d_slices``);
+    int32 (8*T*T, H/T, W/T)."""
+    h, w = quantized.shape
+    hd, wd = h // t, w // t
+    q = quantized.to(torch.int32)
+    sub = torch.stack([q[a::t, b::t] for a in range(t) for b in range(t)])
+    b = response.spread_decimated(sub.reshape(t, t, hd, wd), t).reshape(
+        t * t, hd, wd)
+    return response._response_stack_i32(b).reshape(8 * t * t, hd, wd)
+
+
+def gather_rows(table, tslot: torch.Tensor):
+    """The rows ``tslot`` of each array of ``table`` (``kernel_lab.
+    _gather_fancy``), as ``index_select``: the per-candidate table that
+    ``score.local_scores`` takes (``score.local_refine`` reads the rows in
+    place instead)."""
+    return {k: v.index_select(0, tslot) for k, v in table.items()}

@@ -16,6 +16,7 @@ without a card; they import nothing of JAX, so they also run on the card
 """
 
 import functools
+import os
 import types
 
 import numpy as np
@@ -23,7 +24,7 @@ import pytest
 import torch
 
 from fealess_tpu_torch.apps import kernel_lab as port_app
-from fealess_tpu_torch.ops import bounds, lab, score
+from fealess_tpu_torch.ops import bounds, lab, response, score
 
 torch.set_num_threads(1)
 
@@ -547,11 +548,19 @@ def test_bound_ms_counts():
         bounds.bound_ms("nothing", ())
 
 
-@pytest.mark.parametrize("which", ["coarse", "local2", "nn"])
+def _small_images(seed, shapes):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.integers(0, 256, hw, np.uint8))
+            for hw in shapes]
+
+
+@pytest.mark.parametrize("which", ["coarse", "local2", "nn", "topk",
+                                   "frontend", "local", "local3"])
 def test_app_runs_on_cpu(which, capsys):
     """``apps/kernel_lab``'s runs on CPU tensors at small shapes: the
     twins, the lab's asserts and the equality with the served kernels'
-    twins, one line a variant, no timings."""
+    twins (L1-L4), the rows' equality (topk, frontend, local, local3), one
+    line a variant, no timings."""
     if which == "coarse":
         rows = port_app.run_coarse(*lab.fixture_like(**TABLES["even"],
                                                      device="cpu"))
@@ -567,21 +576,50 @@ def test_app_runs_on_cpu(which, capsys):
         rows = port_app.run_local2(planes, table_k, origin, origin)
         want = ["local2/s1-cond0", "local2/s1-cond1", "local2/s2-cond0",
                 "local2/s2-cond1"]
-    else:
+    elif which == "nn":
         rows = port_app.run_nn(*port_app.nn_inputs("cpu", n=700))
         want = ["nn/mxu-dot"]
         assert rows[0]["idx_equal"] >= 690
+    else:
+        planes, table = lab.fixture_like(seed=1, n=32, f=30, nb=7, hd=24,
+                                         wd=32, c=400, device="cpu")
+        tslot = torch.arange(0, 32, 3)
+        origin = (tslot % 8).int()
+        if which == "topk":
+            rows = port_app.run_topk(*port_app.topk_tie_inputs(
+                "cpu", n=16, hd=6, wd=8))
+            want = ["topk/flat-1.2M", "topk/2level-r16", "topk/2level-r96"]
+        elif which == "frontend":
+            rows = port_app.run_frontend(*_small_images(0, [(40, 80),
+                                                            (16, 32)]))
+            want = ["front/current-u8", "front/i32", "front/u8copy"]
+        elif which == "local":
+            rows = port_app.run_local(planes, table, tslot, origin, origin)
+            want = ["local/gather-fancy", "local/kernel-only"]
+        else:
+            rows = port_app.run_local3(
+                *_small_images(1, [(120, 160), (120, 160)]),
+                lab.gather_rows(table, tslot), origin, origin)
+            want = ["local3/front+kernel", "local3/front-slices+kernel",
+                    "local3/front-only"]
+        assert [row["kernel"] for row in rows] == [
+            "local_scores" if w.startswith("local") and
+            not w.endswith("front-only") else None for w in want]
     assert [row["variant"] for row in rows] == want
     assert all("graph_ms" not in row for row in rows)
     out = capsys.readouterr().out
-    assert out.count("twin run (no timings on the CPU)") == len(want)
+    twins = sum(row["kernel"] is not None for row in rows)
+    assert out.count("twin run (no timings on the CPU)") == twins
+    assert out.count("run on the CPU (no timings)") == len(want) - twins
 
 
 def test_phase9_checks_rehearse_on_cpu(monkeypatch):
     """chip_smoke's phase-9 checks on CPU tensors at small shapes (where
     the wrappers run their twins): the edge cases build, every L1-L3 case
     equals its twin and the served kernels', L4 meets the near-tie rule
-    against its twin and K3 with the planted first indices."""
+    against its twin and K3 with the planted first indices; the top-k
+    (the lab's draw and a tie-heavy one), front-end and K2 checks of the
+    runs that add no kernel pass."""
     import chip_smoke
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     coarse = lab.fixture_like(n=16, f=60, nb=13, hd=6, wd=40, c=32,
@@ -603,8 +641,195 @@ def test_phase9_checks_rehearse_on_cpu(monkeypatch):
     chip_smoke.hold_nn_mxu(chip_smoke.lab_nn_cases(
         *port_app.nn_inputs("cpu", n=2100)), errs, "CPU")
     chip_smoke.hold_to_served(coarse_cases, local_cases)
+    chip_smoke.hold_topk([port_app.topk_inputs("cpu", n=64, hd=12, wd=16),
+                          port_app.topk_tie_inputs("cpu", n=64, hd=12,
+                                                   wd=16)], "CPU")
+    chip_smoke.hold_front(*_small_images(0, [(40, 80), (16, 32)]), "CPU")
+    table_k = {k: v[idx].contiguous() for k, v in table.items()}
+    chip_smoke.hold_local_lab(
+        (planes, table, idx, (idx % 30).int(), (idx % 8).int()),
+        (*_small_images(1, [(120, 240), (120, 240)]), table_k,
+         (idx % 30).int(), (idx % 8).int()), errs, "CPU")
     assert errs == {"coarse_variant": 0.0, "coarse_stride2": 0.0,
-                    "local_variant": 0.0, "nn_mxu": 0.0}
+                    "local_variant": 0.0, "nn_mxu": 0.0,
+                    "local_refine": 0.0}
+
+
+# -- the runs that add no kernel: topk, frontend, local, local3 ---------------
+
+
+def _lab_topk_draws(jnp, n, hd, wd):
+    """``lab_topk``'s lines (kernel_lab.py:293-299) at another size."""
+    rng = np.random.default_rng(0)
+    flat = jnp.asarray(rng.normal(size=(n * hd * wd,)).astype(np.float32))
+    mask = rng.random(n * hd * wd) < 0.02
+    return jnp.where(jnp.asarray(mask), flat + 100.0, -jnp.inf)
+
+
+TOPK_SHAPES = {"lab": (1024, 30, 40), "small": (64, 12, 16),
+               "sparse": (16, 6, 8)}
+
+
+@pytest.mark.parametrize("draw", ["lab", "ties"])
+@pytest.mark.parametrize("shape", sorted(TOPK_SHAPES))
+def test_topk_forms_equal_lab(jax_side, draw, shape):
+    """The served flat top-k (``detector.exact_top_k_flat``) against the
+    lab's ``_topk_flat`` (``jax.lax.top_k``) and the per-row form
+    (``exact_top_k_rows``) against its ``_topk_two_level`` at rows = n and
+    n * hd, scores and indices exactly: on the lab's draws (whose inputs
+    are first shown equal; at the lab's 1.2M and smaller) and on a
+    tie-heavy draw (integer scores 0..3, 2% live, the rest -inf: the top 64
+    are ties that only the index order decides; at "sparse" fewer than 64
+    are live, so -inf ties fill the tail)."""
+    jnp = jax_side.jnp
+    n, hd, wd = TOPK_SHAPES[shape]
+    make = port_app.topk_inputs if draw == "lab" else \
+        port_app.topk_tie_inputs
+    flat, k, rows_list = make("cpu", n=n, hd=hd, wd=wd)
+    assert k == 64 and rows_list == (n, n * hd)
+    if draw == "lab":
+        np.testing.assert_array_equal(
+            flat.numpy(), np.asarray(_lab_topk_draws(jnp, n, hd, wd)))
+    fj = jnp.asarray(flat.numpy())
+    s0, i0 = jax_side.lab._topk_flat(fj, k)
+    s, i = port_app.detector.exact_top_k_flat(flat, k)
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s0))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i0))
+    top = flat.numpy()[i.numpy()]
+    if draw == "ties":
+        assert (top == top[0]).sum() > 1
+    for rows in rows_list:
+        s1, i1 = jax_side.lab._topk_two_level(fj, k, rows)
+        s, i = port_app.detector.exact_top_k_rows(flat, k, rows)
+        np.testing.assert_array_equal(s.numpy(), np.asarray(s1))
+        np.testing.assert_array_equal(i.numpy(), np.asarray(i1))
+        np.testing.assert_array_equal(i.numpy(), np.asarray(i0))
+
+
+@pytest.mark.parametrize("t,dtype", [(5, "int32"), (5, "uint8"),
+                                     (8, "int32"), (8, "uint8")])
+def test_build_level_2d_dtype_equals_lab(jax_side, t, dtype):
+    """``lab.build_level_2d_dtype`` against the lab's
+    ``_build_level_2d_dtype`` at its image sizes (480 x 640 at T = 5, 240 x
+    320 at T = 8, ``frontend_inputs``, first shown equal to the lab's
+    draws), values and working type exactly, and against the served
+    ``response.build_level_2d``."""
+    jnp = jax_side.jnp
+    q0, q1 = port_app.frontend_inputs("cpu")
+    rng = np.random.default_rng(0)
+    np.testing.assert_array_equal(
+        q0.numpy(), rng.integers(0, 256, (480, 640), np.uint8))
+    np.testing.assert_array_equal(
+        q1.numpy(), rng.integers(0, 256, (240, 320), np.uint8))
+    q = q0 if t == 5 else q1
+    want = np.asarray(jax_side.lab._build_level_2d_dtype(
+        jnp.asarray(q.numpy()), t, getattr(jnp, dtype)))
+    got = lab.build_level_2d_dtype(q, t, getattr(torch, dtype))
+    assert got.dtype == getattr(torch, dtype) and want.dtype == dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got.to(torch.int32), response.build_level_2d(q, t))
+
+
+@pytest.mark.parametrize("t", [5, 8])
+def test_build_level_2d_slices_equals_served(jax_side, t):
+    """``lab.build_level_2d_slices`` (the decimation as strided slices)
+    against JAX's served ``build_level_2d`` (its decimate-first path off
+    the TPU) and the port's, at the lab's image sizes."""
+    from fealess_tpu.ops import response as jax_response
+    q = port_app.frontend_inputs("cpu")[0 if t == 5 else 1]
+    got = lab.build_level_2d_slices(q, t)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        jax_response.build_level_2d(jax_side.jnp.asarray(q.numpy()), t)))
+    assert torch.equal(got, response.build_level_2d(q, t))
+
+
+def test_local_run_equals_lab(jax_side):
+    """``local``: ``local_inputs`` equal to the lab's draws (``lab_local``,
+    kernel_lab.py:388-396), ``lab.gather_rows`` to its ``_gather_fancy``,
+    and K2's twin on the gathered rows to ``score_pallas.local_scores``
+    (``_local_scores_xla`` off the TPU) exactly."""
+    jnp = jax_side.jnp
+    rng = np.random.default_rng(1)
+    pj, tj = jax_side.lab._fixture_like(seed=1, n=1024, f=126, nb=7, hd=96,
+                                        wd=128, c=400)
+    tsj = jnp.asarray(rng.integers(0, 1024, (64,)), jnp.int32)
+    pxj = jnp.asarray(rng.integers(0, 128 - 16, (64,)), jnp.int32)
+    pyj = jnp.asarray(rng.integers(0, 96 - 16, (64,)), jnp.int32)
+    planes, table, tslot, px0, py0 = port_app.local_inputs("cpu")
+    np.testing.assert_array_equal(planes.numpy(), np.asarray(pj))
+    for key in tj:
+        np.testing.assert_array_equal(table[key].numpy(),
+                                      np.asarray(tj[key]), err_msg=key)
+    for got, want in ((tslot, tsj), (px0, pxj), (py0, pyj)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    gj = jax_side.lab._gather_fancy(tj, tsj)
+    table_k = lab.gather_rows(table, tslot)
+    for key in gj:
+        assert table_k[key].dtype == torch.int32
+        np.testing.assert_array_equal(table_k[key].numpy(),
+                                      np.asarray(gj[key]), err_msg=key)
+    want = np.asarray(jax_side.sp.local_scores(pj, gj, pxj, pyj))
+    got = score.local_scores(planes, table_k, px0, py0)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.any()
+
+
+def test_local3_run_equals_lab(jax_side):
+    """``local3``: ``local3_inputs`` equal to the lab's draws (both images
+    before the table, the slots and origins after it, kernel_lab.py:
+    513-524), and K2's twin behind the port's front end (``front_planes``:
+    both modalities' level-0 planes, cast to u8) and behind its
+    strided-slices form equal to the lab's ``with_front`` (JAX's
+    ``build_level_2d`` twice, concatenated, then ``local_scores``) at full
+    size."""
+    from fealess_tpu.ops import response as jax_response
+    jnp = jax_side.jnp
+    rng = np.random.default_rng(1)
+    i0 = jnp.asarray(rng.integers(0, 256, (480, 640), np.uint8))
+    i1 = jnp.asarray(rng.integers(0, 256, (480, 640), np.uint8))
+    _, tj = jax_side.lab._fixture_like(seed=1, n=1024, f=126, nb=39, hd=96,
+                                       wd=128, c=400, valid_frac=0.5)
+    tsj = jnp.asarray(rng.integers(0, 1024, (64,)), jnp.int32)
+    tkj = {key: tj[key][tsj] for key in tj}
+    pxj = jnp.asarray(rng.integers(0, 128 - 16, (64,)), jnp.int32)
+    pyj = jnp.asarray(rng.integers(0, 96 - 16, (64,)), jnp.int32)
+    img0, img1, table_k, px0, py0 = port_app.local3_inputs("cpu")
+    for got, want in ((img0, i0), (img1, i1), (px0, pxj), (py0, pyj)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for key in tkj:
+        np.testing.assert_array_equal(table_k[key].numpy(),
+                                      np.asarray(tkj[key]), err_msg=key)
+    planes_j = jnp.concatenate([jax_response.build_level_2d(i0, 5),
+                                jax_response.build_level_2d(i1, 5)], axis=0)
+    want = np.asarray(jax_side.sp.local_scores(planes_j, tkj, pxj, pyj))
+    planes = port_app.front_planes(img0, img1)
+    assert planes.dtype == torch.uint8 and planes.shape == (400, 96, 128)
+    np.testing.assert_array_equal(planes.numpy(), np.asarray(planes_j))
+    for build in (response.build_level_2d, lab.build_level_2d_slices):
+        got = score.local_scores(port_app.front_planes(img0, img1, build),
+                                 table_k, px0, py0)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert want.any()
+
+
+def test_every_lab_subcommand_has_a_run():
+    """The JAX lab's ``__main__`` dispatch (``which == "..."``), read with
+    ``ast``, names the same seven subcommands as the port's ``RUNS``."""
+    import ast
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmarks", "kernel_lab.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    main = [node for node in tree.body if isinstance(node, ast.If)
+            and "__main__" in ast.unparse(node.test)]
+    assert len(main) == 1
+    names = {cmp.comparators[0].value for cmp in ast.walk(main[0])
+             if isinstance(cmp, ast.Compare)
+             and isinstance(cmp.left, ast.Name) and cmp.left.id == "which"
+             and isinstance(cmp.ops[0], ast.Eq)}
+    assert len(names) == 7
+    assert names == set(port_app.RUNS)
 
 
 # -- on the card --------------------------------------------------------------

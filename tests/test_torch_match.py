@@ -272,3 +272,35 @@ def test_coarse_row_topk_matches_jax(fixture, monkeypatch, draw, hd, wd, k,
         assert not live.any()
     elif draw == "ties":
         assert live.all() and (sim.numpy() == sim.numpy()[0]).sum() > 1
+
+
+# (draw, size, k, rows): the lab's draw (2% live normals + 100, the rest
+# -inf) and a tie-heavy one (integer scores 0..3, 2% live) at rows = n and
+# n * hd of n x hd x wd = 64 x 12 x 16; the flat fallback where the rows do
+# not cover k (30 scores in 4 rows of 7: 4 * min(29, 7) < 29) and where a
+# row holds one score (p <= 1)
+TOPK_ROWS = [("lab", 12288, 64, 64), ("lab", 12288, 64, 768),
+             ("ties", 12288, 64, 64), ("ties", 12288, 64, 768),
+             ("ties", 30, 29, 4), ("lab", 30, 29, 4),
+             ("ties", 768, 64, 768), ("ties", 768, 64, 1000)]
+
+
+@pytest.mark.parametrize("draw,size,k,rows", TOPK_ROWS)
+def test_exact_top_k_rows_matches_jax(draw, size, k, rows):
+    """``exact_top_k_rows`` and the flat ``exact_top_k_flat`` against JAX's
+    ``detector.exact_top_k_rows``: scores and flat indices exactly, tie
+    order (value desc, flat index asc) included."""
+    rng = np.random.default_rng(size + k + rows)
+    live = rng.random(size) < 0.02
+    live[:3] = True
+    vals = (rng.normal(size=size).astype(np.float32) + np.float32(100)
+            if draw == "lab" else
+            rng.integers(0, 4, size).astype(np.float32))
+    flat = np.where(live, vals, np.float32(-np.inf))
+    ref_s, ref_i = jax_det.exact_top_k_rows(jnp.asarray(flat), k, rows)
+    flat_t = torch.from_numpy(flat)
+    for s, i in (port_det.exact_top_k_rows(flat_t, k, rows),
+                 port_det.exact_top_k_flat(flat_t, k)):
+        assert i.dtype == torch.int64
+        np.testing.assert_array_equal(s.numpy(), np.asarray(ref_s))
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ref_i))

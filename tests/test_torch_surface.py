@@ -41,9 +41,6 @@ LEFT_OUT = {
         "TPU workaround", "the profile_stop hooks (ROADMAP Open items)"),
     ("ops/luts.py", "similarity_lut_nibbles"): (
         "TPU workaround", "the nibble packing of the Pallas scorers"),
-    ("detector.py", "exact_top_k_rows"): (
-        "tried and left out", "JAX's per-row top-K, exact but slower on "
-        "the card (ROADMAP §2 K1)"),
     ("ops/nn_pallas.py", "TQ"): ("Pallas internals", "ops/nn's tiles"),
     ("ops/nn_pallas.py", "TR"): ("Pallas internals", "ops/nn's tiles"),
     ("ops/nn_pallas.py", "nearest_neighbor_auto"): (
