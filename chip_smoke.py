@@ -110,6 +110,18 @@ Phases, one line of output each (or a few):
    decode on the main thread; the frames' launches are read before the
    device-stage table that ``--profile`` prints since phase 8 came, whose
    launches go on a path of their own).
+7d. frame input (``io/imfile.read_image``: PNG, JPEG and BMP by content,
+   as ``cv2.imread``): every file of ``tests/data/torch_frames`` decoded
+   under the three flags to the sha256 of cv2's decode (recorded by
+   ``tests/make_torch_frames.py``); ``acq --device cuda`` over a directory
+   of two JPEG and two BMP frames with depth and clouds, its ``gray/`` and
+   ``depth/`` bitwise and its clouds within ``CLOUD_TOL_MM`` of the same
+   call on the CPU; ``recon`` in both ICP settings over the 640x480
+   series whose ``gray/*.png`` hold JPEG data, its lines held to the JAX
+   CLI's (similarity exact, pose within phase 4's tolerances) with K1 and
+   K2 (and K3 under forced ICP) counted on the path, and each decoded
+   frame's match to the JAX engine's; the host time to decode the fixture
+   scene as baseline and progressive JPEG, as BMP and as PNG.
 8. the rest of the public surface: the CLI's device-stage table
    (``cli._profile_stages``: front-end, match and the full step as
    cumulative prefixes, each the device busy of warm calls under
@@ -285,6 +297,13 @@ RESIZE_SHAPES = [((1280, 960), (640, 480)), ((1280, 720), (640, 360)),
 EXPECT_720_DIMS = (400, 640)
 SERIES_FRAMES = 8
 PNG_TIMED = 10
+# Phase 7d (frame input): the committed JPEG/BMP files, their cv2 digests
+# and the JAX CLI's recon lines (tests/make_torch_frames.py writes them
+# with cv2 and the JAX package on the CPU), the acq clouds' limit against
+# the CPU call, and timed decodes.
+FRAMES_DIR = os.path.join(REPO, "tests", "data", "torch_frames")
+CLOUD_TOL_MM = 1e-3
+DECODE_TIMED = 10
 
 # Phase 8 (the rest of the public surface).  The device-stage table's rows
 # are cumulative prefixes; device busy repeats within 0.01 ms (PERF.md §5),
@@ -1433,7 +1452,8 @@ def zoom_phase(eng, bgr_np, depth_np, cam, card, counts,
           f"bound {(frame_bytes + out_bytes) / hbm * 1e3:.6f} "
           f"ms ({card})")
 
-    # 7d. a Paeth-filtered 640x480 RGB PNG: the C un-filter and its twin
+    # 7c (cont.). a Paeth-filtered 640x480 RGB PNG: the C un-filter and
+    # its twin
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "paeth.png")
         with open(path, "wb") as f:
@@ -1530,6 +1550,230 @@ def zoom_phase(eng, bgr_np, depth_np, cam, card, counts,
               f"{io_row[2]} ms mean ({io_row[1]} ms in all), "
               f"recognition(+fetch) {reco_row[2]} ms mean; decoding a "
               f"frame on the main thread takes {serial_ms:.3f} ms ({card})")
+
+
+# -- phase 7d: frame input (JPEG, BMP, PNG by content) ----------------------
+
+def bmp24(img) -> bytes:
+    """A bottom-up 24-bit BMP of a u8 BGR (H, W, 3) image (rows padded to 4
+    bytes, 40-byte header), as cv2.imwrite writes one."""
+    import struct
+
+    import numpy as np
+    h, w = img.shape[:2]
+    pitch = (3 * w + 3) & -4
+    rows = np.zeros((h, pitch), np.uint8)
+    rows[:, :3 * w] = img[::-1].reshape(h, -1)
+    return (b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54)
+            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size,
+                          2835, 2835, 0, 0) + rows.tobytes())
+
+
+def host_mean_ms(fn, reps: int) -> float:
+    """Mean host wall time of ``reps`` calls after one warm call."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def same_recon_line(got: dict, want: dict, setting: str) -> bool:
+    """A port recon line against the JAX CLI's: the same frame and object,
+    similarity exact, t within phase 4's T_TOL_MM, rotation within
+    ROT_TOL_DEG, ICP distance within CLI_DIST_TOL."""
+    import numpy as np
+    if got["frame"] != want["frame"] or \
+            len(got["results"]) != len(want["results"]):
+        return False
+    for g, w in zip(got["results"], want["results"]):
+        pg, pw = np.asarray(g["pose"]), np.asarray(w["pose"])
+        if (g["obj"] != w["obj"] or g["similarity"] != w["similarity"]
+                or not close(pg[:3, 3], pw[:3, 3], T_TOL_MM[setting])
+                or rotation_deg(pg[:3, :3] @ pw[:3, :3].T) > ROT_TOL_DEG
+                or abs(g["icp_dist"] - w["icp_dist"]) > CLI_DIST_TOL):
+            return False
+    return True
+
+
+def frame_input_phase(eng, bgr_np, depth_np, cam, card, counts,
+                      default_icp) -> None:
+    """Phase 7d: every committed file of ``tests/data/torch_frames``
+    decoded to cv2's digests; ``acq`` on the card against its CPU call
+    over a JPEG/BMP directory; ``recon`` (both ICP settings) over the
+    640x480 series whose ``gray/*.png`` hold JPEG data against the JAX
+    CLI's lines, K1/K2 (and K3 under forced ICP) counted behind the new
+    reader; the match of each decoded frame against JAX's; decode times."""
+    import contextlib
+    import hashlib
+    import io
+    import shutil
+
+    import numpy as np
+    from fealess_tpu_torch.apps import acquire, cli, fixture
+    from fealess_tpu_torch.io import png
+    from fealess_tpu_torch.io.imfile import (IMREAD_COLOR, IMREAD_UNCHANGED,
+                                             read_image)
+
+    zero_counts, read_counts, path_launches, counted = counts
+    dev = eng.device
+    with open(os.path.join(FRAMES_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    with open(os.path.join(FRAMES_DIR, "recon.json")) as f:
+        expect = json.load(f)
+
+    # every committed file under every flag: cv2's sha256 (recorded here
+    # by tests/make_torch_frames.py, held to cv2 by the CPU tests)
+    for name, flags in sorted(digests.items()):
+        for flag, want in flags.items():
+            img = read_image(os.path.join(FRAMES_DIR, name), int(flag))
+            got = [list(img.shape), hashlib.sha256(img.tobytes()).hexdigest()]
+            check(got == want, f"decode {name} flag {flag}: {got}, cv2 "
+                               f"gives {want}")
+    print(f"frame input: {len(digests)} committed files (JPEG: every "
+          f"sampling factor, progressive, restart, gray, EXIF 6/8, odd "
+          f"sizes, cut short, under a .png name; BMP 8/24/32-bit, RLE4/8, "
+          f"top-down; the 640x480 series) x 3 flags: sha256 equal to "
+          f"cv2.imread's")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the 640x480 series: gray/<i>.png hold JPEG data (committed),
+        # depth as the fixture writes it
+        series = os.path.join(tmp, "series")
+        for sub in ("gray", "depth"):
+            os.makedirs(os.path.join(series, sub))
+        pan = fixture.pan(bgr_np, depth_np, 3)
+        depths = (pan[0][1], pan[0][1], pan[2][1])
+        for i, d in enumerate(depths):
+            shutil.copy(os.path.join(FRAMES_DIR, "series", "gray",
+                                     f"{i}.png"),
+                        os.path.join(series, "gray", f"{i}.png"))
+            png.write_png(os.path.join(series, "depth", f"{i}.png"),
+                          (d.astype(np.uint32) * 10).astype(np.uint16))
+
+        # acq over a JPEG/BMP directory: on the card and on the CPU
+        src, dep = os.path.join(tmp, "acq_src"), os.path.join(tmp, "acq_dep")
+        os.makedirs(src)
+        os.makedirs(dep)
+        for i in range(2):
+            shutil.copy(os.path.join(series, "gray", f"{i}.png"),
+                        os.path.join(src, f"{i}.jpg"))
+        with open(os.path.join(src, "2.bmp"), "wb") as f:
+            f.write(bmp24(pan[2][0]))
+        shutil.copy(os.path.join(FRAMES_DIR, "rle8.bmp"),
+                    os.path.join(src, "3.bmp"))
+        for i, d in enumerate(depths):
+            png.write_png(os.path.join(dep, f"{i}.png"), d)
+        outs = {}
+        for device in (str(dev), "cpu"):
+            outs[device] = os.path.join(tmp, f"acq_{device}")
+            with contextlib.redirect_stdout(io.StringIO()):
+                n = acquire.acquire_series(src, outs[device], depth_dir=dep,
+                                           save_clouds=True, device=device)
+            check(n == 4, f"acq on {device}: {n} frames")
+        worst, points = 0.0, 0
+        for sub in ("gray", "depth", "cloud"):
+            names = sorted(os.listdir(os.path.join(outs["cpu"], sub)))
+            check(names == sorted(os.listdir(os.path.join(outs[str(dev)],
+                                                          sub)))
+                  and len(names) == (4 if sub == "gray" else 3),
+                  f"acq {sub}/: {names}")
+            for name in names:
+                a = os.path.join(outs[str(dev)], sub, name)
+                b = os.path.join(outs["cpu"], sub, name)
+                if sub != "cloud":
+                    check(np.array_equal(read_image(a, IMREAD_UNCHANGED),
+                                         read_image(b, IMREAD_UNCHANGED)),
+                          f"acq {sub}/{name}: the card differs from the CPU")
+                    continue
+                pa, pb = np.loadtxt(a, ndmin=2), np.loadtxt(b, ndmin=2)
+                check(pa.shape == pb.shape and pa.shape[0] > 0,
+                      f"acq cloud/{name}: {pa.shape} vs {pb.shape} points")
+                worst = max(worst, float(np.abs(pa - pb).max()))
+                points += pa.shape[0]
+        check(worst <= CLOUD_TOL_MM + 1e-9,
+              f"acq clouds: {worst} mm from the CPU's")
+        print(f"acq --device {dev} (2 JPEG + 2 BMP frames to 640x480, depth, "
+              f"clouds): gray/ and depth/ bitwise equal to the CPU call, "
+              f"{points} cloud points within {worst:.4f} mm of it (limit "
+              f"{CLOUD_TOL_MM} mm)")
+
+        # recon over the JPEG-content series in both ICP settings
+        features = os.path.join(fixture.FIXTURE, "features")
+        build = cli._engine_for
+        for setting in ("a", "b"):
+            def engine_for(args, width, height, setting=setting):
+                served = build(args, width, height)
+                apply_setting(served, setting, default_icp)
+                return served
+
+            path = f"CLI recon, JPEG-content series ({setting})"
+            out = io.StringIO()
+            cli._engine_for = engine_for
+            zero_counts()
+            try:
+                with contextlib.redirect_stdout(out), \
+                        contextlib.redirect_stderr(io.StringIO()):
+                    rc = cli.main(["recon", features, "--series", series,
+                                   "--device", str(dev)])
+            finally:
+                cli._engine_for = build
+            read_counts(path)
+            lines = [json.loads(ln) for ln in out.getvalue().splitlines()
+                     if ln.startswith("{")]
+            want = expect[setting]
+            check(rc == 0 and len(lines) == len(want) == 3
+                  and all(same_recon_line(g, w, setting)
+                          for g, w in zip(lines, want)),
+                  f"{path}: rc {rc}, {lines} vs JAX {want}")
+            k1, k2, k3 = path_launches[path]
+            check(k1 == k2 == 3 and (k3 > 0) == (setting == "b"),
+                  f"{path}: launches {path_launches[path]}")
+            t2 = [round(r[3], 5) for r in lines[2]["results"][0]["pose"][:3]]
+            print(f"{path}: 3 lines equal to the JAX CLI's (similarity "
+                  f"exact, t within {T_TOL_MM[setting]} mm, rotation within "
+                  f"{ROT_TOL_DEG} deg, ICP distance within {CLI_DIST_TOL}); "
+                  f"t of frame 2 {t2}")
+        apply_setting(eng, "a", default_icp)
+        path = "JPEG-content frames, recognition"
+        zero_counts()
+        for i, d in enumerate(depths):
+            bgr = read_image(os.path.join(series, "gray", f"{i}.png"),
+                             IMREAD_COLOR)
+            res = eng.recognition(bgr, d, cam)
+            check(len(res) == 1
+                  and list(res[0].match_rect[:2]) == expect["match"][i]
+                  and res[0].similarity == 100.0,
+                  f"{path} {i}: {res}, JAX's match {expect['match'][i]}")
+        read_counts(path)
+        print(f"{path}: matches {expect['match']} as the JAX engine's on "
+              f"cv2's decode, similarity 100.0")
+
+        # decode times of the fixture scene, on the host
+        scene_bmp, scene_png = (os.path.join(tmp, "scene.bmp"),
+                                os.path.join(tmp, "scene.png"))
+        with open(scene_bmp, "wb") as f:
+            f.write(bmp24(bgr_np))
+        png.write_png(scene_png, bgr_np)
+        check(np.array_equal(read_image(scene_bmp), bgr_np)
+              and np.array_equal(png.read_png(scene_png, color=True), bgr_np),
+              "scene BMP/PNG decode differs from the scene")
+        gray_dir = os.path.join(series, "gray")
+        times = {
+            "JPEG baseline 4:2:0 q95": host_mean_ms(
+                lambda: read_image(os.path.join(gray_dir, "0.png")),
+                DECODE_TIMED),
+            "JPEG progressive 4:2:0 q95": host_mean_ms(
+                lambda: read_image(os.path.join(gray_dir, "1.png")),
+                DECODE_TIMED),
+            "BMP 24-bit": host_mean_ms(lambda: read_image(scene_bmp),
+                                       DECODE_TIMED),
+            "read_png (filter 0)": host_mean_ms(
+                lambda: png.read_png(scene_png, color=True), DECODE_TIMED)}
+        print("time decode of the 640x480 fixture scene to BGR (host, mean "
+              f"of {DECODE_TIMED} after a warm call): "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+              + f" ({card})")
 
 
 # -- phase 8: the rest of the public surface --------------------------------
@@ -2504,6 +2748,10 @@ def run(dev) -> None:
     zoom_phase(eng, bgr_np, depth_np, cam, card,
                (zero_counts, read_counts, path_launches, counted),
                default_icp)
+    phase_clock("7d")
+    frame_input_phase(eng, bgr_np, depth_np, cam, card,
+                      (zero_counts, read_counts, path_launches, counted),
+                      default_icp)
     # -- 8. the rest of the public surface
     phase_clock("8")
     surface_phase(eng, bgr_np, depth_np, cam, card,

@@ -6,10 +6,11 @@
   ``depth/<i>.png`` and optionally a ``cloud/<i>.txt`` point dump (mm)
   per saved frame into the scan-package layout that ``train``, ``recon``
   and ``track`` read, printing the intrinsics.  Frames come from
-  ``io.series.ImageSeriesReader`` (a directory or a list of PNG files;
-  cameras, video files and JPEG/BMP need cv2 and are refused there),
-  paired with an optional depth directory, and are written with
-  ``io/png.write_png``.
+  ``io.series.ImageSeriesReader`` (a directory or a list of PNG, JPEG or
+  BMP files; cameras and video files need cv2 and are refused there),
+  paired with an optional depth directory read by ``io/imfile``, and are
+  written with ``io/png.write_png``; the clouds are back-projected on the
+  given device.
 - ``BoxExtractor``: the interactive ROI picker
   (kcf_tracker/BoxExtractor.{h,cpp}).  It needs a display and cv2's
   ``selectROI``, and raises ``RuntimeError`` without either, as the JAX
@@ -106,16 +107,20 @@ def acquire_series(color_source, out_dir: str,
                    cx: float = 320.0, cy: float = 240.0,
                    max_frames: Optional[int] = None,
                    save_clouds: bool = False,
-                   target_wh: Tuple[int, int] = (640, 480)) -> int:
+                   target_wh: Tuple[int, int] = (640, 480),
+                   device: str = "cuda") -> int:
     """Capture frames into the scan-package layout (linemod_acq.cpp:10-102):
     ``gray/<i>.png`` (colour resized to ``target_wh``), ``depth/<i>.png``
     (u16 mm as read, when a depth series is given) and optionally
-    ``cloud/<i>.txt`` (mm, back-projected on the CPU).  Depth pairs with
-    colour by file stem.  Returns the number of frames saved."""
+    ``cloud/<i>.txt`` (mm, back-projected on ``device``, which must exist
+    when clouds are asked for: nothing falls back to the CPU).  Depth
+    pairs with colour by file stem.  Returns the number of frames saved."""
     import torch
 
     from fealess_tpu_torch.geometry import depth as gd
-    from fealess_tpu_torch.io.png import DecodeError, read_png, write_png
+    from fealess_tpu_torch.io.imfile import (IMREAD_UNCHANGED, DecodeError,
+                                             read_image)
+    from fealess_tpu_torch.io.png import write_png
     from fealess_tpu_torch.io.series import ImageSeriesReader, \
         numeric_stem_key
 
@@ -135,7 +140,10 @@ def acquire_series(color_source, out_dir: str,
 
     print(f"intrinsics: fx={fx} fy={fy} cx={cx} cy={cy} "
           f"size={target_wh[0]}x{target_wh[1]}")
-    k = gd.intrinsics_matrix(fx, fy, cx, cy, device="cpu")
+    # the clouds are the only device work: K goes there first, so a
+    # missing card fails before a frame is written
+    k = (gd.intrinsics_matrix(fx, fy, cx, cy, device=device)
+         if save_clouds else None)
     n = 0
     for i, (stem, frame) in enumerate(reader.iter_named()):
         if max_frames is not None and n >= max_frames:
@@ -144,14 +152,16 @@ def acquire_series(color_source, out_dir: str,
         depth_path = depth_by_stem.get(stem)
         if depth_path is not None:
             try:
-                d = read_png(depth_path).astype(np.uint16)
-            except DecodeError:                      # cv2.imread: None
+                d = read_image(depth_path,
+                               IMREAD_UNCHANGED).astype(np.uint16)
+            except (DecodeError, FileNotFoundError):  # cv2.imread: None
                 d = None
             if d is not None:
                 write_png(os.path.join(out_dir, "depth", f"{i}.png"), d)
                 if save_clouds:
                     pts = gd.depth_to_3d(
-                        torch.from_numpy(d.astype(np.int32)), k).numpy()
+                        torch.from_numpy(d.astype(np.int32)).to(device),
+                        k).cpu().numpy()
                     write_cloud_txt(
                         os.path.join(out_dir, "cloud", f"{i}.txt"), pts)
         n += 1

@@ -27,7 +27,8 @@ from fealess_tpu_torch.bank import TemplateBank, class_slot_mask, pack_bank
 from fealess_tpu_torch.geometry import depth as gd
 from fealess_tpu_torch.geometry import pnp
 from fealess_tpu_torch.io import linemod_yaml
-from fealess_tpu_torch.io.png import read_png
+from fealess_tpu_torch.io.imfile import (IMREAD_UNCHANGED, DecodeError,
+                                         read_image)
 from fealess_tpu_torch.ops import resize
 from fealess_tpu_torch.utils.logging import get_logger
 
@@ -154,11 +155,12 @@ class ObjReco:
         for cname in sorted(classes.keys()):
             for tid, view in enumerate(classes[cname]):
                 path = self._model_depth_path(cname, tid, multi_class)
-                if not os.path.isfile(path):
+                try:
+                    img = read_image(path, IMREAD_UNCHANGED)
+                except (DecodeError, FileNotFoundError):  # cv2.imread: None
                     missing.append(path)
                     slot += 1
                     continue
-                img = read_png(path)
                 if img.ndim != 2:
                     raise IOError(f"model depth {path} is not single-channel "
                                   f"(shape {img.shape})")

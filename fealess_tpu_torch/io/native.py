@@ -10,9 +10,10 @@
   modality's feature extraction in one call that releases the GIL.
 
 :class:`FrameLoader`, the JAX package's threaded RGB-D frame stream, needs
-no native library here: its threads decode through ``io/png.py`` (zlib
-and the C un-filter release the interpreter lock) and resize with
-``ops/resize`` on CPU tensors.
+no native library here: its threads decode through ``io/imfile.py``
+(PNG, JPEG or BMP by content; zlib, the C un-filter and the C JPEG
+decoder release the interpreter lock) and resize with ``ops/resize`` on
+CPU tensors.
 
 :func:`load_library` builds the library at its first call
 (``ops/_build.build_native_host``: ``scatter.cc``, ``chamfer.cc`` and
@@ -167,8 +168,8 @@ class FrameLoader:
     """Threaded in-order RGB-D frame stream (``fealess_tpu.io.native.
     FrameLoader``): iterates ``(index, bgr u8 (H, W, 3), depth u16 (H,
     W))``.  ``threads`` decode up to ``capacity`` frames ahead of the
-    consumer through ``io/png.read_png``; a pair whose colour or depth
-    file is missing or does not decode (``png.DecodeError``) is skipped
+    consumer through ``io/imfile.read_image``; a pair whose colour or
+    depth file is missing or does not decode (``DecodeError``) is skipped
     and its index is not reused.  With ``target_wh`` each frame is
     resized on the pool's threads (colour INTER_LINEAR, depth
     INTER_NEAREST, as cv2 does)."""
@@ -189,11 +190,13 @@ class FrameLoader:
         self._submitted = 0
 
     def _load(self, color_path: str, depth_path: str):
-        from fealess_tpu_torch.io.png import DecodeError, read_png
+        from fealess_tpu_torch.io.imfile import (IMREAD_COLOR,
+                                                 IMREAD_UNCHANGED,
+                                                 DecodeError, read_image)
         from fealess_tpu_torch.ops.resize import resize_host
         try:
-            bgr = read_png(color_path, color=True)
-            depth = read_png(depth_path)
+            bgr = read_image(color_path, IMREAD_COLOR)
+            depth = read_image(depth_path, IMREAD_UNCHANGED)
         except (DecodeError, FileNotFoundError):     # cv2.imread: None
             return None
         if self._target:

@@ -77,10 +77,15 @@ class DecodeError(ValueError):
 
 
 def _chunks(data: bytes):
+    """(kind, body, the stored CRC or None where the file ends first) of
+    each chunk."""
     pos = len(_SIGNATURE)
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        yield kind, data[pos + 8:pos + 8 + length]
+        end = pos + 8 + length
+        crc = (struct.unpack(">I", data[end:end + 4])[0]
+               if end + 4 <= len(data) else None)
+        yield kind, data[pos + 8:end], crc
         pos += 12 + length
 
 
@@ -400,7 +405,7 @@ def _decode_chunks(path: str, data: bytes):
     header = plte = trns = None
     idat = []
     found = {}
-    for kind, body in _chunks(data):
+    for kind, body, _ in _chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":

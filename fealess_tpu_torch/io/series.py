@@ -2,12 +2,13 @@
 ``fealess_tpu.io.series``).
 
 Reimplements ``CImgSeriesReader`` (reference test/img_series_reader.h:9-28,
-.cpp) for the sources the port can read: a directory of PNG files
-(numerically sorted by stem) or an explicit list of PNG paths, decoded by
-``io/png.py`` and resized with ``ops/resize`` (cv2's INTER_LINEAR, bit for
-bit).  Two sources of the JAX package need cv2, which the card does not
-have, and are refused with an error that names the limit: camera indices
-and video files (``cv2.VideoCapture``), and JPEG or BMP files.  RGB-D
+.cpp) for the sources the port can read: a directory of ``*.png``,
+``*.jpg``, ``*.jpeg`` and ``*.bmp`` files (numerically sorted by stem, as
+the JAX reader globs and sorts them) or an explicit list of paths,
+decoded by ``io/imfile.read_image`` (by content, as ``cv2.imread``) and
+resized with ``ops/resize`` (cv2's INTER_LINEAR, bit for bit).  Camera
+indices and video files need ``cv2.VideoCapture``, which the card does
+not have, and are refused with an error that names the limit.  RGB-D
 series (``gray/`` + ``depth/`` pairs) stream through
 ``io.native.FrameLoader`` instead.
 """
@@ -20,8 +21,8 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
-# decoded by the JAX package's cv2.imread, not by the port's PNG reader
-_CV2_ONLY_IMAGES = (".jpg", ".jpeg", ".bmp")
+# the JAX reader's globs, in its order
+_EXTENSIONS = ("png", "jpg", "jpeg", "bmp")
 
 
 def numeric_stem_key(path: str):
@@ -32,8 +33,9 @@ def numeric_stem_key(path: str):
 
 
 class ImageSeriesReader:
-    """Iterate BGR u8 frames from a directory of PNG files or a list of
-    PNG paths (``source``); ``target_wh`` resizes every frame."""
+    """Iterate BGR u8 frames from a directory of PNG, JPEG and BMP files
+    or a list of image paths (``source``); ``target_wh`` resizes every
+    frame."""
 
     def __init__(self, source, target_wh: Optional[Tuple[int, int]] = None):
         self._target = target_wh
@@ -41,20 +43,14 @@ class ImageSeriesReader:
             paths: List[str] = list(source)
         elif isinstance(source, str) and os.path.isdir(source):
             paths = []
-            for ext in ("png",) + tuple(e[1:] for e in _CV2_ONLY_IMAGES):
+            for ext in _EXTENSIONS:
                 paths += glob.glob(os.path.join(source, f"*.{ext}"))
             paths.sort(key=numeric_stem_key)
         else:
             raise ValueError(
                 f"frame source {source!r} is a camera index or a video "
                 f"file, which needs cv2.VideoCapture; the port reads "
-                f"directories and lists of PNG files only")
-        cv2_only = [p for p in paths
-                    if os.path.splitext(p)[1].lower() in _CV2_ONLY_IMAGES]
-        if cv2_only:
-            raise ValueError(
-                f"{cv2_only[0]}: JPEG and BMP files need cv2.imread; the "
-                f"port reads PNG files only")
+                f"directories and lists of image files only")
         self._paths = paths
 
     def __iter__(self) -> Iterator[np.ndarray]:
@@ -64,13 +60,16 @@ class ImageSeriesReader:
     def iter_named(self) -> Iterator[Tuple[str, np.ndarray]]:
         """Yield ``(stem, frame)`` pairs; ``stem`` is the file's basename
         without extension, so consumers pair per-frame files (depth, pose)
-        by name.  A file that is missing or does not decode is skipped."""
-        from fealess_tpu_torch.io.png import DecodeError, read_png
+        by name.  A file that is missing or does not decode is skipped;
+        one of a format the port does not read raises
+        ``UnsupportedImage``."""
+        from fealess_tpu_torch.io.imfile import (IMREAD_COLOR, DecodeError,
+                                                 read_image)
         from fealess_tpu_torch.ops.resize import resize_host
 
         for p in self._paths:
             try:
-                frame = read_png(p, color=True)
+                frame = read_image(p, IMREAD_COLOR)
             except (DecodeError, FileNotFoundError):   # cv2.imread: None
                 continue
             if self._target is not None:

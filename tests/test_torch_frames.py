@@ -4,9 +4,12 @@ resized to the first frame's size with ``ops/resize``) against JAX's
 ``FrameLoader`` (cv2), the CLI's ``recon`` (plain, ``--multi``,
 ``--overlay-dir``) and ``track`` against the JAX CLI's JSON lines and
 overlay images, ``acq`` against JAX's ``acquire_series`` (gray, depth and
-cloud outputs), the cv2-only sources refused by name, the wireframe
-rasteriser against ``cv2.line``, and a subprocess that runs these paths
-without loading jax, flax, cv2 or the JAX package."""
+cloud outputs), PNG, JPEG and BMP frames read by content as cv2 reads
+them (the series reader, ``acq`` and ``recon`` on a series whose
+``gray/*.png`` hold JPEG data), the cv2-only sources refused by name,
+``acq`` failing without a card, the wireframe rasteriser against
+``cv2.line``, and a subprocess that runs these paths without loading
+jax, flax, cv2 or the JAX package."""
 
 import glob
 import json
@@ -230,9 +233,10 @@ def test_acq_matches_jax(acq_source, tmp_path):
     outs = {}
     for name, main in (("jax", jax_cli.main), ("port", cli.main)):
         outs[name] = str(tmp_path / name)
+        device = ["--device", "cpu"] if name == "port" else []
         rc, lines = _capture(main, ["acq", src, outs[name], "--depth-dir",
                                     dep, "--clouds", "--fx", "600",
-                                    "--cx", "123.5"])
+                                    "--cx", "123.5"] + device)
         assert rc == 0
         outs[name + "_lines"] = [ln.replace(outs[name], "OUT")
                                  for ln in lines]
@@ -286,20 +290,27 @@ def test_acq_max_frames_and_functions_match_jax(acq_source, tmp_path):
 
 def test_cv2_only_sources_are_refused(acq_source, tmp_path, monkeypatch,
                                       capsys):
-    """Camera indices, video files and JPEG/BMP files need cv2: the reader
-    refuses them by name, and acq says so and returns 1; the ROI picker
-    needs a display."""
+    """Camera indices and video files need cv2: the reader refuses them
+    by name, and acq says so and returns 1; JPEG and BMP files are read
+    (as the JAX reader reads them, in a directory and in a list); the ROI
+    picker needs a display."""
+    from fealess_tpu.io.series import ImageSeriesReader as JaxReader
     with pytest.raises(ValueError, match="VideoCapture"):
         ImageSeriesReader(0)
     with pytest.raises(ValueError, match="VideoCapture"):
         ImageSeriesReader(str(tmp_path / "clip.mp4"))
     jpg = tmp_path / "jpg"
     shutil.copytree(acq_source[0], jpg)
-    cv2.imwrite(str(jpg / "7.jpg"), np.zeros((4, 4, 3), np.uint8))
-    with pytest.raises(ValueError, match="JPEG and BMP"):
-        ImageSeriesReader(str(jpg))
-    with pytest.raises(ValueError, match="JPEG and BMP"):
-        ImageSeriesReader([str(jpg / "0.png"), str(jpg / "7.jpg")])
+    cv2.imwrite(str(jpg / "7.jpg"), np.full((4, 4, 3), 90, np.uint8))
+    cv2.imwrite(str(jpg / "8.bmp"), np.full((4, 4, 3), 160, np.uint8))
+    for source in (str(jpg), [str(jpg / "0.png"), str(jpg / "7.jpg"),
+                              str(jpg / "8.bmp")]):
+        got = list(ImageSeriesReader(source, (240, 160)).iter_named())
+        want = list(JaxReader(source, (240, 160)).iter_named())
+        assert [s for s, _ in got] == [s for s, _ in want]
+        assert {"7", "8"} <= {s for s, _ in got}
+        for (_, g), (_, w) in zip(got, want):
+            np.testing.assert_array_equal(g, w)
     rc, _, _, err = _run(cli.main, ["acq", "0", str(tmp_path / "out")],
                          capsys)
     assert rc == 1 and "VideoCapture" in err
@@ -311,6 +322,158 @@ def test_cv2_only_sources_are_refused(acq_source, tmp_path, monkeypatch,
         monkeypatch.delenv(var, raising=False)
     with pytest.raises(RuntimeError, match="display"):
         acquire.BoxExtractor().extract("roi", frames[0][1])
+
+
+def _jpeg(img, *params):
+    ok, buf = cv2.imencode(".jpg", img, list(params))
+    assert ok
+    return buf.tobytes()
+
+
+def _with_exif(jpg: bytes, orientation: int) -> bytes:
+    """``jpg`` with an Exif APP1 segment (little-endian TIFF, one entry:
+    the orientation) right after SOI."""
+    body = (b"Exif\0\0II*\0\x08\0\0\0\x01\0\x12\x01\x03\0\x01\0\0\0"
+            + bytes([orientation]) + bytes(7))
+    return (jpg[:2] + b"\xff\xe1" + (len(body) + 2).to_bytes(2, "big")
+            + body + jpg[2:])
+
+
+@pytest.fixture(scope="module")
+def format_dir(package, tmp_path_factory):
+    """A directory of the package's frames in every format the port reads,
+    named as cv2 would not guess them: 0.jpg baseline 4:2:0, 1.jpeg
+    progressive 4:4:4, 2.bmp 24-bit, 3.png, 4.bmp 8-bit gray palette,
+    5.jpg 4:2:2 with EXIF orientation 6, 6.png holding JPEG data, 7.jpg cut
+    short, 8.jpg not an image; depth/<i>.png beside them by stem."""
+    d = str(tmp_path_factory.mktemp("formats"))
+    src, dep = os.path.join(d, "color"), os.path.join(d, "depth")
+    os.makedirs(src)
+    os.makedirs(dep)
+    frames = [(cv2.imread(os.path.join(package, "gray", f"{i % 3}.png")),
+               cv2.imread(os.path.join(package, "depth", f"{i % 3}.png"),
+                          cv2.IMREAD_UNCHANGED)) for i in range(9)]
+    sf = cv2.IMWRITE_JPEG_SAMPLING_FACTOR
+    blobs = {
+        "0.jpg": _jpeg(frames[0][0], cv2.IMWRITE_JPEG_QUALITY, 95),
+        "1.jpeg": _jpeg(frames[1][0], cv2.IMWRITE_JPEG_PROGRESSIVE, 1, sf,
+                        cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444),
+        "2.bmp": cv2.imencode(".bmp", frames[2][0])[1].tobytes(),
+        "3.png": cv2.imencode(".png", frames[3][0])[1].tobytes(),
+        "4.bmp": cv2.imencode(".bmp", frames[4][0][:, :, 1])[1].tobytes(),
+        "5.jpg": _with_exif(_jpeg(frames[5][0], sf,
+                                  cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422), 6),
+        "6.png": _jpeg(frames[6][0], cv2.IMWRITE_JPEG_RST_INTERVAL, 3),
+        "7.jpg": _jpeg(frames[7][0])[:-4000],
+        "8.jpg": b"\xff\xd8\xff" + bytes(64),
+    }
+    for name, blob in blobs.items():
+        with open(os.path.join(src, name), "wb") as f:
+            f.write(blob)
+        stem = name.split(".")[0]
+        cv2.imwrite(os.path.join(dep, f"{stem}.png"), frames[int(stem)][1])
+    return src, dep
+
+
+@pytest.mark.parametrize("target_wh", [None, (240, 160), (640, 480)])
+def test_series_reader_formats_match_jax(format_dir, target_wh):
+    """The directory's frames in the JAX reader's order with its stems,
+    each decoded (and resized) as cv2 does; the file that is not an image
+    is skipped, the one cut short is read."""
+    from fealess_tpu.io.series import ImageSeriesReader as JaxReader
+    got = list(ImageSeriesReader(format_dir[0], target_wh).iter_named())
+    want = list(JaxReader(format_dir[0], target_wh).iter_named())
+    assert [s for s, _ in want] == [str(i) for i in range(8)]
+    assert [s for s, _ in got] == [s for s, _ in want]
+    for (stem, g), (_, w) in zip(got, want):
+        np.testing.assert_array_equal(g, w, err_msg=stem)
+    if target_wh is None:
+        assert want[5][1].shape == (240, 160, 3)         # EXIF 6: rotated
+
+
+def test_acq_formats_matches_jax(format_dir, tmp_path):
+    """acq over the directory of every format (depth and --clouds) writes
+    JAX's files: gray/ and depth/ decoding to the same arrays, cloud/ the
+    same text, the same printed lines."""
+    src, dep = format_dir
+    outs = {}
+    for name, main in (("jax", jax_cli.main), ("port", cli.main)):
+        outs[name] = str(tmp_path / name)
+        device = ["--device", "cpu"] if name == "port" else []
+        rc, lines = _capture(main, ["acq", src, outs[name], "--depth-dir",
+                                    dep, "--clouds"] + device)
+        assert rc == 0
+        outs[name + "_lines"] = [ln.replace(outs[name], "OUT")
+                                 for ln in lines]
+    assert outs["port_lines"] == outs["jax_lines"]
+    assert outs["jax_lines"][-1] == "saved 8 frames to OUT"
+    for sub in ("gray", "depth", "cloud"):
+        names = sorted(os.listdir(os.path.join(outs["jax"], sub)))
+        assert len(names) == 8
+        assert sorted(os.listdir(os.path.join(outs["port"], sub))) == names
+        for name in names:
+            a = os.path.join(outs["port"], sub, name)
+            b = os.path.join(outs["jax"], sub, name)
+            if sub == "cloud":
+                with open(a) as fa, open(b) as fb:
+                    assert fa.read() == fb.read(), name
+                continue
+            np.testing.assert_array_equal(
+                cv2.imread(a, cv2.IMREAD_UNCHANGED),
+                cv2.imread(b, cv2.IMREAD_UNCHANGED), err_msg=name)
+
+
+def test_acq_needs_the_card_it_is_given(format_dir, tmp_path):
+    """acq back-projects on --device (default cuda): where there is no
+    card it fails loudly and does not carry on on the CPU."""
+    args = cli.build_parser().parse_args(["acq", "src", "out"])
+    assert args.device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    src, dep = format_dir
+    with pytest.raises((AssertionError, RuntimeError)):
+        cli.main(["acq", src, str(tmp_path / "out"), "--depth-dir", dep,
+                  "--clouds"])
+    with pytest.raises((AssertionError, RuntimeError)):
+        acquire.acquire_series(src, str(tmp_path / "out2"), dep,
+                               save_clouds=True)
+
+
+@pytest.fixture(scope="module")
+def jpeg_series(package, tmp_path_factory):
+    """The package's frames as a series whose ``gray/<i>.png`` hold JPEG
+    data (baseline 4:2:0, progressive, and 4:4:4 with restart markers),
+    depth as PNG; and the JAX CLI's recon lines on it."""
+    d = str(tmp_path_factory.mktemp("jpeg_series"))
+    for sub in ("gray", "depth"):
+        os.makedirs(os.path.join(d, sub))
+    params = ([], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1],
+              [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+               cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
+               cv2.IMWRITE_JPEG_RST_INTERVAL, 2])
+    for i, extra in enumerate(params):
+        bgr = cv2.imread(os.path.join(package, "gray", f"{i}.png"))
+        with open(os.path.join(d, "gray", f"{i}.png"), "wb") as f:
+            f.write(_jpeg(bgr, cv2.IMWRITE_JPEG_QUALITY, 95, *extra))
+        shutil.copy(os.path.join(package, "depth", f"{i}.png"),
+                    os.path.join(d, "depth", f"{i}.png"))
+    rc, lines = _capture(jax_cli.main, ["recon", package, "--series", d]
+                         + RECON)
+    assert rc == 0
+    return d, [json.loads(ln) for ln in lines if ln.startswith("{")]
+
+
+def test_cli_recon_jpeg_content_matches_jax(package, jpeg_series, capsys):
+    """recon over ``gray/*.png`` files that hold JPEG data: cv2 reads them
+    by content, so JAX serves every frame; the port must too, with the
+    same lines (a reader that goes by the name drops them all)."""
+    series, want = jpeg_series
+    assert [w["frame"] for w in want] == [0, 1, 2]
+    assert sum(bool(w["results"]) for w in want) >= 2
+    rc, got, _, err = _run(cli.main, ["recon", package, "--series", series,
+                                      "--device", "cpu"] + RECON, capsys)
+    assert rc == 0 and "3 frames in" in err
+    _same_lines(got, want)
 
 
 def test_draw_wireframe_matches_jax(tmp_path):
@@ -364,7 +527,8 @@ with contextlib.redirect_stdout(io.StringIO()):
            cli.main(["track", pkg] + recon),
            cli.main(["acq", os.path.join(series, "gray"),
                      os.path.join(out, "acq"), "--depth-dir",
-                     os.path.join(series, "depth"), "--clouds"])]
+                     os.path.join(series, "depth"), "--clouds",
+                     "--device", "cpu"])]
 print(json.dumps({"rcs": rcs, "frames": frames,
                   "overlays": len(os.listdir(os.path.join(out, "ov"))),
                   "loaded": _loaded()}))

@@ -577,7 +577,11 @@ with timer.stage("noop", eng.bank.feat_x):
     pass
 lab_rows = kernel_lab.run_coarse(*lab.fixture_like(
     n=4, f=12, nb=3, hd=3, wd=8, c=4, even=True, device="cpu"))
-print(json.dumps({"n": len(res), "n_multi": len(multi),
+from fealess_tpu_torch.io.imfile import read_image
+decoded = [[list(img.shape), img.tobytes().hex()]
+           for img in (read_image(p, flag) for p in sys.argv[3:]
+                       for flag in (-1, 0, 1))]
+print(json.dumps({"decoded": decoded, "n": len(res), "n_multi": len(multi),
                   "roi_ok": bool(np.isfinite(roi).all()),
                   "epnp_ok": bool(np.isfinite(pose).all()),
                   "drawn": bool((drawn != frame["bgr"]).any()),
@@ -590,8 +594,10 @@ def test_port_runs_without_jax_flax_or_cv2(tmp_path):
     """A fresh interpreter imports the port (its apps included) and runs a
     small recognition, a multi-object recognition, a KCF update, an EPnP
     pose, a match overlay, the logger, a stage timer and the kernel lab's
-    coarse run (``ops/lab``, ``apps/kernel_lab``); jax, flax, cv2 and the
-    JAX package (by name or by file) are never loaded."""
+    coarse run (``ops/lab``, ``apps/kernel_lab``), and decodes a JPEG
+    (progressive, 4:2:0, EXIF orientation 6) and a BMP (8-bit palette)
+    written by cv2, as cv2 decodes them under all three flags; jax, flax,
+    cv2 and the JAX package (by name or by file) are never loaded."""
     h, w = 80, 160
     rng = np.random.default_rng(2)
     bgr = rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
@@ -611,10 +617,24 @@ def test_port_runs_without_jax_flax_or_cv2(tmp_path):
                 (depth.astype(np.uint32) * 10).astype(np.uint16))
     frame = str(tmp_path / "frame.npz")
     np.savez(frame, bgr=bgr, depth=depth)
+    images = [str(tmp_path / "frame.jpg"), str(tmp_path / "frame.bmp")]
+    blurred = cv2.GaussianBlur(bgr[:37, :53], (5, 5), 2)
+    ok, jpg = cv2.imencode(".jpg", blurred, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    jpg = jpg.tobytes()
+    exif = (b"Exif\0\0II*\0\x08\0\0\0\x01\0\x12\x01\x03\0\x01\0\0\0"
+            b"\x06\0\0\0\0\0\0\0")
+    with open(images[0], "wb") as f:
+        f.write(jpg[:2] + b"\xff\xe1" + (len(exif) + 2).to_bytes(2, "big")
+                + exif + jpg[2:])
+    cv2.imwrite(images[1], bgr[:, :, 0] // 4 * 4)
+    want = [[list(img.shape), img.tobytes().hex()]
+            for img in (cv2.imread(p, flag) for p in images
+                        for flag in (-1, 0, 1))]
+    assert want[1][0] == [53, 37]                     # rotated by EXIF
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", _SUBPROCESS, str(feat_dir),
-                          frame], capture_output=True, text=True, env=env,
-                         timeout=300)
+                          frame] + images, capture_output=True, text=True,
+                         env=env, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["loaded"] == []
@@ -622,3 +642,4 @@ def test_port_runs_without_jax_flax_or_cv2(tmp_path):
     assert result["n_multi"] in (0, 1, 2) and result["roi_ok"]
     assert result["epnp_ok"] and result["drawn"]
     assert result["lab_rows"] == 7
+    assert result["decoded"] == want
