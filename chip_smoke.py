@@ -121,7 +121,20 @@ Phases, one line of output each (or a few):
    CLI's (similarity exact, pose within phase 4's tolerances) with K1 and
    K2 (and K3 under forced ICP) counted on the path, and each decoded
    frame's match to the JAX engine's; the host time to decode the fixture
-   scene as baseline and progressive JPEG, as BMP and as PNG.
+   scene as baseline and progressive JPEG, as BMP and as PNG.  The files
+   include JPEGs whose DHT segments are cut (libjpeg's standard tables).
+7e. persistence: the JAX package's orbax checkpoint of the fixture bank
+   (``tests/data/torch_ckpt``, written by ``tests/make_torch_ckpt.py``)
+   through ``io/checkpoint.load_bank`` onto the card (OCDBT, zarr v2 and
+   zstd read on the host), every leaf's sha256, dtype and shape equal to
+   the recorded digests and bitwise equal to ``import_yaml`` on the card;
+   ``pipeline.recognize_top1`` from that bank, with ``add_obj``'s model
+   depths, equal to ``ObjReco.recognition`` in ICP settings (a) and (b),
+   with K1/K2/K3 launched 1/1/0 and 1/1/9; ``save_bank`` then
+   ``load_bank`` bitwise; host times of ``load_bank`` (orbax and
+   ``arrays.npz``), ``import_yaml``, the serving artifact's load and
+   ``save_bank``, and of the orbax load's host read with the zstd
+   decodes inside it.
 8. the rest of the public surface: the CLI's device-stage table
    (``cli._profile_stages``: front-end, match and the full step as
    cumulative prefixes, each the device busy of warm calls under
@@ -167,9 +180,10 @@ Phases, one line of output each (or a few):
    and L4's library call (``torch.cdist`` and a min) timed, L4 also at
    longer reference chunks.
 
-Each path of phases 4-4c, 6, 7 and 8 runs with the kernels' launch counters
-set to 0 just before it and read just after; every kernel must have run
-on the paths that reach it; phase 9 counts the lab's path on its own.
+Each path of phases 4-4c, 6, 7 (7e included) and 8 runs with the kernels'
+launch counters set to 0 just before it and read just after; every kernel
+must have run on the paths that reach it; phase 9 counts the lab's path
+on its own.
 The line before the last is a JSON object with one entry per kernel
 (``ops/_build.KERNELS``; K1-K3's launches summed over the paths of phases
 4-8 and the 2-way shard case under ``cases``, K2's also the lab's K2 rows
@@ -302,6 +316,10 @@ PNG_TIMED = 10
 # with cv2 and the JAX package on the CPU), the acq clouds' limit against
 # the CPU call, and timed decodes.
 FRAMES_DIR = os.path.join(REPO, "tests", "data", "torch_frames")
+# Phase 7e (persistence): the JAX package's save_bank of the fixture bank
+# and its leaves' digests (tests/make_torch_ckpt.py writes them with JAX
+# and orbax on the CPU).
+CKPT_DIR = os.path.join(REPO, "tests", "data", "torch_ckpt", "fixture_1024")
 CLOUD_TOL_MM = 1e-3
 DECODE_TIMED = 10
 
@@ -1632,9 +1650,9 @@ def frame_input_phase(eng, bgr_np, depth_np, cam, card, counts,
                                f"gives {want}")
     print(f"frame input: {len(digests)} committed files (JPEG: every "
           f"sampling factor, progressive, restart, gray, EXIF 6/8, odd "
-          f"sizes, cut short, under a .png name; BMP 8/24/32-bit, RLE4/8, "
-          f"top-down; the 640x480 series) x 3 flags: sha256 equal to "
-          f"cv2.imread's")
+          f"sizes, cut short, under a .png name, DHT cut; BMP 8/24/32-bit, "
+          f"RLE4/8, top-down; the 640x480 series) x 3 flags: sha256 equal "
+          f"to cv2.imread's")
 
     with tempfile.TemporaryDirectory() as tmp:
         # the 640x480 series: gray/<i>.png hold JPEG data (committed),
@@ -1774,6 +1792,154 @@ def frame_input_phase(eng, bgr_np, depth_np, cam, card, counts,
               f"of {DECODE_TIMED} after a warm call): "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
               + f" ({card})")
+
+
+# -- phase 7e: persistence ---------------------------------------------------
+
+
+def persistence_phase(eng, bgr_np, depth_np, cam, card, counts,
+                      default_icp) -> None:
+    """Phase 7e: the JAX package's orbax checkpoint of the fixture bank
+    (``tests/data/torch_ckpt``) loaded on the card to its digests and to
+    ``import_yaml``'s leaves; ``pipeline.recognize_top1`` from that bank,
+    with ``ObjReco.add_obj``'s model depths, equal to
+    ``ObjReco.recognition`` in both ICP settings with K1/K2/K3 counted;
+    ``save_bank`` then ``load_bank`` bitwise; host times of the loads, and
+    of the orbax load's host read with its zstd decodes."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+    import torch
+    from fealess_tpu_torch import detector as det_mod, pipeline
+    from fealess_tpu_torch.apps import fixture
+    from fealess_tpu_torch.bank import bank_arrays
+    from fealess_tpu_torch.io import checkpoint, zstd
+    from fealess_tpu_torch.io.export import ServingArtifact
+
+    zero_counts, read_counts, path_launches, counted = counts
+    dev = eng.device
+    yml = os.path.join(fixture.FIXTURE, "features", "linemod_templates.yml")
+    with open(os.path.join(CKPT_DIR, "digests.json")) as f:
+        digests = json.load(f)
+
+    def leaves(bank) -> dict:
+        return {k: np.ascontiguousarray(v) for k, v in
+                bank_arrays(bank).items()}
+
+    def same_leaves(a, b) -> bool:
+        return all(getattr(a, k).dtype == getattr(b, k).dtype
+                   and torch.equal(getattr(a, k), getattr(b, k))
+                   for k in digests)
+
+    bank, det = checkpoint.load_bank(CKPT_DIR, device=dev)
+    got = {k: {"dtype": str(v.dtype), "shape": list(v.shape),
+               "sha256": hashlib.sha256(v.tobytes()).hexdigest()}
+           for k, v in leaves(bank).items()}
+    check(got == digests and all(getattr(bank, k).device == dev
+                                 for k in digests),
+          f"load_bank of the JAX checkpoint: {got} vs {digests}")
+    imported, det_y = checkpoint.import_yaml(yml, device=dev)
+    check(det == det_y and same_leaves(bank, imported),
+          "load_bank of the JAX checkpoint differs from import_yaml")
+    check(same_leaves(bank, eng.bank),
+          "load_bank of the JAX checkpoint differs from add_obj's bank")
+    print(f"persistence: JAX's orbax checkpoint ({len(digests)} leaves, "
+          f"{bank.num_templates} templates) loaded on {dev}: sha256, dtype "
+          f"and shape of every leaf equal to digests.json, bitwise equal to "
+          f"import_yaml on the card")
+
+    tables = det_mod.build_match_tables(bank, eng.cfg.detector)
+    for setting in ("a", "b"):
+        apply_setting(eng, setting, default_icp)
+        path = f"checkpoint bank, recognize_top1 ({setting})"
+        frame = eng._prepare_frame(bgr_np, depth_np, cam)
+        zero_counts()
+        step = pipeline.recognize_top1(bank, eng._model_depth_dev,
+                                       eng._origins_dev, *frame, eng.cfg,
+                                       kernels=tables)
+        res = eng._fetch_top1(step)[0]
+        read_counts(path)
+        want = eng.recognition(bgr_np, depth_np, cam)
+        check(len(res) == len(want) == 1 and all(
+            np.array_equal(g.world2cam, w.world2cam)
+            and (g.obj_tag, g.similarity, g.icp_dist, g.inlier_ratio,
+                 g.match_rect) == (w.obj_tag, w.similarity, w.icp_dist,
+                                   w.inlier_ratio, w.match_rect)
+            for g, w in zip(res, want)), f"{path}: {res} vs {want}")
+        want_k = [1, 1, EXPECT_NN[setting]]
+        check(path_launches[path] == want_k,
+              f"{path}: launches {path_launches[path]}, expected {want_k}")
+        print(f"{path}: equal to ObjReco.recognition (match "
+              f"{res[0].match_rect[:2]}, similarity {res[0].similarity}, "
+              f"pose bitwise), launches K1/K2/K3 {path_launches[path]}")
+    apply_setting(eng, "a", default_icp)
+
+    work = tempfile.mkdtemp()
+    try:
+        saved = os.path.join(work, "saved")
+        checkpoint.save_bank(saved, bank, det)
+        again, det_a = checkpoint.load_bank(saved, device=dev)
+        check(det_a == det and same_leaves(again, bank)
+              and again.class_names == bank.class_names
+              and again.max_span == bank.max_span,
+              "save_bank then load_bank on the card is not bitwise equal")
+        npz = os.path.join(work, "npz")
+        os.makedirs(npz)
+        shutil.copy(os.path.join(saved, "bank_meta.json"), npz)
+        np.savez(os.path.join(npz, "arrays.npz"), **leaves(bank))
+        art = os.path.join(work, "artifact")
+        eng.export_artifact(art)
+
+        def synced(fn):
+            def call():
+                fn()
+                torch.cuda.synchronize()
+            return call
+
+        times = {
+            "load_bank (JAX's orbax checkpoint)": host_mean_ms(synced(
+                lambda: checkpoint.load_bank(CKPT_DIR, device=dev)),
+                DECODE_TIMED),
+            "load_bank (arrays.npz)": host_mean_ms(synced(
+                lambda: checkpoint.load_bank(npz, device=dev)),
+                DECODE_TIMED),
+            "import_yaml": host_mean_ms(synced(
+                lambda: checkpoint.import_yaml(yml, device=dev)),
+                DECODE_TIMED),
+            "ServingArtifact load": host_mean_ms(synced(
+                lambda: ServingArtifact(art, dev)), DECODE_TIMED),
+            "save_bank (orbax layout)": host_mean_ms(
+                lambda: checkpoint.save_bank(saved, bank, det),
+                DECODE_TIMED)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # where the orbax load's time goes: the arrays read on the host, and
+    # the zstd decodes inside that read (every node body and chunk)
+    decode, spent = zstd.decode, []
+
+    def timed_decode(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return decode(*args, **kw)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    zstd.decode = timed_decode
+    try:
+        times["_read_orbax (host arrays)"] = host_mean_ms(
+            lambda: checkpoint._read_orbax(os.path.join(CKPT_DIR, "arrays")),
+            DECODE_TIMED)
+    finally:
+        zstd.decode = decode
+    frames = len(spent) // (DECODE_TIMED + 1)
+    times[f"of which zstd.decode ({frames} frames)"] = (
+        sum(spent[frames:]) * 1e3 / DECODE_TIMED)
+    print(f"persistence: save_bank then load_bank on {dev} bitwise equal; "
+          f"time ({bank.num_templates} templates, host, mean of "
+          f"{DECODE_TIMED} after a warm call, to the bank on the card): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+          + f" ({card})")
 
 
 # -- phase 8: the rest of the public surface --------------------------------
@@ -2750,6 +2916,10 @@ def run(dev) -> None:
                default_icp)
     phase_clock("7d")
     frame_input_phase(eng, bgr_np, depth_np, cam, card,
+                      (zero_counts, read_counts, path_launches, counted),
+                      default_icp)
+    phase_clock("7e")
+    persistence_phase(eng, bgr_np, depth_np, cam, card,
                       (zero_counts, read_counts, path_launches, counted),
                       default_icp)
     # -- 8. the rest of the public surface

@@ -11,7 +11,12 @@
  * three as YCbCr (JFIF, Adobe transform 1, or component ids 1 2 3) or RGB
  * (Adobe transform 0, or ids 'R' 'G' 'B'); any integral sampling factors;
  * restart intervals; several scans; progressive spectral selection and
- * successive approximation with EOB runs.  Entropy data that ends early
+ * successive approximation with EOB runs.  A sequential scan that names
+ * Huffman table 0 or 1 where no DHT defined it uses the standard table of
+ * JPEG Annex K.3, which libjpeg-turbo's jinit_huff_decoder installs
+ * (std_huff_tables in jstdhuff.c: the tables a Motion JPEG frame leaves
+ * out); its progressive decoder installs none, and cv2 reads no
+ * progressive file without them.  Entropy data that ends early
  * (or meets a marker) reads as zero bits, and the blocks after that point
  * of a scan are left as they are (zero in a sequential file), as libjpeg's
  * insufficient_data does.
@@ -47,7 +52,6 @@ enum {
   FL_PRECISION = 4,
   FL_COMPONENTS = 5,
   FL_SMOOTHING = 6,
-  FL_STD_TABLES = 7,
   FL_BAD = -1,
   FL_NOMEM = -2,
   FL_NO_SOF = -3,
@@ -160,6 +164,55 @@ static int make_table(htable *t, const uint8_t *bits, const uint8_t *vals,
       if (vals[i] > 15) return FL_TABLE;
   t->defined = 1;
   return FL_OK;
+}
+
+/* JPEG Annex K.3: the tables libjpeg installs in slots 0 (luminance) and
+ * 1 (chrominance) that no DHT defined (jstdhuff.c std_huff_tables);
+ * bits[0] is unused, as in a DHT segment */
+static const uint8_t std_dc_bits[2][17] = {
+    {0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+    {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0}};
+static const uint8_t std_dc_vals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+static const uint8_t std_ac_bits[2][17] = {
+    {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d},
+    {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77}};
+static const uint8_t std_ac_vals[2][162] = {
+    {0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+     0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+     0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+     0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+     0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+     0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+     0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+     0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+     0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+     0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+     0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+     0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+     0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+     0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa},
+    {0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+     0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+     0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+     0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+     0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+     0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+     0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+     0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+     0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+     0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+     0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+     0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+     0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+     0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa}};
+
+/* a table the scan needs: the file's, else (sequential only) slot 0/1's
+ * standard one */
+static int need_table(const dec_t *D, htable *t, int slot, int ac) {
+  if (t->defined) return FL_OK;
+  if (slot > 1 || D->progressive) return FL_TABLE; /* JERR_NO_HUFF_TABLE */
+  return ac ? make_table(t, std_ac_bits[slot], std_ac_vals[slot], 0)
+            : make_table(t, std_dc_bits[slot], std_dc_vals, 1);
 }
 
 /* ---- the bit reader (jpeg_fill_bit_buffer) ---- */
@@ -480,9 +533,10 @@ static int start_scan(dec_t *D, const uint8_t *p, int len, scan_t *S) {
     comp_t *c = &D->c[S->ci[k]];
     int dc_needed = !D->progressive || (S->ss == 0 && S->ah == 0);
     int ac_needed = !D->progressive || S->ss != 0;
-    /* libjpeg-turbo falls back to the standard tables */
-    if (dc_needed && !D->dc[S->td[k]].defined) return FL_STD_TABLES;
-    if (ac_needed && !D->ac[S->ta[k]].defined) return FL_STD_TABLES;
+    int rc = dc_needed ? need_table(D, &D->dc[S->td[k]], S->td[k], 0) : FL_OK;
+    if (rc == FL_OK && ac_needed)
+      rc = need_table(D, &D->ac[S->ta[k]], S->ta[k], 1);
+    if (rc) return rc;
     if (!c->latched) { /* latch_quant_tables */
       if (!D->qt_defined[c->tq]) return FL_TABLE;
       memcpy(c->quant, D->qt[c->tq], sizeof c->quant);

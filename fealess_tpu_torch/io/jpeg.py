@@ -26,8 +26,8 @@ APP1 segment (tag 0x0112, orientations 2-8) is applied as cv2 applies it.
 A file libjpeg fails on (where ``cv2.imread`` returns None) raises
 :class:`~fealess_tpu_torch.io.png.DecodeError`.  A kind cv2 reads and
 this decoder does not (arithmetic coding, lossless, hierarchical, 12-bit
-samples, four components, tables left to libjpeg's defaults, a
-progressive file libjpeg would block-smooth) raises
+samples, four components, a progressive file libjpeg would
+block-smooth) raises
 :class:`UnsupportedImage`, on which no caller skips a frame.
 """
 
@@ -55,7 +55,6 @@ _UNSUPPORTED = {
     5: "four-component (CMYK/YCCK) JPEG",
     6: "progressive JPEG with incomplete low-frequency coefficients "
        "(libjpeg block-smooths it)",
-    7: "JPEG without Huffman tables (libjpeg's defaults)",
 }
 _BAD = {-1: "corrupt JPEG data", -2: "out of memory",
         -3: "no frame header", -4: "fractional sampling factors",

@@ -6,7 +6,9 @@ and the values it holds them to, taken from cv2 and the JAX package here.
 
 - small JPEG and BMP files (every sampling factor cv2 writes,
   progressive, restart markers, gray, EXIF orientations 6 and 8, odd
-  sizes, a file cut short, JPEG data under a ``.png`` name; BMP 8, 24
+  sizes, a file cut short, JPEG data under a ``.png`` name, colour and
+  gray files with their DHT segments cut, as Motion JPEG frames come,
+  which libjpeg reads with its standard tables; BMP 8, 24
   and 32 bits from cv2, RLE8, RLE4 and top-down built by hand), and a
   series of three 640x480 frames of the fixture scene
   (``series/gray/<i>.png`` holding JPEG data: baseline 4:2:0 q95,
@@ -141,6 +143,16 @@ def with_exif(jpg: bytes, orientation: int, order: str = "II") -> bytes:
             + jpg[2:])
 
 
+def strip_dht(jpg: bytes) -> bytes:
+    """``jpg`` without its DHT segments (a Motion JPEG frame as a camera
+    streams it: the decoder supplies the standard Huffman tables)."""
+    blob = bytearray(jpg)
+    while (at := blob.find(b"\xff\xc4")) >= 0:
+        length = struct.unpack(">H", blob[at + 2:at + 4])[0]
+        del blob[at:at + 2 + length]
+    return bytes(blob)
+
+
 def smooth_image(rng, h: int, w: int, channels: int = 3) -> np.ndarray:
     """Seeded noise, blurred so that the chroma is smooth."""
     import cv2
@@ -184,6 +196,10 @@ def small_files() -> dict:
     whole = jpg(smooth_image(rng, 64, 80), cv2.IMWRITE_JPEG_QUALITY, 95)
     files["truncated.jpg"] = whole[:len(whole) * 3 // 5]
     files["jpeg_named.png"] = jpg(img, cv2.IMWRITE_JPEG_QUALITY, 80)
+    # cv2 reads no progressive file without DHT: sequential ones only
+    files["default_tables.jpg"] = strip_dht(
+        jpg(img, cv2.IMWRITE_JPEG_RST_INTERVAL, 2))
+    files["default_tables_gray.jpg"] = strip_dht(jpg(img[:, :, 0]))
     files["bmp8.bmp"] = cv2.imencode(".bmp", img[:, :, 0])[1].tobytes()
     files["bmp24.bmp"] = cv2.imencode(".bmp", img)[1].tobytes()
     files["bmp32.bmp"] = cv2.imencode(

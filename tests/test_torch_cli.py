@@ -21,6 +21,7 @@ import torch
 from fealess_tpu.apps import cli as jax_cli
 from fealess_tpu_torch.apps import cli
 from tests.test_torch_engine import T_TOL_MM, _rot_diff_deg
+from tests.make_torch_ckpt import OUT as CKPT
 from tests.test_torch_io import LOADED, adam7_png, bad_plte_png
 from tests.test_torch_scan_package import write_package
 
@@ -377,7 +378,7 @@ from fealess_tpu_torch import training
 from fealess_tpu_torch.apps import cli, scan_package  # noqa: F401
 from fealess_tpu_torch.io import checkpoint, export  # noqa: F401
 
-pkg, art = sys.argv[1], sys.argv[2]
+pkg, art, jax_ckpt = sys.argv[1:4]
 recon = ["--refine-crop", "64", "--icp-max-points", "1024", "--device", "cpu"]
 sys.argv = ["fealess_tpu_torch", "train", pkg, "--device", "cpu"]
 try:
@@ -399,6 +400,7 @@ bank, det = checkpoint.import_yaml(os.path.join(pkg, "linemod_templates.yml"),
                                    device="cpu")
 checkpoint.save_bank(os.path.join(art, "ckpt"), bank, det)
 checkpoint.load_bank(os.path.join(art, "ckpt"), device="cpu")
+checkpoint.load_bank(jax_ckpt, device="cpu")       # written by orbax
 print(json.dumps({"rcs": rcs, "native": training.have_native(),
                   "loaded": _loaded()}))
 """
@@ -407,15 +409,16 @@ print(json.dumps({"rcs": rcs, "native": training.have_native(),
 def test_cli_runs_without_jax_flax_or_cv2(tmp_path):
     """A fresh interpreter imports every module of the offline path and
     runs ``python -m fealess_tpu_torch train``, then export, recon
-    --artifact, track --profile (with the device-stage table), recon, eval
-    and a bank checkpoint; jax, flax, cv2 and the JAX package (by name or
-    by file) are never loaded."""
+    --artifact, track --profile (with the device-stage table), recon, eval,
+    a bank checkpoint saved and loaded, and the JAX package's orbax
+    checkpoint loaded; jax, flax, cv2, PIL, orbax, tensorstore and the JAX
+    package (by name or by file) are never loaded."""
     pkg = str(tmp_path / "pkg")
     write_package(pkg, shifts=((0, 0), (4, 2)))
     _write_cube_obj(os.path.join(pkg, "model.obj"))
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", _SUBPROCESS, pkg,
-                          str(tmp_path / "art")], capture_output=True,
+                          str(tmp_path / "art"), CKPT], capture_output=True,
                          text=True, env=env, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     result = json.loads(out.stdout.strip().splitlines()[-1])

@@ -31,7 +31,7 @@ from fealess_tpu_torch.io import imfile
 from fealess_tpu_torch.io.imfile import (DecodeError, UnsupportedImage,
                                          read_image)
 from tests.make_torch_frames import (OUT, build_bmp, padded_rows, rle4, rle8,
-                                     smooth_image, with_exif)
+                                     smooth_image, strip_dht, with_exif)
 
 FLAGS = (cv2.IMREAD_UNCHANGED, cv2.IMREAD_GRAYSCALE, cv2.IMREAD_COLOR)
 SAMPLING = {"411": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411,
@@ -384,6 +384,48 @@ def test_bmp_cv2_refuses_is_decode_error(tmp_path, kind):
             read_image(path, flag)
 
 
+# ---- files without Huffman tables (libjpeg's standard ones)
+
+
+@pytest.mark.parametrize("params", [
+    (), (cv2.IMWRITE_JPEG_RST_INTERVAL, 3),
+    (cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
+     cv2.IMWRITE_JPEG_QUALITY, 100),
+    (cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411,
+     cv2.IMWRITE_JPEG_QUALITY, 60)],
+    ids=["420", "rst3", "444q100", "411q60"])
+@pytest.mark.parametrize("channels", [3, 1])
+def test_jpeg_without_dht_matches_cv2(tmp_path, params, channels):
+    """A sequential file whose DHT segments are cut (a Motion JPEG frame)
+    decodes with the standard tables to cv2's pixels, which are the
+    whole file's."""
+    img = smooth_image(np.random.default_rng(24), 45, 61, channels)
+    whole = _jpeg(img, *params)
+    path = _write(tmp_path, "x.jpg", strip_dht(whole))
+    got = _same_as_cv2(path)
+    np.testing.assert_array_equal(got[2], cv2.imdecode(
+        np.frombuffer(whole, np.uint8), cv2.IMREAD_COLOR))
+
+
+@pytest.mark.parametrize("kind", ["progressive", "table-2"])
+def test_jpeg_without_needed_table_is_none_in_cv2(tmp_path, kind):
+    """libjpeg supplies no table to a progressive scan, nor one in slots 2
+    and 3: cv2.imread returns None and the port raises DecodeError."""
+    img = smooth_image(np.random.default_rng(25), 32, 40)
+    if kind == "progressive":
+        blob = strip_dht(_jpeg(img, cv2.IMWRITE_JPEG_PROGRESSIVE, 1))
+    else:                   # the first scan's luminance tables in slot 2
+        blob = bytearray(strip_dht(_jpeg(img)))
+        sos = blob.find(b"\xff\xda")
+        blob[sos + 6] = 0x22
+        blob = bytes(blob)
+    path = _write(tmp_path, "x.jpg", blob)
+    for flag in FLAGS:
+        assert cv2.imread(path, flag) is None
+        with pytest.raises(DecodeError):
+            read_image(path, flag)
+
+
 # ---- what the port leaves out, and what cv2 returns None for
 
 
@@ -406,23 +448,16 @@ def _refused_jpeg(kind: str) -> bytes:
         return _sof_only(0xC1, precision=12)
     if kind == "cmyk":
         return _sof_only(0xC0, components=4)
-    if kind == "default-tables":
-        blob = bytearray(_jpeg(img))
-        while (at := blob.find(b"\xff\xc4")) >= 0:
-            length = struct.unpack(">H", blob[at + 2:at + 4])[0]
-            del blob[at:at + 2 + length]
-        return bytes(blob)
     blob = _jpeg(img, cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
     return blob[:len(blob) // 2]                      # block smoothing
 
 
 @pytest.mark.parametrize("kind", ["arithmetic", "lossless", "hierarchical",
-                                  "12-bit", "cmyk", "default-tables",
-                                  "progressive-cut-short"])
+                                  "12-bit", "cmyk", "progressive-cut-short"])
 def test_left_out_jpeg_kinds_raise_unsupported(tmp_path, kind):
     path = _write(tmp_path, "x.jpg", _refused_jpeg(kind))
-    if kind in ("default-tables", "progressive-cut-short"):
-        assert cv2.imread(path) is not None               # cv2 reads these
+    if kind == "progressive-cut-short":
+        assert cv2.imread(path) is not None               # cv2 reads it
     for flag in FLAGS:
         with pytest.raises(UnsupportedImage):
             read_image(path, flag)

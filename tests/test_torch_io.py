@@ -21,6 +21,7 @@ from fealess_tpu.bank import TemplateView as JaxView
 from fealess_tpu.io import linemod_yaml as jax_yaml
 from fealess_tpu_torch.io import linemod_yaml as port_yaml
 from fealess_tpu_torch.io.png import read_png
+from tests.make_torch_ckpt import OUT as CKPT
 from tests.test_torch_config import to_port
 
 torch.set_num_threads(1)
@@ -514,12 +515,12 @@ def test_load_linemod_roundtrip_of_save_linemod(tmp_path):
         _assert_same_classes(classes_p, classes_j)
 
 
-# Appended to each subprocess script: the names of jax, flax and cv2 and
-# of every module of the JAX package or of ``benchmarks`` (the JAX kernel
-# lab) that the process loaded, whether by import (``fealess_tpu``,
-# ``fealess_tpu.*``, ``benchmarks.*``) or from a file under
-# ``fealess_tpu/`` or ``benchmarks/`` (``fealess_tpu_torch`` shares the
-# prefix, not the directory).
+# Appended to each subprocess script: the names of jax, flax, cv2, PIL,
+# orbax and tensorstore and of every module of the JAX package or of
+# ``benchmarks`` (the JAX kernel lab) that the process loaded, whether by
+# import (``fealess_tpu``, ``fealess_tpu.*``, ``benchmarks.*``) or from a
+# file under ``fealess_tpu/`` or ``benchmarks/`` (``fealess_tpu_torch``
+# shares the prefix, not the directory).
 LOADED = r"""
 def _loaded():
     import os
@@ -528,7 +529,8 @@ def _loaded():
         fealess_tpu_torch.__file__)))
     pkgs = tuple(os.path.join(repo, d) + os.sep
                  for d in ("fealess_tpu", "benchmarks"))
-    names = [m for m in ("jax", "flax", "cv2") if m in sys.modules]
+    names = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "flax", "cv2", "PIL", "orbax", "tensorstore"))
     names += sorted(m for m in sys.modules
                     if m.split(".")[0] in ("fealess_tpu", "benchmarks"))
     names += sorted(f for f in (getattr(m, "__file__", None)
@@ -579,9 +581,13 @@ lab_rows = kernel_lab.run_coarse(*lab.fixture_like(
     n=4, f=12, nb=3, hd=3, wd=8, c=4, even=True, device="cpu"))
 from fealess_tpu_torch.io.imfile import read_image
 decoded = [[list(img.shape), img.tobytes().hex()]
-           for img in (read_image(p, flag) for p in sys.argv[3:]
+           for img in (read_image(p, flag) for p in sys.argv[4:]
                        for flag in (-1, 0, 1))]
+from fealess_tpu_torch.io import checkpoint
+from tests.make_torch_ckpt import leaf_digests
+ckpt, _ = checkpoint.load_bank(sys.argv[3], device="cpu")
 print(json.dumps({"decoded": decoded, "n": len(res), "n_multi": len(multi),
+                  "ckpt": leaf_digests(ckpt),
                   "roi_ok": bool(np.isfinite(roi).all()),
                   "epnp_ok": bool(np.isfinite(pose).all()),
                   "drawn": bool((drawn != frame["bgr"]).any()),
@@ -594,10 +600,12 @@ def test_port_runs_without_jax_flax_or_cv2(tmp_path):
     """A fresh interpreter imports the port (its apps included) and runs a
     small recognition, a multi-object recognition, a KCF update, an EPnP
     pose, a match overlay, the logger, a stage timer and the kernel lab's
-    coarse run (``ops/lab``, ``apps/kernel_lab``), and decodes a JPEG
+    coarse run (``ops/lab``, ``apps/kernel_lab``), decodes a JPEG
     (progressive, 4:2:0, EXIF orientation 6) and a BMP (8-bit palette)
-    written by cv2, as cv2 decodes them under all three flags; jax, flax,
-    cv2 and the JAX package (by name or by file) are never loaded."""
+    written by cv2, as cv2 decodes them under all three flags, and loads
+    the JAX package's orbax checkpoint of the fixture bank to its
+    digests; jax, flax, cv2, PIL, orbax, tensorstore and the JAX package
+    (by name or by file) are never loaded."""
     h, w = 80, 160
     rng = np.random.default_rng(2)
     bgr = rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
@@ -633,8 +641,8 @@ def test_port_runs_without_jax_flax_or_cv2(tmp_path):
     assert want[1][0] == [53, 37]                     # rotated by EXIF
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", _SUBPROCESS, str(feat_dir),
-                          frame] + images, capture_output=True, text=True,
-                         env=env, timeout=300)
+                          frame, CKPT] + images, capture_output=True,
+                         text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["loaded"] == []
@@ -643,3 +651,5 @@ def test_port_runs_without_jax_flax_or_cv2(tmp_path):
     assert result["epnp_ok"] and result["drawn"]
     assert result["lab_rows"] == 7
     assert result["decoded"] == want
+    with open(os.path.join(CKPT, "digests.json")) as f:
+        assert result["ckpt"] == json.load(f)

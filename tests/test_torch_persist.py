@@ -2,13 +2,16 @@
 trips through cv2 and ``read_png``; ``save_linemod`` / ``save_classes``
 files read back identically through JAX's cv2 reader and the port's (and
 equal cv2's bytes); bank checkpoints round-trip and ``import_yaml`` gives
-JAX's leaves; the serving artifact's ``recognition`` equals the port's
-``ObjReco.recognition`` and JAX's (match and similarity exactly, pose
-within 0.05 mm and 0.01 deg), and so does an artifact that the JAX
-package wrote."""
+JAX's leaves; the JAX package's orbax checkpoints load in the port and
+the port's in the JAX package, bitwise, and ``recognize_top1`` serves
+such a bank as ``ObjReco.recognition`` does; the serving artifact's
+``recognition`` equals the port's ``ObjReco.recognition`` and JAX's
+(match and similarity exactly, pose within 0.05 mm and 0.01 deg), and so
+does an artifact that the JAX package wrote."""
 
 import json
 import os
+import shutil
 
 import cv2
 import numpy as np
@@ -20,17 +23,20 @@ from fealess_tpu import config as cfg
 from fealess_tpu.engine import CamIntrinsics as JaxCam
 from fealess_tpu.io import checkpoint as jax_ckpt
 from fealess_tpu.io import linemod_yaml as jax_yaml
-from fealess_tpu_torch import bank
+from fealess_tpu_torch import bank, detector, pipeline
+from fealess_tpu_torch import config as cfg_port
 from fealess_tpu_torch.engine import CamIntrinsics
-from fealess_tpu_torch.io import checkpoint, linemod_yaml
+from fealess_tpu_torch.io import checkpoint, linemod_yaml, ocdbt, zstd
 from fealess_tpu_torch.io.export import ServingArtifact
-from fealess_tpu_torch.io.png import read_png, write_png
+from fealess_tpu_torch.io.png import DecodeError, read_png, write_png
 from tests.test_match_e2e import H, W
 from tests.test_torch_engine import (CX, CY, FX, FY, _LEAVES, _engines,
                                      _frames, _same_results,
                                      feature_dir)  # noqa: F401
 from tests.test_torch_config import to_port
 from tests.test_torch_io import _assert_same_classes, _encode_png
+from tests.make_torch_ckpt import OUT as CKPT, YAML as FIXTURE_YAML
+from tests.make_torch_ckpt import leaf_digests
 
 torch.set_num_threads(1)
 
@@ -188,13 +194,220 @@ def test_bank_checkpoint_and_yaml_roundtrip(tmp_path, yaml_banks):
                                device="cpu")[1] is None
 
 
-def test_load_bank_refuses_orbax_checkpoint(tmp_path, yaml_banks):
+def _jax_bank(case: str, yaml_banks):
+    """(JAX bank, JAX detector config or None, the YAML it came from or
+    None) for each checkpoint case."""
     path, det, _ = yaml_banks
-    jax_packed, _ = jax_ckpt.import_yaml(path, capacity=12)
-    d = str(tmp_path / "orbax")
-    jax_ckpt.save_bank(d, jax_packed, det)
-    with pytest.raises(IOError, match="orbax"):
+    if case in ("yaml12", "nodet"):
+        b, _ = jax_ckpt.import_yaml(path, capacity=12)
+        return b, (det if case == "yaml12" else None), path
+    if case == "fixture1024":
+        return jax_ckpt.import_yaml(FIXTURE_YAML) + (FIXTURE_YAML,)
+    if case == "sharded8":      # over 8 devices: a grid of 8 chunks a leaf
+        from fealess_tpu.parallel import mesh
+        b, det = jax_ckpt.import_yaml(FIXTURE_YAML)
+        return mesh.shard_bank(b, mesh.template_mesh(8)), det, FIXTURE_YAML
+    # 16384 random slots: each feature leaf is one 5 MB chunk, many zstd
+    # blocks
+    rng = np.random.default_rng(16384)
+    n, shape = 16384, (16384, 2, 2, 63)
+    arrays = {"feat_x": rng.integers(0, 640, shape, np.int32),
+              "feat_y": rng.integers(0, 480, shape, np.int32),
+              "feat_label": rng.integers(0, 8, shape, np.int32),
+              "feat_valid": rng.random(shape) < 0.9,
+              "width": rng.integers(1, 200, (n, 2), np.int32),
+              "height": rng.integers(1, 200, (n, 2), np.int32),
+              "offset_x": rng.integers(0, 640, (n, 2), np.int32),
+              "offset_y": rng.integers(0, 480, (n, 2), np.int32),
+              "pose": rng.standard_normal((n, 13)).astype(np.float32),
+              "class_idx": rng.integers(0, 3, n, np.int32),
+              "template_idx": np.arange(n, dtype=np.int32),
+              "valid": rng.random(n) < 0.95}
+    import jax.numpy as jnp
+    b = jax_bank.TemplateBank(class_names=("a", "b", "c"), max_span=240,
+                              **{k: jnp.asarray(v) for k, v in arrays.items()})
+    return b, det, None
+
+
+def _same_bank(port_bank, jax_bank_, det_port, det_jax) -> None:
+    """Every leaf bitwise equal, with the JAX bank's dtype and shape; the
+    static fields and the detector config equal."""
+    assert port_bank.class_names == tuple(jax_bank_.class_names)
+    assert port_bank.max_span == jax_bank_.max_span
+    assert det_port == (None if det_jax is None else to_port(det_jax))
+    for k in _LEAVES:
+        got = getattr(port_bank, k).cpu().numpy()
+        want = np.asarray(getattr(jax_bank_, k))
+        assert (got.dtype, got.shape) == (want.dtype, want.shape), k
+        assert got.tobytes() == want.tobytes(), k
+
+
+CKPT_CASES = ["yaml12", "nodet", "fixture1024", "sharded8", "random16384"]
+
+
+@pytest.mark.parametrize("case", CKPT_CASES)
+def test_load_bank_reads_jax_checkpoint(tmp_path, yaml_banks, case):
+    """The port's load_bank of JAX's save_bank equals JAX's load_bank and,
+    where the bank came from a YAML, the port's import_yaml; a bank
+    sharded over 8 devices is saved as 8 chunks a leaf."""
+    jb, det, yml = _jax_bank(case, yaml_banks)
+    d = str(tmp_path / "jax")
+    jax_ckpt.save_bank(d, jb, det)
+    want, det_w = jax_ckpt.load_bank(d)
+    got, det_g = checkpoint.load_bank(d, device="cpu")
+    _same_bank(got, want, det_g, det_w)
+    _same_bank(got, jb, det_g, det)
+    if yml is not None:
+        imported, _ = checkpoint.import_yaml(
+            yml, capacity=jb.feat_x.shape[0], device="cpu")
+        for k in _LEAVES:
+            assert torch.equal(getattr(got, k), getattr(imported, k)), k
+
+
+@pytest.mark.parametrize("case", CKPT_CASES)
+def test_jax_load_bank_reads_port_checkpoint(tmp_path, yaml_banks, case):
+    """JAX's load_bank restores the port's save_bank, leaf for leaf and
+    bitwise, with the same detector config and class names; each leaf's
+    ``.zarray`` is orbax's (its chunks a shard's where JAX's bank was
+    sharded)."""
+    jb, det, _ = _jax_bank(case, yaml_banks)
+    names = ("feat_x", "feat_y", "feat_label", "feat_valid", "width",
+             "height", "offset_x", "offset_y", "pose", "class_idx",
+             "template_idx", "valid")
+    pb = bank.bank_from_numpy({k: np.asarray(getattr(jb, k)) for k in names},
+                              jb.class_names, jb.max_span, "cpu")
+    d = str(tmp_path / "port")
+    checkpoint.save_bank(d, pb, None if det is None else to_port(det))
+    got, det_g = jax_ckpt.load_bank(d)
+    assert det_g == det
+    _same_bank(pb, got, None if det is None else to_port(det), det_g)
+    again, _ = checkpoint.load_bank(d, device="cpu")
+    _same_bank(again, got, None if det is None else to_port(det), det_g)
+    jax_ckpt.save_bank(str(tmp_path / "jax"), jb, det)
+    ours, orbax = (ocdbt.read(os.path.join(p, "arrays"))
+                   for p in (d, str(tmp_path / "jax")))
+    zarrays = sorted(k for k in orbax if k.endswith(b"/.zarray"))
+    assert zarrays == sorted(k for k in ours if k.endswith(b"/.zarray"))
+    for k in zarrays:           # orbax's chunks are a shard's
+        a, b = json.loads(ours[k]), json.loads(orbax[k])
+        assert (a.pop("chunks") == b.pop("chunks")) == (case != "sharded8")
+        assert a == b, k
+
+
+def test_load_bank_reads_old_arrays_npz(tmp_path, yaml_banks):
+    """The ``arrays.npz`` earlier versions of the port wrote still loads;
+    a save over it writes JAX's format and takes the stale file away."""
+    path, det, _ = yaml_banks
+    packed, _ = checkpoint.import_yaml(path, capacity=12, device="cpu")
+    d = str(tmp_path / "old")
+    os.makedirs(d)
+    np.savez(os.path.join(d, "arrays.npz"), **bank.bank_arrays(packed))
+    with open(os.path.join(d, "bank_meta.json"), "w") as f:
+        json.dump({"class_names": list(packed.class_names),
+                   "max_span": packed.max_span,
+                   "detector": cfg_port.detector_to_dict(to_port(det)),
+                   "format_version": 1}, f)
+    got, det_g = checkpoint.load_bank(d, device="cpu")
+    assert det_g == to_port(det)
+    for k in _LEAVES:
+        assert torch.equal(getattr(got, k), getattr(packed, k)), k
+    checkpoint.save_bank(d, packed, to_port(det))
+    assert not os.path.exists(os.path.join(d, "arrays.npz"))
+    assert jax_ckpt.load_bank(d)[1] == det
+
+
+def test_committed_checkpoint_equals_jax_and_digests():
+    """The committed JAX checkpoint (``tests/make_torch_ckpt.py``, which
+    ``chip_smoke.py`` loads on the card): JAX's load_bank, the port's and
+    the recorded digests agree, and so does the fixture YAML's bank."""
+    want, det_w = jax_ckpt.load_bank(CKPT)
+    got, det_g = checkpoint.load_bank(CKPT, device="cpu")
+    _same_bank(got, want, det_g, det_w)
+    with open(os.path.join(CKPT, "digests.json")) as f:
+        digests = json.load(f)
+    assert leaf_digests(got) == leaf_digests(want) == digests
+    imported, det_y = checkpoint.import_yaml(FIXTURE_YAML, device="cpu")
+    assert det_y == det_g
+    assert leaf_digests(imported) == digests
+
+
+def _orbax_variant(tmp_path, kind: str) -> str:
+    """A port checkpoint changed into an orbax form the port refuses."""
+    packed = bank.bank_from_numpy(
+        {k: np.zeros((2, 2, 2, 3) if k.startswith("feat") else (2, 13)
+                     if k == "pose" else (2, 2) if k in (
+                         "width", "height", "offset_x", "offset_y") else (2,),
+                     np.bool_ if k in ("feat_valid", "valid") else np.float32
+                     if k == "pose" else np.int32) for k in _LEAVES},
+        ("obj",), 10, "cpu")
+    d = str(tmp_path / kind)
+    checkpoint.save_bank(d, packed)
+    arrays = os.path.join(d, "arrays")
+    meta_path = os.path.join(arrays, "_METADATA")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    if kind in ("zarr3", "no-ocdbt"):
+        meta["use_zarr3" if kind == "zarr3" else "use_ocdbt"] = \
+            kind == "zarr3"
+        with open(meta_path, "w") as f:
+            json.dump(meta, f)
+        return d
+    items = ocdbt.read(arrays)
+    zarray = json.loads(items[b"pose/.zarray"])
+    if kind == "float64":
+        zarray["dtype"] = "<f8"
+        items[b"pose/0.0"] = zstd.encode_raw(bytes(2 * 13 * 8))
+    else:
+        zarray["compressor"] = {"id": "blosc", "cname": "lz4"}
+    items[b"pose/.zarray"] = json.dumps(zarray).encode()
+    shutil.rmtree(arrays)
+    ocdbt.write(arrays, items)
+    with open(meta_path, "w") as f:
+        json.dump(meta, f)
+    return d
+
+
+@pytest.mark.parametrize("kind,match", [
+    ("zarr3", "zarr v3"), ("no-ocdbt", "without OCDBT"),
+    ("float64", "dtype '<f8'"), ("blosc", "compressor 'blosc'")])
+def test_load_bank_refuses_orbax_checkpoint(tmp_path, kind, match):
+    """The orbax forms the port does not read (zarr v3, no OCDBT, a dtype
+    a bank does not have, a compressor other than zstd) raise
+    DecodeError naming what they are."""
+    d = _orbax_variant(tmp_path, kind)
+    with pytest.raises(DecodeError, match=match):
         checkpoint.load_bank(d, device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["point_to_plane", "point_to_point"])
+def test_recognize_top1_from_jax_checkpoint(tmp_path, feature_dir, mode):
+    """pipeline.recognize_top1 from the bank of a JAX checkpoint, with the
+    model depths of ObjReco.add_obj on the same features, equals
+    ObjReco.recognition (every field) and JAX's recognition."""
+    ref, port = _engines(feature_dir, mode)
+    d = str(tmp_path / "ckpt")
+    jax_ckpt.save_bank(d, ref.bank, ref.cfg.detector)
+    served, det = checkpoint.load_bank(d, device="cpu")
+    assert det == port.cfg.detector
+    for k in _LEAVES:
+        assert torch.equal(getattr(served, k), getattr(port.bank, k)), k
+    tables = detector.build_match_tables(served, det)
+    pcam = CamIntrinsics(FX, FY, CX, CY, W, H)
+    for bgr, depth in _frames(feature_dir[1]):
+        frame = port._prepare_frame(bgr, depth, pcam)
+        step = pipeline.recognize_top1(
+            served, port._model_depth_dev, port._origins_dev, *frame,
+            port.cfg, kernels=tables)
+        got = port._fetch_top1(step)[0]
+        same = port.recognition(bgr, depth, pcam)
+        assert len(got) == len(same) == 1
+        for g, s in zip(got, same):
+            np.testing.assert_array_equal(g.world2cam, s.world2cam)
+            assert (g.obj_tag, g.similarity, g.icp_dist, g.inlier_ratio,
+                    g.match_rect) == (s.obj_tag, s.similarity, s.icp_dist,
+                                      s.inlier_ratio, s.match_rect)
+        _same_results(got, ref.recognition(bgr, depth,
+                                           JaxCam(FX, FY, CX, CY, W, H)))
 
 
 def test_view_from_features_matches_jax():
