@@ -135,6 +135,18 @@ Phases, one line of output each (or a few):
    ``arrays.npz``), ``import_yaml``, the serving artifact's load and
    ``save_bank``, and of the orbax load's host read with the zstd
    decodes inside it.
+7f. video files (``io/video.VideoReader``: AVI holding Motion JPEG or
+   FFV1, as ``cv2.VideoCapture`` reads them): every committed clip of
+   ``tests/data/torch_video`` decoded to the frame count and each frame's
+   sha256 of cv2's (recorded by ``tests/make_torch_video.py``); ``acq
+   --device cuda --clouds`` from the committed 640x480 Motion JPEG clip
+   with its depth directory, its ``gray/`` and ``depth/`` pixels equal to
+   the JAX CLI's and its clouds within ``CLOUD_TOL_MM`` of the same call
+   on the CPU; ``recon --device cuda`` on the package it wrote in both ICP
+   settings, its lines held to the JAX CLI's (similarity exact, pose within
+   phase 4's tolerances) with K1/K2/K3 at 1/1/0 a frame in (a) and 1/1/9
+   in (b); the host time to decode a 640x480 frame of Motion JPEG and of
+   FFV1.
 8. the rest of the public surface: the CLI's device-stage table
    (``cli._profile_stages``: front-end, match and the full step as
    cumulative prefixes, each the device busy of warm calls under
@@ -180,10 +192,10 @@ Phases, one line of output each (or a few):
    and L4's library call (``torch.cdist`` and a min) timed, L4 also at
    longer reference chunks.
 
-Each path of phases 4-4c, 6, 7 (7e included) and 8 runs with the kernels'
-launch counters set to 0 just before it and read just after; every kernel
-must have run on the paths that reach it; phase 9 counts the lab's path
-on its own.
+Each path of phases 4-4c, 6, 7 (7e and 7f included) and 8 runs with the
+kernels' launch counters set to 0 just before it and read just after;
+every kernel must have run on the paths that reach it; phase 9 counts the
+lab's path on its own.
 The line before the last is a JSON object with one entry per kernel
 (``ops/_build.KERNELS``; K1-K3's launches summed over the paths of phases
 4-8 and the 2-way shard case under ``cases``, K2's also the lab's K2 rows
@@ -320,6 +332,7 @@ FRAMES_DIR = os.path.join(REPO, "tests", "data", "torch_frames")
 # and its leaves' digests (tests/make_torch_ckpt.py writes them with JAX
 # and orbax on the CPU).
 CKPT_DIR = os.path.join(REPO, "tests", "data", "torch_ckpt", "fixture_1024")
+VIDEO_DIR = os.path.join(REPO, "tests", "data", "torch_video")
 CLOUD_TOL_MM = 1e-3
 DECODE_TIMED = 10
 
@@ -1942,6 +1955,160 @@ def persistence_phase(eng, bgr_np, depth_np, cam, card, counts,
           + f" ({card})")
 
 
+# -- phase 7f: video files ---------------------------------------------------
+
+def video_phase(eng, card, counts, default_icp) -> None:
+    """Phase 7f: every committed AVI of ``tests/data/torch_video`` decoded
+    by ``io/video.VideoReader`` to cv2's digests; ``acq --device cuda
+    --clouds`` from the committed Motion JPEG clip with its depth
+    directory, its ``gray/`` and ``depth/`` pixels held to the JAX CLI's and
+    its clouds to the same call on the CPU; ``recon --device cuda`` on that
+    package in both ICP settings against the JAX CLI's lines, K1/K2/K3
+    counted; host decode times per 640x480 frame."""
+    import contextlib
+    import hashlib
+    import io
+
+    import numpy as np
+    from fealess_tpu_torch.apps import cli, fixture
+    from fealess_tpu_torch.io.imfile import IMREAD_UNCHANGED, read_image
+    from fealess_tpu_torch.io.video import VideoReader
+
+    zero_counts, read_counts, path_launches, counted = counts
+    dev = eng.device
+    with open(os.path.join(VIDEO_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    with open(os.path.join(VIDEO_DIR, "recon.json")) as f:
+        expect = json.load(f)
+
+    def sha(a) -> str:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    # every committed clip: cv2.VideoCapture's frame count and each frame's
+    # shape and sha256 (recorded by tests/make_torch_video.py, held to cv2
+    # by the CPU tests)
+    for name, want in sorted(digests.items()):
+        with VideoReader(os.path.join(VIDEO_DIR, name)) as reader:
+            frames = list(reader)
+        got = {"frames": len(frames),
+               "shapes": [list(f.shape) for f in frames],
+               "sha256": [sha(f) for f in frames]}
+        check(got == want, f"video {name}: {got}, cv2 gives {want}")
+    print(f"video input: {len(digests)} committed AVIs ("
+          f"{sum(d['frames'] for d in digests.values())} frames: Motion "
+          f"JPEG from cv2.VideoWriter and hand-muxed at 4:2:0, 4:2:2 without "
+          f"DHT, 4:4:4, gray, restart, progressive, 17x33, 64x47, 1x1, "
+          f"OpenDML with AVIX; FFV1 at 96x64 and 640x480): frame counts and "
+          f"every frame's sha256 equal to cv2.VideoCapture's")
+
+    clip = os.path.join(VIDEO_DIR, "clip.avi")
+    n_frames = digests["clip.avi"]["frames"]
+    with tempfile.TemporaryDirectory() as tmp:
+        outs, acq_ms = {}, {}
+        for device, clouds in ((str(dev), ["--clouds"]), ("cpu", ["--clouds"]),
+                               ("no-clouds", [])):
+            outs[device] = os.path.join(tmp, f"acq_{device}")
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                rc = cli.main(["acq", clip, outs[device], "--depth-dir",
+                               os.path.join(VIDEO_DIR, "depth"), *clouds,
+                               "--device", str(dev) if device == "no-clouds"
+                               else device])
+            acq_ms[device] = (time.perf_counter() - t0) * 1e3 / n_frames
+            check(rc == 0 and f"saved {n_frames} frames" in out.getvalue(),
+                  f"acq --device {device} from the clip: rc {rc}, "
+                  f"{out.getvalue()!r}")
+        pkg = outs[str(dev)]
+        for sub, want in expect["acq"].items():
+            got = {n: sha(read_image(os.path.join(pkg, sub, n),
+                                     IMREAD_UNCHANGED))
+                   for n in sorted(os.listdir(os.path.join(pkg, sub)))}
+            check(got == want, f"acq {sub}/ from the clip: {got}, the JAX "
+                               f"CLI's {want}")
+        worst, points = 0.0, 0
+        names = sorted(os.listdir(os.path.join(outs["cpu"], "cloud")))
+        check(names == sorted(os.listdir(os.path.join(pkg, "cloud")))
+              and len(names) == n_frames, f"acq cloud/: {names}")
+        for name in names:
+            pa = np.loadtxt(os.path.join(pkg, "cloud", name), ndmin=2)
+            pb = np.loadtxt(os.path.join(outs["cpu"], "cloud", name),
+                            ndmin=2)
+            check(pa.shape == pb.shape and pa.shape[0] > 0,
+                  f"acq cloud/{name}: {pa.shape} vs {pb.shape} points")
+            worst = max(worst, float(np.abs(pa - pb).max()))
+            points += pa.shape[0]
+        check(worst <= CLOUD_TOL_MM + 1e-9,
+              f"acq clouds from the clip: {worst} mm from the CPU's")
+        print(f"acq --device {dev} --clouds from clip.avi ({n_frames} Motion "
+              f"JPEG frames, 640x480, depth paired by position): gray/ and "
+              f"depth/ pixels equal to the JAX CLI's, {points} cloud points "
+              f"within {worst:.4f} mm of the CPU call (limit "
+              f"{CLOUD_TOL_MM} mm)")
+        print(f"time acq from clip.avi (host clock, one call, ms per frame): "
+              f"--clouds on {dev} {acq_ms[str(dev)]:.3f}, --clouds on the "
+              f"CPU {acq_ms['cpu']:.3f}, without --clouds "
+              f"{acq_ms['no-clouds']:.3f} ({card})")
+
+        # recon on the package acq wrote, in both ICP settings
+        features = os.path.join(fixture.FIXTURE, "features")
+        build = cli._engine_for
+        for setting in ("a", "b"):
+            def engine_for(args, width, height, setting=setting):
+                served = build(args, width, height)
+                apply_setting(served, setting, default_icp)
+                return served
+
+            path = f"CLI recon, acq package from a video ({setting})"
+            out = io.StringIO()
+            cli._engine_for = engine_for
+            zero_counts()
+            try:
+                with contextlib.redirect_stdout(out), \
+                        contextlib.redirect_stderr(io.StringIO()):
+                    rc = cli.main(["recon", features, "--series", pkg,
+                                   "--device", str(dev)])
+            finally:
+                cli._engine_for = build
+            read_counts(path)
+            lines = [json.loads(ln) for ln in out.getvalue().splitlines()
+                     if ln.startswith("{")]
+            want = expect[setting]
+            check(rc == 0 and len(lines) == len(want) == n_frames
+                  and all(same_recon_line(g, w, setting)
+                          for g, w in zip(lines, want)),
+                  f"{path}: rc {rc}, {lines} vs JAX {want}")
+            want_k = [n_frames, n_frames, n_frames * EXPECT_NN[setting]]
+            check(path_launches[path] == want_k,
+                  f"{path}: launches {path_launches[path]}, expected "
+                  f"{want_k}")
+            t = [round(r[3], 5)
+                 for r in lines[-1]["results"][0]["pose"][:3]]
+            print(f"{path}: {n_frames} lines equal to the JAX CLI's "
+                  f"(similarity exact, t within {T_TOL_MM[setting]} mm, "
+                  f"rotation within {ROT_TOL_DEG} deg, ICP distance within "
+                  f"{CLI_DIST_TOL}); launches K1/K2/K3 "
+                  f"{path_launches[path]}; t of the last frame {t}")
+    apply_setting(eng, "a", default_icp)
+
+    # host decode times per 640x480 frame
+    def per_frame_ms(name: str) -> float:
+        path = os.path.join(VIDEO_DIR, name)
+        frames = digests[name]["frames"]
+        return host_mean_ms(lambda: list(VideoReader(path)),
+                            DECODE_TIMED) / frames
+
+    times = {"Motion JPEG 4:2:0 (cv2.VideoWriter, clip.avi)":
+             per_frame_ms("clip.avi"),
+             "FFV1 (cv2.VideoWriter, ffv1_640.avi)":
+             per_frame_ms("ffv1_640.avi")}
+    print("time video decode to BGR (host, demux included, ms per 640x480 "
+          f"frame, mean of {DECODE_TIMED} passes after a warm one): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+          + f" ({card})")
+
+
 # -- phase 8: the rest of the public surface --------------------------------
 
 def stage_rows(err: str):
@@ -2922,6 +3089,9 @@ def run(dev) -> None:
     persistence_phase(eng, bgr_np, depth_np, cam, card,
                       (zero_counts, read_counts, path_launches, counted),
                       default_icp)
+    phase_clock("7f")
+    video_phase(eng, card, (zero_counts, read_counts, path_launches, counted),
+                default_icp)
     # -- 8. the rest of the public surface
     phase_clock("8")
     surface_phase(eng, bgr_np, depth_np, cam, card,

@@ -7,8 +7,9 @@
   per saved frame into the scan-package layout that ``train``, ``recon``
   and ``track`` read, printing the intrinsics.  Frames come from
   ``io.series.ImageSeriesReader`` (a directory or a list of PNG, JPEG or
-  BMP files; cameras and video files need cv2 and are refused there),
-  paired with an optional depth directory read by ``io/imfile``, and are
+  BMP files, or a video file; a camera index is refused there), paired
+  with an optional depth directory read by ``io/imfile`` (by stem, and by
+  position for a video's nameless frames), and are
   written with ``io/png.write_png``; the clouds are back-projected on the
   given device.
 - ``BoxExtractor``: the interactive ROI picker
@@ -114,7 +115,8 @@ def acquire_series(color_source, out_dir: str,
     (u16 mm as read, when a depth series is given) and optionally
     ``cloud/<i>.txt`` (mm, back-projected on ``device``, which must exist
     when clouds are asked for: nothing falls back to the CPU).  Depth
-    pairs with colour by file stem.  Returns the number of frames saved."""
+    pairs with colour by file stem, or by position for a video's frames.
+    Returns the number of frames saved."""
     import torch
 
     from fealess_tpu_torch.geometry import depth as gd
@@ -127,8 +129,10 @@ def acquire_series(color_source, out_dir: str,
     reader = ImageSeriesReader(color_source, target_wh=target_wh)
     os.makedirs(os.path.join(out_dir, "gray"), exist_ok=True)
     # gray/7.png pairs with depth/7.png by stem, never by position: an
-    # unreadable colour file would shift every later pair
-    depth_by_stem = {}
+    # unreadable colour file would shift every later pair.  A video's
+    # frames have no stem and take the depth files by position, in
+    # numeric-stem order, as the JAX tool pairs them.
+    depth_by_stem, depth_list = {}, []
     if depth_dir:
         os.makedirs(os.path.join(out_dir, "depth"), exist_ok=True)
         depth_list = sorted(glob.glob(os.path.join(depth_dir, "*.png")),
@@ -149,7 +153,10 @@ def acquire_series(color_source, out_dir: str,
         if max_frames is not None and n >= max_frames:
             break
         write_png(os.path.join(out_dir, "gray", f"{i}.png"), frame)
-        depth_path = depth_by_stem.get(stem)
+        if stem is None:
+            depth_path = depth_list[i] if i < len(depth_list) else None
+        else:
+            depth_path = depth_by_stem.get(stem)
         if depth_path is not None:
             try:
                 d = read_image(depth_path,

@@ -366,7 +366,9 @@ def cmd_acq(args) -> int:
                        cy=args.cy if args.cy >= 0 else 240.0,
                        max_frames=args.max_frames, save_clouds=args.clouds,
                        device=args.device)
-    except ValueError as e:               # a source that needs cv2
+    except (ValueError, OSError) as e:
+        # a camera index, a video the port does not read, a path that does
+        # not open
         print(f"acq: {e}", file=sys.stderr)
         return 1
     return 0
@@ -446,8 +448,11 @@ def build_parser() -> argparse.ArgumentParser:
 
     a = sub.add_parser("acq", help="capture frames into scan-package layout")
     a.add_argument("source", help="image dir (PNG, JPEG and BMP files, "
-                                  "read by content; camera indices and "
-                                  "video files need cv2)")
+                                  "read by content) or video file (AVI "
+                                  "with Motion JPEG or FFV1, as "
+                                  "cv2.VideoWriter writes and USB cameras "
+                                  "record); camera indices need a video "
+                                  "device")
     a.add_argument("out_dir")
     a.add_argument("--depth-dir", default=None,
                    help="paired u16 depth png series (mm)")

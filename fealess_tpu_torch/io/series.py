@@ -2,15 +2,21 @@
 ``fealess_tpu.io.series``).
 
 Reimplements ``CImgSeriesReader`` (reference test/img_series_reader.h:9-28,
-.cpp) for the sources the port can read: a directory of ``*.png``,
-``*.jpg``, ``*.jpeg`` and ``*.bmp`` files (numerically sorted by stem, as
-the JAX reader globs and sorts them) or an explicit list of paths,
-decoded by ``io/imfile.read_image`` (by content, as ``cv2.imread``) and
-resized with ``ops/resize`` (cv2's INTER_LINEAR, bit for bit).  Camera
-indices and video files need ``cv2.VideoCapture``, which the card does
-not have, and are refused with an error that names the limit.  RGB-D
-series (``gray/`` + ``depth/`` pairs) stream through
-``io.native.FrameLoader`` instead.
+.cpp) for the sources the port can read:
+
+- a directory of ``*.png``, ``*.jpg``, ``*.jpeg`` and ``*.bmp`` files
+  (numerically sorted by stem, as the JAX reader globs and sorts them) or
+  an explicit list of paths, decoded by ``io/imfile.read_image`` (by
+  content, as ``cv2.imread``);
+- a video file, read by ``io/video.VideoReader`` as ``cv2.VideoCapture``
+  reads it (AVI holding Motion JPEG or FFV1; another container or codec
+  raises ``UnsupportedVideo`` naming it, a path that does not open raises
+  ``OSError``), its frames nameless (stem ``None``).
+
+Every frame is resized with ``ops/resize`` (cv2's INTER_LINEAR, bit for
+bit) when ``target_wh`` is set.  A camera index needs a video device and
+is refused with an error that names the limit.  RGB-D series (``gray/`` +
+``depth/`` pairs) stream through ``io.native.FrameLoader`` instead.
 """
 
 from __future__ import annotations
@@ -33,48 +39,63 @@ def numeric_stem_key(path: str):
 
 
 class ImageSeriesReader:
-    """Iterate BGR u8 frames from a directory of PNG, JPEG and BMP files
-    or a list of image paths (``source``); ``target_wh`` resizes every
-    frame."""
+    """Iterate BGR u8 frames from a directory of PNG, JPEG and BMP files,
+    a list of image paths or a video file (``source``); ``target_wh``
+    resizes every frame."""
 
     def __init__(self, source, target_wh: Optional[Tuple[int, int]] = None):
         self._target = target_wh
+        self._video = None
+        paths: List[str] = []
+        if isinstance(source, int):
+            raise ValueError(
+                f"frame source {source!r} is a camera index, which needs a "
+                f"video device (cv2.VideoCapture); the port reads "
+                f"directories and lists of image files and video files")
         if isinstance(source, (list, tuple)):
-            paths: List[str] = list(source)
-        elif isinstance(source, str) and os.path.isdir(source):
-            paths = []
+            paths = list(source)
+        elif os.path.isdir(source):
             for ext in _EXTENSIONS:
                 paths += glob.glob(os.path.join(source, f"*.{ext}"))
             paths.sort(key=numeric_stem_key)
         else:
-            raise ValueError(
-                f"frame source {source!r} is a camera index or a video "
-                f"file, which needs cv2.VideoCapture; the port reads "
-                f"directories and lists of image files only")
+            from fealess_tpu_torch.io.video import VideoReader
+            self._video = VideoReader(source)
         self._paths = paths
 
     def __iter__(self) -> Iterator[np.ndarray]:
         for _, frame in self.iter_named():
             yield frame
 
-    def iter_named(self) -> Iterator[Tuple[str, np.ndarray]]:
+    def iter_named(self) -> Iterator[Tuple[Optional[str], np.ndarray]]:
         """Yield ``(stem, frame)`` pairs; ``stem`` is the file's basename
-        without extension, so consumers pair per-frame files (depth, pose)
-        by name.  A file that is missing or does not decode is skipped;
-        one of a format the port does not read raises
-        ``UnsupportedImage``."""
+        without extension (None for a video's frames), so consumers pair
+        per-frame files (depth, pose) by name.  A file that is missing or
+        does not decode is skipped; one of a format the port does not
+        read raises ``UnsupportedImage`` (``UnsupportedVideo`` for a
+        video's frame)."""
         from fealess_tpu_torch.io.imfile import (IMREAD_COLOR, DecodeError,
                                                  read_image)
-        from fealess_tpu_torch.ops.resize import resize_host
 
+        if self._video is not None:
+            for frame in self._video:
+                yield None, self._resize(frame)
+            return
         for p in self._paths:
             try:
                 frame = read_image(p, IMREAD_COLOR)
             except (DecodeError, FileNotFoundError):   # cv2.imread: None
                 continue
-            if self._target is not None:
-                frame = resize_host(frame, self._target)
-            yield os.path.splitext(os.path.basename(p))[0], frame
+            yield os.path.splitext(os.path.basename(p))[0], self._resize(frame)
+
+    def _resize(self, frame: np.ndarray) -> np.ndarray:
+        if self._target is None:
+            return frame
+        from fealess_tpu_torch.ops.resize import resize_host
+        return resize_host(frame, self._target)
 
     def close(self) -> None:
-        """Nothing to release (kept for the JAX reader's interface)."""
+        """Close the video file, if the source is one."""
+        if self._video is not None:
+            self._video.close()
+            self._video = None

@@ -185,12 +185,13 @@ def _host_cxx() -> str:
     return _find_compiler("CXX", ("c++", "g++", "clang++"), "C++")
 
 
-def _build_host_library(stem: str, compiler, flags, sources) -> pathlib.Path:
+def _build_host_library(stem: str, compiler, flags, sources,
+                        headers=()) -> pathlib.Path:
     """Compile ``sources`` into ``lib<stem>_<hash>.so`` under BUILD_DIR
     unless the library for these sources and flags exists; the hash
-    covers the flags and each source's name and bytes."""
+    covers the flags and each source's and header's name and bytes."""
     h = hashlib.sha256(" ".join(flags).encode())
-    for src in sources:
+    for src in (*sources, *headers):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     so = BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
@@ -214,9 +215,11 @@ def _build_host_library(stem: str, compiler, flags, sources) -> pathlib.Path:
 
 def build_host(name: str) -> pathlib.Path:
     """Compile ``csrc/<name>.c`` with the host compiler unless the library
-    for this source and these flags exists; return its path."""
+    for this source, the headers of ``csrc/`` and these flags exists;
+    return its path."""
     return _build_host_library(name, _host_cc, HOST_CFLAGS,
-                               [CSRC / f"{name}.c"])
+                               [CSRC / f"{name}.c"],
+                               headers=sorted(CSRC.glob("*.h")))
 
 
 def build_native_host() -> pathlib.Path:

@@ -263,8 +263,9 @@ def cv2_digests(directory: str, names) -> dict:
             for name in names}
 
 
-def jax_recon(series: str) -> dict:
-    """The JAX CLI's recon lines on ``series`` in settings a and b."""
+def jax_recon(series: str, frames: int = SERIES_FRAMES) -> dict:
+    """The JAX CLI's recon lines on ``series`` in settings a and b, and
+    the JAX engine's match on each of its ``frames`` frames."""
     import contextlib
     import io
 
@@ -302,7 +303,7 @@ def jax_recon(series: str) -> dict:
     eng.add_obj(features)
     cam = CamIntrinsics(608.0, 608.0, 320.0, 240.0, 640, 480)
     out["match"] = []
-    for i in range(SERIES_FRAMES):
+    for i in range(frames):
         bgr = cv2.imread(os.path.join(series, "gray", f"{i}.png"))
         depth = cv2.imread(os.path.join(series, "depth", f"{i}.png"),
                            cv2.IMREAD_UNCHANGED)

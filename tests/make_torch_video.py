@@ -1,0 +1,299 @@
+"""Write ``tests/data/torch_video/``: the AVI files that ``chip_smoke.py``
+phase 7f decodes on the card, where there is no cv2, and the values it
+holds them to, taken from cv2 and the JAX package on the CPU.
+
+    python -m tests.make_torch_video
+
+- ``clip.avi``: four panned 640x480 fixture frames (``apps/fixture.pan``)
+  written by ``cv2.VideoWriter`` as Motion JPEG, with ``depth/<i>.png``
+  (the fixture's depth, x10 as u16 PNG);
+- ``ffv1.avi``: FFV1 from ``cv2.VideoWriter`` at 96x64, and
+  ``ffv1_640.avi``: the clip's first frame at 640x480 (the decode that
+  ``chip_smoke.py`` times);
+- hand-muxed Motion JPEG AVIs of ``cv2.imencode`` JPEGs (:func:`mux_avi`):
+  4:2:0, 4:2:2 (what UVC cameras send, with the DHT cut, as they send it),
+  4:4:4 and gray; odd sizes (17x33 at 4:2:0 and 4:2:2, 64x47, 1x1);
+  restart markers; a progressive
+  frame; and one file with an OpenDML index whose last frame sits in a
+  ``RIFF AVIX`` extension;
+- ``digests.json``: for each file the frame count and each frame's shape
+  and sha256 from ``cv2.VideoCapture``;
+- ``recon.json``: the JAX CLI's ``acq`` output on ``clip.avi`` with its
+  depth directory (the sha256 of each ``gray/`` and ``depth/`` PNG's
+  pixels), its ``recon`` lines on that package with the fixture's
+  features, with the default ICP settings ("a") and with iterations forced
+  to the cap ("b", ``chip_smoke.FORCED``), and the JAX engine's match on
+  each frame.
+
+``tests/test_torch_video.py`` holds the digests to cv2 on the CPU, so they
+cannot go stale.  The muxer is shared with that test.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import struct
+import sys
+import tempfile
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT = os.path.join(REPO, "tests", "data", "torch_video")
+CLIP_FRAMES = 4
+
+
+def _chunk(cid: bytes, data: bytes) -> bytes:
+    return cid + struct.pack("<I", len(data)) + data + b"\0" * (len(data) & 1)
+
+
+def _list(kind: bytes, *chunks: bytes) -> bytes:
+    return _chunk(b"LIST", kind + b"".join(chunks))
+
+
+def mux_avi(frames, width: int, height: int, fourcc: bytes = b"MJPG",
+            index: str = "idx1", extradata: bytes = b"", fps: int = 10,
+            junk: bool = False, rec: bool = False, split: int = 0) -> bytes:
+    """A one-stream video AVI holding ``frames`` (bytes each) as ``00dc``
+    chunks.  ``index``: ``"idx1"`` (offsets relative to ``movi``),
+    ``"odml"`` (an OpenDML super index in the stream header pointing at an
+    ``ix00`` standard index at the end of each ``movi``; no ``idx1``) or
+    ``"none"``.  ``junk`` puts a ``JUNK`` chunk before each frame, ``rec``
+    wraps each frame in a ``LIST rec``; with ``split``, the frames from
+    that one on go into a ``RIFF AVIX`` extension (which an ``idx1``, in
+    the first RIFF, does not list)."""
+    n = len(frames)
+    odml = index == "odml"
+    parts = [frames[:split], frames[split:]] if split else [frames]
+    avih = struct.pack("<10I4I", 1000000 // fps, 0, 0,
+                       0x10 if index != "none" else 0, len(parts[0]), 0, 1,
+                       max((len(f) for f in frames), default=0), width,
+                       height, 0, 0, 0, 0)
+    strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", fourcc, 0, 0, 0, 0,
+                       1, fps, 0, n, 0, 0xFFFFFFFF, 0, 0, 0, width, height)
+    strf = struct.pack("<IiiHH4sIiiII", 40 + len(extradata), width, height,
+                       1, 24, fourcc, width * height * 3, 0, 0, 0, 0)
+    strf += extradata
+    # the super index's entries are patched in once the ix00 chunks sit
+    indx = struct.pack("<HBBI4sIII", 4, 0, 0, len(parts) if odml else 0,
+                       b"00dc", 0, 0, 0) + bytes(16 * len(parts) * odml)
+    strl = [_chunk(b"strh", strh), _chunk(b"strf", strf)]
+    if odml:
+        strl.append(_chunk(b"indx", indx))
+    hdrl = _list(b"hdrl", _chunk(b"avih", avih), _list(b"strl", *strl))
+    if odml:
+        hdrl += _list(b"odml", _chunk(b"dmlh", struct.pack("<I", n)
+                                      + bytes(244)))
+    out, supers = bytearray(), []
+    for k, part in enumerate(parts):
+        riff_at = len(out)
+        head = b"AVI " + hdrl if k == 0 else b"AVIX"
+        movi_at = riff_at + 8 + len(head) + 8        # the 'movi' fourcc
+        body, entries = b"", []
+        for f in part:
+            if junk:
+                body += _chunk(b"JUNK", bytes(6))
+            at = movi_at + 4 + len(body) + (12 if rec else 0)
+            c = _chunk(b"00dc", f)
+            body += _list(b"rec ", c) if rec else c
+            entries.append((at, len(f)))
+        if odml:
+            base = movi_at
+            ix = struct.pack("<HBBI4sQI", 2, 0, 1, len(part), b"00dc", base,
+                             0)
+            ix += b"".join(struct.pack("<II", at + 8 - base, size)
+                           for at, size in entries)
+            supers.append((movi_at + 4 + len(body), 8 + len(ix), len(part)))
+            body += _chunk(b"ix00", ix)
+        riff = head + _list(b"movi", body)
+        if index == "idx1" and k == 0:
+            riff += _chunk(b"idx1", b"".join(
+                struct.pack("<4sIII", b"00dc", 0x10, at - movi_at, size)
+                for at, size in entries))
+        out += b"RIFF" + struct.pack("<I", len(riff)) + riff
+    if odml:
+        at = out.index(b"indx") + 8 + 24
+        for k, entry in enumerate(supers):
+            out[at + 16 * k:at + 16 * k + 16] = struct.pack("<QII", *entry)
+    return bytes(out)
+
+
+def sha256(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def cv2_frames(path: str):
+    """Every frame ``cv2.VideoCapture`` reads from ``path``."""
+    import cv2
+    cap = cv2.VideoCapture(path)
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(frame)
+    cap.release()
+    return frames
+
+
+def digest(path: str) -> dict:
+    frames = cv2_frames(path)
+    return {"frames": len(frames),
+            "shapes": [list(f.shape) for f in frames],
+            "sha256": [sha256(f) for f in frames]}
+
+
+def jpeg(img: np.ndarray, *params) -> bytes:
+    import cv2
+    ok, buf = cv2.imencode(".jpg", img, list(params))
+    assert ok
+    return buf.tobytes()
+
+
+def cut_dht(data: bytes) -> bytes:
+    """``data`` without its DHT segments (a Motion JPEG frame as UVC
+    cameras send it)."""
+    out, pos = bytearray(data[:2]), 2
+    while pos < len(data):
+        marker = data[pos + 1]
+        if marker == 0xDA:
+            return bytes(out + data[pos:])
+        length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if marker != 0xC4:
+            out += data[pos:pos + 2 + length]
+        pos += 2 + length
+    return bytes(out)
+
+
+def scene(w: int, h: int, seed: int, n: int = 1):
+    """``n`` smooth seeded BGR frames (blurred noise over a gradient)."""
+    import cv2
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = []
+    for i in range(n):
+        base = np.stack([(xx * 255 // max(w - 1, 1) + 40 * i) % 256,
+                         yy * 255 // max(h - 1, 1),
+                         (xx + yy + 17 * i) % 256], -1).astype(np.float32)
+        noise = rng.normal(0, 60, (h, w, 3)).astype(np.float32)
+        img = np.clip(base + cv2.GaussianBlur(noise, (5, 5), 0), 0, 255)
+        out.append(img.astype(np.uint8))
+    return out
+
+
+def hand_clips():
+    """The hand-muxed clips: name -> AVI bytes."""
+    import cv2
+    S = cv2.IMWRITE_JPEG_SAMPLING_FACTOR
+    f420, f422, f444 = (cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+                        cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+                        cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444)
+    Q = cv2.IMWRITE_JPEG_QUALITY
+    a = scene(64, 48, 1, 3)
+    clips = {
+        "mjpeg_420.avi": mux_avi([jpeg(f, Q, 80, S, f420) for f in a],
+                                 64, 48),
+        "mjpeg_422_nodht.avi": mux_avi(
+            [cut_dht(jpeg(f, Q, 90, S, f422)) for f in a], 64, 48,
+            junk=True),
+        "mjpeg_444_rec.avi": mux_avi([jpeg(f, Q, 70, S, f444) for f in a],
+                                     64, 48, rec=True),
+        "mjpeg_gray.avi": mux_avi(
+            [jpeg(cv2.cvtColor(f, cv2.COLOR_BGR2GRAY), Q, 85) for f in a],
+            64, 48),
+        "mjpeg_restart_progressive.avi": mux_avi(
+            [jpeg(a[0], Q, 90, cv2.IMWRITE_JPEG_RST_INTERVAL, 3),
+             jpeg(a[1], Q, 90, cv2.IMWRITE_JPEG_PROGRESSIVE, 1)], 64, 48),
+        "mjpeg_odd.avi": mux_avi([jpeg(scene(17, 33, 2)[0], Q, 95),
+                                  jpeg(scene(17, 33, 3)[0], Q, 95, S, f422)],
+                                 17, 33),
+        "mjpeg_odd_height.avi": mux_avi(
+            [jpeg(f, Q, 90) for f in scene(64, 47, 4, 2)], 64, 47),
+        "mjpeg_1x1.avi": mux_avi([jpeg(np.full((1, 1, 3), (30, 200, 90),
+                                               np.uint8), Q, 95)], 1, 1),
+        "mjpeg_odml_avix.avi": mux_avi([jpeg(f, Q, 75, S, f422) for f in a],
+                                       64, 48, index="odml", split=2),
+    }
+    return clips
+
+
+def write_cv2_clip(path: str, frames, fourcc: str, fps: int = 10) -> None:
+    import cv2
+    h, w = frames[0].shape[:2]
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), fps, (w, h))
+    assert vw.isOpened(), fourcc
+    for f in frames:
+        vw.write(f)
+    vw.release()
+
+
+def clip_frames():
+    """The fixture clip's frames: (bgr, depth x10 as u16) of the fixture's
+    first ``CLIP_FRAMES`` pan frames."""
+    sys.path.insert(0, REPO)
+    from fealess_tpu_torch.apps import fixture
+    from fealess_tpu_torch.io.png import read_png
+    bgr = read_png(os.path.join(fixture.FIXTURE, "scene_bgr.png"))
+    depth = read_png(os.path.join(fixture.FIXTURE, "scene_depth.png"))
+    return [(b, (d.astype(np.uint32) * 10).astype(np.uint16))
+            for b, d in fixture.pan(bgr, depth, CLIP_FRAMES)]
+
+
+def pixel_digests(directory: str) -> dict:
+    """sha256 of each PNG's pixels under ``directory`` (cv2.imread,
+    IMREAD_UNCHANGED): the port's PNG writer compresses differently from
+    cv2's, so the files are held by what they decode to."""
+    import cv2
+    return {name: sha256(cv2.imread(os.path.join(directory, name),
+                                    cv2.IMREAD_UNCHANGED))
+            for name in sorted(os.listdir(directory))}
+
+
+def main() -> None:
+    import cv2
+    os.makedirs(os.path.join(OUT, "depth"), exist_ok=True)
+    for name in os.listdir(OUT):
+        if name.endswith(".avi"):
+            os.remove(os.path.join(OUT, name))
+    frames = clip_frames()
+    write_cv2_clip(os.path.join(OUT, "clip.avi"), [b for b, _ in frames],
+                   "MJPG")
+    for i, (_, d) in enumerate(frames):
+        cv2.imwrite(os.path.join(OUT, "depth", f"{i}.png"), d)
+    write_cv2_clip(os.path.join(OUT, "ffv1.avi"), scene(96, 64, 5, 3),
+                   "FFV1")
+    write_cv2_clip(os.path.join(OUT, "ffv1_640.avi"), [frames[0][0]],
+                   "FFV1")
+    for name, data in hand_clips().items():
+        with open(os.path.join(OUT, name), "wb") as f:
+            f.write(data)
+    digests = {name: digest(os.path.join(OUT, name))
+               for name in sorted(os.listdir(OUT)) if name.endswith(".avi")}
+    with open(os.path.join(OUT, "digests.json"), "w") as f:
+        json.dump(digests, f, indent=1, sort_keys=True)
+        f.write("\n")
+    # the JAX CLI on the clip: acq with the depth directory, then recon
+    # (a) and (b) on what it wrote
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from fealess_tpu.apps import cli as jax_cli
+    from tests.make_torch_frames import jax_recon
+    with tempfile.TemporaryDirectory() as tmp:
+        pkg = os.path.join(tmp, "pkg")
+        assert jax_cli.main(["acq", os.path.join(OUT, "clip.avi"), pkg,
+                             "--depth-dir", os.path.join(OUT, "depth")]) == 0
+        recon = {"acq": {sub: pixel_digests(os.path.join(pkg, sub))
+                         for sub in ("gray", "depth")}}
+        recon.update(jax_recon(pkg, CLIP_FRAMES))
+    with open(os.path.join(OUT, "recon.json"), "w") as f:
+        json.dump(recon, f, indent=1, sort_keys=True)
+        f.write("\n")
+    total = sum(os.path.getsize(os.path.join(dp, n))
+                for dp, _, ns in os.walk(OUT) for n in ns)
+    print(f"wrote {OUT}: {total} bytes")
+
+
+if __name__ == "__main__":
+    main()

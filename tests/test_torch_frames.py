@@ -6,7 +6,8 @@ resized to the first frame's size with ``ops/resize``) against JAX's
 overlay images, ``acq`` against JAX's ``acquire_series`` (gray, depth and
 cloud outputs), PNG, JPEG and BMP frames read by content as cv2 reads
 them (the series reader, ``acq`` and ``recon`` on a series whose
-``gray/*.png`` hold JPEG data), the cv2-only sources refused by name,
+``gray/*.png`` hold JPEG data), a camera index and the videos the port
+does not read refused by name,
 ``acq`` failing without a card, the wireframe rasteriser against
 ``cv2.line``, and a subprocess that runs these paths without loading
 jax, flax, cv2 or the JAX package."""
@@ -290,15 +291,28 @@ def test_acq_max_frames_and_functions_match_jax(acq_source, tmp_path):
 
 def test_cv2_only_sources_are_refused(acq_source, tmp_path, monkeypatch,
                                       capsys):
-    """Camera indices and video files need cv2: the reader refuses them
-    by name, and acq says so and returns 1; JPEG and BMP files are read
-    (as the JAX reader reads them, in a directory and in a list); the ROI
-    picker needs a display."""
+    """A camera index needs a video device: the reader refuses it by
+    name, and acq says so and returns 1; a video path that does not exist
+    raises OSError as the JAX reader's does, and an MP4 (a container the
+    port does not read) raises UnsupportedVideo naming it; JPEG and BMP
+    files are read (as the JAX reader reads them, in a directory and in a
+    list); the ROI picker needs a display."""
     from fealess_tpu.io.series import ImageSeriesReader as JaxReader
-    with pytest.raises(ValueError, match="VideoCapture"):
+    from fealess_tpu_torch.io.video import UnsupportedVideo
+    with pytest.raises(ValueError, match="camera index"):
         ImageSeriesReader(0)
-    with pytest.raises(ValueError, match="VideoCapture"):
-        ImageSeriesReader(str(tmp_path / "clip.mp4"))
+    clip = str(tmp_path / "clip.mp4")
+    with pytest.raises(OSError, match="cannot open video source"):
+        ImageSeriesReader(clip)
+    with pytest.raises(OSError, match="cannot open video source"):
+        JaxReader(clip)
+    vw = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"mp4v"), 10, (32, 16))
+    for _ in range(2):
+        vw.write(np.full((16, 32, 3), 90, np.uint8))
+    vw.release()
+    assert len(list(JaxReader(clip))) == 2
+    with pytest.raises(UnsupportedVideo, match="MP4"):
+        ImageSeriesReader(clip)
     jpg = tmp_path / "jpg"
     shutil.copytree(acq_source[0], jpg)
     cv2.imwrite(str(jpg / "7.jpg"), np.full((4, 4, 3), 90, np.uint8))
@@ -313,7 +327,7 @@ def test_cv2_only_sources_are_refused(acq_source, tmp_path, monkeypatch,
             np.testing.assert_array_equal(g, w)
     rc, _, _, err = _run(cli.main, ["acq", "0", str(tmp_path / "out")],
                          capsys)
-    assert rc == 1 and "VideoCapture" in err
+    assert rc == 1 and "camera index" in err
     frames = list(ImageSeriesReader([str(jpg / "1.png"), str(jpg / "nope.png"),
                                      str(jpg / "4.png"), str(jpg / "0.png")],
                                     target_wh=(240, 160)).iter_named())
