@@ -135,18 +135,21 @@ Phases, one line of output each (or a few):
    ``arrays.npz``), ``import_yaml``, the serving artifact's load and
    ``save_bank``, and of the orbax load's host read with the zstd
    decodes inside it.
-7f. video files (``io/video.VideoReader``: AVI holding Motion JPEG or
-   FFV1, as ``cv2.VideoCapture`` reads them): every committed clip of
+7f. video files, image files and printf patterns (``io/video.
+   VideoReader``, as ``cv2.VideoCapture`` reads them: AVI, MP4 and
+   Matroska holding Motion JPEG, FFV1, raw I420, PNG or Huffyuv frames;
+   image2's single images and patterns): every committed source of
    ``tests/data/torch_video`` decoded to the frame count and each frame's
    sha256 of cv2's (recorded by ``tests/make_torch_video.py``); ``acq
-   --device cuda --clouds`` from the committed 640x480 Motion JPEG clip
-   with its depth directory, its ``gray/`` and ``depth/`` pixels equal to
-   the JAX CLI's and its clouds within ``CLOUD_TOL_MM`` of the same call
-   on the CPU; ``recon --device cuda`` on the package it wrote in both ICP
-   settings, its lines held to the JAX CLI's (similarity exact, pose within
-   phase 4's tolerances) with K1/K2/K3 at 1/1/0 a frame in (a) and 1/1/9
-   in (b); the host time to decode a 640x480 frame of Motion JPEG and of
-   FFV1.
+   --device cuda --clouds`` with the committed depth directory from the
+   640x480 Motion JPEG clip, the FFV1 MP4 and the JPEG pattern, each
+   package's ``gray/`` and ``depth/`` pixels equal to the JAX CLI's and its
+   clouds within ``CLOUD_TOL_MM`` of the same call on the CPU; ``recon
+   --device cuda`` on each package in both ICP settings, its lines held to
+   the JAX CLI's (similarity exact, pose within phase 4's tolerances) with
+   K1/K2/K3 at 1/1/0 a frame in (a) and 1/1/9 in (b); the host time to
+   decode a 640x480 frame of each format, demux included (Huffyuv on its
+   64x48 clip).
 8. the rest of the public surface: the CLI's device-stage table
    (``cli._profile_stages``: front-end, match and the full step as
    cumulative prefixes, each the device busy of warm calls under
@@ -1957,14 +1960,91 @@ def persistence_phase(eng, bgr_np, depth_np, cam, card, counts,
 
 # -- phase 7f: video files ---------------------------------------------------
 
-def video_phase(eng, card, counts, default_icp) -> None:
-    """Phase 7f: every committed AVI of ``tests/data/torch_video`` decoded
-    by ``io/video.VideoReader`` to cv2's digests; ``acq --device cuda
-    --clouds`` from the committed Motion JPEG clip with its depth
-    directory, its ``gray/`` and ``depth/`` pixels held to the JAX CLI's and
-    its clouds to the same call on the CPU; ``recon --device cuda`` on that
-    package in both ICP settings against the JAX CLI's lines, K1/K2/K3
-    counted; host decode times per 640x480 frame."""
+def avi_bytes(frames, width: int, height: int, fourcc: bytes,
+              extradata: bytes = b"") -> bytes:
+    """A one-stream video AVI of ``frames`` (bytes each) as ``00dc``
+    chunks, no index (the demuxer walks ``movi``), ``extradata`` after
+    strf's BITMAPINFOHEADER."""
+    import struct
+
+    def chunk(cid: bytes, data: bytes) -> bytes:
+        return cid + struct.pack("<I", len(data)) + data + b"\0" * (
+            len(data) & 1)
+    strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", fourcc, 0, 0, 0, 0,
+                       1, 10, 0, len(frames), 0, 0xFFFFFFFF, 0, 0, 0, width,
+                       height)
+    strf = struct.pack("<IiiHH4sIiiII", 40, width, height, 1, 24, fourcc,
+                       width * height * 3, 0, 0, 0, 0) + extradata
+    avih = struct.pack("<14I", 100000, 0, 0, 0, len(frames), 0, 1, 0, width,
+                       height, 0, 0, 0, 0)
+    hdrl = chunk(b"LIST", b"hdrl" + chunk(b"avih", avih) + chunk(
+        b"LIST", b"strl" + chunk(b"strh", strh) + chunk(b"strf", strf)))
+    movi = chunk(b"LIST", b"movi" + b"".join(chunk(b"00dc", f)
+                                             for f in frames))
+    riff = b"AVI " + hdrl + movi
+    return b"RIFF" + struct.pack("<I", len(riff)) + riff
+
+
+def huffyuv_bytes(img, extradata: bytes) -> bytes:
+    """A Huffyuv frame of BGR u8 ``img`` with the code lengths in
+    ``extradata`` (version 2, RGB24, left prediction, decorrelated, each
+    table giving all 256 symbols a code, as FFmpeg's encoder makes them):
+    the first pixel of the bottom row as R, G, B and a zero byte, then each
+    pixel, rows bottom up, as the codes of its G, B - G and R - G steps
+    from the pixel before it; 32-bit little-endian words, each filled from
+    its top bit."""
+    import numpy as np
+
+    bits = np.unpackbits(np.frombuffer(extradata[4:], np.uint8))
+    at, tables = 0, []
+    for _ in range(3):                # huffyuvdec's read_len_table
+        lens = []
+        while len(lens) < 256:
+            rep = int(bits[at:at + 3] @ [4, 2, 1])
+            val = int(bits[at + 3:at + 8] @ [16, 8, 4, 2, 1])
+            at += 8
+            if not rep:
+                rep = int(bits[at:at + 8] @ (1 << np.arange(7, -1, -1)))
+                at += 8
+            lens += [val] * rep
+        lens = np.asarray(lens)
+        count = np.bincount(lens, minlength=33)
+        nxt = [0] * 33                # generate_bits_table
+        for n in range(32, 0, -1):
+            nxt[n - 1] = (count[n] + nxt[n]) >> 1
+        codes = np.zeros(256, np.uint32)
+        for sym in range(256):
+            codes[sym] = nxt[lens[sym]]
+            nxt[lens[sym]] += 1
+        tables.append((codes, lens))
+    pix = img[::-1].reshape(-1, 3).astype(np.int16)         # B, G, R
+    step = np.diff(pix, axis=0)
+    syms = np.stack([step[:, 1], step[:, 0] - step[:, 1],
+                     step[:, 2] - step[:, 1]], 1).astype(np.uint8)
+    order = (1, 0, 2)                 # the tables of G, B - G, R - G
+    code = np.stack([tables[t][0][syms[:, i]] for i, t in enumerate(order)],
+                    1).reshape(-1)
+    size = np.stack([tables[t][1][syms[:, i]] for i, t in enumerate(order)],
+                    1).reshape(-1)
+    r, g, b = (int(v) for v in pix[0, ::-1])
+    head = np.array([r << 24 | g << 16 | b << 8], np.uint32)
+    code = np.concatenate([head, code]).astype(">u4")
+    size = np.concatenate([[32], size])
+    word = np.unpackbits(code.view(np.uint8)).reshape(-1, 32)
+    out = word[np.arange(32) >= 32 - size[:, None]]
+    out = np.packbits(np.pad(out, (0, -len(out) % 32)))
+    return out.view(">u4").astype("<u4").tobytes()
+
+
+def acq_recon_source(eng, card, counts, default_icp, name: str,
+                     n_frames: int, expect: dict, kind: str,
+                     no_clouds: bool) -> None:
+    """``acq --device cuda --clouds`` from the committed source ``name``
+    with the committed depth directory: its ``gray/`` and ``depth/``
+    pixels held to the JAX CLI's (``expect["acq"]``) and its clouds to the
+    same call on the CPU; then ``recon --device cuda`` on the package in
+    both ICP settings against the JAX CLI's lines, K1/K2/K3 counted.
+    ``no_clouds`` times a third call without ``--clouds``."""
     import contextlib
     import hashlib
     import io
@@ -1972,84 +2052,65 @@ def video_phase(eng, card, counts, default_icp) -> None:
     import numpy as np
     from fealess_tpu_torch.apps import cli, fixture
     from fealess_tpu_torch.io.imfile import IMREAD_UNCHANGED, read_image
-    from fealess_tpu_torch.io.video import VideoReader
 
     zero_counts, read_counts, path_launches, counted = counts
     dev = eng.device
-    with open(os.path.join(VIDEO_DIR, "digests.json")) as f:
-        digests = json.load(f)
-    with open(os.path.join(VIDEO_DIR, "recon.json")) as f:
-        expect = json.load(f)
+    source = os.path.join(VIDEO_DIR, name)
 
     def sha(a) -> str:
         return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
-    # every committed clip: cv2.VideoCapture's frame count and each frame's
-    # shape and sha256 (recorded by tests/make_torch_video.py, held to cv2
-    # by the CPU tests)
-    for name, want in sorted(digests.items()):
-        with VideoReader(os.path.join(VIDEO_DIR, name)) as reader:
-            frames = list(reader)
-        got = {"frames": len(frames),
-               "shapes": [list(f.shape) for f in frames],
-               "sha256": [sha(f) for f in frames]}
-        check(got == want, f"video {name}: {got}, cv2 gives {want}")
-    print(f"video input: {len(digests)} committed AVIs ("
-          f"{sum(d['frames'] for d in digests.values())} frames: Motion "
-          f"JPEG from cv2.VideoWriter and hand-muxed at 4:2:0, 4:2:2 without "
-          f"DHT, 4:4:4, gray, restart, progressive, 17x33, 64x47, 1x1, "
-          f"OpenDML with AVIX; FFV1 at 96x64 and 640x480): frame counts and "
-          f"every frame's sha256 equal to cv2.VideoCapture's")
-
-    clip = os.path.join(VIDEO_DIR, "clip.avi")
-    n_frames = digests["clip.avi"]["frames"]
+    calls = [(str(dev), ["--clouds"]), ("cpu", ["--clouds"])]
+    if no_clouds:
+        calls.append(("no-clouds", []))
     with tempfile.TemporaryDirectory() as tmp:
         outs, acq_ms = {}, {}
-        for device, clouds in ((str(dev), ["--clouds"]), ("cpu", ["--clouds"]),
-                               ("no-clouds", [])):
+        for device, clouds in calls:
             outs[device] = os.path.join(tmp, f"acq_{device}")
             out = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out), \
                     contextlib.redirect_stderr(io.StringIO()):
-                rc = cli.main(["acq", clip, outs[device], "--depth-dir",
+                rc = cli.main(["acq", source, outs[device], "--depth-dir",
                                os.path.join(VIDEO_DIR, "depth"), *clouds,
                                "--device", str(dev) if device == "no-clouds"
                                else device])
             acq_ms[device] = (time.perf_counter() - t0) * 1e3 / n_frames
             check(rc == 0 and f"saved {n_frames} frames" in out.getvalue(),
-                  f"acq --device {device} from the clip: rc {rc}, "
+                  f"acq --device {device} from {name}: rc {rc}, "
                   f"{out.getvalue()!r}")
         pkg = outs[str(dev)]
         for sub, want in expect["acq"].items():
             got = {n: sha(read_image(os.path.join(pkg, sub, n),
                                      IMREAD_UNCHANGED))
                    for n in sorted(os.listdir(os.path.join(pkg, sub)))}
-            check(got == want, f"acq {sub}/ from the clip: {got}, the JAX "
+            check(got == want, f"acq {sub}/ from {name}: {got}, the JAX "
                                f"CLI's {want}")
         worst, points = 0.0, 0
         names = sorted(os.listdir(os.path.join(outs["cpu"], "cloud")))
         check(names == sorted(os.listdir(os.path.join(pkg, "cloud")))
-              and len(names) == n_frames, f"acq cloud/: {names}")
-        for name in names:
-            pa = np.loadtxt(os.path.join(pkg, "cloud", name), ndmin=2)
-            pb = np.loadtxt(os.path.join(outs["cpu"], "cloud", name),
+              and len(names) == n_frames, f"acq cloud/ from {name}: {names}")
+        for cloud in names:
+            pa = np.loadtxt(os.path.join(pkg, "cloud", cloud), ndmin=2)
+            pb = np.loadtxt(os.path.join(outs["cpu"], "cloud", cloud),
                             ndmin=2)
             check(pa.shape == pb.shape and pa.shape[0] > 0,
-                  f"acq cloud/{name}: {pa.shape} vs {pb.shape} points")
+                  f"acq cloud/{cloud} from {name}: {pa.shape} vs "
+                  f"{pb.shape} points")
             worst = max(worst, float(np.abs(pa - pb).max()))
             points += pa.shape[0]
         check(worst <= CLOUD_TOL_MM + 1e-9,
-              f"acq clouds from the clip: {worst} mm from the CPU's")
-        print(f"acq --device {dev} --clouds from clip.avi ({n_frames} Motion "
-              f"JPEG frames, 640x480, depth paired by position): gray/ and "
+              f"acq clouds from {name}: {worst} mm from the CPU's")
+        print(f"acq --device {dev} --clouds from {name} ({n_frames} {kind} "
+              f"frames, 640x480, depth paired by position): gray/ and "
               f"depth/ pixels equal to the JAX CLI's, {points} cloud points "
               f"within {worst:.4f} mm of the CPU call (limit "
               f"{CLOUD_TOL_MM} mm)")
-        print(f"time acq from clip.avi (host clock, one call, ms per frame): "
+        print(f"time acq from {name} (host clock, one call, ms per frame): "
               f"--clouds on {dev} {acq_ms[str(dev)]:.3f}, --clouds on the "
-              f"CPU {acq_ms['cpu']:.3f}, without --clouds "
-              f"{acq_ms['no-clouds']:.3f} ({card})")
+              f"CPU {acq_ms['cpu']:.3f}"
+              + (f", without --clouds {acq_ms['no-clouds']:.3f}"
+                 if no_clouds else "") + f" ({card})")
 
         # recon on the package acq wrote, in both ICP settings
         features = os.path.join(fixture.FIXTURE, "features")
@@ -2060,7 +2121,7 @@ def video_phase(eng, card, counts, default_icp) -> None:
                 apply_setting(served, setting, default_icp)
                 return served
 
-            path = f"CLI recon, acq package from a video ({setting})"
+            path = f"CLI recon, acq package from {name} ({setting})"
             out = io.StringIO()
             cli._engine_for = engine_for
             zero_counts()
@@ -2092,17 +2153,113 @@ def video_phase(eng, card, counts, default_icp) -> None:
                   f"{path_launches[path]}; t of the last frame {t}")
     apply_setting(eng, "a", default_icp)
 
-    # host decode times per 640x480 frame
-    def per_frame_ms(name: str) -> float:
-        path = os.path.join(VIDEO_DIR, name)
-        frames = digests[name]["frames"]
-        return host_mean_ms(lambda: list(VideoReader(path)),
-                            DECODE_TIMED) / frames
 
-    times = {"Motion JPEG 4:2:0 (cv2.VideoWriter, clip.avi)":
-             per_frame_ms("clip.avi"),
-             "FFV1 (cv2.VideoWriter, ffv1_640.avi)":
-             per_frame_ms("ffv1_640.avi")}
+def video_phase(eng, card, counts, default_icp) -> None:
+    """Phase 7f: every committed source of ``tests/data/torch_video`` (AVI,
+    MP4 and Matroska files, image files, printf patterns) decoded by
+    ``io/video.VideoReader`` to cv2's digests; ``acq --device cuda
+    --clouds`` from the committed Motion JPEG clip, the FFV1 MP4 and the
+    JPEG pattern with the depth directory, each package held to the JAX
+    CLI's pixels and clouds to the same call on the CPU, and ``recon
+    --device cuda`` on it in both ICP settings against the JAX CLI's
+    lines, K1/K2/K3 counted; host decode times per 640x480 frame."""
+    import hashlib
+
+    import numpy as np
+    from fealess_tpu_torch.io import png, rawvideo
+    from fealess_tpu_torch.io.avi import AviFile
+    from fealess_tpu_torch.io.video import VideoReader
+
+    with open(os.path.join(VIDEO_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    with open(os.path.join(VIDEO_DIR, "recon.json")) as f:
+        expect = json.load(f)
+
+    def sha(a) -> str:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    # every committed source: cv2.VideoCapture's frame count and each
+    # frame's shape and sha256 (recorded by tests/make_torch_video.py, held
+    # to cv2 by the CPU tests)
+    for name, want in sorted(digests.items()):
+        with VideoReader(os.path.join(VIDEO_DIR, name)) as reader:
+            frames = list(reader)
+        got = {"frames": len(frames),
+               "shapes": [list(f.shape) for f in frames],
+               "sha256": [sha(f) for f in frames]}
+        check(got == want, f"video {name}: {got}, cv2 gives {want}")
+    print(f"video input: {len(digests)} committed sources ("
+          f"{sum(d['frames'] for d in digests.values())} frames: Motion "
+          f"JPEG from cv2.VideoWriter and hand-muxed at 4:2:0, 4:2:2 without "
+          f"DHT, 4:4:4, gray, restart, progressive, 17x33, 64x47, 1x1, "
+          f"OpenDML with AVIX; FFV1 at 96x64 and 640x480; raw I420 from "
+          f"fourcc 0 and IYUV at 17x33; PNG video in AVI, MP4 and Matroska; "
+          f"Huffyuv in AVI; "
+          f"FFV1 and Motion JPEG in MP4 and Matroska; I420 in Matroska; "
+          f"FFV1 in MP4 at 640x480; JPEG, BMP and 16-bit gray PNG images; "
+          f"printf patterns of PNGs and of 640x480 JPEGs): frame counts and "
+          f"every frame's sha256 equal to cv2.VideoCapture's")
+
+    acq_recon_source(eng, card, counts, default_icp, "clip.avi",
+                     digests["clip.avi"]["frames"], expect, "Motion JPEG",
+                     True)
+    for name, kind in (("pan_ffv1.mp4", "FFV1 in MP4"),
+                       ("pan/%d.jpg", "JPEG pattern")):
+        acq_recon_source(eng, card, counts, default_icp, name,
+                         digests[name]["frames"], expect["sources"][name],
+                         kind, False)
+
+    # host decode times per 640x480 frame (demux included); the raw I420,
+    # PNG and Huffyuv video and the PNG pattern are written here from the
+    # clip's frames (the clip's FFV1 frame 0 and the pan's JPEGs are
+    # committed)
+    bgr = [f for f in VideoReader(os.path.join(VIDEO_DIR, "ffv1_640.avi"))]
+    bgr += [np.roll(bgr[0], 2 * i, 1) for i in range(1, 4)]
+    with tempfile.TemporaryDirectory() as tmp:
+        pngs = []
+        for i, img in enumerate(bgr):
+            path = os.path.join(tmp, f"p_{i}.png")
+            png.write_png(path, img)
+            with open(path, "rb") as f:
+                pngs.append(f.read())
+        # I420 planes from the frame (only the decode's cost matters)
+        planes = [img[:, :, 1].tobytes() + img[::2, ::2, 0].tobytes()
+                  + img[::2, ::2, 2].tobytes() for img in bgr]
+        assert len(planes[0]) == rawvideo.frame_size(640, 480)
+        # Huffyuv with the committed clip's tables (lossless: the frames)
+        with AviFile(os.path.join(VIDEO_DIR, "hfyu.avi")) as avi:
+            hfyu_tables = avi.stream.extradata
+        hfyus = [huffyuv_bytes(img, hfyu_tables) for img in bgr]
+        for name, frames, fourcc, extra in (
+                ("i420.avi", planes, b"I420", b""),
+                ("mpng.avi", pngs, b"MPNG", b""),
+                ("hfyu.avi", hfyus, b"HFYU", hfyu_tables)):
+            with open(os.path.join(tmp, name), "wb") as f:
+                f.write(avi_bytes(frames, 640, 480, fourcc, extra))
+        check([len(list(VideoReader(os.path.join(tmp, n))))
+               for n in ("i420.avi", "mpng.avi", "p_%d.png")] == [4, 4, 4],
+              "the timing sources do not decode to 4 frames each")
+        got = list(VideoReader(os.path.join(tmp, "hfyu.avi")))
+        check(len(got) == 4 and all(np.array_equal(g, w)
+                                    for g, w in zip(got, bgr)),
+              "the 640x480 Huffyuv clip does not decode to its frames")
+        sources = {
+            "Motion JPEG 4:2:0 (cv2.VideoWriter, clip.avi)":
+                (os.path.join(VIDEO_DIR, "clip.avi"), 4),
+            "FFV1 (cv2.VideoWriter, ffv1_640.avi)":
+                (os.path.join(VIDEO_DIR, "ffv1_640.avi"), 1),
+            "FFV1 in MP4 (cv2.VideoWriter, pan_ffv1.mp4)":
+                (os.path.join(VIDEO_DIR, "pan_ffv1.mp4"), 2),
+            "raw I420 in AVI": (os.path.join(tmp, "i420.avi"), 4),
+            "PNG video (MPNG) in AVI": (os.path.join(tmp, "mpng.avi"), 4),
+            "Huffyuv in AVI (the tables of hfyu.avi)":
+                (os.path.join(tmp, "hfyu.avi"), 4),
+            "image2 PNG pattern": (os.path.join(tmp, "p_%d.png"), 4),
+            "image2 JPEG pattern (pan/%d.jpg)":
+                (os.path.join(VIDEO_DIR, "pan", "%d.jpg"), 4)}
+        times = {k: host_mean_ms(lambda p=p: list(VideoReader(p)),
+                                 DECODE_TIMED) / n
+                 for k, (p, n) in sources.items()}
     print("time video decode to BGR (host, demux included, ms per 640x480 "
           f"frame, mean of {DECODE_TIMED} passes after a warm one): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())

@@ -7,9 +7,10 @@
   per saved frame into the scan-package layout that ``train``, ``recon``
   and ``track`` read, printing the intrinsics.  Frames come from
   ``io.series.ImageSeriesReader`` (a directory or a list of PNG, JPEG or
-  BMP files, or a video file; a camera index is refused there), paired
-  with an optional depth directory read by ``io/imfile`` (by stem, and by
-  position for a video's nameless frames), and are
+  BMP files, or a video file, image file or printf pattern; a camera
+  index is refused there), paired with an optional depth directory read
+  by ``io/imfile`` (by stem, and by position for the nameless frames of
+  a video, an image file or a pattern), and are
   written with ``io/png.write_png``; the clouds are back-projected on the
   given device.
 - ``BoxExtractor``: the interactive ROI picker
@@ -115,7 +116,7 @@ def acquire_series(color_source, out_dir: str,
     (u16 mm as read, when a depth series is given) and optionally
     ``cloud/<i>.txt`` (mm, back-projected on ``device``, which must exist
     when clouds are asked for: nothing falls back to the CPU).  Depth
-    pairs with colour by file stem, or by position for a video's frames.
+    pairs with colour by file stem, or by position for nameless frames.
     Returns the number of frames saved."""
     import torch
 

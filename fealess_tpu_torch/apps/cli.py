@@ -448,11 +448,13 @@ def build_parser() -> argparse.ArgumentParser:
 
     a = sub.add_parser("acq", help="capture frames into scan-package layout")
     a.add_argument("source", help="image dir (PNG, JPEG and BMP files, "
-                                  "read by content) or video file (AVI "
-                                  "with Motion JPEG or FFV1, as "
+                                  "read by content), video file (AVI, MP4 "
+                                  "or Matroska with Motion JPEG, FFV1, raw "
+                                  "I420, PNG or Huffyuv, as "
                                   "cv2.VideoWriter writes and USB cameras "
-                                  "record); camera indices need a video "
-                                  "device")
+                                  "record), image file or printf pattern "
+                                  "(seq/f_%%03d.png); camera indices need "
+                                  "a video device")
     a.add_argument("out_dir")
     a.add_argument("--depth-dir", default=None,
                    help="paired u16 depth png series (mm)")

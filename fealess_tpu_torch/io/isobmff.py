@@ -1,0 +1,331 @@
+"""An ISO base media (MP4 / QuickTime) demuxer: the samples of a file's
+first video track, as FFmpeg's ``mov`` demuxer hands them to the decoder
+under ``cv2.VideoCapture``.
+
+- Boxes: a box's 32-bit size, or 64-bit (``size`` 1), or to the end of
+  the file (``size`` 0).  ``moov`` may come before or after ``mdat``.
+  ``moov/trak/mdia/hdlr`` names the track's kind (``vide``);
+  ``mdia/minf/stbl`` holds its sample tables.
+- ``stsd``: one sample entry (a VisualSampleEntry: width and height at
+  bytes 24-28 of its body, child boxes from byte 78).  Its format picks
+  the codec as FFmpeg's ``ff_codec_movvideo_tags`` and, for ``mp4v``, the
+  ``esds`` object type (``ff_mp4_obj_type``) do: ``FFV1`` (extradata from
+  its ``glbl`` box), ``mp4v`` with object type 0x6C (JPEG) or 0x6D (PNG),
+  which ``cv2.VideoWriter`` writes for Motion JPEG and PNG, ``jpeg`` and
+  ``png ``.
+- Samples: ``stsz`` (one size or a size a sample), ``stco`` / ``co64``
+  (chunk offsets), ``stsc`` (samples a chunk, by runs of chunks).
+- Edit lists (``edts/elst``): empty edits, and one edit from media time
+  0 that ends past the last frame's start (``stts``), which is what
+  ``cv2.VideoWriter`` writes, change no frame and are read; an edit that
+  starts later or ends earlier (FFmpeg drops the frames outside it), or
+  several, raise :class:`UnsupportedMp4`, as does a fragmented file
+  (``moof``) or a track of several sample descriptions.
+
+A file whose ``moov`` is missing or cut raises :class:`Mp4Error`.
+"""
+
+from __future__ import annotations
+
+import struct
+from dataclasses import dataclass
+from typing import BinaryIO, Dict, Iterator, List, Optional, Tuple
+
+# the first box types of an ISO base media file FFmpeg's mov probe takes
+_TOP = (b"ftyp", b"moov", b"mdat", b"wide", b"free", b"skip", b"pnot",
+        b"udta", b"uuid", b"junk", b"styp", b"sidx")
+
+# ff_mp4_obj_type (libavformat/isom.c), the object types named when refused
+OBJECT_TYPES = {0x20: "MPEG-4 Part 2", 0x21: "H.264", 0x23: "HEVC",
+                0x60: "MPEG-2", 0x61: "MPEG-2", 0x62: "MPEG-2",
+                0x63: "MPEG-2", 0x64: "MPEG-2", 0x65: "MPEG-2",
+                0x6A: "MPEG-1", 0x6C: "mjpeg", 0x6D: "png", 0x6E: "JPEG 2000",
+                0xA3: "VC-1", 0xA4: "Dirac", 0xB1: "VP9", 0xC0: "VP8"}
+
+# sample entry formats FFmpeg maps to a decoder the port has, or names
+FORMATS = {b"FFV1": "ffv1", b"jpeg": "mjpeg", b"png ": "png",
+           b"mjpa": "mjpeg", b"avc1": "H.264", b"avc3": "H.264",
+           b"hvc1": "HEVC", b"hev1": "HEVC", b"vp08": "VP8",
+           b"vp09": "VP9", b"av01": "AV1", b"mp4v": "MPEG-4 Part 2",
+           b"s263": "H.263", b"raw ": "raw RGB", b"2vuy": "raw UYVY",
+           b"apch": "ProRes", b"apcn": "ProRes", b"apcs": "ProRes",
+           b"apco": "ProRes", b"ap4h": "ProRes", b"mjpb": "Motion JPEG B",
+           b"SVQ3": "Sorenson Video 3", b"rle ": "QuickTime Animation"}
+
+
+class Mp4Error(ValueError):
+    """An ISO base media file the demuxer cannot read: the message says
+    why (cv2 opens no such file)."""
+
+
+class UnsupportedMp4(ValueError):
+    """An ISO base media file cv2 reads and the port does not: the
+    message names what."""
+
+
+def is_isobmff(head: bytes) -> bool:
+    """FFmpeg's mov probe, reduced to a first box of a known type."""
+    return len(head) >= 8 and head[4:8] in _TOP
+
+
+@dataclass
+class Mp4Track:
+    codec: str              # "ffv1", "mjpeg", "png", or a name refused
+    fourcc: bytes           # the sample entry's format
+    width: int
+    height: int
+    extradata: bytes
+
+
+def _u32(b: bytes, at: int = 0) -> int:
+    return struct.unpack_from(">I", b, at)[0]
+
+
+def _descriptor(data: bytes, at: int) -> Tuple[int, int, int]:
+    """(tag, body offset, body length) of the MPEG-4 descriptor at
+    ``at`` (its length in up to four 7-bit bytes)."""
+    tag, at, n = data[at], at + 1, 0
+    for _ in range(4):
+        b = data[at]
+        at += 1
+        n = (n << 7) | (b & 0x7F)
+        if not b & 0x80:
+            break
+    return tag, at, n
+
+
+def esds_object_type(body: bytes) -> Optional[int]:
+    """The DecoderConfigDescriptor's objectTypeIndication of an ``esds``
+    box's body (past its version and flags), or None."""
+    try:
+        tag, at, _ = _descriptor(body, 4)
+        if tag == 0x03:                       # ES_Descriptor
+            flags = body[at + 2]
+            at += 3
+            if flags & 0x80:
+                at += 2
+            if flags & 0x40:
+                at += 1 + body[at]
+            if flags & 0x20:
+                at += 2
+            tag, at, _ = _descriptor(body, at)
+        if tag == 0x04:                       # DecoderConfigDescriptor
+            return body[at]
+    except IndexError:
+        return None
+    return None
+
+
+class Mp4File:
+    """The first video track of the ISO base media file at ``path``:
+    :attr:`track` and :meth:`frames`.  Close it (or use it as a context
+    manager)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._f: BinaryIO = open(path, "rb")
+        try:
+            self._size = self._f.seek(0, 2)
+            moov = None
+            for kind, at, size in self._boxes(0, self._size):
+                if kind == b"moov" and moov is None:
+                    moov = self._read(at, size)
+                elif kind == b"moof":
+                    raise UnsupportedMp4(f"{path}: fragmented MP4 (moof)")
+            if moov is None:
+                raise Mp4Error(f"{path}: no moov box")
+            self.track, self._samples = self._video_track(moov)
+        except BaseException:
+            self._f.close()
+            raise
+
+    def _read(self, at: int, n: int) -> bytes:
+        self._f.seek(at)
+        return self._f.read(n)
+
+    def _boxes(self, start: int, end: int) -> Iterator[Tuple[bytes, int,
+                                                              int]]:
+        """(type, body offset, body size) of each box of the file in
+        [start, end)."""
+        at = start
+        while at + 8 <= end:
+            head = self._read(at, 16)
+            size, kind = struct.unpack_from(">I4s", head)
+            body = at + 8
+            if size == 1:
+                if len(head) < 16:
+                    return
+                size = struct.unpack_from(">Q", head, 8)[0]
+                body = at + 16
+            elif size == 0:
+                size = end - at
+            if size < body - at:
+                raise Mp4Error(f"{self.path}: box {kind!r} of size {size}")
+            yield kind, body, min(at + size, end) - body
+            at += size
+
+    # ---- boxes held in memory (moov) ----
+
+    @staticmethod
+    def _children(data: bytes, start: int = 0,
+                  end: Optional[int] = None) -> Dict[bytes, List[bytes]]:
+        end = len(data) if end is None else end
+        out: Dict[bytes, List[bytes]] = {}
+        at = start
+        while at + 8 <= end:
+            size, kind = struct.unpack_from(">I4s", data, at)
+            head = 8
+            if size == 1:
+                size = struct.unpack_from(">Q", data, at + 8)[0]
+                head = 16
+            elif size == 0:
+                size = end - at
+            if size < head or at + size > end:
+                break
+            out.setdefault(kind, []).append(data[at + head:at + size])
+            at += size
+        return out
+
+    def _one(self, boxes: Dict[bytes, List[bytes]], *kinds: bytes) -> bytes:
+        for kind in kinds:
+            if kind in boxes:
+                return boxes[kind][0]
+        raise Mp4Error(f"{self.path}: the video track has no "
+                       f"{'/'.join(k.decode() for k in kinds)} box")
+
+    def _video_track(self, moov: bytes):
+        movie_scale = 0
+        mvhd = self._children(moov).get(b"mvhd")
+        if mvhd:
+            m = mvhd[0]
+            movie_scale = _u32(m, 20 if m[0] == 1 else 12)
+        for trak in self._children(moov).get(b"trak", []):
+            tb = self._children(trak)
+            mdia = self._children(tb.get(b"mdia", [b""])[0])
+            hdlr = mdia.get(b"hdlr", [b""])[0]
+            if hdlr[8:12] != b"vide":
+                continue
+            minf = self._children(self._one(mdia, b"minf"))
+            stbl = self._children(self._one(minf, b"stbl"))
+            track = self._sample_entry(self._one(stbl, b"stsd"))
+            samples = self._sample_table(stbl)
+            mdhd = self._one(mdia, b"mdhd")
+            scale = _u32(mdhd, 20 if mdhd[0] == 1 else 12)
+            if b"edts" in tb:
+                self._check_edits(tb[b"edts"][0], movie_scale, scale,
+                                  self._last_start(stbl))
+            return track, samples
+        raise Mp4Error(f"{self.path}: the file has no video track")
+
+    def _sample_entry(self, stsd: bytes) -> Mp4Track:
+        if len(stsd) < 16:
+            raise Mp4Error(f"{self.path}: stsd is cut")
+        if _u32(stsd, 4) != 1:
+            raise UnsupportedMp4(f"{self.path}: MP4 track with "
+                                 f"{_u32(stsd, 4)} sample descriptions")
+        size, fmt = struct.unpack_from(">I4s", stsd, 8)
+        entry = stsd[16:8 + size]
+        if len(entry) < 78:
+            raise Mp4Error(f"{self.path}: sample entry {fmt!r} is cut")
+        width, height = struct.unpack_from(">HH", entry, 24)
+        kids = self._children(entry, 78)
+        codec = FORMATS.get(fmt, f"fourcc {fmt!r}")
+        if fmt == b"mp4v" and b"esds" in kids:
+            ot = esds_object_type(kids[b"esds"][0])
+            codec = OBJECT_TYPES.get(ot, f"MPEG-4 object type {ot!r}")
+        extradata = kids[b"glbl"][0] if b"glbl" in kids else b""
+        return Mp4Track(codec=codec, fourcc=fmt, width=width, height=height,
+                        extradata=extradata)
+
+    def _sample_table(self, stbl) -> List[Tuple[int, int]]:
+        """(offset, size) of each sample, in order."""
+        stsz = self._one(stbl, b"stsz")
+        fixed, count = _u32(stsz, 4), _u32(stsz, 8)
+        if fixed:
+            sizes = [fixed] * count
+        else:
+            if len(stsz) < 12 + 4 * count:
+                raise Mp4Error(f"{self.path}: stsz is cut")
+            sizes = list(struct.unpack_from(f">{count}I", stsz, 12))
+        if b"co64" in stbl:
+            co = stbl[b"co64"][0]
+            n = _u32(co, 4)
+            offsets = list(struct.unpack_from(f">{n}Q", co, 8))
+        else:
+            co = self._one(stbl, b"stco")
+            n = _u32(co, 4)
+            offsets = list(struct.unpack_from(f">{n}I", co, 8))
+        stsc = self._one(stbl, b"stsc")
+        runs = [struct.unpack_from(">III", stsc, 8 + 12 * i)
+                for i in range(_u32(stsc, 4))]
+        out: List[Tuple[int, int]] = []
+        k = 0
+        for r, (first, per_chunk, _) in enumerate(runs):
+            last = runs[r + 1][0] - 1 if r + 1 < len(runs) else len(offsets)
+            for chunk in range(first - 1, min(last, len(offsets))):
+                at = offsets[chunk]
+                for _ in range(per_chunk):
+                    if k >= count:
+                        return out
+                    out.append((at, sizes[k]))
+                    at += sizes[k]
+                    k += 1
+        return out
+
+    def _last_start(self, stbl) -> int:
+        """The last sample's decode time in media units (``stts``)."""
+        stts = self._one(stbl, b"stts")
+        runs = [struct.unpack_from(">II", stts, 8 + 8 * i)
+                for i in range(_u32(stts, 4))]
+        total = sum(count * delta for count, delta in runs)
+        return total - runs[-1][1] if runs else 0
+
+    def _check_edits(self, edts: bytes, movie_scale: int, media_scale: int,
+                     last_start: int) -> None:
+        elst = self._children(edts).get(b"elst")
+        if not elst:
+            return
+        e = elst[0]
+        v1 = e[0] == 1
+        n = _u32(e, 4)
+        edits = []
+        for i in range(n):
+            if v1:
+                dur, media = struct.unpack_from(">Qq", e, 8 + 20 * i)
+            else:
+                dur, media = struct.unpack_from(">Ii", e, 8 + 12 * i)
+            if media != -1:
+                edits.append((dur, media))
+        if not edits:
+            return
+        dur, media = edits[0]
+        # the edit ends past the last frame's start (in seconds: dur /
+        # movie_scale against last_start / media_scale)
+        covers = dur * media_scale > last_start * movie_scale
+        if len(edits) > 1 or media != 0 or not covers:
+            raise UnsupportedMp4(
+                f"{self.path}: MP4 edit list that drops frames "
+                f"({len(edits)} edits, the first from media time {media} "
+                f"for {dur}/{movie_scale} s; last frame at "
+                f"{last_start}/{media_scale} s)")
+
+    # ---- reading ----
+
+    def frames(self) -> Iterator[bytes]:
+        """Each sample's bytes in order (a sample of size zero yields
+        nothing)."""
+        for at, size in self._samples:
+            if size:
+                data = self._read(at, size)
+                if len(data) < size:
+                    return
+                yield data
+
+    def close(self) -> None:
+        self._f.close()
+
+    def __enter__(self) -> "Mp4File":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -326,15 +326,20 @@ def _decode(path: str):
     None; (file gamma or None, the largest ``sBIT`` colour value or 0)).
     Palettes are expanded to RGB, gray below 8 bits scaled to 0..255."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_bytes(f.read(), path)
+
+
+def decode_bytes(data: bytes, what: str):
+    """:func:`_decode` of a PNG file's bytes; ``what`` names it in
+    errors."""
     if not data.startswith(_SIGNATURE):
-        raise DecodeError(f"{path} is not a PNG file")
+        raise DecodeError(f"{what} is not a PNG file")
     try:
-        return _decode_chunks(path, data)
+        return _decode_chunks(what, data)
     except DecodeError:
         raise
     except (ValueError, zlib.error, struct.error, IndexError) as e:
-        raise DecodeError(f"{path}: {e}") from e
+        raise DecodeError(f"{what}: {e}") from e
 
 
 def _samples(pix: np.ndarray, h: int, w: int, ch: int,

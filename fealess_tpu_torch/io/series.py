@@ -8,10 +8,14 @@ Reimplements ``CImgSeriesReader`` (reference test/img_series_reader.h:9-28,
   (numerically sorted by stem, as the JAX reader globs and sorts them) or
   an explicit list of paths, decoded by ``io/imfile.read_image`` (by
   content, as ``cv2.imread``);
-- a video file, read by ``io/video.VideoReader`` as ``cv2.VideoCapture``
-  reads it (AVI holding Motion JPEG or FFV1; another container or codec
-  raises ``UnsupportedVideo`` naming it, a path that does not open raises
-  ``OSError``), its frames nameless (stem ``None``).
+- any other path, read by ``io/video.VideoReader`` as ``cv2.VideoCapture``
+  reads it: a video file (AVI, MP4 or Matroska holding Motion JPEG, FFV1,
+  raw I420 or PNG frames), a single image file or a printf pattern
+  (``seq/f_%03d.png``, FFmpeg's image2); a source cv2 reads and the port
+  does not raises ``UnsupportedVideo`` naming it, a path that does not
+  open raises ``OSError``.  Its frames are nameless (stem ``None``), and
+  they stop at the first packet the decoder rejects, where cv2's ``read``
+  returns False and the JAX reader stops.
 
 Every frame is resized with ``ops/resize`` (cv2's INTER_LINEAR, bit for
 bit) when ``target_wh`` is set.  A camera index needs a video device and
@@ -40,8 +44,8 @@ def numeric_stem_key(path: str):
 
 class ImageSeriesReader:
     """Iterate BGR u8 frames from a directory of PNG, JPEG and BMP files,
-    a list of image paths or a video file (``source``); ``target_wh``
-    resizes every frame."""
+    a list of image paths, or a video file, image file or printf pattern
+    (``source``); ``target_wh`` resizes every frame."""
 
     def __init__(self, source, target_wh: Optional[Tuple[int, int]] = None):
         self._target = target_wh
@@ -69,8 +73,9 @@ class ImageSeriesReader:
 
     def iter_named(self) -> Iterator[Tuple[Optional[str], np.ndarray]]:
         """Yield ``(stem, frame)`` pairs; ``stem`` is the file's basename
-        without extension (None for a video's frames), so consumers pair
-        per-frame files (depth, pose) by name.  A file that is missing or
+        without extension (None for the frames of a video, an image file
+        or a pattern), so consumers pair per-frame files (depth, pose) by
+        name.  A file that is missing or
         does not decode is skipped; one of a format the port does not
         read raises ``UnsupportedImage`` (``UnsupportedVideo`` for a
         video's frame)."""
@@ -78,7 +83,7 @@ class ImageSeriesReader:
                                                  read_image)
 
         if self._video is not None:
-            for frame in self._video:
+            for frame in self._video:     # to cv2's first False
                 yield None, self._resize(frame)
             return
         for p in self._paths:

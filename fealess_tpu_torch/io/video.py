@@ -1,36 +1,86 @@
-"""Video files as ``cv2.VideoCapture`` reads them (the JAX reader's
-source for a path that is not a directory), bit for bit, for the
-container and codecs that ``cv2.VideoWriter`` writes and USB cameras
-record: AVI (:mod:`~fealess_tpu_torch.io.avi`) holding Motion JPEG
-(:mod:`~fealess_tpu_torch.io.mjpeg`: fourcc ``MJPG``, ``mjpg``, ``AVRn``,
-``dmb1``) or FFV1 (:mod:`~fealess_tpu_torch.io.ffv1`: ``FFV1``, ``ffv1``).
-Decoding stays on the host, as FFmpeg's does under cv2.
+"""Video files, image files and printf patterns as ``cv2.VideoCapture``
+reads them (the JAX reader's source for a path that is not a directory),
+bit for bit and in cv2's number, for the containers and codecs that
+``cv2.VideoWriter`` writes and USB cameras record.  Decoding stays on the
+host, as FFmpeg's does under cv2.
 
-The container is found by content.  A path that does not exist, a file
-of no container the port knows, or an AVI without a video stream raises
-``OSError("cannot open video source ...")``, as the JAX reader raises
-when ``cv2.VideoCapture`` does not open.  A container or codec cv2
-reads and the port does not (MP4/MOV, Matroska/WebM, MPEG, raw Motion
-JPEG; MPEG-4 Part 2 (``XVID``, ``mp4v``), H.264, HEVC, an interlaced
-Motion JPEG (two fields a chunk), a frame kind
-:mod:`~fealess_tpu_torch.io.mjpeg` or :mod:`~fealess_tpu_torch.io.ffv1`
-does not read) raises :class:`UnsupportedVideo`, naming it: no frame cv2
-would serve is dropped without a word.  A frame FFmpeg's decoder rejects
-(``DecodeError``) is skipped, as cv2 skips a packet its decoder rejects.
+The demuxer is picked as FFmpeg picks it:
+
+- a path with a printf field (``%d``, ``%0Nd``) and an image extension,
+  or with a field and no file of its literal name, is an image2 sequence
+  (:mod:`~fealess_tpu_torch.io.image2`: its first number in 0-4, its run
+  of files, the codec by extension);
+- otherwise the file's first bytes: AVI (:mod:`~fealess_tpu_torch.io.avi`),
+  ISO base media / MP4 (:mod:`~fealess_tpu_torch.io.isobmff`), Matroska
+  (:mod:`~fealess_tpu_torch.io.matroska`), or a single PNG, JPEG or BMP
+  image (one frame, image2 or its pipes).
+
+Then a frame decoder by codec:
+
+- Motion JPEG (:mod:`~fealess_tpu_torch.io.mjpeg`): AVI fourcc ``MJPG``,
+  ``mjpg``, ``AVRn``, ``dmb1``; MP4 ``mp4v`` with object type 0x6C and
+  ``jpeg``; Matroska ``V_MJPEG``; JPEG images;
+- FFV1 (:mod:`~fealess_tpu_torch.io.ffv1`): AVI ``FFV1``, ``ffv1``; MP4
+  ``FFV1``; Matroska ``V_FFV1``;
+- raw yuv420p (:mod:`~fealess_tpu_torch.io.rawvideo`): AVI ``I420``,
+  ``IYUV`` (``cv2.VideoWriter``'s fourcc 0) and ``YV12``; Matroska
+  ``V_UNCOMPRESSED`` with those colour spaces;
+- PNG (:func:`~fealess_tpu_torch.io.image2.png_frame`): AVI ``MPNG``,
+  ``PNG1``, ``png ``; MP4 ``mp4v`` with object type 0x6D and ``png ``;
+  PNG images;
+- Huffyuv (:mod:`~fealess_tpu_torch.io.huffyuv`): AVI ``HFYU``;
+- BMP (:func:`~fealess_tpu_torch.io.image2.bmp_frame`): BMP images.
+
+Matroska's ``V_MS/VFW/FOURCC`` takes the AVI fourccs.  A path that does
+not exist, a file of no container cv2 knows, a container without a video
+stream, a stream whose decoder does not open (corrupt extradata) and a
+pattern with no file at 0-4 raise ``OSError("cannot open video
+source ...")``, as the JAX reader raises when ``cv2.VideoCapture`` does
+not open.  A source cv2 reads and the port does not raises
+:class:`UnsupportedVideo`, naming it: MPEG-PS/TS, Ogg, FLV and ASF;
+fragmented MP4 and edit lists that drop frames; Matroska with
+compressed blocks; WebM and other codecs (VP8, VP9, AV1, MPEG-4 Part 2,
+H.264, HEVC, ``FFVH``, uncompressed BI_RGB, ...); raw Motion JPEG (JPEG
+images back to back); images of other formats (TIFF, WebP, ...); the PNG
+and BMP kinds :mod:`~fealess_tpu_torch.io.image2` names (16-bit colour
+PNG, Adam7 PNG, 16-bit BMP, RLE deltas, BMP data ``cv2.imread`` cannot
+finish); an image sequence whose frames differ in size (cv2 scales them
+to the first's) or whose extension FFmpeg does not know (OpenCV's own
+CAP_IMAGES reader opens it); an interlaced Motion JPEG; a frame kind
+:mod:`~fealess_tpu_torch.io.mjpeg`, :mod:`~fealess_tpu_torch.io.ffv1` or
+:mod:`~fealess_tpu_torch.io.huffyuv` does not read.  No frame cv2
+would serve is dropped without a word.
+
+A packet the decoder rejects (``DecodeError``) is where cv2's ``read``
+first returns False: iterating a :class:`VideoReader` ends there, as the
+JAX reader's loop does.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Optional
+import os
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 
+from fealess_tpu_torch.io import image2
 from fealess_tpu_torch.io.avi import AviError, AviFile, is_avi
+from fealess_tpu_torch.io.imfile import image_format
+from fealess_tpu_torch.io.isobmff import (Mp4Error, Mp4File, UnsupportedMp4,
+                                          is_isobmff)
 from fealess_tpu_torch.io.jpeg import UnsupportedImage
+from fealess_tpu_torch.io.matroska import (CODEC_NAMES, MatroskaError,
+                                           MkvFile, UnsupportedMatroska,
+                                           is_ebml)
 from fealess_tpu_torch.io.png import DecodeError
+from fealess_tpu_torch.io.rawvideo import YUV420P_FOURCCS
 
 MJPEG_FOURCCS = (b"MJPG", b"mjpg", b"AVRn", b"dmb1")
 FFV1_FOURCCS = (b"FFV1", b"ffv1")
+PNG_FOURCCS = (b"MPNG", b"PNG1", b"png ")
+HUFFYUV_FOURCCS = (b"HFYU",)
+# imfile.image_format's names -> the decoder FFmpeg picks for the image
+_IMAGE_CODECS = {"png": "png", "jpeg": "mjpeg", "bmp": "bmp"}
 
 
 class UnsupportedVideo(ValueError):
@@ -41,12 +91,6 @@ class UnsupportedVideo(ValueError):
 def _container(head: bytes) -> Optional[str]:
     """The name of a container cv2's FFmpeg opens and the port does not
     read, by its first bytes, or None."""
-    if head[4:8] == b"ftyp" or head[4:8] in (b"moov", b"mdat", b"wide"):
-        return "MP4/QuickTime (ISO base media)"
-    if head[:4] == b"\x1aE\xdf\xa3":
-        return "Matroska/WebM"
-    if head[:3] == b"\xff\xd8\xff":
-        return "raw Motion JPEG (JPEG images back to back)"
     if head[:4] in (b"\x00\x00\x01\xba", b"\x00\x00\x01\xb3"):
         return "MPEG program stream"
     if head[:1] == b"\x47" and len(head) > 188 and head[188:189] == b"\x47":
@@ -62,103 +106,312 @@ def _container(head: bytes) -> Optional[str]:
     return None
 
 
+_FOURCC_NAMES = {
+    b"XVID": "MPEG-4 Part 2 (XVID)", b"xvid": "MPEG-4 Part 2 (xvid)",
+    b"DIVX": "MPEG-4 Part 2 (DIVX)", b"DX50": "MPEG-4 Part 2 (DX50)",
+    b"FMP4": "MPEG-4 Part 2 (FMP4)", b"mp4v": "MPEG-4 Part 2 (mp4v)",
+    b"MP4V": "MPEG-4 Part 2 (MP4V)", b"H264": "H.264 (H264)",
+    b"h264": "H.264 (h264)", b"avc1": "H.264 (avc1)",
+    b"X264": "H.264 (X264)", b"HEVC": "HEVC (HEVC)",
+    b"hev1": "HEVC (hev1)", b"hvc1": "HEVC (hvc1)",
+    b"FFVH": "FFmpeg's Huffyuv variant (FFVH)",
+    b"VP80": "VP8 (VP80)", b"VP90": "VP9 (VP90)",
+    b"\0\0\0\0": "uncompressed (BI_RGB)"}
+
+
 def _codec(fourcc: bytes) -> str:
-    names = {b"XVID": "MPEG-4 Part 2 (XVID)", b"xvid": "MPEG-4 Part 2 (xvid)",
-             b"DIVX": "MPEG-4 Part 2 (DIVX)", b"DX50": "MPEG-4 Part 2 (DX50)",
-             b"FMP4": "MPEG-4 Part 2 (FMP4)", b"mp4v": "MPEG-4 Part 2 (mp4v)",
-             b"MP4V": "MPEG-4 Part 2 (MP4V)", b"H264": "H.264 (H264)",
-             b"h264": "H.264 (h264)", b"avc1": "H.264 (avc1)",
-             b"X264": "H.264 (X264)", b"HEVC": "HEVC (HEVC)",
-             b"hev1": "HEVC (hev1)", b"hvc1": "HEVC (hvc1)",
-             b"\0\0\0\0": "uncompressed (BI_RGB)"}
-    return names.get(fourcc, f"fourcc {fourcc!r}")
+    return _FOURCC_NAMES.get(fourcc, f"fourcc {fourcc!r}")
+
+
+def fourcc_codec(fourcc: bytes) -> Optional[str]:
+    """The port's decoder for an AVI / VfW fourcc, or None."""
+    if fourcc in MJPEG_FOURCCS:
+        return "mjpeg"
+    if fourcc in FFV1_FOURCCS:
+        return "ffv1"
+    if fourcc in YUV420P_FOURCCS:
+        return "rawvideo"
+    if fourcc in PNG_FOURCCS:
+        return "png"
+    if fourcc in HUFFYUV_FOURCCS:
+        return "huffyuv"
+    return None
+
+
+_READS = "Motion JPEG, FFV1, raw I420 / IYUV / YV12, PNG and Huffyuv"
 
 
 class VideoReader:
-    """Iterate the BGR u8 frames of the video file at ``path``."""
+    """Iterate the BGR u8 frames of the video file, image file or printf
+    pattern at ``path`` (see the module docstring)."""
 
     def __init__(self, path: str):
         self.path = path
+        self.codec = ""
+        self.fourcc = b""
+        self.width = self.height = 0
+        self.extradata = b""
+        self._close: Callable[[], None] = lambda: None
+        self._packets: Callable[[], Iterator[bytes]] = lambda: iter(())
+        self._image2 = False
+        self._open(path)
+        try:                   # FFmpeg opens the decoder with the stream
+            self._decoder()[1]()
+        except BaseException:
+            self.close()
+            raise
+
+    def _open(self, path: str) -> None:
+        # image2 takes a pattern by its name alone where the extension is
+        # an image one; FFmpeg opens any other path by content
+        if image2.is_pattern(path) and (image2.extension_codec(path) or
+                                        not os.path.isfile(path)):
+            self._open_pattern(path)
+            return
         try:
             with open(path, "rb") as f:
-                head = f.read(200)
+                head = f.read(256)
         except OSError as e:
             raise OSError(f"cannot open video source {path!r}") from e
-        if not is_avi(head):
-            kind = _container(head)
-            if kind is None:
-                raise OSError(f"cannot open video source {path!r}")
-            raise UnsupportedVideo(f"{path}: {kind} is read by "
-                                   f"cv2.VideoCapture but not by the port "
-                                   f"(which reads AVI)")
+        image = image_format(head[:16])
+        if is_avi(head):
+            self._open_avi(path)
+        elif is_isobmff(head):
+            self._open_mp4(path)
+        elif is_ebml(head):
+            self._open_mkv(path)
+        elif image in _IMAGE_CODECS:          # the image pipes' probes
+            self._open_image(path, _IMAGE_CODECS[image])
+        elif image:
+            raise UnsupportedVideo(
+                f"{path}: a {image} image is read by cv2.VideoCapture but "
+                f"not by the port (which reads PNG, JPEG and BMP images)")
+        else:
+            self._refuse_other(path, head)
+
+    # ---- demuxers ----
+
+    def _open_pattern(self, path: str) -> None:
+        codec = image2.extension_codec(path)
+        if codec is None:
+            # FFmpeg does not take the path; OpenCV's own image sequence
+            # reader tries numbers 0 and 1
+            if any(os.path.isfile(image2.frame_filename(path, n))
+                   for n in (0, 1)):
+                raise UnsupportedVideo(
+                    f"{path}: an image sequence whose extension FFmpeg's "
+                    f"image2 does not know is read by cv2.VideoCapture "
+                    f"through OpenCV's CAP_IMAGES reader, not by the port")
+            raise OSError(f"cannot open video source {path!r}")
+        files = list(image2.sequence_files(path))
+        if not files:
+            raise OSError(f"cannot open video source {path!r}")
+        if codec not in image2.DECODED:
+            raise UnsupportedVideo(
+                f"{path}: an image sequence of {codec} files is read by "
+                f"cv2.VideoCapture but not by the port (which reads PNG, "
+                f"JPEG and BMP)")
+        self.codec, self._image2 = codec, True
+
+        def packets() -> Iterator[bytes]:
+            for name in files:
+                try:
+                    with open(name, "rb") as f:
+                        data = f.read()
+                except OSError:       # gone since the open: the stream ends
+                    return
+                yield data
+        self._packets = packets
+
+    def _open_image(self, path: str, codec: str) -> None:
+        with open(path, "rb") as f:
+            data = f.read()
+        ext = image2.extension_codec(path)
+        if codec == "mjpeg" and ext != "mjpeg" and \
+                image2.second_jpeg_at(data) >= 0:
+            raise UnsupportedVideo(
+                f"{path}: raw Motion JPEG (JPEG images back to back) is "
+                f"read by cv2.VideoCapture but not by the port")
+        if codec == "png" and image2.second_png_at(data) >= 0:
+            raise UnsupportedVideo(
+                f"{path}: PNG images back to back (FFmpeg's png_pipe) are "
+                f"read by cv2.VideoCapture but not by the port")
+        self.codec, self._image2 = codec, True
+        self._packets = lambda: iter((data,))
+
+    def _open_avi(self, path: str) -> None:
         try:
-            self._avi = AviFile(path)
+            avi = AviFile(path)
         except AviError as e:        # no video stream, headers cut
             raise OSError(f"cannot open video source {path!r}: {e}") from e
-        s = self._avi.stream
+        s = avi.stream
         # FFmpeg takes strf's compression, else strh's handler
         fourcc = s.compression
-        if fourcc not in MJPEG_FOURCCS + FFV1_FOURCCS and \
-                s.handler in MJPEG_FOURCCS + FFV1_FOURCCS:
+        if fourcc_codec(fourcc) is None and fourcc_codec(s.handler):
             fourcc = s.handler
-        self.fourcc = fourcc
-        if fourcc not in MJPEG_FOURCCS + FFV1_FOURCCS:
-            self._avi.close()
+        if fourcc_codec(fourcc) is None:
+            avi.close()
             raise UnsupportedVideo(
                 f"{path}: AVI with {_codec(fourcc)} video is read by "
-                f"cv2.VideoCapture but not by the port (which reads Motion "
-                f"JPEG and FFV1)")
-        self.width, self.height = s.width, abs(s.height)
+                f"cv2.VideoCapture but not by the port (which reads "
+                f"{_READS})")
+        self._set(fourcc_codec(fourcc), fourcc, s.width, abs(s.height),
+                  s.extradata, avi)
 
-    def __iter__(self) -> Iterator[np.ndarray]:
-        if self.fourcc in FFV1_FOURCCS:
-            yield from self._ffv1()
-        else:
-            yield from self._mjpeg()
-
-    def _mjpeg(self) -> Iterator[np.ndarray]:
-        from fealess_tpu_torch.io import mjpeg
-        limited = False          # FFmpeg's cs_itu601 stays set once seen
-        for i, data in enumerate(self._avi.frames()):
-            what = f"{self.path} frame {i}"
-            try:
-                _, rows = mjpeg.header(data, what)
-                now, later = mjpeg.itu601_comment(data)
-                limited = limited or now
-                # mjpegdec's test: a field is under 3/4 of the stream's
-                # height
-                if rows < self.height * 3 // 4:
-                    raise UnsupportedImage(
-                        f"interlaced Motion JPEG ({rows} rows a field, "
-                        f"{self.height} a frame)")
-                frame = mjpeg.decode_frame(data, not limited, what)
-                limited = limited or later
-            except UnsupportedImage as e:
-                raise UnsupportedVideo(f"{what}: {e}") from None
-            except DecodeError:
-                continue
-            yield frame
-
-    def _ffv1(self) -> Iterator[np.ndarray]:
-        from fealess_tpu_torch.io.ffv1 import FFV1Decoder
-        s = self._avi.stream
+    def _open_mp4(self, path: str) -> None:
         try:
-            dec = FFV1Decoder(s.extradata, self.width, self.height,
-                              self.path)
+            mp4 = Mp4File(path)
+        except Mp4Error as e:
+            raise OSError(f"cannot open video source {path!r}: {e}") from e
+        except UnsupportedMp4 as e:
+            raise UnsupportedVideo(f"{e}: read by cv2.VideoCapture but not "
+                                   f"by the port") from None
+        t = mp4.track
+        if t.codec not in ("ffv1", "mjpeg", "png"):
+            mp4.close()
+            fourcc = t.fourcc.decode("latin-1")
+            raise UnsupportedVideo(
+                f"{path}: MP4 with {t.codec} video ({fourcc}) is read by "
+                f"cv2.VideoCapture but not by the port (which reads FFV1, "
+                f"Motion JPEG and PNG in MP4)")
+        self._set(t.codec, t.fourcc, t.width, t.height, t.extradata, mp4)
+
+    def _open_mkv(self, path: str) -> None:
+        try:
+            mkv = MkvFile(path)
+        except MatroskaError as e:
+            raise OSError(f"cannot open video source {path!r}: {e}") from e
+        except UnsupportedMatroska as e:
+            raise UnsupportedVideo(f"{e}: read by cv2.VideoCapture but not "
+                                   f"by the port") from None
+        t = mkv.track
+        codec, fourcc, extradata = None, t.codec_id.encode("latin-1"), b""
+        if t.codec_id == "V_FFV1":
+            codec, extradata = "ffv1", t.codec_private
+        elif t.codec_id == "V_MJPEG":
+            codec = "mjpeg"
+        elif t.codec_id == "V_UNCOMPRESSED":
+            fourcc = t.colour_space
+            codec = "rawvideo" if fourcc in YUV420P_FOURCCS else None
+        elif t.codec_id == "V_MS/VFW/FOURCC" and len(t.codec_private) >= 40:
+            fourcc = t.codec_private[16:20]
+            codec, extradata = fourcc_codec(fourcc), t.codec_private[40:]
+        if codec is None:
+            mkv.close()
+            if t.codec_id == "V_UNCOMPRESSED":
+                kind = f"raw video {fourcc!r}"
+            elif t.codec_id == "V_MS/VFW/FOURCC":
+                kind = _codec(fourcc)
+            else:
+                kind = CODEC_NAMES.get(t.codec_id, t.codec_id)
+            raise UnsupportedVideo(
+                f"{path}: Matroska/WebM with {kind} video ({t.codec_id}) is "
+                f"read by cv2.VideoCapture but not by the port (which reads "
+                f"{_READS})")
+        self._set(codec, fourcc, t.width, t.height, extradata, mkv)
+
+    def _set(self, codec, fourcc, width, height, extradata, demuxer) -> None:
+        self.codec, self.fourcc = codec, fourcc
+        self.width, self.height, self.extradata = width, height, extradata
+        self._packets, self._close = demuxer.frames, demuxer.close
+
+    def _refuse_other(self, path: str, head: bytes) -> None:
+        kind = _container(head)
+        if kind:
+            raise UnsupportedVideo(f"{path}: {kind} is read by "
+                                   f"cv2.VideoCapture but not by the port "
+                                   f"(which reads AVI, MP4 and Matroska)")
+        raise OSError(f"cannot open video source {path!r}")
+
+    # ---- decoders ----
+
+    def _decoder(self) -> Tuple[Callable[[bytes, str], np.ndarray],
+                                Callable[[], None]]:
+        """(decode(packet, what), close) for one pass over the stream."""
+        try:
+            return self._new_decoder()
         except UnsupportedImage as e:
             raise UnsupportedVideo(str(e)) from None
+        except DecodeError as e:      # the codec does not open: nor does cv2
+            raise OSError(f"cannot open video source {self.path!r}: "
+                          f"{e}") from e
+
+    def _new_decoder(self):
+        def nothing() -> None:
+            pass
+        if self.codec == "mjpeg":
+            return self._mjpeg(), nothing
+        if self.codec == "ffv1":
+            from fealess_tpu_torch.io.ffv1 import FFV1Decoder
+            dec = FFV1Decoder(self.extradata, self.width, self.height,
+                              self.path)
+            return lambda data, what: dec.decode(data), dec.close
+        if self.codec == "rawvideo":
+            from fealess_tpu_torch.io.rawvideo import decode_yuv420p
+            u_first = YUV420P_FOURCCS[self.fourcc]
+            return lambda data, what: decode_yuv420p(
+                data, self.width, self.height, u_first, what), nothing
+        if self.codec == "huffyuv":
+            from fealess_tpu_torch.io.huffyuv import HuffyuvDecoder
+            dec = HuffyuvDecoder(self.extradata, self.width, self.height,
+                                 self.path)
+            return lambda data, what: dec.decode(data), dec.close
+        if self.codec == "png":
+            return image2.png_frame, nothing
+        return image2.bmp_frame, nothing
+
+    def _mjpeg(self) -> Callable[[bytes, str], np.ndarray]:
+        from fealess_tpu_torch.io import mjpeg
+        limited = False          # FFmpeg's cs_itu601 stays set once seen
+
+        def decode(data: bytes, what: str) -> np.ndarray:
+            nonlocal limited
+            _, rows = mjpeg.header(data, what)
+            if not self.height:          # image2: the first frame's
+                self.height = rows
+            now, later = mjpeg.itu601_comment(data)
+            limited = limited or now
+            # mjpegdec's test: a field is under 3/4 of the stream's height
+            if rows < self.height * 3 // 4:
+                raise UnsupportedImage(
+                    f"interlaced Motion JPEG ({rows} rows a field, "
+                    f"{self.height} a frame)")
+            frame = mjpeg.decode_frame(data, not limited, what)
+            limited = limited or later
+            return frame
+        return decode
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        """The frames cv2's ``read`` returns, up to the first packet the
+        decoder rejects (where ``read`` first returns False)."""
+        decode, close = self._decoder()
+        first = None
         try:
-            for data in self._avi.frames():
+            for i, data in enumerate(self._packets()):
+                what = f"{self.path} frame {i}"
                 try:
-                    frame = dec.decode(data)
+                    frame = decode(data, what)
+                except UnsupportedImage as e:
+                    raise UnsupportedVideo(
+                        e if str(e).startswith(what) else f"{what}: {e}"
+                    ) from None
                 except DecodeError:
-                    continue
+                    return
+                if self._image2:
+                    if first is None:
+                        first = frame.shape
+                    elif frame.shape != first:
+                        raise UnsupportedVideo(
+                            f"{what}: an image sequence whose frames differ "
+                            f"in size ({frame.shape[1]}x{frame.shape[0]} "
+                            f"after {first[1]}x{first[0]}: cv2 scales each "
+                            f"to the first's with swscale)")
                 yield frame
         finally:
-            dec.close()
+            close()
 
     def close(self) -> None:
-        self._avi.close()
+        self._close()
 
     def __enter__(self) -> "VideoReader":
         return self

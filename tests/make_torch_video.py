@@ -16,14 +16,24 @@ holds them to, taken from cv2 and the JAX package on the CPU.
   restart markers; a progressive
   frame; and one file with an OpenDML index whose last frame sits in a
   ``RIFF AVIX`` extension;
-- ``digests.json``: for each file the frame count and each frame's shape
-  and sha256 from ``cv2.VideoCapture``;
+- the other sources ``cv2.VideoCapture`` opens (:func:`other_sources`):
+  raw I420 from ``cv2.VideoWriter``'s fourcc 0 and hand-muxed IYUV at
+  17x33; PNG video (``MPNG``) in AVI, MP4 and Matroska; Huffyuv
+  (``HFYU``) in AVI; FFV1 and Motion JPEG in MP4 and Matroska; I420 in
+  Matroska; single images (a JPEG at
+  63x47, an 8-bit BMP, a 16-bit gray PNG); a printf pattern of three PNGs
+  (``seq/f_%03d.png``, one of them gray); and at 640x480 the clip's
+  first two frames as FFV1 in MP4 (``pan_ffv1.mp4``) and its four frames
+  as ``cv2.imwrite`` JPEGs behind the pattern ``pan/%d.jpg``;
+- ``digests.json``: for each source the frame count and each frame's
+  shape and sha256 from ``cv2.VideoCapture``;
 - ``recon.json``: the JAX CLI's ``acq`` output on ``clip.avi`` with its
   depth directory (the sha256 of each ``gray/`` and ``depth/`` PNG's
   pixels), its ``recon`` lines on that package with the fixture's
   features, with the default ICP settings ("a") and with iterations forced
   to the cap ("b", ``chip_smoke.FORCED``), and the JAX engine's match on
-  each frame.
+  each frame; under ``"sources"`` the same for ``pan_ffv1.mp4`` and
+  ``pan/%d.jpg`` (``RECON_SOURCES``).
 
 ``tests/test_torch_video.py`` holds the digests to cv2 on the CPU, so they
 cannot go stale.  The muxer is shared with that test.
@@ -43,6 +53,14 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(REPO, "tests", "data", "torch_video")
 CLIP_FRAMES = 4
+# the committed sources that are not container files, as VideoReader paths
+# relative to OUT, and the directories that hold them
+PATH_SOURCES = ("images/gray16.png", "images/one.bmp", "images/one.jpg",
+                "pan/%d.jpg", "seq/f_%03d.png")
+SOURCE_DIRS = ("images", "pan", "seq")
+CONTAINERS = (".avi", ".mkv", ".mp4")
+# the sources acq reads into recon (chip_smoke phase 7f): name -> frames
+RECON_SOURCES = {"pan_ffv1.mp4": 2, "pan/%d.jpg": CLIP_FRAMES}
 
 
 def _chunk(cid: bytes, data: bytes) -> bytes:
@@ -220,13 +238,92 @@ def hand_clips():
 
 
 def write_cv2_clip(path: str, frames, fourcc: str, fps: int = 10) -> None:
+    """``frames`` through ``cv2.VideoWriter`` (fourcc ``"0"``: 0, the
+    uncompressed call), the container by the path's extension."""
     import cv2
     h, w = frames[0].shape[:2]
-    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), fps, (w, h))
+    code = 0 if fourcc == "0" else cv2.VideoWriter_fourcc(*fourcc)
+    vw = cv2.VideoWriter(path, code, fps, (w, h))
     assert vw.isOpened(), fourcc
     for f in frames:
         vw.write(f)
     vw.release()
+
+
+def yuv420p(img: np.ndarray) -> bytes:
+    """A raw yuv420p frame of a BGR image at any size: BT.601 limited
+    range, chroma averaged over 2x2 blocks (edge blocks over what they
+    hold), planes back to back with no padding, as FFmpeg lays them."""
+    f = img.astype(np.float64)
+    b, g, r = f[..., 0], f[..., 1], f[..., 2]
+    y = 16 + (65.481 * r + 128.553 * g + 24.966 * b) / 255
+    u = 128 + (-37.797 * r - 74.203 * g + 112.0 * b) / 255
+    v = 128 + (112.0 * r - 93.786 * g - 18.214 * b) / 255
+    h, w = y.shape
+
+    def sub(p):
+        p = np.pad(p, ((0, h & 1), (0, w & 1)), mode="edge")
+        return p.reshape(p.shape[0] // 2, 2, p.shape[1] // 2, 2).mean((1, 3))
+    return b"".join(np.clip(np.rint(p), 0, 255).astype(np.uint8).tobytes()
+                    for p in (y, sub(u), sub(v)))
+
+
+def other_sources(frames) -> None:
+    """Write the sources of :func:`main` past the AVIs of Motion JPEG and
+    FFV1 (see the module docstring); ``frames`` are the clip's."""
+    import cv2
+    small = scene(64, 48, 8, 3)
+    write_cv2_clip(os.path.join(OUT, "i420.avi"), small, "0")
+    with open(os.path.join(OUT, "iyuv_odd.avi"), "wb") as f:
+        f.write(mux_avi([yuv420p(x) for x in scene(17, 33, 9, 2)], 17, 33,
+                        fourcc=b"IYUV"))
+    for ext in ("avi", "mp4", "mkv"):
+        write_cv2_clip(os.path.join(OUT, f"mpng.{ext}"), small, "MPNG")
+    for ext in ("mp4", "mkv"):
+        write_cv2_clip(os.path.join(OUT, f"ffv1.{ext}"), small, "FFV1")
+        write_cv2_clip(os.path.join(OUT, f"mjpeg.{ext}"), small, "MJPG")
+    write_cv2_clip(os.path.join(OUT, "i420.mkv"), small, "I420")
+    write_cv2_clip(os.path.join(OUT, "hfyu.avi"), small, "HFYU")
+    write_cv2_clip(os.path.join(OUT, "pan_ffv1.mp4"),
+                   [b for b, _ in frames[:RECON_SOURCES["pan_ffv1.mp4"]]],
+                   "FFV1")
+    for d in SOURCE_DIRS:
+        os.makedirs(os.path.join(OUT, d), exist_ok=True)
+    odd = scene(63, 47, 10, 1)[0]
+    cv2.imwrite(os.path.join(OUT, "images", "one.jpg"), odd)
+    cv2.imwrite(os.path.join(OUT, "images", "one.bmp"),
+                cv2.cvtColor(small[0], cv2.COLOR_BGR2GRAY))
+    cv2.imwrite(os.path.join(OUT, "images", "gray16.png"),
+                (np.arange(48 * 64).reshape(48, 64) * 21).astype(np.uint16))
+    for i, img in enumerate(small):
+        if i == 1:
+            img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+        cv2.imwrite(os.path.join(OUT, "seq", f"f_{i:03d}.png"), img)
+    for i, (b, _) in enumerate(frames):
+        cv2.imwrite(os.path.join(OUT, "pan", f"{i}.jpg"), b,
+                    [cv2.IMWRITE_JPEG_QUALITY, 90])
+
+
+def committed_sources():
+    """Every committed source of OUT that ``digests.json`` lists."""
+    return sorted([n for n in os.listdir(OUT) if n.endswith(CONTAINERS)]
+                  + list(PATH_SOURCES))
+
+
+def jax_acq_recon(source: str, frames: int) -> dict:
+    """The JAX CLI's acq from ``source`` with the committed depth
+    directory (the pixel digests of what it wrote), then its recon lines
+    on that package (:func:`tests.make_torch_frames.jax_recon`)."""
+    from fealess_tpu.apps import cli as jax_cli
+    from tests.make_torch_frames import jax_recon
+    with tempfile.TemporaryDirectory() as tmp:
+        pkg = os.path.join(tmp, "pkg")
+        assert jax_cli.main(["acq", source, pkg, "--depth-dir",
+                             os.path.join(OUT, "depth")]) == 0
+        out = {"acq": {sub: pixel_digests(os.path.join(pkg, sub))
+                       for sub in ("gray", "depth")}}
+        out.update(jax_recon(pkg, frames))
+    return out
 
 
 def clip_frames():
@@ -253,10 +350,13 @@ def pixel_digests(directory: str) -> dict:
 
 def main() -> None:
     import cv2
+    import shutil
     os.makedirs(os.path.join(OUT, "depth"), exist_ok=True)
     for name in os.listdir(OUT):
-        if name.endswith(".avi"):
+        if name.endswith(CONTAINERS):
             os.remove(os.path.join(OUT, name))
+    for d in SOURCE_DIRS:
+        shutil.rmtree(os.path.join(OUT, d), ignore_errors=True)
     frames = clip_frames()
     write_cv2_clip(os.path.join(OUT, "clip.avi"), [b for b, _ in frames],
                    "MJPG")
@@ -269,8 +369,9 @@ def main() -> None:
     for name, data in hand_clips().items():
         with open(os.path.join(OUT, name), "wb") as f:
             f.write(data)
+    other_sources(frames)
     digests = {name: digest(os.path.join(OUT, name))
-               for name in sorted(os.listdir(OUT)) if name.endswith(".avi")}
+               for name in committed_sources()}
     with open(os.path.join(OUT, "digests.json"), "w") as f:
         json.dump(digests, f, indent=1, sort_keys=True)
         f.write("\n")
@@ -278,15 +379,9 @@ def main() -> None:
     # (a) and (b) on what it wrote
     import jax
     jax.config.update("jax_platforms", "cpu")
-    from fealess_tpu.apps import cli as jax_cli
-    from tests.make_torch_frames import jax_recon
-    with tempfile.TemporaryDirectory() as tmp:
-        pkg = os.path.join(tmp, "pkg")
-        assert jax_cli.main(["acq", os.path.join(OUT, "clip.avi"), pkg,
-                             "--depth-dir", os.path.join(OUT, "depth")]) == 0
-        recon = {"acq": {sub: pixel_digests(os.path.join(pkg, sub))
-                         for sub in ("gray", "depth")}}
-        recon.update(jax_recon(pkg, CLIP_FRAMES))
+    recon = jax_acq_recon(os.path.join(OUT, "clip.avi"), CLIP_FRAMES)
+    recon["sources"] = {name: jax_acq_recon(os.path.join(OUT, name), n)
+                        for name, n in RECON_SOURCES.items()}
     with open(os.path.join(OUT, "recon.json"), "w") as f:
         json.dump(recon, f, indent=1, sort_keys=True)
         f.write("\n")

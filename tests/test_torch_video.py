@@ -29,8 +29,9 @@ from fealess_tpu.io.series import ImageSeriesReader as JaxReader
 from fealess_tpu_torch.apps import acquire, cli
 from fealess_tpu_torch.io.series import ImageSeriesReader
 from fealess_tpu_torch.io.video import UnsupportedVideo, VideoReader
-from tests.make_torch_video import (OUT, cut_dht, cv2_frames, digest, jpeg,
-                                    mux_avi, scene, sha256, write_cv2_clip)
+from tests.make_torch_video import (OUT, committed_sources, cut_dht,
+                                    cv2_frames, digest, jpeg, mux_avi, scene,
+                                    sha256, write_cv2_clip)
 from tests.test_torch_io import LOADED
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -206,12 +207,12 @@ def test_odd_height_mjpeg_bitwise(tmp_path, sampling, w, h):
 
 
 def test_committed_clips_match_cv2_and_the_digests():
-    """Every committed AVI: cv2 still gives the recorded digests
-    (which chip_smoke.py holds the port to on the card), and so does the
-    port."""
+    """Every committed source (AVI, MP4 and Matroska files, images and
+    printf patterns): cv2 still gives the recorded digests (which
+    chip_smoke.py holds the port to on the card), and so does the port."""
     with open(os.path.join(OUT, "digests.json")) as f:
         digests = json.load(f)
-    names = sorted(n for n in os.listdir(OUT) if n.endswith(".avi"))
+    names = committed_sources()
     assert names == sorted(digests)
     for name in names:
         path = os.path.join(OUT, name)
@@ -227,16 +228,16 @@ def test_committed_clips_match_cv2_and_the_digests():
 
 
 def test_refusals_name_what_they_refuse(tmp_path):
-    """MP4, Matroska, XVID in AVI, an interlaced Motion JPEG (two fields a
-    chunk), raw Motion JPEG: UnsupportedVideo naming the container, the
-    fourcc or the kind; a missing file, a file of no known container and
-    an AVI with no video stream: OSError as the JAX reader's; a camera
-    index: ValueError."""
+    """MPEG-4 Part 2 in MP4 and in Matroska, XVID in AVI, an interlaced
+    Motion JPEG (two fields a chunk), raw Motion JPEG: UnsupportedVideo
+    naming the container, the fourcc or the kind; a missing file, a file
+    of no known container and an AVI with no video stream: OSError as the
+    JAX reader's; a camera index: ValueError."""
     frames = scene(64, 48, 1, 2)
     mp4, mkv, xvid = (str(tmp_path / n) for n in ("a.mp4", "a.mkv",
                                                   "a.avi"))
     write_cv2_clip(mp4, frames, "mp4v")
-    write_cv2_clip(mkv, frames, "MJPG")
+    write_cv2_clip(mkv, frames, "mp4v")
     write_cv2_clip(xvid, frames, "XVID")
     for path, match in ((mp4, "MP4"), (mkv, "Matroska"), (xvid, "XVID")):
         assert len(cv2_frames(path)) == 2
@@ -370,32 +371,46 @@ def test_acq_refuses_a_video_it_does_not_read(tmp_path, capsys):
 _SUBPROCESS = LOADED + r"""
 import contextlib, io, json, os, sys
 from fealess_tpu_torch.apps import cli
+from fealess_tpu_torch.io import image2, isobmff, matroska, rawvideo  # noqa
 from fealess_tpu_torch.io.video import VideoReader
 
 clip, dep, out = sys.argv[1:4]
 shapes = [list(f.shape) for f in VideoReader(clip)]
+others = {name: len(list(VideoReader(os.path.join(os.path.dirname(clip),
+                                                  name))))
+          for name in sys.argv[4:]}
 with contextlib.redirect_stdout(io.StringIO()):
     rc = cli.main(["acq", clip, out, "--depth-dir", dep, "--clouds",
                    "--device", "cpu"])
-print(json.dumps({"rc": rc, "shapes": shapes,
+print(json.dumps({"rc": rc, "shapes": shapes, "others": others,
                   "written": sorted(os.listdir(os.path.join(out, "cloud"))),
                   "loaded": _loaded()}))
 """
 
+# one committed source of each demuxer and decoder the subprocess reads
+OTHERS = ("ffv1.mkv", "i420.avi", "mjpeg.mp4", "mpng.mkv", "images/one.bmp",
+          "images/one.jpg", "seq/f_%03d.png")
+
 
 def test_video_and_acq_run_without_jax_flax_or_cv2(tmp_path):
     """A fresh interpreter reads the committed clip and runs acq from it
-    (depth, clouds); jax, flax, cv2 and the JAX package are never
+    (depth, clouds), and reads a committed source of each other demuxer
+    and decoder (MP4, Matroska, raw I420, PNG video, BMP and JPEG images,
+    a printf pattern); jax, flax, cv2 and the JAX package are never
     loaded."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", _SUBPROCESS,
                           os.path.join(OUT, "clip.avi"),
-                          os.path.join(OUT, "depth"), str(tmp_path / "acq")],
+                          os.path.join(OUT, "depth"), str(tmp_path / "acq"),
+                          *OTHERS],
                          capture_output=True, text=True, env=env,
                          timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["loaded"] == []
+    with open(os.path.join(OUT, "digests.json")) as f:
+        digests = json.load(f)
+    assert result["others"] == {n: digests[n]["frames"] for n in OTHERS}
     assert result["rc"] == 0
     assert result["shapes"] == [[480, 640, 3]] * 4
     assert result["written"] == ["0.txt", "1.txt", "2.txt", "3.txt"]
