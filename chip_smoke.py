@@ -134,22 +134,30 @@ Phases, one line of output each (or a few):
    ``load_bank`` bitwise; host times of ``load_bank`` (orbax and
    ``arrays.npz``), ``import_yaml``, the serving artifact's load and
    ``save_bank``, and of the orbax load's host read with the zstd
-   decodes inside it.
+   decodes inside it.  Then cv::FileStorage's other forms: the fixture
+   bank written as XML and JSON by ``save_linemod``, each file's sha256
+   equal to the JAX writer's (``tests/data/torch_ckpt/filestorage.json``);
+   the XML as ``linemod_templates.yml`` served by ``ObjReco.add_obj``:
+   bank and model depths bitwise equal to the YAML bank's, recognition
+   equal to the YAML engine's in (a) and (b) with K1/K2/K3 1/1/0 and
+   1/1/9; host times of ``load_linemod`` in the three forms.
 7f. video files, image files and printf patterns (``io/video.
    VideoReader``, as ``cv2.VideoCapture`` reads them: AVI, MP4 and
-   Matroska holding Motion JPEG, FFV1, raw I420, PNG or Huffyuv frames;
-   image2's single images and patterns): every committed source of
+   Matroska holding Motion JPEG, FFV1, raw I420, PNG, Huffyuv or MPEG-4
+   Part 2 frames; image2's single images and patterns): every committed
+   source of
    ``tests/data/torch_video`` decoded to the frame count and each frame's
    sha256 of cv2's (recorded by ``tests/make_torch_video.py``); ``acq
    --device cuda --clouds`` with the committed depth directory from the
-   640x480 Motion JPEG clip, the FFV1 MP4 and the JPEG pattern, each
+   640x480 Motion JPEG clip, the FFV1 MP4, the JPEG pattern and the mp4v
+   AVI, each
    package's ``gray/`` and ``depth/`` pixels equal to the JAX CLI's and its
    clouds within ``CLOUD_TOL_MM`` of the same call on the CPU; ``recon
    --device cuda`` on each package in both ICP settings, its lines held to
    the JAX CLI's (similarity exact, pose within phase 4's tolerances) with
    K1/K2/K3 at 1/1/0 a frame in (a) and 1/1/9 in (b); the host time to
-   decode a 640x480 frame of each format, demux included (Huffyuv on its
-   64x48 clip).
+   decode a 640x480 frame of each format, demux included, and of one
+   MPEG-4 I-VOP and one P-VOP.
 8. the rest of the public surface: the CLI's device-stage table
    (``cli._profile_stages``: front-end, match and the full step as
    cumulative prefixes, each the device busy of warm calls under
@@ -335,6 +343,12 @@ FRAMES_DIR = os.path.join(REPO, "tests", "data", "torch_frames")
 # and its leaves' digests (tests/make_torch_ckpt.py writes them with JAX
 # and orbax on the CPU).
 CKPT_DIR = os.path.join(REPO, "tests", "data", "torch_ckpt", "fixture_1024")
+# Phase 7e (cv::FileStorage forms): the sha256 of the JAX writer's XML and
+# JSON of the fixture bank (tests/make_torch_ckpt.py records them with JAX
+# and cv2 on the CPU); load_linemod is timed over FILESTORAGE_TIMED calls
+FILESTORAGE_DIGESTS = os.path.join(REPO, "tests", "data", "torch_ckpt",
+                                   "filestorage.json")
+FILESTORAGE_TIMED = 3
 VIDEO_DIR = os.path.join(REPO, "tests", "data", "torch_video")
 CLOUD_TOL_MM = 1e-3
 DECODE_TIMED = 10
@@ -1958,6 +1972,101 @@ def persistence_phase(eng, bgr_np, depth_np, cam, card, counts,
           + f" ({card})")
 
 
+def filestorage_phase(eng, bgr_np, depth_np, cam, card, counts,
+                      default_icp) -> None:
+    """Phase 7e (cv::FileStorage): the fixture bank written as XML and as
+    JSON by the port's ``save_linemod``, each file's sha256 equal to the
+    JAX writer's (recorded on the CPU); a feature directory whose
+    ``linemod_templates.yml`` holds that XML served by ``ObjReco.add_obj``
+    on the card: its bank and model depths equal to the YAML bank's, its
+    recognition equal to the YAML engine's in both ICP settings with
+    K1/K2/K3 counted; ``load_linemod``'s host times for YAML, XML and
+    JSON."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+    import torch
+    from fealess_tpu_torch.apps import fixture
+    from fealess_tpu_torch.engine import ObjReco
+    from fealess_tpu_torch.io import linemod_yaml
+
+    zero_counts, read_counts, path_launches, counted = counts
+    dev = eng.device
+    feats = os.path.join(fixture.FIXTURE, "features")
+    yml = os.path.join(feats, "linemod_templates.yml")
+    with open(FILESTORAGE_DIGESTS) as f:
+        digests = json.load(f)
+    det, classes = linemod_yaml.load_linemod(yml)
+    work = tempfile.mkdtemp()
+    try:
+        paths = {}
+        for form in ("xml", "json"):
+            paths[form] = os.path.join(work, f"bank.{form}")
+            linemod_yaml.save_linemod(paths[form], det, classes)
+            with open(paths[form], "rb") as f:
+                got = hashlib.sha256(f.read()).hexdigest()
+            check(got == digests[form], f"save_linemod to .{form}: sha256 "
+                                        f"{got}, the JAX writer's "
+                                        f"{digests[form]}")
+        served = os.path.join(work, "features")
+        os.makedirs(served)
+        shutil.copy(paths["xml"], os.path.join(served,
+                                               "linemod_templates.yml"))
+        os.symlink(os.path.join(feats, "depth"), os.path.join(served,
+                                                              "depth"))
+        xml_eng = ObjReco.create("LmICP", device=dev)
+        xml_eng.add_obj(served)
+        check(all(torch.equal(getattr(xml_eng.bank, k),
+                              getattr(eng.bank, k))
+                  for k in ("feat_x", "feat_y", "feat_label", "feat_valid",
+                            "width", "height", "offset_x", "offset_y",
+                            "pose", "class_idx", "template_idx", "valid"))
+              and torch.equal(xml_eng._model_depth_dev,
+                              eng._model_depth_dev),
+              "add_obj of the XML bank differs from the YAML bank's")
+        print(f"cv::FileStorage: the fixture bank ({eng.bank.num_templates} "
+              f"templates) written as XML and JSON on the host, sha256 equal "
+              f"to the JAX writer's; add_obj of a linemod_templates.yml "
+              f"holding the XML on {dev}: bank and model depths bitwise "
+              f"equal to the YAML bank's")
+        for setting in ("a", "b"):
+            apply_setting(eng, setting, default_icp)
+            apply_setting(xml_eng, setting, default_icp)
+            path = f"XML bank, ObjReco.recognition ({setting})"
+            zero_counts()
+            res = xml_eng.recognition(bgr_np, depth_np, cam)
+            read_counts(path)
+            want = eng.recognition(bgr_np, depth_np, cam)
+            check(len(res) == len(want) == 1 and all(
+                np.array_equal(g.world2cam, w.world2cam)
+                and (g.obj_tag, g.similarity, g.icp_dist, g.inlier_ratio,
+                     g.match_rect) == (w.obj_tag, w.similarity, w.icp_dist,
+                                       w.inlier_ratio, w.match_rect)
+                for g, w in zip(res, want)), f"{path}: {res} vs {want}")
+            want_k = [1, 1, EXPECT_NN[setting]]
+            check(path_launches[path] == want_k,
+                  f"{path}: launches {path_launches[path]}, expected "
+                  f"{want_k}")
+            print(f"{path}: equal to the YAML bank's (match "
+                  f"{res[0].match_rect[:2]}, similarity {res[0].similarity},"
+                  f" pose bitwise), launches K1/K2/K3 {path_launches[path]}")
+        apply_setting(eng, "a", default_icp)
+        times = {form: host_mean_ms(
+            lambda p=p: linemod_yaml.load_linemod(p), FILESTORAGE_TIMED)
+            for form, p in (("YAML", yml), ("XML", paths["xml"]),
+                            ("JSON", paths["json"]))}
+        sizes = {form: os.path.getsize(p) for form, p in
+                 (("YAML", yml), ("XML", paths["xml"]),
+                  ("JSON", paths["json"]))}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"time load_linemod ({eng.bank.num_templates} templates, host, "
+          f"mean of {FILESTORAGE_TIMED} after a warm call): "
+          + ", ".join(f"{k} {v:.3f} ms ({sizes[k]} bytes)"
+                      for k, v in times.items()) + f" ({card})")
+
+
 # -- phase 7f: video files ---------------------------------------------------
 
 def avi_bytes(frames, width: int, height: int, fourcc: bytes,
@@ -2197,14 +2306,18 @@ def video_phase(eng, card, counts, default_icp) -> None:
           f"Huffyuv in AVI; "
           f"FFV1 and Motion JPEG in MP4 and Matroska; I420 in Matroska; "
           f"FFV1 in MP4 at 640x480; JPEG, BMP and 16-bit gray PNG images; "
-          f"printf patterns of PNGs and of 640x480 JPEGs): frame counts and "
+          f"printf patterns of PNGs and of 640x480 JPEGs; MPEG-4 Part 2 "
+          f"from cv2.VideoWriter for every fourcc in AVI, in MP4 and "
+          f"Matroska, QP 3 to 31, a scene cut, motion past the edge, an odd "
+          f"width, a VOP not coded, and at 640x480): frame counts and "
           f"every frame's sha256 equal to cv2.VideoCapture's")
 
     acq_recon_source(eng, card, counts, default_icp, "clip.avi",
                      digests["clip.avi"]["frames"], expect, "Motion JPEG",
                      True)
     for name, kind in (("pan_ffv1.mp4", "FFV1 in MP4"),
-                       ("pan/%d.jpg", "JPEG pattern")):
+                       ("pan/%d.jpg", "JPEG pattern"),
+                       ("pan_mp4v.avi", "MPEG-4 Part 2 (mp4v) in AVI")):
         acq_recon_source(eng, card, counts, default_icp, name,
                          digests[name]["frames"], expect["sources"][name],
                          kind, False)
@@ -2260,8 +2373,39 @@ def video_phase(eng, card, counts, default_icp) -> None:
         times = {k: host_mean_ms(lambda p=p: list(VideoReader(p)),
                                  DECODE_TIMED) / n
                  for k, (p, n) in sources.items()}
+        times["MPEG-4 Part 2 (mp4v) in AVI (cv2.VideoWriter, pan_mp4v.avi)"] \
+            = host_mean_ms(lambda: list(VideoReader(os.path.join(
+                VIDEO_DIR, "pan_mp4v.avi"))), DECODE_TIMED) / 4
     print("time video decode to BGR (host, demux included, ms per 640x480 "
           f"frame, mean of {DECODE_TIMED} passes after a warm one): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+          + f" ({card})")
+    mpeg4_frame_times(card)
+
+
+def mpeg4_frame_times(card) -> None:
+    """Host time of one 640x480 MPEG-4 Part 2 I-VOP and one P-VOP of
+    ``pan_mp4v.avi`` (decode to BGR, no demux), mean of DECODE_TIMED
+    calls after a warm one; the P-VOP decodes each time against the
+    picture the call before left."""
+    from fealess_tpu_torch.io.avi import AviFile
+    from fealess_tpu_torch.io.mpeg4 import Mpeg4Decoder
+
+    with AviFile(os.path.join(VIDEO_DIR, "pan_mp4v.avi")) as avi:
+        packets = list(avi.frames())
+        fourcc = avi.stream.compression
+    kinds = [(p[p.index(b"\x00\x00\x01\xb6") + 4] >> 6) for p in packets]
+    check(kinds[:2] == [0, 1], f"pan_mp4v.avi: VOP types {kinds}, expected "
+                               f"an I-VOP then P-VOPs")
+    dec = Mpeg4Decoder(b"", fourcc)
+    times = {"I-VOP": host_mean_ms(lambda: dec.decode(packets[0]),
+                                   DECODE_TIMED),
+             "P-VOP": host_mean_ms(lambda: dec.decode(packets[1]),
+                                   DECODE_TIMED)}
+    dec.close()
+    print(f"time MPEG-4 Part 2 decode to BGR (host, 640x480, "
+          f"{len(packets[0])}-byte I-VOP, {len(packets[1])}-byte P-VOP, mean "
+          f"of {DECODE_TIMED} after a warm call): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
           + f" ({card})")
 
@@ -3244,6 +3388,9 @@ def run(dev) -> None:
                       default_icp)
     phase_clock("7e")
     persistence_phase(eng, bgr_np, depth_np, cam, card,
+                      (zero_counts, read_counts, path_launches, counted),
+                      default_icp)
+    filestorage_phase(eng, bgr_np, depth_np, cam, card,
                       (zero_counts, read_counts, path_launches, counted),
                       default_icp)
     phase_clock("7f")

@@ -11,7 +11,8 @@ under ``cv2.VideoCapture``.
   the codec as FFmpeg's ``ff_codec_movvideo_tags`` and, for ``mp4v``, the
   ``esds`` object type (``ff_mp4_obj_type``) do: ``FFV1`` (extradata from
   its ``glbl`` box), ``mp4v`` with object type 0x6C (JPEG) or 0x6D (PNG),
-  which ``cv2.VideoWriter`` writes for Motion JPEG and PNG, ``jpeg`` and
+  which ``cv2.VideoWriter`` writes for Motion JPEG and PNG, or 0x20
+  (MPEG-4 Part 2, extradata from the DecoderSpecificInfo), ``jpeg`` and
   ``png ``.
 - Samples: ``stsz`` (one size or a size a sample), ``stco`` / ``co64``
   (chunk offsets), ``stsc`` (samples a chunk, by runs of chunks).
@@ -35,8 +36,9 @@ from typing import BinaryIO, Dict, Iterator, List, Optional, Tuple
 _TOP = (b"ftyp", b"moov", b"mdat", b"wide", b"free", b"skip", b"pnot",
         b"udta", b"uuid", b"junk", b"styp", b"sidx")
 
-# ff_mp4_obj_type (libavformat/isom.c), the object types named when refused
-OBJECT_TYPES = {0x20: "MPEG-4 Part 2", 0x21: "H.264", 0x23: "HEVC",
+# ff_mp4_obj_type (libavformat/isom.c): 0x20 is read (MPEG-4 Part 2, its
+# DecoderSpecificInfo the extradata), the others named when refused
+OBJECT_TYPES = {0x20: "mpeg4", 0x21: "H.264", 0x23: "HEVC",
                 0x60: "MPEG-2", 0x61: "MPEG-2", 0x62: "MPEG-2",
                 0x63: "MPEG-2", 0x64: "MPEG-2", 0x65: "MPEG-2",
                 0x6A: "MPEG-1", 0x6C: "mjpeg", 0x6D: "png", 0x6E: "JPEG 2000",
@@ -70,7 +72,7 @@ def is_isobmff(head: bytes) -> bool:
 
 @dataclass
 class Mp4Track:
-    codec: str              # "ffv1", "mjpeg", "png", or a name refused
+    codec: str      # "ffv1", "mjpeg", "png", "mpeg4", or a name refused
     fourcc: bytes           # the sample entry's format
     width: int
     height: int
@@ -94,9 +96,10 @@ def _descriptor(data: bytes, at: int) -> Tuple[int, int, int]:
     return tag, at, n
 
 
-def esds_object_type(body: bytes) -> Optional[int]:
+def esds_config(body: bytes) -> Tuple[Optional[int], bytes]:
     """The DecoderConfigDescriptor's objectTypeIndication of an ``esds``
-    box's body (past its version and flags), or None."""
+    box's body (past its version and flags), or None, and its
+    DecoderSpecificInfo (FFmpeg's extradata), or b""."""
     try:
         tag, at, _ = _descriptor(body, 4)
         if tag == 0x03:                       # ES_Descriptor
@@ -109,11 +112,16 @@ def esds_object_type(body: bytes) -> Optional[int]:
             if flags & 0x20:
                 at += 2
             tag, at, _ = _descriptor(body, at)
-        if tag == 0x04:                       # DecoderConfigDescriptor
-            return body[at]
+        if tag != 0x04:                       # DecoderConfigDescriptor
+            return None, b""
+        ot, info = body[at], b""
+        if at + 13 < len(body):
+            tag, dat, size = _descriptor(body, at + 13)
+            if tag == 0x05:                   # DecoderSpecificInfo
+                info = bytes(body[dat:dat + size])
+        return ot, info
     except IndexError:
-        return None
-    return None
+        return None, b""
 
 
 class Mp4File:
@@ -230,10 +238,12 @@ class Mp4File:
         width, height = struct.unpack_from(">HH", entry, 24)
         kids = self._children(entry, 78)
         codec = FORMATS.get(fmt, f"fourcc {fmt!r}")
-        if fmt == b"mp4v" and b"esds" in kids:
-            ot = esds_object_type(kids[b"esds"][0])
-            codec = OBJECT_TYPES.get(ot, f"MPEG-4 object type {ot!r}")
         extradata = kids[b"glbl"][0] if b"glbl" in kids else b""
+        if fmt == b"mp4v" and b"esds" in kids:
+            ot, info = esds_config(kids[b"esds"][0])
+            codec = OBJECT_TYPES.get(ot, f"MPEG-4 object type {ot!r}")
+            if ot == 0x20:
+                codec, extradata = "mpeg4", info
         return Mp4Track(codec=codec, fourcc=fmt, width=width, height=height,
                         extradata=extradata)
 

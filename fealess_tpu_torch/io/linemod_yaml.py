@@ -12,6 +12,11 @@ same text as cv::FileStorage's YAML emitter (3-space indents, flow
 sequences wrapped at column 71, integral doubles as ``800.``, others as
 ``%.17g``, so a float32 round-trips exactly).  A path ending in ``.gz`` is
 gzip-compressed, as cv::FileStorage does.
+
+The XML and JSON forms are read and written too
+(:mod:`~fealess_tpu_torch.io.filestorage`), chosen as cv::FileStorage
+chooses: by content when reading (an XML or JSON file named ``.yml``
+reads as XML or JSON), by extension when writing.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import numpy as np
 
 from fealess_tpu_torch import config as cfg
 from fealess_tpu_torch.bank import TemplateView
+from fealess_tpu_torch.io import filestorage
 
 CG_NAME = "ColorGradient"
 DN_NAME = "DepthNormal"
@@ -60,6 +66,12 @@ def _scalar(text: str) -> str:
     if len(text) >= 2 and text[0] == text[-1] and text[0] in "\"'":
         return text[1:-1]
     return text
+
+
+def _seq(node) -> list:
+    """A node as a sequence, as ``FileNode::size`` / ``at`` see it: a
+    scalar (an XML element holding one value) is a sequence of one."""
+    return node if isinstance(node, list) else [node]
 
 
 def _flow(text: str) -> List[str]:
@@ -124,7 +136,7 @@ def load_linemod(path: str) -> Tuple[cfg.DetectorConfig,
     """Load a reference template database -> (detector config, classes)."""
     root = _read_root(path)
     levels = int(float(root["pyramid_levels"]))
-    t_at_level = tuple(int(float(t)) for t in root["T"])
+    t_at_level = tuple(int(float(t)) for t in _seq(root["T"]))
     if len(t_at_level) != levels:
         raise ValueError(f"T has {len(t_at_level)} entries for "
                          f"{levels} pyramid levels")
@@ -132,7 +144,7 @@ def load_linemod(path: str) -> Tuple[cfg.DetectorConfig,
     cg = cfg.ColorGradientConfig()
     dn = cfg.DepthNormalConfig()
     mod_names = []
-    for m in root["modalities"]:
+    for m in _seq(root["modalities"]):
         mtype = m["type"]
         mod_names.append(mtype)
         if mtype == CG_NAME:
@@ -151,7 +163,7 @@ def load_linemod(path: str) -> Tuple[cfg.DetectorConfig,
     n_mod = len(mod_names)
 
     classes: Dict[str, List[TemplateView]] = {}
-    for c in root.get("classes", []):
+    for c in _seq(root.get("classes", [])):
         class_id, views = _read_class_node(c, levels, n_mod)
         classes[class_id] = views
 
@@ -169,12 +181,12 @@ def _read_class_node(c: dict, levels: int, n_mod: int):
     if int(float(c["pyramid_levels"])) != levels:
         raise ValueError(f"class {class_id!r} has another pyramid depth")
     views: List[TemplateView] = []
-    for ti, tp in enumerate(c.get("template_pyramids", [])):
+    for ti, tp in enumerate(_seq(c.get("template_pyramids", []))):
         if int(float(tp["template_id"])) != ti:
             raise ValueError(f"class {class_id!r}: template_id out of order")
-        pose = np.asarray([float(p) for p in tp["template_pose"]],
+        pose = np.asarray([float(p) for p in _seq(tp["template_pose"])],
                           np.float32)
-        templates = tp["templates"]
+        templates = _seq(tp["templates"])
         if len(templates) != levels * n_mod:
             raise ValueError(f"class {class_id!r} template {ti}: "
                              f"{len(templates)} templates, expected "
@@ -189,7 +201,7 @@ def _read_class_node(c: dict, levels: int, n_mod: int):
             m = j % n_mod
             if j // n_mod != l:
                 raise ValueError("unexpected template order")
-            fl = t.get("features") or []
+            fl = [_seq(r) for r in _seq(t.get("features") or [])]
             arr = np.zeros((len(fl), 3), np.int32)
             if fl:
                 arr[:] = np.asarray(fl, dtype=np.float64)
@@ -203,23 +215,31 @@ def _read_class_node(c: dict, levels: int, n_mod: int):
     return class_id, views
 
 
+_PARSERS = {"yaml": parse_filestorage_yaml, "xml": filestorage.parse_xml,
+            "json": filestorage.parse_json}
+
+
 def _read_root(path: str) -> dict:
+    """The file's top-level map, parsed in the form its content shows."""
     opener = gzip.open if path.endswith(".gz") else open
     try:
-        with opener(path, "rt") as f:
-            return parse_filestorage_yaml(f.read())
+        with opener(path, "rb") as f:
+            data = f.read()
     except OSError as e:
         raise IOError(f"cannot open {path}") from e
+    return _PARSERS[filestorage.read_format(data[:8])](data.decode("utf-8"))
+
+
+def _emitter(path: str):
+    """The emitter of the form ``path``'s extension picks."""
+    return {"yaml": _Emitter, "xml": filestorage.XmlEmitter,
+            "json": filestorage.JsonEmitter}[filestorage.write_format(path)]()
 
 
 def _write_text(path: str, text: str) -> None:
-    base = path[:-3] if path.endswith(".gz") else path
-    if base.endswith((".xml", ".json")):
-        raise ValueError(f"{path}: only the YAML form of cv::FileStorage "
-                         f"is written")
     opener = gzip.open if path.endswith(".gz") else open
     try:
-        with opener(path, "wt") as f:
+        with opener(path, "wt", encoding="utf-8") as f:
             f.write(text)
     except OSError as e:
         raise IOError(f"cannot open {path} for writing") from e
@@ -264,6 +284,15 @@ class _Emitter:
         if data is not None:
             self._line += data
         self._stack[-1][3] = False
+
+    def int(self, key, v: int) -> None:
+        self.scalar(key, "%d" % v)
+
+    def real(self, key, v: float) -> None:
+        self.scalar(key, _real(v))
+
+    def string(self, key, s: str) -> None:
+        self.scalar(key, _string(s))
 
     def start(self, key, is_map: bool, flow: bool = False) -> None:
         self.scalar(key, ("{" if is_map else "[") if flow else None)
@@ -315,29 +344,29 @@ def _string(s: str) -> str:
 def save_linemod(path: str, det: cfg.DetectorConfig,
                  classes: Dict[str, List[TemplateView]]) -> None:
     """Write a template database in the reference schema."""
-    em = _Emitter()
-    em.scalar("pyramid_levels", str(det.pyramid_levels))
+    em = _emitter(path)
+    em.int("pyramid_levels", det.pyramid_levels)
     em.start("T", False, flow=True)
     for t in det.t_at_level:
-        em.scalar(None, str(int(t)))
+        em.int(None, int(t))
     em.end()
 
     em.start("modalities", False)
     if "color_gradient" in det.modalities:
         c = det.color_gradient
         em.start(None, True)
-        em.scalar("type", _string(CG_NAME))
-        em.scalar("weak_threshold", _real(c.weak_threshold))
-        em.scalar("num_features", str(int(c.num_features)))
-        em.scalar("strong_threshold", _real(c.strong_threshold))
+        em.string("type", CG_NAME)
+        em.real("weak_threshold", c.weak_threshold)
+        em.int("num_features", int(c.num_features))
+        em.real("strong_threshold", c.strong_threshold)
         em.end()
     if "depth_normal" in det.modalities:
         d = det.depth_normal
         em.start(None, True)
-        em.scalar("type", _string(DN_NAME))
+        em.string("type", DN_NAME)
         for name in ("distance_threshold", "difference_threshold",
                      "num_features", "extract_threshold"):
-            em.scalar(name, str(int(getattr(d, name))))
+            em.int(name, int(getattr(d, name)))
         em.end()
     em.end()
 
@@ -350,25 +379,25 @@ def save_linemod(path: str, det: cfg.DetectorConfig,
     _write_text(path, em.text())
 
 
-def _write_class_fields(em: _Emitter, class_id: str, det: cfg.DetectorConfig,
+def _write_class_fields(em, class_id: str, det: cfg.DetectorConfig,
                         views: List[TemplateView]) -> None:
     """Class fields (Detector::writeClass, linemod.cpp:1764-1794), written
-    into the currently open map/root."""
-    em.scalar("class_id", _string(class_id))
+    into the currently open map/root of any form's emitter."""
+    em.string("class_id", class_id)
     em.start("modalities", False, flow=True)
     if "color_gradient" in det.modalities:
-        em.scalar(None, _string(CG_NAME))
+        em.string(None, CG_NAME)
     if "depth_normal" in det.modalities:
-        em.scalar(None, _string(DN_NAME))
+        em.string(None, DN_NAME)
     em.end()
-    em.scalar("pyramid_levels", str(det.pyramid_levels))
+    em.int("pyramid_levels", det.pyramid_levels)
     em.start("template_pyramids", False)
     for ti, v in enumerate(views):
         em.start(None, True)
-        em.scalar("template_id", str(ti))
+        em.int("template_id", ti)
         em.start("template_pose", False, flow=True)
         for p in np.asarray(v.pose, np.float64):
-            em.scalar(None, _real(p))
+            em.real(None, p)
         em.end()
         em.start("templates", False)
         for l in range(det.pyramid_levels):
@@ -379,12 +408,12 @@ def _write_class_fields(em: _Emitter, class_id: str, det: cfg.DetectorConfig,
                                   ("offset_x", v.offset_x[l]),
                                   ("offset_y", v.offset_y[l]),
                                   ("pyramid_level", l)):
-                    em.scalar(name, str(int(val)))
+                    em.int(name, int(val))
                 em.start("features", False)
                 for row in np.asarray(v.features[l][m], np.int64).tolist():
                     em.start(None, False, flow=True)
                     for val in row:
-                        em.scalar(None, str(val))
+                        em.int(None, val)
                     em.end()
                 em.end()
                 em.end()
@@ -398,7 +427,7 @@ def save_classes(fmt: str, det: cfg.DetectorConfig,
     """Per-class files (Detector::writeClasses, linemod.cpp:1808-1818):
     ``fmt`` is a %s-format path, e.g. ``dir/templates_%s.yml.gz``."""
     for class_id in sorted(classes.keys()):
-        em = _Emitter()
+        em = _emitter(fmt % class_id)
         _write_class_fields(em, class_id, det, classes[class_id])
         _write_text(fmt % class_id, em.text())
 

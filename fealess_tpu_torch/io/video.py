@@ -29,6 +29,9 @@ Then a frame decoder by codec:
   ``PNG1``, ``png ``; MP4 ``mp4v`` with object type 0x6D and ``png ``;
   PNG images;
 - Huffyuv (:mod:`~fealess_tpu_torch.io.huffyuv`): AVI ``HFYU``;
+- MPEG-4 Part 2 (:mod:`~fealess_tpu_torch.io.mpeg4`): AVI ``mp4v``,
+  ``MP4V``, ``XVID``, ``xvid``, ``FMP4``, ``DIVX``, ``DX50``; MP4 ``mp4v``
+  with object type 0x20; Matroska ``V_MPEG4/ISO/SP``, ``ASP``, ``AP``;
 - BMP (:func:`~fealess_tpu_torch.io.image2.bmp_frame`): BMP images.
 
 Matroska's ``V_MS/VFW/FOURCC`` takes the AVI fourccs.  A path that does
@@ -39,8 +42,10 @@ source ...")``, as the JAX reader raises when ``cv2.VideoCapture`` does
 not open.  A source cv2 reads and the port does not raises
 :class:`UnsupportedVideo`, naming it: MPEG-PS/TS, Ogg, FLV and ASF;
 fragmented MP4 and edit lists that drop frames; Matroska with
-compressed blocks; WebM and other codecs (VP8, VP9, AV1, MPEG-4 Part 2,
-H.264, HEVC, ``FFVH``, uncompressed BI_RGB, ...); raw Motion JPEG (JPEG
+compressed blocks; WebM and other codecs (VP8, VP9, AV1, H.264, HEVC,
+``FFVH``, uncompressed BI_RGB, other MPEG-4 Part 2 fourccs, ...); the
+MPEG-4 Part 2 tools :mod:`~fealess_tpu_torch.io.mpeg4` refuses by name;
+raw Motion JPEG (JPEG
 images back to back); images of other formats (TIFF, WebP, ...); the PNG
 and BMP kinds :mod:`~fealess_tpu_torch.io.image2` names (16-bit colour
 PNG, Adam7 PNG, 16-bit BMP, RLE deltas, BMP data ``cv2.imread`` cannot
@@ -72,6 +77,7 @@ from fealess_tpu_torch.io.jpeg import UnsupportedImage
 from fealess_tpu_torch.io.matroska import (CODEC_NAMES, MatroskaError,
                                            MkvFile, UnsupportedMatroska,
                                            is_ebml)
+from fealess_tpu_torch.io.mpeg4 import FOURCCS as MPEG4_FOURCCS
 from fealess_tpu_torch.io.png import DecodeError
 from fealess_tpu_torch.io.rawvideo import YUV420P_FOURCCS
 
@@ -107,10 +113,7 @@ def _container(head: bytes) -> Optional[str]:
 
 
 _FOURCC_NAMES = {
-    b"XVID": "MPEG-4 Part 2 (XVID)", b"xvid": "MPEG-4 Part 2 (xvid)",
-    b"DIVX": "MPEG-4 Part 2 (DIVX)", b"DX50": "MPEG-4 Part 2 (DX50)",
-    b"FMP4": "MPEG-4 Part 2 (FMP4)", b"mp4v": "MPEG-4 Part 2 (mp4v)",
-    b"MP4V": "MPEG-4 Part 2 (MP4V)", b"H264": "H.264 (H264)",
+    b"H264": "H.264 (H264)",
     b"h264": "H.264 (h264)", b"avc1": "H.264 (avc1)",
     b"X264": "H.264 (X264)", b"HEVC": "HEVC (HEVC)",
     b"hev1": "HEVC (hev1)", b"hvc1": "HEVC (hvc1)",
@@ -135,10 +138,13 @@ def fourcc_codec(fourcc: bytes) -> Optional[str]:
         return "png"
     if fourcc in HUFFYUV_FOURCCS:
         return "huffyuv"
+    if fourcc in MPEG4_FOURCCS:
+        return "mpeg4"
     return None
 
 
-_READS = "Motion JPEG, FFV1, raw I420 / IYUV / YV12, PNG and Huffyuv"
+_READS = ("Motion JPEG, FFV1, raw I420 / IYUV / YV12, PNG, Huffyuv and "
+          "MPEG-4 Part 2")
 
 
 class VideoReader:
@@ -147,6 +153,7 @@ class VideoReader:
 
     def __init__(self, path: str):
         self.path = path
+        self.container = ""
         self.codec = ""
         self.fourcc = b""
         self.width = self.height = 0
@@ -255,6 +262,7 @@ class VideoReader:
                 f"{path}: AVI with {_codec(fourcc)} video is read by "
                 f"cv2.VideoCapture but not by the port (which reads "
                 f"{_READS})")
+        self.container = "AVI"
         self._set(fourcc_codec(fourcc), fourcc, s.width, abs(s.height),
                   s.extradata, avi)
 
@@ -267,13 +275,14 @@ class VideoReader:
             raise UnsupportedVideo(f"{e}: read by cv2.VideoCapture but not "
                                    f"by the port") from None
         t = mp4.track
-        if t.codec not in ("ffv1", "mjpeg", "png"):
+        if t.codec not in ("ffv1", "mjpeg", "png", "mpeg4"):
             mp4.close()
             fourcc = t.fourcc.decode("latin-1")
             raise UnsupportedVideo(
                 f"{path}: MP4 with {t.codec} video ({fourcc}) is read by "
                 f"cv2.VideoCapture but not by the port (which reads FFV1, "
-                f"Motion JPEG and PNG in MP4)")
+                f"Motion JPEG, PNG and MPEG-4 Part 2 in MP4)")
+        self.container = "MP4"
         self._set(t.codec, t.fourcc, t.width, t.height, t.extradata, mp4)
 
     def _open_mkv(self, path: str) -> None:
@@ -290,6 +299,9 @@ class VideoReader:
             codec, extradata = "ffv1", t.codec_private
         elif t.codec_id == "V_MJPEG":
             codec = "mjpeg"
+        elif t.codec_id in ("V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP",
+                            "V_MPEG4/ISO/AP"):
+            codec, fourcc, extradata = "mpeg4", b"", t.codec_private
         elif t.codec_id == "V_UNCOMPRESSED":
             fourcc = t.colour_space
             codec = "rawvideo" if fourcc in YUV420P_FOURCCS else None
@@ -308,6 +320,7 @@ class VideoReader:
                 f"{path}: Matroska/WebM with {kind} video ({t.codec_id}) is "
                 f"read by cv2.VideoCapture but not by the port (which reads "
                 f"{_READS})")
+        self.container = "Matroska"
         self._set(codec, fourcc, t.width, t.height, extradata, mkv)
 
     def _set(self, codec, fourcc, width, height, extradata, demuxer) -> None:
@@ -356,6 +369,11 @@ class VideoReader:
             dec = HuffyuvDecoder(self.extradata, self.width, self.height,
                                  self.path)
             return lambda data, what: dec.decode(data), dec.close
+        if self.codec == "mpeg4":
+            from fealess_tpu_torch.io.mpeg4 import Mpeg4Decoder
+            dec = Mpeg4Decoder(self.extradata, self.fourcc, self.path,
+                               self.container)
+            return lambda data, what: dec.decode(data), dec.close
         if self.codec == "png":
             return image2.png_frame, nothing
         return image2.bmp_frame, nothing
@@ -397,6 +415,8 @@ class VideoReader:
                     ) from None
                 except DecodeError:
                     return
+                if frame is None:          # a VOP not coded: no frame
+                    continue
                 if self._image2:
                     if first is None:
                         first = frame.shape

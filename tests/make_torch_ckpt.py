@@ -10,6 +10,12 @@ Needs JAX and orbax (this writes with them).  Beside the checkpoint,
 and shape as the JAX package's ``load_bank`` restores them.
 ``tests/test_torch_persist.py`` holds the committed checkpoint to JAX's
 ``load_bank`` and to these digests, so a change in orbax shows.
+
+``tests/data/torch_ckpt/filestorage.json`` holds the sha256 of the JAX
+package's ``save_linemod`` of the fixture bank as XML and as JSON
+(cv::FileStorage's text, 10 MB each, not committed), which
+``chip_smoke.py`` phase 7e holds the port's writer to on the card;
+``tests/test_torch_filestorage.py`` holds them to JAX's writer here.
 """
 
 from __future__ import annotations
@@ -43,6 +49,25 @@ def leaf_digests(bank) -> dict:
     return out
 
 
+FILESTORAGE = os.path.join(REPO, "tests", "data", "torch_ckpt",
+                           "filestorage.json")
+
+
+def filestorage_digests() -> dict:
+    """form -> sha256 of the JAX writer's file of the fixture bank."""
+    import tempfile
+    from fealess_tpu.io import linemod_yaml
+    det, classes = linemod_yaml.load_linemod(YAML)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for form in ("xml", "json"):
+            path = os.path.join(tmp, f"bank.{form}")
+            linemod_yaml.save_linemod(path, det, classes)
+            with open(path, "rb") as f:
+                out[form] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
 def main() -> None:
     sys.path.insert(0, REPO)
     import jax
@@ -61,6 +86,9 @@ def main() -> None:
     total = sum(os.path.getsize(os.path.join(d, f))
                 for d, _, fs in os.walk(OUT) for f in fs)
     print(f"wrote {OUT} ({total} bytes)")
+    with open(FILESTORAGE, "w") as f:
+        json.dump(filestorage_digests(), f, indent=1, sort_keys=True)
+        f.write("\n")
 
 
 if __name__ == "__main__":

@@ -25,6 +25,20 @@ holds them to, taken from cv2 and the JAX package on the CPU.
   (``seq/f_%03d.png``, one of them gray); and at 640x480 the clip's
   first two frames as FFV1 in MP4 (``pan_ffv1.mp4``) and its four frames
   as ``cv2.imwrite`` JPEGs behind the pattern ``pan/%d.jpg``;
+- MPEG-4 Part 2 from ``cv2.VideoWriter`` (:func:`mpeg4_sources`,
+  ``m4_*``): each fourcc it writes MPEG-4 for (``mp4v``, ``MP4V``,
+  ``XVID``, ``xvid``, ``FMP4``, ``DIVX``, ``DX50``) in AVI, ``mp4v`` in MP4
+  and Matroska and ``XVID`` in Matroska (``V_MS/VFW/FOURCC``), frames of
+  17x33 and 63x47 (the writer rounds them down to 16x32 and 62x46), the
+  scene-cut clip with its VOL's width made odd (95, hand-edited: the
+  writer writes even sizes), a scene cut in half of the frame mid-GOP (intra
+  macroblocks in P-VOPs), motion of 13 and 7 pixels a frame past the
+  frame's edge (``vop_fcode_forward`` 2, clamped reference samples),
+  flat and blurred frames at 2 fps (QP rising, intra blocks with no AC
+  coefficients) and noise at 60 fps (third-escape intra levels); a
+  hand-muxed AVI with a VOP that is not coded (``m4_notcoded.avi``, which
+  cv2 drops); and at 640x480 the clip's four frames as ``mp4v`` in AVI
+  (``pan_mp4v.avi``);
 - ``digests.json``: for each source the frame count and each frame's
   shape and sha256 from ``cv2.VideoCapture``;
 - ``recon.json``: the JAX CLI's ``acq`` output on ``clip.avi`` with its
@@ -32,8 +46,8 @@ holds them to, taken from cv2 and the JAX package on the CPU.
   pixels), its ``recon`` lines on that package with the fixture's
   features, with the default ICP settings ("a") and with iterations forced
   to the cap ("b", ``chip_smoke.FORCED``), and the JAX engine's match on
-  each frame; under ``"sources"`` the same for ``pan_ffv1.mp4`` and
-  ``pan/%d.jpg`` (``RECON_SOURCES``).
+  each frame; under ``"sources"`` the same for ``pan_ffv1.mp4``,
+  ``pan/%d.jpg`` and ``pan_mp4v.avi`` (``RECON_SOURCES``).
 
 ``tests/test_torch_video.py`` holds the digests to cv2 on the CPU, so they
 cannot go stale.  The muxer is shared with that test.
@@ -60,7 +74,21 @@ PATH_SOURCES = ("images/gray16.png", "images/one.bmp", "images/one.jpg",
 SOURCE_DIRS = ("images", "pan", "seq")
 CONTAINERS = (".avi", ".mkv", ".mp4")
 # the sources acq reads into recon (chip_smoke phase 7f): name -> frames
-RECON_SOURCES = {"pan_ffv1.mp4": 2, "pan/%d.jpg": CLIP_FRAMES}
+RECON_SOURCES = {"pan_ffv1.mp4": 2, "pan/%d.jpg": CLIP_FRAMES,
+                 "pan_mp4v.avi": CLIP_FRAMES}
+# the fourccs cv2.VideoWriter writes MPEG-4 Part 2 for
+MPEG4_FOURCCS = ("mp4v", "MP4V", "XVID", "xvid", "FMP4", "DIVX", "DX50")
+# (first bit, width) of VOL fields past the start code in the VOL that
+# FFmpeg's encoder writes (verid 1, vol_control_parameters 1 without VBV
+# parameters, fixed_vop_rate 0)
+VOL_FIELDS = {"vo_type": (1, 8), "verid": (10, 4), "aspect_ratio_info":
+              (17, 4), "vbv_parameters": (25, 1), "shape": (26, 2),
+              "fixed_vop_rate": (46, 1), "interlaced": (76, 1),
+              "obmc_disable": (77, 1), "sprite_enable": (78, 1),
+              "not_8_bit": (79, 1), "quant_type": (80, 1),
+              "complexity_estimation_disable": (81, 1),
+              "resync_marker_disable": (82, 1), "data_partitioned": (83, 1),
+              "scalability": (84, 1)}
 
 
 def _chunk(cid: bytes, data: bytes) -> bytes:
@@ -136,6 +164,51 @@ def mux_avi(frames, width: int, height: int, fourcc: bytes = b"MJPG",
         for k, entry in enumerate(supers):
             out[at + 16 * k:at + 16 * k + 16] = struct.pack("<QII", *entry)
     return bytes(out)
+
+
+def set_bits(data: bytes, at: int, width: int, value: int) -> bytes:
+    """``data`` with the ``width`` bits from bit ``at`` set to ``value``."""
+    n = len(data) * 8
+    v = int.from_bytes(data, "big")
+    mask = ((1 << width) - 1) << (n - at - width)
+    v = (v & ~mask) | (value << (n - at - width))
+    return v.to_bytes(len(data), "big")
+
+
+def set_vol_bit(data: bytes, field: str, value: int) -> bytes:
+    """``data`` (a file or a packet) with ``field`` of :data:`VOL_FIELDS`
+    set to ``value`` in every VOL it holds."""
+    at, width = VOL_FIELDS[field]
+    out, pos = bytearray(data), 0
+    while True:
+        pos = data.find(b"\x00\x00\x01\x20", pos)
+        if pos < 0:
+            return bytes(out)
+        start = pos + 4
+        end = start + (at + width + 7) // 8
+        out[start:end] = set_bits(bytes(out[start:end]), at, width, value)
+        pos = start
+
+
+def set_vol_width(data: bytes, width: int) -> bytes:
+    """``data`` with the width (13 bits after the start code's 48th) of
+    every VOL it holds set to ``width``."""
+    out, pos = data, 0
+    while True:
+        pos = out.find(b"\x00\x00\x01\x20", pos)
+        if pos < 0:
+            return out
+        out = set_bits(out, (pos + 4) * 8 + 48, 13, width)
+        pos += 4
+
+
+def not_coded_vop(time_increment: int, increment_bits: int) -> bytes:
+    """A P-VOP with ``vop_coded`` 0, stuffed to a byte."""
+    bits = ("01" "0" "1" + format(time_increment, f"0{increment_bits}b")
+            + "1" "0")
+    bits += "0" + "1" * ((-len(bits) - 1) % 8)
+    return b"\x00\x00\x01\xb6" + int(bits, 2).to_bytes(len(bits) // 8,
+                                                         "big")
 
 
 def sha256(a: np.ndarray) -> str:
@@ -304,6 +377,71 @@ def other_sources(frames) -> None:
                     [cv2.IMWRITE_JPEG_QUALITY, 90])
 
 
+def _shifted(img: np.ndarray, dx: float, dy: float) -> np.ndarray:
+    """``img`` moved by (dx, dy), its edge pixels repeated."""
+    import cv2
+    m = np.float32([[1, 0, dx], [0, 1, dy]])
+    return cv2.warpAffine(img, m, (img.shape[1], img.shape[0]),
+                          borderMode=cv2.BORDER_REPLICATE)
+
+
+def mpeg4_sources(frames) -> None:
+    """Write the MPEG-4 Part 2 sources (see the module docstring);
+    ``frames`` are the clip's."""
+    import cv2
+    from fealess_tpu_torch.io.avi import AviFile
+
+    def out(name):
+        return os.path.join(OUT, name)
+    base = scene(48, 32, 21, 1)[0]
+    pan = [_shifted(base, 2 * i, i) for i in range(5)]
+    for cc in MPEG4_FOURCCS:
+        write_cv2_clip(out(f"m4_{cc}.avi"), pan, cc)
+    write_cv2_clip(out("m4_mp4v.mp4"), pan, "mp4v")
+    write_cv2_clip(out("m4_mp4v.mkv"), pan, "mp4v")
+    write_cv2_clip(out("m4_XVID.mkv"), pan, "XVID")
+    odd = scene(63, 47, 22, 1)[0]
+    write_cv2_clip(out("m4_size_17x33.avi"),
+                   [cv2.resize(_shifted(odd, i, 2 * i), (17, 33))
+                    for i in range(4)], "mp4v")
+    write_cv2_clip(out("m4_size_63x47.mp4"),
+                   [_shifted(odd, -i, i) for i in range(4)], "mp4v")
+    a, b = scene(96, 64, 23, 1)[0], scene(96, 64, 24, 1)[0]
+    cut = [_shifted(a, i, 0) for i in range(4)]
+    for i in range(4):
+        f = _shifted(a, 4 + i, 0)
+        f[:, 48:] = _shifted(b, 0, i)[:, 48:]
+        cut.append(f)
+    write_cv2_clip(out("m4_cut.avi"), cut, "mp4v")
+    # its VOL's width made odd (95): the same macroblocks, cropped
+    avi = AviFile(out("m4_cut.avi"))
+    packets = [set_vol_width(p, 95) for p in avi.frames()]
+    avi.close()
+    with open(out("m4_odd_95x64.avi"), "wb") as f:
+        f.write(mux_avi(packets, 95, 64, fourcc=b"FMP4"))
+    big = scene(96, 64, 25, 1)[0]
+    write_cv2_clip(out("m4_motion.avi"),
+                   [_shifted(big, 13 * i, -7 * i) for i in range(7)], "mp4v")
+    smooth = [cv2.GaussianBlur(_shifted(big, 2 * i, i), (21, 21), 0)[:32, :48]
+              for i in range(5)]
+    for f in smooth:
+        f[:, :24] = (90, 140, 200)
+    write_cv2_clip(out("m4_rate_fps2.avi"), smooth, "mp4v", fps=2)
+    rng = np.random.default_rng(26)
+    write_cv2_clip(out("m4_rate_fps60.avi"),
+                   [rng.integers(0, 256, (32, 48, 3)).astype(np.uint8)
+                    for _ in range(3)], "mp4v", fps=60)
+    # m4_mp4v.avi's packets with a VOP that is not coded after the third
+    # (10 fps: 4 time increment bits)
+    avi = AviFile(out("m4_mp4v.avi"))
+    packets = list(avi.frames())
+    avi.close()
+    with open(out("m4_notcoded.avi"), "wb") as f:
+        f.write(mux_avi(packets[:3] + [not_coded_vop(5, 4)] + packets[3:],
+                        48, 32, fourcc=b"FMP4"))
+    write_cv2_clip(out("pan_mp4v.avi"), [b for b, _ in frames], "mp4v")
+
+
 def committed_sources():
     """Every committed source of OUT that ``digests.json`` lists."""
     return sorted([n for n in os.listdir(OUT) if n.endswith(CONTAINERS)]
@@ -370,6 +508,7 @@ def main() -> None:
         with open(os.path.join(OUT, name), "wb") as f:
             f.write(data)
     other_sources(frames)
+    mpeg4_sources(frames)
     digests = {name: digest(os.path.join(OUT, name))
                for name in committed_sources()}
     with open(os.path.join(OUT, "digests.json"), "w") as f:

@@ -21,7 +21,7 @@ from fealess_tpu_torch.io.avi import AviFile
 from fealess_tpu_torch.io.series import ImageSeriesReader
 from fealess_tpu_torch.io.video import UnsupportedVideo, VideoReader
 from tests.make_torch_video import (cv2_frames, jpeg, mux_avi, scene,
-                                    write_cv2_clip, yuv420p)
+                                    set_vol_bit, write_cv2_clip, yuv420p)
 from tests.test_torch_image2 import same_as_cv2
 
 
@@ -492,9 +492,17 @@ def test_matroska_vfw_fourccs(tmp_path):
     ("avi", "VP80", "VP8")])
 def test_container_refusals_name_the_codec(tmp_path, ext, fourcc, match):
     """Codecs cv2 reads from these containers and the port does not:
-    UnsupportedVideo naming the container and the codec."""
+    UnsupportedVideo naming the container and the codec.  MPEG-4 Part 2
+    is read since it has a decoder: its cases hold a VOL that asks for
+    OBMC (which FFmpeg ignores and the port refuses), named with the
+    container and the codec."""
     path = str(tmp_path / f"clip.{ext}")
     write_cv2_clip(path, scene(32, 16, 1, 2), fourcc)
+    if fourcc == "mp4v":
+        with open(path, "rb") as f:
+            data = set_vol_bit(f.read(), "obmc_disable", 0)
+        with open(path, "wb") as f:
+            f.write(data)
     assert len(cv2_frames(path)) == 2
     with pytest.raises(UnsupportedVideo, match=match):
         VideoReader(path)

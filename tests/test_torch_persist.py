@@ -9,6 +9,7 @@ such a bank as ``ObjReco.recognition`` does; the serving artifact's
 (match and similarity exactly, pose within 0.05 mm and 0.01 deg), and so
 does an artifact that the JAX package wrote."""
 
+import gzip
 import json
 import os
 import shutil
@@ -111,11 +112,13 @@ DETS = [cfg.DetectorConfig(t_at_level=(5, 8, 4),
 
 
 @pytest.mark.parametrize("det", DETS, ids=["linemod3", "line"])
-@pytest.mark.parametrize("suffix", [".yml", ".yml.gz"])
+@pytest.mark.parametrize("suffix", [".yml", ".yml.gz", ".xml", ".json",
+                                    ".xml.gz", ".json.gz"])
 def test_save_linemod_roundtrips_through_both_readers(tmp_path, det, suffix):
     """Several classes, odd pose values (f32 round-trip), LINE-MOD and LINE
-    modality sets, plain and gzip: the port's file reads back through both
-    readers to what was written, and equals the JAX writer's text."""
+    modality sets, YAML, XML and JSON, plain and gzip: the port's file
+    reads back through both readers to what was written, and equals the
+    JAX writer's text (inside the gzip member for .gz)."""
     classes = _random_classes(det, np.random.default_rng(5))
     port_path = str(tmp_path / ("port" + suffix))
     jax_path = str(tmp_path / ("jax" + suffix))
@@ -126,9 +129,9 @@ def test_save_linemod_roundtrips_through_both_readers(tmp_path, det, suffix):
         det_r, cls_r = reader(port_path)
         assert det_r == want
         _assert_same_classes(cls_r, classes)
-    if suffix == ".yml":
-        with open(port_path) as a, open(jax_path) as b:
-            assert a.read() == b.read()
+    opener = gzip.open if suffix.endswith(".gz") else open
+    with opener(port_path, "rb") as a, opener(jax_path, "rb") as b:
+        assert a.read() == b.read()
 
 
 def test_save_classes_load_classes(tmp_path):

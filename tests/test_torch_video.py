@@ -31,7 +31,7 @@ from fealess_tpu_torch.io.series import ImageSeriesReader
 from fealess_tpu_torch.io.video import UnsupportedVideo, VideoReader
 from tests.make_torch_video import (OUT, committed_sources, cut_dht,
                                     cv2_frames, digest, jpeg, mux_avi, scene,
-                                    sha256, write_cv2_clip)
+                                    set_vol_bit, sha256, write_cv2_clip)
 from tests.test_torch_io import LOADED
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -228,21 +228,30 @@ def test_committed_clips_match_cv2_and_the_digests():
 
 
 def test_refusals_name_what_they_refuse(tmp_path):
-    """MPEG-4 Part 2 in MP4 and in Matroska, XVID in AVI, an interlaced
+    """VP9 in MP4, VP8 in Matroska, MS MPEG-4 v3 (DIV3) in AVI, an
+    MPEG-4 Part 2 clip whose VOL asks for OBMC, an interlaced
     Motion JPEG (two fields a chunk), raw Motion JPEG: UnsupportedVideo
     naming the container, the fourcc or the kind; a missing file, a file
     of no known container and an AVI with no video stream: OSError as the
     JAX reader's; a camera index: ValueError."""
     frames = scene(64, 48, 1, 2)
-    mp4, mkv, xvid = (str(tmp_path / n) for n in ("a.mp4", "a.mkv",
-                                                  "a.avi"))
-    write_cv2_clip(mp4, frames, "mp4v")
-    write_cv2_clip(mkv, frames, "mp4v")
-    write_cv2_clip(xvid, frames, "XVID")
-    for path, match in ((mp4, "MP4"), (mkv, "Matroska"), (xvid, "XVID")):
+    mp4, mkv, div3, obmc = (str(tmp_path / n) for n in (
+        "a.mp4", "a.mkv", "a.avi", "obmc.avi"))
+    write_cv2_clip(mp4, frames, "VP90")
+    write_cv2_clip(mkv, frames, "VP80")
+    write_cv2_clip(div3, frames, "DIV3")
+    write_cv2_clip(obmc, frames, "XVID")
+    with open(obmc, "r+b") as f:             # FFmpeg ignores the bit
+        data = bytearray(f.read())
+        data[:] = set_vol_bit(bytes(data), "obmc_disable", 0)
+        f.seek(0)
+        f.write(data)
+    for path, match in ((mp4, "MP4 with VP9"), (mkv, "Matroska.*VP8"),
+                        (div3, "DIV3"), (obmc, "AVI with MPEG-4 Part 2 "
+                                               ".*OBMC")):
         assert len(cv2_frames(path)) == 2
         with pytest.raises(UnsupportedVideo, match=match):
-            VideoReader(path)
+            list(VideoReader(path))
     fields = [jpeg(f[::2]) + jpeg(f[1::2]) for f in frames]
     inter = _write(tmp_path, mux_avi(fields, 64, 48), "fields.avi")
     assert len(cv2_frames(inter)) == 2
@@ -356,10 +365,10 @@ def test_acq_cli_on_the_committed_clip_equals_jax(tmp_path):
 
 
 def test_acq_refuses_a_video_it_does_not_read(tmp_path, capsys):
-    """acq on an MP4 or a missing path prints the reason and returns 1,
-    writing nothing."""
+    """acq on a VP9 MP4 or a missing path prints the reason and returns
+    1, writing nothing."""
     mp4 = str(tmp_path / "a.mp4")
-    write_cv2_clip(mp4, scene(32, 16, 1, 2), "mp4v")
+    write_cv2_clip(mp4, scene(32, 16, 1, 2), "VP90")
     for source, match in ((mp4, "MP4"),
                           (str(tmp_path / "nope.avi"), "cannot open")):
         out = str(tmp_path / "out")
@@ -389,15 +398,15 @@ print(json.dumps({"rc": rc, "shapes": shapes, "others": others,
 
 # one committed source of each demuxer and decoder the subprocess reads
 OTHERS = ("ffv1.mkv", "i420.avi", "mjpeg.mp4", "mpng.mkv", "images/one.bmp",
-          "images/one.jpg", "seq/f_%03d.png")
+          "images/one.jpg", "seq/f_%03d.png", "m4_cut.avi", "m4_mp4v.mp4")
 
 
 def test_video_and_acq_run_without_jax_flax_or_cv2(tmp_path):
     """A fresh interpreter reads the committed clip and runs acq from it
     (depth, clouds), and reads a committed source of each other demuxer
     and decoder (MP4, Matroska, raw I420, PNG video, BMP and JPEG images,
-    a printf pattern); jax, flax, cv2 and the JAX package are never
-    loaded."""
+    a printf pattern, MPEG-4 Part 2); jax, flax, cv2 and the JAX package
+    are never loaded."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", _SUBPROCESS,
                           os.path.join(OUT, "clip.avi"),
