@@ -350,6 +350,7 @@ FILESTORAGE_DIGESTS = os.path.join(REPO, "tests", "data", "torch_ckpt",
                                    "filestorage.json")
 FILESTORAGE_TIMED = 3
 VIDEO_DIR = os.path.join(REPO, "tests", "data", "torch_video")
+VP8_DIR = os.path.join(REPO, "tests", "data", "torch_vp8")
 CLOUD_TOL_MM = 1e-3
 DECODE_TIMED = 10
 
@@ -2147,11 +2148,11 @@ def huffyuv_bytes(img, extradata: bytes) -> bytes:
 
 def acq_recon_source(eng, card, counts, default_icp, name: str,
                      n_frames: int, expect: dict, kind: str,
-                     no_clouds: bool) -> None:
-    """``acq --device cuda --clouds`` from the committed source ``name``
-    with the committed depth directory: its ``gray/`` and ``depth/``
-    pixels held to the JAX CLI's (``expect["acq"]``) and its clouds to the
-    same call on the CPU; then ``recon --device cuda`` on the package in
+                     no_clouds: bool, directory: str = VIDEO_DIR) -> None:
+    """``acq --device cuda --clouds`` from the committed source ``name`` in
+    ``directory`` with the committed depth directory: its ``gray/`` and
+    ``depth/`` pixels held to the JAX CLI's (``expect["acq"]``) and its
+    clouds to the same call on the CPU; then ``recon --device cuda`` on the package in
     both ICP settings against the JAX CLI's lines, K1/K2/K3 counted.
     ``no_clouds`` times a third call without ``--clouds``."""
     import contextlib
@@ -2164,7 +2165,7 @@ def acq_recon_source(eng, card, counts, default_icp, name: str,
 
     zero_counts, read_counts, path_launches, counted = counts
     dev = eng.device
-    source = os.path.join(VIDEO_DIR, name)
+    source = os.path.join(directory, name)
 
     def sha(a) -> str:
         return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
@@ -2267,11 +2268,12 @@ def video_phase(eng, card, counts, default_icp) -> None:
     """Phase 7f: every committed source of ``tests/data/torch_video`` (AVI,
     MP4 and Matroska files, image files, printf patterns) decoded by
     ``io/video.VideoReader`` to cv2's digests; ``acq --device cuda
-    --clouds`` from the committed Motion JPEG clip, the FFV1 MP4 and the
-    JPEG pattern with the depth directory, each package held to the JAX
-    CLI's pixels and clouds to the same call on the CPU, and ``recon
-    --device cuda`` on it in both ICP settings against the JAX CLI's
-    lines, K1/K2/K3 counted; host decode times per 640x480 frame."""
+    --clouds`` from the committed Motion JPEG clip, the FFV1 MP4, the
+    JPEG pattern and the mp4v AVI with the depth directory, each package
+    held to the JAX CLI's pixels and clouds to the same call on the CPU,
+    and ``recon --device cuda`` on it in both ICP settings against the JAX
+    CLI's lines, K1/K2/K3 counted; host decode times per 640x480 frame;
+    then the VP8 sources (``vp8_sources``)."""
     import hashlib
 
     import numpy as np
@@ -2381,6 +2383,7 @@ def video_phase(eng, card, counts, default_icp) -> None:
           + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
           + f" ({card})")
     mpeg4_frame_times(card)
+    vp8_sources(eng, card, counts, default_icp)
 
 
 def mpeg4_frame_times(card) -> None:
@@ -2406,6 +2409,73 @@ def mpeg4_frame_times(card) -> None:
     print(f"time MPEG-4 Part 2 decode to BGR (host, 640x480, "
           f"{len(packets[0])}-byte I-VOP, {len(packets[1])}-byte P-VOP, mean "
           f"of {DECODE_TIMED} after a warm call): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+          + f" ({card})")
+
+
+def vp8_sources(eng, card, counts, default_icp) -> None:
+    """Phase 7f's VP8 part: every committed source of ``tests/data/
+    torch_vp8`` (``cv2.VideoWriter``'s VP80 in AVI, Matroska and WebM, and
+    streams re-encoded with header fields changed) decoded by
+    ``VideoReader`` to cv2's digests; ``acq --device cuda --clouds`` from
+    the 640x480 WebM clip and ``recon`` on its package in both ICP
+    settings (``acq_recon_source``); host times of a 640x480 key frame,
+    an inter frame and ``VideoReader`` a frame."""
+    import hashlib
+
+    import numpy as np
+    from fealess_tpu_torch.io.video import VideoReader
+    from fealess_tpu_torch.io.vp8 import Vp8Decoder
+
+    with open(os.path.join(VP8_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    with open(os.path.join(VP8_DIR, "recon.json")) as f:
+        expect = json.load(f)
+
+    def sha(a) -> str:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    for name, want in sorted(digests.items()):
+        with VideoReader(os.path.join(VP8_DIR, name)) as reader:
+            frames = list(reader)
+        got = {"frames": len(frames),
+               "shapes": [list(f.shape) for f in frames],
+               "sha256": [sha(f) for f in frames]}
+        check(got == want, f"video {name}: {got}, cv2 gives {want}")
+    print(f"VP8 input: {len(digests)} committed sources ("
+          f"{sum(d['frames'] for d in digests.values())} frames: "
+          f"cv2.VideoWriter's VP80 in AVI, Matroska and WebM at 640x480 "
+          f"(golden refreshes, a scene cut), 96x64, 94x62 and 16x16, motion "
+          f"past the edge, 2 and 60 fps; re-encoded with a hidden frame, "
+          f"versions 1-3, reference copies and sign biases, kept "
+          f"probabilities, the simple filter and sharpness, 2-8 token "
+          f"partitions, no skip flags; scale bits and 93x61 in the key "
+          f"frames): frame counts and every frame's sha256 equal to "
+          f"cv2.VideoCapture's")
+    name = "pan_vp8.webm"
+    acq_recon_source(eng, card, counts, default_icp, name,
+                     digests[name]["frames"], expect["sources"][name],
+                     "VP8 in WebM", False, VP8_DIR)
+
+    # a key frame and an inter frame decoded to BGR (no demux); the inter
+    # frame decodes each time against the references the call before left
+    with VideoReader(os.path.join(VP8_DIR, name)) as reader:
+        packets = list(reader._packets())
+    check([not p[0] & 1 for p in packets[:2]] == [True, False],
+          f"{name}: frame types {[p[0] & 1 for p in packets]}, expected a "
+          f"key frame then inter frames")
+    dec = Vp8Decoder(name, "Matroska")
+    times = {"key frame": host_mean_ms(lambda: dec.decode(packets[0]),
+                                       DECODE_TIMED),
+             "inter frame": host_mean_ms(lambda: dec.decode(packets[1]),
+                                         DECODE_TIMED)}
+    dec.close()
+    times["VideoReader a frame (demux included)"] = host_mean_ms(
+        lambda: list(VideoReader(os.path.join(VP8_DIR, name))),
+        DECODE_TIMED) / len(packets)
+    print(f"time VP8 decode to BGR (host, 640x480, {len(packets[0])}-byte "
+          f"key frame, {len(packets[1])}-byte inter frame, mean of "
+          f"{DECODE_TIMED} after a warm call): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
           + f" ({card})")
 

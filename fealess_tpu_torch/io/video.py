@@ -32,6 +32,8 @@ Then a frame decoder by codec:
 - MPEG-4 Part 2 (:mod:`~fealess_tpu_torch.io.mpeg4`): AVI ``mp4v``,
   ``MP4V``, ``XVID``, ``xvid``, ``FMP4``, ``DIVX``, ``DX50``; MP4 ``mp4v``
   with object type 0x20; Matroska ``V_MPEG4/ISO/SP``, ``ASP``, ``AP``;
+- VP8 (:mod:`~fealess_tpu_torch.io.vp8`): AVI ``VP80``; Matroska and
+  WebM ``V_VP8``;
 - BMP (:func:`~fealess_tpu_torch.io.image2.bmp_frame`): BMP images.
 
 Matroska's ``V_MS/VFW/FOURCC`` takes the AVI fourccs.  A path that does
@@ -42,10 +44,10 @@ source ...")``, as the JAX reader raises when ``cv2.VideoCapture`` does
 not open.  A source cv2 reads and the port does not raises
 :class:`UnsupportedVideo`, naming it: MPEG-PS/TS, Ogg, FLV and ASF;
 fragmented MP4 and edit lists that drop frames; Matroska with
-compressed blocks; WebM and other codecs (VP8, VP9, AV1, H.264, HEVC,
-``FFVH``, uncompressed BI_RGB, other MPEG-4 Part 2 fourccs, ...); the
-MPEG-4 Part 2 tools :mod:`~fealess_tpu_torch.io.mpeg4` refuses by name;
-raw Motion JPEG (JPEG
+compressed blocks; other codecs (VP9, AV1, H.264, HEVC, ``FFVH``,
+uncompressed BI_RGB, other MPEG-4 Part 2 fourccs, VP8 in MP4, ...); the
+MPEG-4 Part 2 tools :mod:`~fealess_tpu_torch.io.mpeg4` and the VP8 ones
+:mod:`~fealess_tpu_torch.io.vp8` refuse by name; raw Motion JPEG (JPEG
 images back to back); images of other formats (TIFF, WebP, ...); the PNG
 and BMP kinds :mod:`~fealess_tpu_torch.io.image2` names (16-bit colour
 PNG, Adam7 PNG, 16-bit BMP, RLE deltas, BMP data ``cv2.imread`` cannot
@@ -58,7 +60,9 @@ would serve is dropped without a word.
 
 A packet the decoder rejects (``DecodeError``) is where cv2's ``read``
 first returns False: iterating a :class:`VideoReader` ends there, as the
-JAX reader's loop does.
+JAX reader's loop does.  A VP8 frame that FFmpeg stops part way (its
+end-of-data check) is one too: cv2 returns it with the macroblocks left
+undecoded holding an older buffer's pixels, which no reader can match.
 """
 
 from __future__ import annotations
@@ -80,6 +84,8 @@ from fealess_tpu_torch.io.matroska import (CODEC_NAMES, MatroskaError,
 from fealess_tpu_torch.io.mpeg4 import FOURCCS as MPEG4_FOURCCS
 from fealess_tpu_torch.io.png import DecodeError
 from fealess_tpu_torch.io.rawvideo import YUV420P_FOURCCS
+from fealess_tpu_torch.io.vp8 import CODEC_ID as VP8_CODEC_ID
+from fealess_tpu_torch.io.vp8 import FOURCCS as VP8_FOURCCS
 
 MJPEG_FOURCCS = (b"MJPG", b"mjpg", b"AVRn", b"dmb1")
 FFV1_FOURCCS = (b"FFV1", b"ffv1")
@@ -118,7 +124,7 @@ _FOURCC_NAMES = {
     b"X264": "H.264 (X264)", b"HEVC": "HEVC (HEVC)",
     b"hev1": "HEVC (hev1)", b"hvc1": "HEVC (hvc1)",
     b"FFVH": "FFmpeg's Huffyuv variant (FFVH)",
-    b"VP80": "VP8 (VP80)", b"VP90": "VP9 (VP90)",
+    b"VP90": "VP9 (VP90)",
     b"\0\0\0\0": "uncompressed (BI_RGB)"}
 
 
@@ -140,11 +146,13 @@ def fourcc_codec(fourcc: bytes) -> Optional[str]:
         return "huffyuv"
     if fourcc in MPEG4_FOURCCS:
         return "mpeg4"
+    if fourcc in VP8_FOURCCS:
+        return "vp8"
     return None
 
 
-_READS = ("Motion JPEG, FFV1, raw I420 / IYUV / YV12, PNG, Huffyuv and "
-          "MPEG-4 Part 2")
+_READS = ("Motion JPEG, FFV1, raw I420 / IYUV / YV12, PNG, Huffyuv, "
+          "MPEG-4 Part 2 and VP8")
 
 
 class VideoReader:
@@ -302,6 +310,8 @@ class VideoReader:
         elif t.codec_id in ("V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP",
                             "V_MPEG4/ISO/AP"):
             codec, fourcc, extradata = "mpeg4", b"", t.codec_private
+        elif t.codec_id == VP8_CODEC_ID:
+            codec, fourcc = "vp8", b""
         elif t.codec_id == "V_UNCOMPRESSED":
             fourcc = t.colour_space
             codec = "rawvideo" if fourcc in YUV420P_FOURCCS else None
@@ -374,6 +384,10 @@ class VideoReader:
             dec = Mpeg4Decoder(self.extradata, self.fourcc, self.path,
                                self.container)
             return lambda data, what: dec.decode(data), dec.close
+        if self.codec == "vp8":
+            from fealess_tpu_torch.io.vp8 import Vp8Decoder
+            dec = Vp8Decoder(self.path, self.container)
+            return lambda data, what: dec.decode(data), dec.close
         if self.codec == "png":
             return image2.png_frame, nothing
         return image2.bmp_frame, nothing
@@ -415,7 +429,7 @@ class VideoReader:
                     ) from None
                 except DecodeError:
                     return
-                if frame is None:          # a VOP not coded: no frame
+                if frame is None:    # a VOP not coded, a hidden VP8 frame
                     continue
                 if self._image2:
                     if first is None:

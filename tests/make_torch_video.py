@@ -2,7 +2,8 @@
 phase 7f decodes on the card, where there is no cv2, and the values it
 holds them to, taken from cv2 and the JAX package on the CPU.
 
-    python -m tests.make_torch_video
+    python -m tests.make_torch_video          # everything
+    python -m tests.make_torch_video vp8      # tests/data/torch_vp8 only
 
 - ``clip.avi``: four panned 640x480 fixture frames (``apps/fixture.pan``)
   written by ``cv2.VideoWriter`` as Motion JPEG, with ``depth/<i>.png``
@@ -39,6 +40,21 @@ holds them to, taken from cv2 and the JAX package on the CPU.
   hand-muxed AVI with a VOP that is not coded (``m4_notcoded.avi``, which
   cv2 drops); and at 640x480 the clip's four frames as ``mp4v`` in AVI
   (``pan_mp4v.avi``);
+- in ``tests/data/torch_vp8/`` (:func:`write_vp8`, with a
+  ``digests.json`` and a ``recon.json`` of its own), VP8 from
+  ``cv2.VideoWriter`` (:func:`vp8_sources`, ``vp8_*``; its libvpx, bundled
+  with cv2 5.0.0 as ``libvpx.so.11``): a 96x64 pan in AVI,
+  Matroska and WebM, a 640x480 pan of 24 frames (two golden refreshes,
+  then a scene cut that makes a key frame), 95x63 (the writer writes
+  94x62), 16x16, motion of 37 pixels a frame (clamped MV candidates),
+  ramps at 2 fps (16x16 TM prediction) and noise at 60 fps; from the
+  96x64 AVI's packets, re-encoded by ``tests/vp8_edit.py`` with the header
+  fields :data:`VP8_EDITS` gives (a hidden frame, versions 1-3,
+  ``color_space`` 1, reference copies and sign biases, kept
+  probabilities and mode probability updates, the simple filter and
+  sharpness, 2-8 token partitions, no skip flags) or hand-edited (the key
+  frames' scale bits, their size made 93x61); and at 640x480 the clip's
+  four frames in WebM (``pan_vp8.webm``);
 - ``digests.json``: for each source the frame count and each frame's
   shape and sha256 from ``cv2.VideoCapture``;
 - ``recon.json``: the JAX CLI's ``acq`` output on ``clip.avi`` with its
@@ -47,7 +63,8 @@ holds them to, taken from cv2 and the JAX package on the CPU.
   features, with the default ICP settings ("a") and with iterations forced
   to the cap ("b", ``chip_smoke.FORCED``), and the JAX engine's match on
   each frame; under ``"sources"`` the same for ``pan_ffv1.mp4``,
-  ``pan/%d.jpg`` and ``pan_mp4v.avi`` (``RECON_SOURCES``).
+  ``pan/%d.jpg`` and ``pan_mp4v.avi`` (``RECON_SOURCES``), and in
+  ``tests/data/torch_vp8/recon.json`` for ``pan_vp8.webm``.
 
 ``tests/test_torch_video.py`` holds the digests to cv2 on the CPU, so they
 cannot go stale.  The muxer is shared with that test.
@@ -76,6 +93,10 @@ CONTAINERS = (".avi", ".mkv", ".mp4")
 # the sources acq reads into recon (chip_smoke phase 7f): name -> frames
 RECON_SOURCES = {"pan_ffv1.mp4": 2, "pan/%d.jpg": CLIP_FRAMES,
                  "pan_mp4v.avi": CLIP_FRAMES}
+# the VP8 sources, in a directory of their own (OUT's files stay under
+# test_torch_video's size budget); the one acq reads into recon
+VP8_OUT = os.path.join(REPO, "tests", "data", "torch_vp8")
+VP8_RECON_SOURCES = {"pan_vp8.webm": CLIP_FRAMES}
 # the fourccs cv2.VideoWriter writes MPEG-4 Part 2 for
 MPEG4_FOURCCS = ("mp4v", "MP4V", "XVID", "xvid", "FMP4", "DIVX", "DX50")
 # (first bit, width) of VOL fields past the start code in the VOL that
@@ -442,6 +463,129 @@ def mpeg4_sources(frames) -> None:
     write_cv2_clip(out("pan_mp4v.avi"), [b for b, _ in frames], "mp4v")
 
 
+# the edits that make the re-encoded VP8 clips from vp8_pan.avi's packets
+# (tests/vp8_edit.rewrite): name -> {frame: {header field: value}}; the
+# frame tag's fields ("show", "version") and the number of token
+# partitions ("parts") are fields too, and "no_skip" drops the skip flags
+VP8_EDITS = {
+    "vp8_hidden.avi": {3: {"show": 0}},
+    "vp8_version1.avi": {i: {"version": 1} for i in range(14)},
+    "vp8_version2.avi": {i: {"version": 2} for i in range(14)},
+    "vp8_version3.avi": {i: {"version": 3} for i in range(14)},
+    "vp8_color_space.avi": {0: {"color_space": 1}, 12: {"color_space": 1}},
+    "vp8_refs.avi": {
+        2: {"refresh_golden": 0, "copy_to_golden": 1},
+        3: {"refresh_altref": 0, "copy_to_altref": 1},
+        4: {"refresh_golden": 0, "copy_to_golden": 2, "refresh_last": 0},
+        5: {"refresh_altref": 1, "sign_bias_golden": 1},
+        6: {"sign_bias_altref": 1, "sign_bias_golden": 1},
+        9: {"refresh_last": 0, "sign_bias_altref": 1}},
+    "vp8_probs.avi": {
+        2: {"refresh_probs": 0},
+        4: {"ymode_probs": [90, 70, 160, 60], "uvmode_probs": [150, 120, 190]},
+        5: {"refresh_probs": 0, "ymode_probs": [140, 100, 120, 20]},
+        8: {"uvmode_probs": [170, 90, 210]}},
+    "vp8_filters.avi": {
+        0: {"filter_type": 1, "filter_level": 20},
+        1: {"filter_type": 1, "filter_level": 33, "sharpness": 4},
+        2: {"sharpness": 1, "filter_level": 12},
+        3: {"sharpness": 7, "filter_level": 45},
+        4: {"sharpness": 3, "filter_level": 63},
+        5: {"filter_type": 1, "filter_level": 0}},
+    "vp8_parts.avi": {0: {"parts": 2}, 1: {"parts": 4}, 2: {"parts": 8},
+                      3: {"parts": 2}, 5: {"parts": 8}},
+    "vp8_noskip.avi": {1: {"no_skip": 1}, 2: {"no_skip": 1},
+                       12: {"no_skip": 1}},
+}
+
+
+def _vp8_edit(plan):
+    """``tests.vp8_edit.rewrite``'s edit for one of :data:`VP8_EDITS`."""
+    def edit(i, f, mbs, toks):
+        change = dict(plan.get(i, {}))
+        if change.pop("no_skip", 0) and f["skip_flag"]:
+            # no skip flags: a skipped MB codes an end of block for each
+            # of its blocks instead (25 with Y2, 24 without)
+            f["skip_flag"], f["prob_skip"] = 0, None
+            for m, mb in enumerate(mbs):
+                skipped = mb.pop(0)[1]
+                if skipped:
+                    toks[m] = [(128, 0)] * (24 if f["modes"][m] in (4, 9)
+                                            else 25)
+        f.update(change)
+    return edit
+
+
+def set_vp8_size(packet: bytes, width: int, height: int) -> bytes:
+    """A key frame's packet with the size in its header set (the scale
+    bits kept); other packets as they are."""
+    if packet[0] & 1:
+        return packet
+    b = bytearray(packet)
+    b[6:8] = (width | (b[7] >> 6) << 14).to_bytes(2, "little")
+    b[8:10] = (height | (b[9] >> 6) << 14).to_bytes(2, "little")
+    return bytes(b)
+
+
+def vp8_sources(frames) -> None:
+    """Write the VP8 sources (see the module docstring); ``frames`` are
+    the clip's."""
+    import cv2
+    from fealess_tpu_torch.io.avi import AviFile
+    from tests import vp8_edit
+
+    def out(name):
+        return os.path.join(VP8_OUT, name)
+    base = scene(96, 64, 31, 1)[0]
+    pan = [_shifted(base, 3 * i, -2 * i) for i in range(14)]
+    for ext in ("avi", "mkv", "webm"):
+        write_cv2_clip(out(f"vp8_pan.{ext}"), pan, "VP80")
+    # 640x480: two golden refreshes, then a scene cut (a key frame)
+    big = cv2.resize(scene(160, 120, 32, 1)[0], (700, 520),
+                     interpolation=cv2.INTER_CUBIC)
+    other = cv2.flip(big, -1)
+    long_pan = [_shifted(big if i < 20 else other, -4 * i, -2 * i)[:480, :640]
+                for i in range(24)]
+    write_cv2_clip(out("vp8_pan640.webm"), long_pan, "VP80")
+    odd = scene(95, 63, 33, 1)[0]
+    write_cv2_clip(out("vp8_size_95x63.avi"),
+                   [_shifted(odd, 2 * i, i) for i in range(6)], "VP80")
+    write_cv2_clip(out("vp8_size_16x16.mkv"),
+                   [_shifted(scene(16, 16, 34, 1)[0], i, -i)
+                    for i in range(5)], "VP80")
+    fast = scene(128, 96, 35, 1)[0]
+    write_cv2_clip(out("vp8_motion.mkv"),
+                   [_shifted(fast, 37 * i, -11 * i) for i in range(12)],
+                   "VP80")
+    yy, xx = np.mgrid[0:64, 0:96]
+    ramp = np.stack([(2 * xx + 3 * yy) % 256, (3 * xx + yy + 40) % 256,
+                     (255 - xx - 2 * yy) % 256], -1).astype(np.uint8)
+    smooth = [cv2.GaussianBlur(_shifted(fast, 2 * i, i), (21, 21), 0)
+              [:64, :96] for i in range(6)]
+    for i, f in enumerate(smooth):
+        f[:, :40] = _shifted(ramp, i, 0)[:, :40]
+    write_cv2_clip(out("vp8_rate_fps2.webm"), smooth, "VP80", fps=2)
+    rng = np.random.default_rng(36)
+    write_cv2_clip(out("vp8_rate_fps60.avi"),
+                   [rng.integers(0, 256, (64, 96, 3)).astype(np.uint8)
+                    for _ in range(4)], "VP80", fps=60)
+    # hand-edited and re-encoded from vp8_pan.avi's packets
+    with AviFile(out("vp8_pan.avi")) as avi:
+        packets = list(avi.frames())
+    for name, plan in VP8_EDITS.items():
+        with open(out(name), "wb") as f:
+            f.write(mux_avi(vp8_edit.rewrite(packets, _vp8_edit(plan)), 96,
+                            64, fourcc=b"VP80"))
+    scaled = [bytes([*p[:7], p[7] | 0x40, p[8], p[9] | 0x80, *p[10:]])
+              if not p[0] & 1 else p for p in packets]
+    with open(out("vp8_scale_bits.avi"), "wb") as f:
+        f.write(mux_avi(scaled, 96, 64, fourcc=b"VP80"))
+    with open(out("vp8_odd_93x61.avi"), "wb") as f:
+        f.write(mux_avi([set_vp8_size(p, 93, 61) for p in packets], 93, 61,
+                        fourcc=b"VP80"))
+    write_cv2_clip(out("pan_vp8.webm"), [b for b, _ in frames], "VP80")
+
+
 def committed_sources():
     """Every committed source of OUT that ``digests.json`` lists."""
     return sorted([n for n in os.listdir(OUT) if n.endswith(CONTAINERS)]
@@ -527,7 +671,43 @@ def main() -> None:
     total = sum(os.path.getsize(os.path.join(dp, n))
                 for dp, _, ns in os.walk(OUT) for n in ns)
     print(f"wrote {OUT}: {total} bytes")
+    write_vp8(frames)
+
+
+def vp8_committed_sources():
+    """Every committed source of VP8_OUT (its ``digests.json`` lists
+    them)."""
+    return sorted(n for n in os.listdir(VP8_OUT)
+                  if n.endswith(CONTAINERS + (".webm",)))
+
+
+def write_vp8(frames) -> None:
+    """Write VP8_OUT: the VP8 sources, their ``digests.json`` and
+    ``recon.json`` (the JAX CLI's acq and recon under ``"sources"``, as
+    OUT's)."""
+    os.makedirs(VP8_OUT, exist_ok=True)
+    for name in os.listdir(VP8_OUT):
+        os.remove(os.path.join(VP8_OUT, name))
+    vp8_sources(frames)
+    digests = {name: digest(os.path.join(VP8_OUT, name))
+               for name in vp8_committed_sources()}
+    with open(os.path.join(VP8_OUT, "digests.json"), "w") as f:
+        json.dump(digests, f, indent=1, sort_keys=True)
+        f.write("\n")
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    recon = {"sources": {name: jax_acq_recon(os.path.join(VP8_OUT, name), n)
+                         for name, n in VP8_RECON_SOURCES.items()}}
+    with open(os.path.join(VP8_OUT, "recon.json"), "w") as f:
+        json.dump(recon, f, indent=1, sort_keys=True)
+        f.write("\n")
+    total = sum(os.path.getsize(os.path.join(VP8_OUT, n))
+                for n in os.listdir(VP8_OUT))
+    print(f"wrote {VP8_OUT}: {total} bytes")
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["vp8"]:
+        write_vp8(clip_frames())
+    else:
+        main()

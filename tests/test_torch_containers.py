@@ -493,9 +493,10 @@ def test_matroska_vfw_fourccs(tmp_path):
 def test_container_refusals_name_the_codec(tmp_path, ext, fourcc, match):
     """Codecs cv2 reads from these containers and the port does not:
     UnsupportedVideo naming the container and the codec.  MPEG-4 Part 2
-    is read since it has a decoder: its cases hold a VOL that asks for
-    OBMC (which FFmpeg ignores and the port refuses), named with the
-    container and the codec."""
+    and VP8 are read since they have decoders: the MPEG-4 cases hold a VOL
+    that asks for OBMC (which FFmpeg ignores and the port refuses), the
+    VP8 ones key frames of version 4 (which FFmpeg decodes as version 1-3
+    and the port refuses), named with the container and the codec."""
     path = str(tmp_path / f"clip.{ext}")
     write_cv2_clip(path, scene(32, 16, 1, 2), fourcc)
     if fourcc == "mp4v":
@@ -503,9 +504,18 @@ def test_container_refusals_name_the_codec(tmp_path, ext, fourcc, match):
             data = set_vol_bit(f.read(), "obmc_disable", 0)
         with open(path, "wb") as f:
             f.write(data)
+    if fourcc == "VP80":
+        with open(path, "rb") as f:
+            data = bytearray(f.read())
+        at = data.find(b"\x9d\x01\x2a")
+        while at >= 0:              # the frame tag 3 bytes before
+            data[at - 3] = (data[at - 3] & ~0x0E) | (4 << 1)
+            at = data.find(b"\x9d\x01\x2a", at + 1)
+        with open(path, "wb") as f:
+            f.write(data)
     assert len(cv2_frames(path)) == 2
     with pytest.raises(UnsupportedVideo, match=match):
-        VideoReader(path)
+        list(VideoReader(path))
 
 
 @pytest.mark.parametrize("name,fourcc", [

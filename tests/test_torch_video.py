@@ -228,7 +228,7 @@ def test_committed_clips_match_cv2_and_the_digests():
 
 
 def test_refusals_name_what_they_refuse(tmp_path):
-    """VP9 in MP4, VP8 in Matroska, MS MPEG-4 v3 (DIV3) in AVI, an
+    """VP9 in MP4 and in Matroska, MS MPEG-4 v3 (DIV3) in AVI, an
     MPEG-4 Part 2 clip whose VOL asks for OBMC, an interlaced
     Motion JPEG (two fields a chunk), raw Motion JPEG: UnsupportedVideo
     naming the container, the fourcc or the kind; a missing file, a file
@@ -238,7 +238,7 @@ def test_refusals_name_what_they_refuse(tmp_path):
     mp4, mkv, div3, obmc = (str(tmp_path / n) for n in (
         "a.mp4", "a.mkv", "a.avi", "obmc.avi"))
     write_cv2_clip(mp4, frames, "VP90")
-    write_cv2_clip(mkv, frames, "VP80")
+    write_cv2_clip(mkv, frames, "VP90")
     write_cv2_clip(div3, frames, "DIV3")
     write_cv2_clip(obmc, frames, "XVID")
     with open(obmc, "r+b") as f:             # FFmpeg ignores the bit
@@ -246,7 +246,7 @@ def test_refusals_name_what_they_refuse(tmp_path):
         data[:] = set_vol_bit(bytes(data), "obmc_disable", 0)
         f.seek(0)
         f.write(data)
-    for path, match in ((mp4, "MP4 with VP9"), (mkv, "Matroska.*VP8"),
+    for path, match in ((mp4, "MP4 with VP9"), (mkv, "Matroska.*VP9"),
                         (div3, "DIV3"), (obmc, "AVI with MPEG-4 Part 2 "
                                                ".*OBMC")):
         assert len(cv2_frames(path)) == 2
