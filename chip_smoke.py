@@ -143,21 +143,21 @@ Phases, one line of output each (or a few):
    1/1/9; host times of ``load_linemod`` in the three forms.
 7f. video files, image files and printf patterns (``io/video.
    VideoReader``, as ``cv2.VideoCapture`` reads them: AVI, MP4 and
-   Matroska holding Motion JPEG, FFV1, raw I420, PNG, Huffyuv or MPEG-4
-   Part 2 frames; image2's single images and patterns): every committed
-   source of
-   ``tests/data/torch_video`` decoded to the frame count and each frame's
+   Matroska holding Motion JPEG, FFV1, raw I420, PNG, Huffyuv, MPEG-4
+   Part 2, VP8 or VP9 frames; image2's single images and patterns): every
+   committed source of ``tests/data/torch_video``, ``torch_vp8`` and
+   ``torch_vp9`` decoded to the frame count and each frame's
    sha256 of cv2's (recorded by ``tests/make_torch_video.py``); ``acq
    --device cuda --clouds`` with the committed depth directory from the
-   640x480 Motion JPEG clip, the FFV1 MP4, the JPEG pattern and the mp4v
-   AVI, each
+   640x480 Motion JPEG clip, the FFV1 MP4, the JPEG pattern, the mp4v
+   AVI and the VP8 and VP9 WebM clips, each
    package's ``gray/`` and ``depth/`` pixels equal to the JAX CLI's and its
    clouds within ``CLOUD_TOL_MM`` of the same call on the CPU; ``recon
    --device cuda`` on each package in both ICP settings, its lines held to
    the JAX CLI's (similarity exact, pose within phase 4's tolerances) with
    K1/K2/K3 at 1/1/0 a frame in (a) and 1/1/9 in (b); the host time to
    decode a 640x480 frame of each format, demux included, and of one
-   MPEG-4 I-VOP and one P-VOP.
+   MPEG-4 I-VOP and one P-VOP, and a VP8 and a VP9 key and inter frame.
 8. the rest of the public surface: the CLI's device-stage table
    (``cli._profile_stages``: front-end, match and the full step as
    cumulative prefixes, each the device busy of warm calls under
@@ -351,6 +351,7 @@ FILESTORAGE_DIGESTS = os.path.join(REPO, "tests", "data", "torch_ckpt",
 FILESTORAGE_TIMED = 3
 VIDEO_DIR = os.path.join(REPO, "tests", "data", "torch_video")
 VP8_DIR = os.path.join(REPO, "tests", "data", "torch_vp8")
+VP9_DIR = os.path.join(REPO, "tests", "data", "torch_vp9")
 CLOUD_TOL_MM = 1e-3
 DECODE_TIMED = 10
 
@@ -2273,7 +2274,7 @@ def video_phase(eng, card, counts, default_icp) -> None:
     held to the JAX CLI's pixels and clouds to the same call on the CPU,
     and ``recon --device cuda`` on it in both ICP settings against the JAX
     CLI's lines, K1/K2/K3 counted; host decode times per 640x480 frame;
-    then the VP8 sources (``vp8_sources``)."""
+    then the VP8 and VP9 sources (``vp8_sources``, ``vp9_sources``)."""
     import hashlib
 
     import numpy as np
@@ -2384,6 +2385,7 @@ def video_phase(eng, card, counts, default_icp) -> None:
           + f" ({card})")
     mpeg4_frame_times(card)
     vp8_sources(eng, card, counts, default_icp)
+    vp9_sources(eng, card, counts, default_icp)
 
 
 def mpeg4_frame_times(card) -> None:
@@ -2478,6 +2480,84 @@ def vp8_sources(eng, card, counts, default_icp) -> None:
           f"{DECODE_TIMED} after a warm call): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
           + f" ({card})")
+
+
+def vp9_sources(eng, card, counts, default_icp) -> None:
+    """Phase 7f's VP9 part: every committed source of ``tests/data/
+    torch_vp9`` (``cv2.VideoWriter``'s VP90 in AVI, MP4, Matroska and WebM,
+    and streams re-encoded with header fields changed or hand-built)
+    decoded by ``VideoReader`` to cv2's digests; ``acq --device cuda
+    --clouds`` from the 640x480 WebM clip and ``recon`` on its package in
+    both ICP settings (``acq_recon_source``); host times of a 640x480 key
+    frame, an inter frame and ``VideoReader`` a frame, on that clip and on
+    the 640x480 pan of noise (``vp9_pan640.webm``)."""
+    import hashlib
+
+    import numpy as np
+    from fealess_tpu_torch.io.video import VideoReader
+    from fealess_tpu_torch.io.vp9 import Vp9Decoder
+
+    with open(os.path.join(VP9_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    with open(os.path.join(VP9_DIR, "recon.json")) as f:
+        expect = json.load(f)
+
+    def sha(a) -> str:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    for name, want in sorted(digests.items()):
+        with VideoReader(os.path.join(VP9_DIR, name)) as reader:
+            frames = list(reader)
+        got = {"frames": len(frames),
+               "shapes": [list(f.shape) for f in frames],
+               "sha256": [sha(f) for f in frames]}
+        check(got == want, f"video {name}: {got}, cv2 gives {want}")
+    print(f"VP9 input: {len(digests)} committed sources ("
+          f"{sum(d['frames'] for d in digests.values())} frames: "
+          f"cv2.VideoWriter's VP90 in AVI, MP4, Matroska and WebM at "
+          f"1280x720 (four tile columns, then two), 640x480, 96x64, 94x62 "
+          f"and 16x16, motion past the edge, 2 and 60 fps; re-encoded with "
+          f"backward adaptation, probability contexts, error resilience, "
+          f"fixed and bilinear filters, altref blocks, loop-filter and "
+          f"quantiser settings, tile rows; full range; superframes, a "
+          f"hidden frame, show_existing_frame): frame counts and every "
+          f"frame's sha256 equal to cv2.VideoCapture's")
+    name = "pan_vp9.webm"
+    acq_recon_source(eng, card, counts, default_icp, name,
+                     digests[name]["frames"], expect["sources"][name],
+                     "VP9 in WebM", False, VP9_DIR)
+
+    # a key frame and an inter frame decoded to BGR (no demux); the inter
+    # frame decodes each time in a new decoder after the key frame (its
+    # probability contexts and MVs differ once it has decoded itself)
+    for clip in (name, "vp9_pan640.webm"):
+        with VideoReader(os.path.join(VP9_DIR, clip)) as reader:
+            packets = list(reader._packets())
+        check([p[0] & 0x04 for p in packets[:2]] == [0, 4],
+              f"{clip}: frame types {[p[0] & 0x04 for p in packets]}, "
+              f"expected a key frame then inter frames")
+        inter = []
+        for _ in range(DECODE_TIMED + 1):
+            dec = Vp9Decoder(clip, "Matroska")
+            dec.decode(packets[0])
+            t0 = time.perf_counter()
+            frames = dec.decode(packets[1])
+            inter.append((time.perf_counter() - t0) * 1e3)
+            check(len(frames) == 1, f"{clip}: inter frame gave {frames}")
+            dec.close()
+        dec = Vp9Decoder(clip, "Matroska")
+        times = {"key frame": host_mean_ms(lambda: dec.decode(packets[0]),
+                                           DECODE_TIMED),
+                 "inter frame": sum(inter[1:]) / DECODE_TIMED}
+        dec.close()
+        times["VideoReader a frame (demux included)"] = host_mean_ms(
+            lambda: list(VideoReader(os.path.join(VP9_DIR, clip))),
+            DECODE_TIMED) / len(packets)
+        print(f"time VP9 decode to BGR (host, {clip}, 640x480, "
+              f"{len(packets[0])}-byte key frame, {len(packets[1])}-byte "
+              f"inter frame, mean of {DECODE_TIMED} after a warm call): "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+              + f" ({card})")
 
 
 # -- phase 8: the rest of the public surface --------------------------------

@@ -48,7 +48,7 @@ OBJECT_TYPES = {0x20: "mpeg4", 0x21: "H.264", 0x23: "HEVC",
 FORMATS = {b"FFV1": "ffv1", b"jpeg": "mjpeg", b"png ": "png",
            b"mjpa": "mjpeg", b"avc1": "H.264", b"avc3": "H.264",
            b"hvc1": "HEVC", b"hev1": "HEVC", b"vp08": "VP8",
-           b"vp09": "VP9", b"av01": "AV1", b"mp4v": "MPEG-4 Part 2",
+           b"vp09": "vp9", b"av01": "AV1", b"mp4v": "MPEG-4 Part 2",
            b"s263": "H.263", b"raw ": "raw RGB", b"2vuy": "raw UYVY",
            b"apch": "ProRes", b"apcn": "ProRes", b"apcs": "ProRes",
            b"apco": "ProRes", b"ap4h": "ProRes", b"mjpb": "Motion JPEG B",

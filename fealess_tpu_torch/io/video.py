@@ -34,6 +34,9 @@ Then a frame decoder by codec:
   with object type 0x20; Matroska ``V_MPEG4/ISO/SP``, ``ASP``, ``AP``;
 - VP8 (:mod:`~fealess_tpu_torch.io.vp8`): AVI ``VP80``; Matroska and
   WebM ``V_VP8``;
+- VP9 (:mod:`~fealess_tpu_torch.io.vp9`): AVI ``VP90``; MP4 ``vp09``;
+  Matroska and WebM ``V_VP9`` (a superframe's packet gives each frame it
+  shows, a ``show_existing_frame`` packet its slot's frame again);
 - BMP (:func:`~fealess_tpu_torch.io.image2.bmp_frame`): BMP images.
 
 Matroska's ``V_MS/VFW/FOURCC`` takes the AVI fourccs.  A path that does
@@ -45,9 +48,10 @@ not open.  A source cv2 reads and the port does not raises
 :class:`UnsupportedVideo`, naming it: MPEG-PS/TS, Ogg, FLV and ASF;
 fragmented MP4 and edit lists that drop frames; Matroska with
 compressed blocks; other codecs (VP9, AV1, H.264, HEVC, ``FFVH``,
-uncompressed BI_RGB, other MPEG-4 Part 2 fourccs, VP8 in MP4, ...); the
-MPEG-4 Part 2 tools :mod:`~fealess_tpu_torch.io.mpeg4` and the VP8 ones
-:mod:`~fealess_tpu_torch.io.vp8` refuse by name; raw Motion JPEG (JPEG
+uncompressed BI_RGB, other MPEG-4 Part 2 fourccs, VP8 in MP4, MS MPEG-4
+``DIV3``, ...); the MPEG-4 Part 2 tools :mod:`~fealess_tpu_torch.io.mpeg4`,
+the VP8 ones :mod:`~fealess_tpu_torch.io.vp8` and the VP9 ones
+:mod:`~fealess_tpu_torch.io.vp9` refuse by name; raw Motion JPEG (JPEG
 images back to back); images of other formats (TIFF, WebP, ...); the PNG
 and BMP kinds :mod:`~fealess_tpu_torch.io.image2` names (16-bit colour
 PNG, Adam7 PNG, 16-bit BMP, RLE deltas, BMP data ``cv2.imread`` cannot
@@ -86,6 +90,8 @@ from fealess_tpu_torch.io.png import DecodeError
 from fealess_tpu_torch.io.rawvideo import YUV420P_FOURCCS
 from fealess_tpu_torch.io.vp8 import CODEC_ID as VP8_CODEC_ID
 from fealess_tpu_torch.io.vp8 import FOURCCS as VP8_FOURCCS
+from fealess_tpu_torch.io.vp9 import CODEC_ID as VP9_CODEC_ID
+from fealess_tpu_torch.io.vp9 import FOURCCS as VP9_FOURCCS
 
 MJPEG_FOURCCS = (b"MJPG", b"mjpg", b"AVRn", b"dmb1")
 FFV1_FOURCCS = (b"FFV1", b"ffv1")
@@ -124,7 +130,6 @@ _FOURCC_NAMES = {
     b"X264": "H.264 (X264)", b"HEVC": "HEVC (HEVC)",
     b"hev1": "HEVC (hev1)", b"hvc1": "HEVC (hvc1)",
     b"FFVH": "FFmpeg's Huffyuv variant (FFVH)",
-    b"VP90": "VP9 (VP90)",
     b"\0\0\0\0": "uncompressed (BI_RGB)"}
 
 
@@ -148,11 +153,13 @@ def fourcc_codec(fourcc: bytes) -> Optional[str]:
         return "mpeg4"
     if fourcc in VP8_FOURCCS:
         return "vp8"
+    if fourcc in VP9_FOURCCS:
+        return "vp9"
     return None
 
 
 _READS = ("Motion JPEG, FFV1, raw I420 / IYUV / YV12, PNG, Huffyuv, "
-          "MPEG-4 Part 2 and VP8")
+          "MPEG-4 Part 2, VP8 and VP9")
 
 
 class VideoReader:
@@ -283,13 +290,13 @@ class VideoReader:
             raise UnsupportedVideo(f"{e}: read by cv2.VideoCapture but not "
                                    f"by the port") from None
         t = mp4.track
-        if t.codec not in ("ffv1", "mjpeg", "png", "mpeg4"):
+        if t.codec not in ("ffv1", "mjpeg", "png", "mpeg4", "vp9"):
             mp4.close()
             fourcc = t.fourcc.decode("latin-1")
             raise UnsupportedVideo(
                 f"{path}: MP4 with {t.codec} video ({fourcc}) is read by "
                 f"cv2.VideoCapture but not by the port (which reads FFV1, "
-                f"Motion JPEG, PNG and MPEG-4 Part 2 in MP4)")
+                f"Motion JPEG, PNG, MPEG-4 Part 2 and VP9 in MP4)")
         self.container = "MP4"
         self._set(t.codec, t.fourcc, t.width, t.height, t.extradata, mp4)
 
@@ -312,6 +319,8 @@ class VideoReader:
             codec, fourcc, extradata = "mpeg4", b"", t.codec_private
         elif t.codec_id == VP8_CODEC_ID:
             codec, fourcc = "vp8", b""
+        elif t.codec_id == VP9_CODEC_ID:
+            codec, fourcc = "vp9", b""
         elif t.codec_id == "V_UNCOMPRESSED":
             fourcc = t.colour_space
             codec = "rawvideo" if fourcc in YUV420P_FOURCCS else None
@@ -388,6 +397,10 @@ class VideoReader:
             from fealess_tpu_torch.io.vp8 import Vp8Decoder
             dec = Vp8Decoder(self.path, self.container)
             return lambda data, what: dec.decode(data), dec.close
+        if self.codec == "vp9":
+            from fealess_tpu_torch.io.vp9 import Vp9Decoder
+            dec = Vp9Decoder(self.path, self.container)
+            return lambda data, what: dec.decode(data), dec.close
         if self.codec == "png":
             return image2.png_frame, nothing
         return image2.bmp_frame, nothing
@@ -429,6 +442,9 @@ class VideoReader:
                     ) from None
                 except DecodeError:
                     return
+                if isinstance(frame, list):   # a VP9 packet's shown frames
+                    yield from frame
+                    continue
                 if frame is None:    # a VOP not coded, a hidden VP8 frame
                     continue
                 if self._image2:

@@ -4,6 +4,7 @@ holds them to, taken from cv2 and the JAX package on the CPU.
 
     python -m tests.make_torch_video          # everything
     python -m tests.make_torch_video vp8      # tests/data/torch_vp8 only
+    python -m tests.make_torch_video vp9      # tests/data/torch_vp9 only
 
 - ``clip.avi``: four panned 640x480 fixture frames (``apps/fixture.pan``)
   written by ``cv2.VideoWriter`` as Motion JPEG, with ``depth/<i>.png``
@@ -55,6 +56,22 @@ holds them to, taken from cv2 and the JAX package on the CPU.
   sharpness, 2-8 token partitions, no skip flags) or hand-edited (the key
   frames' scale bits, their size made 93x61); and at 640x480 the clip's
   four frames in WebM (``pan_vp8.webm``);
+- in ``tests/data/torch_vp9/`` (:func:`write_vp9`, with a ``digests.json``
+  and a ``recon.json`` of its own), VP9 from ``cv2.VideoWriter``
+  (:func:`vp9_sources`, ``vp9_*``; the same libvpx, profile 0): a 96x64
+  pan in AVI, MP4 (``vp09``), Matroska and WebM, a 640x480 pan (two tile
+  columns, a golden refresh), 1280x720 (four tile columns on the key
+  frame, two after), 95x63 (the writer writes 94x62) with motion past the
+  frame's edge, 16x16, motion of 37 pixels a frame, 2 and 60 fps; from
+  the 96x64 AVI's packets, re-encoded by ``tests/vp9_edit.py`` with the
+  header fields :data:`VP9_EDITS` gives (backward adaptation, kept and
+  chosen probability contexts, error resilience, fixed interpolation
+  filters and no high-precision MVs, loop-filter levels, sharpness and
+  deltas, q indices and deltas), hand-edited in place (colour range and
+  colour spaces cv2 converts with BT.601) or hand-built (a superframe of
+  two shown frames, a superframe with a hidden frame, ``show_existing_frame``
+  packets); tile rows on the 640x480 pan's packets; and at 640x480 the
+  clip's four frames in WebM (``pan_vp9.webm``);
 - ``digests.json``: for each source the frame count and each frame's
   shape and sha256 from ``cv2.VideoCapture``;
 - ``recon.json``: the JAX CLI's ``acq`` output on ``clip.avi`` with its
@@ -64,7 +81,8 @@ holds them to, taken from cv2 and the JAX package on the CPU.
   to the cap ("b", ``chip_smoke.FORCED``), and the JAX engine's match on
   each frame; under ``"sources"`` the same for ``pan_ffv1.mp4``,
   ``pan/%d.jpg`` and ``pan_mp4v.avi`` (``RECON_SOURCES``), and in
-  ``tests/data/torch_vp8/recon.json`` for ``pan_vp8.webm``.
+  ``tests/data/torch_vp8/recon.json`` for ``pan_vp8.webm`` and
+  ``tests/data/torch_vp9/recon.json`` for ``pan_vp9.webm``.
 
 ``tests/test_torch_video.py`` holds the digests to cv2 on the CPU, so they
 cannot go stale.  The muxer is shared with that test.
@@ -97,6 +115,9 @@ RECON_SOURCES = {"pan_ffv1.mp4": 2, "pan/%d.jpg": CLIP_FRAMES,
 # test_torch_video's size budget); the one acq reads into recon
 VP8_OUT = os.path.join(REPO, "tests", "data", "torch_vp8")
 VP8_RECON_SOURCES = {"pan_vp8.webm": CLIP_FRAMES}
+# the VP9 sources, in a directory of their own
+VP9_OUT = os.path.join(REPO, "tests", "data", "torch_vp9")
+VP9_RECON_SOURCES = {"pan_vp9.webm": CLIP_FRAMES}
 # the fourccs cv2.VideoWriter writes MPEG-4 Part 2 for
 MPEG4_FOURCCS = ("mp4v", "MP4V", "XVID", "xvid", "FMP4", "DIVX", "DX50")
 # (first bit, width) of VOL fields past the start code in the VOL that
@@ -194,6 +215,20 @@ def set_bits(data: bytes, at: int, width: int, value: int) -> bytes:
     mask = ((1 << width) - 1) << (n - at - width)
     v = (v & ~mask) | (value << (n - at - width))
     return v.to_bytes(len(data), "big")
+
+
+def set_vp9_color_space(data: bytes, color_space: int,
+                        color_range: int = 0) -> bytes:
+    """``data`` (a VP9 packet or a whole file) with every profile-0 key
+    frame's color_space and color_range set: the fields follow the
+    frame's sync code 49 83 42, and no other bit moves."""
+    out = bytearray(data)
+    at = out.find(b"\x49\x83\x42")
+    while at >= 0:
+        out[at + 3] = (out[at + 3] & 0x0F) | (color_space << 5) | \
+            (color_range << 4)
+        at = out.find(b"\x49\x83\x42", at + 1)
+    return bytes(out)
 
 
 def set_vol_bit(data: bytes, field: str, value: int) -> bytes:
@@ -586,6 +621,142 @@ def vp8_sources(frames) -> None:
     write_cv2_clip(out("pan_vp8.webm"), [b for b, _ in frames], "VP80")
 
 
+# the edits that make the re-encoded VP9 clips from vp9_pan.avi's packets
+# (tests/vp9_edit.rewrite): name -> {frame: {header field: value}}; frame
+# 12 is a key frame
+VP9_EDITS = {
+    "vp9_adapt.avi": {i: {"parallel": 0} for i in range(14)},
+    "vp9_contexts.avi": {
+        0: {"parallel": 0, "ctx_idx": 2}, 1: {"ctx_idx": 1, "parallel": 0},
+        2: {"ctx_idx": 2, "refresh_ctx": 0, "parallel": 0,
+            "render": (40, 30)},
+        3: {"ctx_idx": 3, "reset_ctx": 2}, 4: {"ctx_idx": 1, "reset_ctx": 3},
+        5: {"ctx_idx": 3, "parallel": 0}, 6: {"refresh_ctx": 0},
+        7: {"ctx_idx": 2, "parallel": 0}, 8: {"reset_ctx": 1},
+        13: {"ctx_idx": 3, "parallel": 0}},
+    "vp9_error_res.avi": {1: {"error_res": 1}, 2: {"parallel": 0},
+                          13: {"error_res": 1}},
+    # the golden / altref choice of every block swapped: altref blocks
+    "vp9_altref.avi": {i: {"swap_golden_altref": 1} for i in range(14)},
+    # the golden / altref choice of every block swapped: altref blocks
+    "vp9_altref.avi": {i: {"swap_golden_altref": 1} for i in range(14)},
+    "vp9_filters.avi": {
+        1: {"filter": 0}, 2: {"filter": 1}, 3: {"filter": 2},
+        4: {"filter": 3}, 5: {"filter": 3, "allow_hp": 0},
+        11: {"allow_hp": 0}, 13: {"filter": 1}},
+    "vp9_loop_filter.avi": {
+        0: {"lf_level": 63, "sharpness": 1}, 1: {"lf_level": 0},
+        2: {"lf_level": 40, "sharpness": 3},
+        3: {"lf_level": 17, "sharpness": 5, "delta_enabled": 0},
+        4: {"lf_level": 31, "sharpness": 7, "delta_update": 1,
+            "ref_deltas": [3, -2, 5, None], "mode_deltas": [-4, 6]},
+        5: {"lf_level": 32, "sharpness": 4},
+        6: {"lf_level": 50, "sharpness": 2, "delta_update": 1,
+            "ref_deltas": [None, 7, None, -9], "mode_deltas": [None, -3]},
+        7: {"lf_level": 9}, 8: {"lf_level": 1, "sharpness": 6},
+        12: {"lf_level": 20, "sharpness": 1, "delta_update": 1,
+             "ref_deltas": [-1, 2, 0, 1], "mode_deltas": [1, 0]}},
+    "vp9_quant.avi": {
+        0: {"base_q": 1}, 1: {"base_q": 255}, 2: {"base_q": 128},
+        3: {"delta_q": [3, 0, 0]}, 4: {"delta_q": [0, -5, 7]},
+        5: {"base_q": 2, "delta_q": [-2, -3, -1]},
+        6: {"base_q": 250, "delta_q": [5, 6, -8]}, 12: {"base_q": 60}},
+}
+
+
+def _vp9_edit(plan):
+    """``tests.vp9_edit.rewrite``'s edit for one of :data:`VP9_EDITS`."""
+    def edit(i, f):
+        change = dict(plan.get(i, {}))
+        if f.get("key"):                 # fields key frames do not have
+            for k in ("filter", "allow_hp", "reset_ctx",
+                      "swap_golden_altref"):
+                change.pop(k, None)
+        if change.get("error_res"):
+            f.pop("refresh_ctx", None)
+            f.pop("parallel", None)
+            f["reset_ctx"] = 0
+        f.update(change)
+        return f
+    return edit
+
+
+def vp9_sources(frames) -> None:
+    """Write the VP9 sources (see the module docstring); ``frames`` are
+    the clip's."""
+    import cv2
+    from fealess_tpu_torch.io.avi import AviFile
+    from tests import vp9_edit
+
+    def out(name):
+        return os.path.join(VP9_OUT, name)
+    base = scene(96, 64, 31, 1)[0]
+    pan = [_shifted(base, 3 * i, -2 * i) for i in range(14)]
+    for ext in ("avi", "mkv", "webm", "mp4"):
+        write_cv2_clip(out(f"vp9_pan.{ext}"), pan, "VP90")
+    big = cv2.resize(scene(160, 120, 32, 1)[0], (700, 520),
+                     interpolation=cv2.INTER_CUBIC)
+    long_pan = [_shifted(big, -4 * i, -2 * i)[:480, :640] for i in range(8)]
+    write_cv2_clip(out("vp9_pan640.webm"), long_pan, "VP90")
+    wide = cv2.GaussianBlur(cv2.resize(scene(160, 90, 37, 1)[0], (1280, 720),
+                                       interpolation=cv2.INTER_CUBIC),
+                            (9, 9), 0)
+    write_cv2_clip(out("vp9_size_1280x720.webm"),
+                   [_shifted(wide, 5 * i, 3 * i) for i in range(3)], "VP90")
+    odd = scene(95, 63, 33, 1)[0]
+    write_cv2_clip(out("vp9_size_95x63.avi"),
+                   [_shifted(odd, 9 * i, -5 * i) for i in range(8)], "VP90")
+    write_cv2_clip(out("vp9_size_16x16.mkv"),
+                   [_shifted(scene(16, 16, 34, 1)[0], i, -i)
+                    for i in range(5)], "VP90")
+    fast = scene(128, 96, 35, 1)[0]
+    write_cv2_clip(out("vp9_motion.mkv"),
+                   [_shifted(fast, 37 * i, -11 * i) for i in range(8)],
+                   "VP90")
+    yy, xx = np.mgrid[0:64, 0:96]
+    ramp = np.stack([(2 * xx + 3 * yy) % 256, (3 * xx + yy + 40) % 256,
+                     (255 - xx - 2 * yy) % 256], -1).astype(np.uint8)
+    smooth = [cv2.GaussianBlur(_shifted(fast, 2 * i, i), (21, 21), 0)
+              [:64, :96] for i in range(6)]
+    for i, f in enumerate(smooth):
+        f[:, :40] = _shifted(ramp, i, 0)[:, :40]
+    write_cv2_clip(out("vp9_rate_fps2.webm"), smooth, "VP90", fps=2)
+    rng = np.random.default_rng(36)
+    write_cv2_clip(out("vp9_rate_fps60.avi"),
+                   [rng.integers(0, 256, (64, 96, 3)).astype(np.uint8)
+                    for _ in range(4)], "VP90", fps=60)
+    # re-encoded, hand-edited and hand-built from vp9_pan.avi's packets
+    with AviFile(out("vp9_pan.avi")) as avi:
+        packets = list(avi.frames())
+
+    def avi(name, data, w=96, h=64):
+        with open(out(name), "wb") as f:
+            f.write(mux_avi(data, w, h, fourcc=b"VP90"))
+    for name, plan in VP9_EDITS.items():
+        avi(name, vp9_edit.rewrite(packets, _vp9_edit(plan)))
+    avi("vp9_full_range.avi", [set_vp9_color_space(p, 1, 1) for p in packets])
+    avi("vp9_color_space.avi", [set_vp9_color_space(p, 3) for p in packets])
+    avi("vp9_superframe.avi", packets[:4] + [
+        vp9_edit.superframe(packets[4:6])] + packets[6:])
+    hidden = vp9_edit.rewrite(packets, _vp9_edit(
+        {5: {"show": 0, "refresh": 5}}))
+    avi("vp9_hidden.avi", hidden[:5] + [vp9_edit.superframe(hidden[5:7])] +
+        hidden[7:9] + [vp9_edit.show_existing(2)] + hidden[9:])
+    # the hidden frame shown right after it: the next frame takes no MV
+    # candidates from the frame before (FFmpeg's last_invisible holds)
+    avi("vp9_show_hidden.avi", hidden[:6] + [vp9_edit.show_existing(2)] +
+        hidden[6:])
+    avi("vp9_show_existing.avi", packets[:4] + [vp9_edit.show_existing(0)] +
+        packets[4:8] + [vp9_edit.show_existing(1)] + packets[8:])
+    from fealess_tpu_torch.io.matroska import MkvFile
+    with MkvFile(out("vp9_pan640.webm")) as mkv:
+        big_packets = list(mkv.frames())[:4]
+    avi("vp9_tile_rows.avi", vp9_edit.rewrite(big_packets, _vp9_edit(
+        {0: {"log2_tile_rows": 1}, 1: {"log2_tile_rows": 2},
+         3: {"log2_tile_rows": 1, "log2_tile_cols": 0}})), 640, 480)
+    write_cv2_clip(out("pan_vp9.webm"), [b for b, _ in frames], "VP90")
+
+
 def committed_sources():
     """Every committed source of OUT that ``digests.json`` lists."""
     return sorted([n for n in os.listdir(OUT) if n.endswith(CONTAINERS)]
@@ -672,6 +843,38 @@ def main() -> None:
                 for dp, _, ns in os.walk(OUT) for n in ns)
     print(f"wrote {OUT}: {total} bytes")
     write_vp8(frames)
+    write_vp9(frames)
+
+
+def vp9_committed_sources():
+    """Every committed source of VP9_OUT (its ``digests.json`` lists
+    them)."""
+    return sorted(n for n in os.listdir(VP9_OUT)
+                  if n.endswith(CONTAINERS + (".webm",)))
+
+
+def write_vp9(frames) -> None:
+    """Write VP9_OUT: the VP9 sources, their ``digests.json`` and
+    ``recon.json`` (the JAX CLI's acq and recon under ``"sources"``)."""
+    os.makedirs(VP9_OUT, exist_ok=True)
+    for name in os.listdir(VP9_OUT):
+        os.remove(os.path.join(VP9_OUT, name))
+    vp9_sources(frames)
+    digests = {name: digest(os.path.join(VP9_OUT, name))
+               for name in vp9_committed_sources()}
+    with open(os.path.join(VP9_OUT, "digests.json"), "w") as f:
+        json.dump(digests, f, indent=1, sort_keys=True)
+        f.write("\n")
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    recon = {"sources": {name: jax_acq_recon(os.path.join(VP9_OUT, name), n)
+                         for name, n in VP9_RECON_SOURCES.items()}}
+    with open(os.path.join(VP9_OUT, "recon.json"), "w") as f:
+        json.dump(recon, f, indent=1, sort_keys=True)
+        f.write("\n")
+    total = sum(os.path.getsize(os.path.join(VP9_OUT, n))
+                for n in os.listdir(VP9_OUT))
+    print(f"wrote {VP9_OUT}: {total} bytes")
 
 
 def vp8_committed_sources():
@@ -709,5 +912,7 @@ def write_vp8(frames) -> None:
 if __name__ == "__main__":
     if sys.argv[1:] == ["vp8"]:
         write_vp8(clip_frames())
+    elif sys.argv[1:] == ["vp9"]:
+        write_vp9(clip_frames())
     else:
         main()

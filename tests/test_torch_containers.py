@@ -21,7 +21,8 @@ from fealess_tpu_torch.io.avi import AviFile
 from fealess_tpu_torch.io.series import ImageSeriesReader
 from fealess_tpu_torch.io.video import UnsupportedVideo, VideoReader
 from tests.make_torch_video import (cv2_frames, jpeg, mux_avi, scene,
-                                    set_vol_bit, write_cv2_clip, yuv420p)
+                                    set_vol_bit, set_vp9_color_space,
+                                    write_cv2_clip, yuv420p)
 from tests.test_torch_image2 import same_as_cv2
 
 
@@ -493,15 +494,22 @@ def test_matroska_vfw_fourccs(tmp_path):
 def test_container_refusals_name_the_codec(tmp_path, ext, fourcc, match):
     """Codecs cv2 reads from these containers and the port does not:
     UnsupportedVideo naming the container and the codec.  MPEG-4 Part 2
-    and VP8 are read since they have decoders: the MPEG-4 cases hold a VOL
-    that asks for OBMC (which FFmpeg ignores and the port refuses), the
+    VP8 and VP9 are read since they have decoders: the MPEG-4 cases hold a
+    VOL that asks for OBMC (which FFmpeg ignores and the port refuses), the
     VP8 ones key frames of version 4 (which FFmpeg decodes as version 1-3
-    and the port refuses), named with the container and the codec."""
+    and the port refuses), the VP9 ones key frames of color_space BT.709
+    (which cv2 converts with BT.709's matrix and the port refuses), named
+    with the container and the codec."""
     path = str(tmp_path / f"clip.{ext}")
     write_cv2_clip(path, scene(32, 16, 1, 2), fourcc)
     if fourcc == "mp4v":
         with open(path, "rb") as f:
             data = set_vol_bit(f.read(), "obmc_disable", 0)
+        with open(path, "wb") as f:
+            f.write(data)
+    if fourcc == "VP90":
+        with open(path, "rb") as f:
+            data = set_vp9_color_space(f.read(), 2)
         with open(path, "wb") as f:
             f.write(data)
     if fourcc == "VP80":

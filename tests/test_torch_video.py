@@ -31,7 +31,8 @@ from fealess_tpu_torch.io.series import ImageSeriesReader
 from fealess_tpu_torch.io.video import UnsupportedVideo, VideoReader
 from tests.make_torch_video import (OUT, committed_sources, cut_dht,
                                     cv2_frames, digest, jpeg, mux_avi, scene,
-                                    set_vol_bit, sha256, write_cv2_clip)
+                                    set_vol_bit, set_vp9_color_space,
+                                    sha256, write_cv2_clip)
 from tests.test_torch_io import LOADED
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -228,7 +229,8 @@ def test_committed_clips_match_cv2_and_the_digests():
 
 
 def test_refusals_name_what_they_refuse(tmp_path):
-    """VP9 in MP4 and in Matroska, MS MPEG-4 v3 (DIV3) in AVI, an
+    """VP9 in MP4 and in Matroska whose key frames say BT.709 (cv2
+    converts them with its matrix), MS MPEG-4 v3 (DIV3) in AVI, an
     MPEG-4 Part 2 clip whose VOL asks for OBMC, an interlaced
     Motion JPEG (two fields a chunk), raw Motion JPEG: UnsupportedVideo
     naming the container, the fourcc or the kind; a missing file, a file
@@ -237,8 +239,12 @@ def test_refusals_name_what_they_refuse(tmp_path):
     frames = scene(64, 48, 1, 2)
     mp4, mkv, div3, obmc = (str(tmp_path / n) for n in (
         "a.mp4", "a.mkv", "a.avi", "obmc.avi"))
-    write_cv2_clip(mp4, frames, "VP90")
-    write_cv2_clip(mkv, frames, "VP90")
+    for path in (mp4, mkv):
+        write_cv2_clip(path, frames, "VP90")
+        with open(path, "rb") as f:
+            data = set_vp9_color_space(f.read(), 2)
+        with open(path, "wb") as f:
+            f.write(data)
     write_cv2_clip(div3, frames, "DIV3")
     write_cv2_clip(obmc, frames, "XVID")
     with open(obmc, "r+b") as f:             # FFmpeg ignores the bit
@@ -365,10 +371,10 @@ def test_acq_cli_on_the_committed_clip_equals_jax(tmp_path):
 
 
 def test_acq_refuses_a_video_it_does_not_read(tmp_path, capsys):
-    """acq on a VP9 MP4 or a missing path prints the reason and returns
-    1, writing nothing."""
+    """acq on an MPEG-2 MP4 (a codec the port does not read) or a missing
+    path prints the reason and returns 1, writing nothing."""
     mp4 = str(tmp_path / "a.mp4")
-    write_cv2_clip(mp4, scene(32, 16, 1, 2), "VP90")
+    write_cv2_clip(mp4, scene(32, 16, 1, 2), "MPG2")
     for source, match in ((mp4, "MP4"),
                           (str(tmp_path / "nope.avi"), "cannot open")):
         out = str(tmp_path / "out")
