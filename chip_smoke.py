@@ -144,20 +144,22 @@ Phases, one line of output each (or a few):
 7f. video files, image files and printf patterns (``io/video.
    VideoReader``, as ``cv2.VideoCapture`` reads them: AVI, MP4 and
    Matroska holding Motion JPEG, FFV1, raw I420, PNG, Huffyuv, MPEG-4
-   Part 2, VP8 or VP9 frames; image2's single images and patterns): every
-   committed source of ``tests/data/torch_video``, ``torch_vp8`` and
-   ``torch_vp9`` decoded to the frame count and each frame's
+   Part 2, VP8, VP9 or MPEG-2 frames, MOV holding MPEG-2; image2's single
+   images and patterns): every committed source of
+   ``tests/data/torch_video``, ``torch_vp8``, ``torch_vp9`` and
+   ``torch_mpeg2`` decoded to the frame count and each frame's
    sha256 of cv2's (recorded by ``tests/make_torch_video.py``); ``acq
    --device cuda --clouds`` with the committed depth directory from the
    640x480 Motion JPEG clip, the FFV1 MP4, the JPEG pattern, the mp4v
-   AVI and the VP8 and VP9 WebM clips, each
+   AVI, the VP8 and VP9 WebM clips and the MPEG-2 MP4, each
    package's ``gray/`` and ``depth/`` pixels equal to the JAX CLI's and its
    clouds within ``CLOUD_TOL_MM`` of the same call on the CPU; ``recon
    --device cuda`` on each package in both ICP settings, its lines held to
    the JAX CLI's (similarity exact, pose within phase 4's tolerances) with
    K1/K2/K3 at 1/1/0 a frame in (a) and 1/1/9 in (b); the host time to
    decode a 640x480 frame of each format, demux included, and of one
-   MPEG-4 I-VOP and one P-VOP, and a VP8 and a VP9 key and inter frame.
+   MPEG-4 I-VOP and one P-VOP, a VP8 and a VP9 key and inter frame, and
+   an MPEG-2 I, P and B picture.
 8. the rest of the public surface: the CLI's device-stage table
    (``cli._profile_stages``: front-end, match and the full step as
    cumulative prefixes, each the device busy of warm calls under
@@ -352,6 +354,7 @@ FILESTORAGE_TIMED = 3
 VIDEO_DIR = os.path.join(REPO, "tests", "data", "torch_video")
 VP8_DIR = os.path.join(REPO, "tests", "data", "torch_vp8")
 VP9_DIR = os.path.join(REPO, "tests", "data", "torch_vp9")
+MPEG2_DIR = os.path.join(REPO, "tests", "data", "torch_mpeg2")
 CLOUD_TOL_MM = 1e-3
 DECODE_TIMED = 10
 
@@ -2386,6 +2389,7 @@ def video_phase(eng, card, counts, default_icp) -> None:
     mpeg4_frame_times(card)
     vp8_sources(eng, card, counts, default_icp)
     vp9_sources(eng, card, counts, default_icp)
+    mpeg2_sources(eng, card, counts, default_icp)
 
 
 def mpeg4_frame_times(card) -> None:
@@ -2558,6 +2562,87 @@ def vp9_sources(eng, card, counts, default_icp) -> None:
               f"inter frame, mean of {DECODE_TIMED} after a warm call): "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
               + f" ({card})")
+
+
+def mpeg2_sources(eng, card, counts, default_icp) -> None:
+    """Phase 7f's MPEG-2 part: every committed source of ``tests/data/
+    torch_mpeg2`` (``cv2.VideoWriter``'s MPG2 in AVI, MP4, MOV and
+    Matroska, and streams edited at their start codes and header bits)
+    decoded by ``VideoReader`` to cv2's digests; ``acq --device cuda
+    --clouds`` from the 640x480 MP4 clip and ``recon`` on its package in
+    both ICP settings (``acq_recon_source``); host times of a 640x480 I, P
+    and B picture and of ``VideoReader`` a frame on the 16-frame pan."""
+    import hashlib
+
+    import numpy as np
+    from fealess_tpu_torch.io.mpeg2 import Mpeg2Decoder
+    from fealess_tpu_torch.io.video import VideoReader
+
+    with open(os.path.join(MPEG2_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    with open(os.path.join(MPEG2_DIR, "recon.json")) as f:
+        expect = json.load(f)
+
+    def sha(a) -> str:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    for name, want in sorted(digests.items()):
+        with VideoReader(os.path.join(MPEG2_DIR, name)) as reader:
+            frames = list(reader)
+        got = {"frames": len(frames),
+               "shapes": [list(f.shape) for f in frames],
+               "sha256": [sha(f) for f in frames]}
+        check(got == want, f"video {name}: {got}, cv2 gives {want}")
+    print(f"MPEG-2 input: {len(digests)} committed sources ("
+          f"{sum(d['frames'] for d in digests.values())} frames: "
+          f"cv2.VideoWriter's MPG2 in AVI, MP4, MOV and Matroska at "
+          f"1280x720, 640x480 (a closed and an open GOP; noise of I and B "
+          f"pictures), 96x64, 94x62 and 16x16, f_code 2 and up, 2 and 60 "
+          f"fps; edited with loaded matrices, extensions, user data, "
+          f"broken_link, sequence end codes, cuts before an open GOP, "
+          f"low_delay, fine and coarse quantisers, a B picture's intra "
+          f"macroblock, an odd width, extradata): frame counts and every "
+          f"frame's sha256 equal to cv2.VideoCapture's")
+    name = "pan_mpeg2.mp4"
+    acq_recon_source(eng, card, counts, default_icp, name,
+                     digests[name]["frames"], expect["sources"][name],
+                     "MPEG-2 in MP4", False, MPEG2_DIR)
+
+    # an I, a P and a B picture decoded to BGR (no demux), each timed in a
+    # new decoder after the packets before it (an anchor moves the
+    # references along, so it is not decoded twice in one decoder)
+    clip = "mpeg2_pan.mp4"
+    with VideoReader(os.path.join(MPEG2_DIR, clip)) as reader:
+        packets = list(reader._packets())
+    kinds = []
+    for p in packets[:3]:
+        at = p.index(b"\x00\x00\x01\x00") + 5
+        kinds.append((p[at] >> 3) & 7)
+    check(kinds == [1, 2, 3], f"{clip}: picture types {kinds}, expected "
+                              f"I, P, B")
+    times = {}
+    for k, kind in enumerate(("I picture", "P picture", "B picture")):
+        runs = []
+        for _ in range(DECODE_TIMED + 1):
+            dec = Mpeg2Decoder(b"", clip, "MP4")
+            for p in packets[:k]:
+                dec.decode(p)
+            t0 = time.perf_counter()
+            frames = dec.decode(packets[k])
+            runs.append((time.perf_counter() - t0) * 1e3)
+            check(len(frames) == (k > 0), f"{clip}: packet {k} gave "
+                                          f"{len(frames)} frames")
+            dec.close()
+        times[kind] = sum(runs[1:]) / DECODE_TIMED
+    times["VideoReader a frame (demux included)"] = host_mean_ms(
+        lambda: list(VideoReader(os.path.join(MPEG2_DIR, clip))),
+        DECODE_TIMED) / len(packets)
+    print(f"time MPEG-2 decode to BGR (host, {clip}, 640x480, "
+          f"{len(packets[0])}-byte I, {len(packets[1])}-byte P, "
+          f"{len(packets[2])}-byte B picture, mean of {DECODE_TIMED} after a "
+          f"warm call): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+          + f" ({card})")
 
 
 # -- phase 8: the rest of the public surface --------------------------------

@@ -18,9 +18,8 @@
  *   mjpegdec.c            dequantization into int16 blocks, the DC
  *                         predictor starting at 1024 (4 << bits), so the
  *                         IDCT's level shift rides on the DC term
- *   simple_idct.c         ff_simple_idct_put_int16_8bit: rows with the
+ *   simple_idct.h         ff_simple_idct_put_int16_8bit: rows with the
  *                         DC-only shortcut, then columns, clipped to u8
- *                         (W4 = 16383, ROW_SHIFT 11, COL_SHIFT 20)
  *   yuv_bgr.h             swscale: the decoder's planes (gray8, yuvj420p,
  *                         yuvj422p, yuvj444p; yuv* without j after a
  *                         "CS=ITU601" comment) to BGR24 by the path
@@ -29,6 +28,7 @@
  *                         = Y.
  */
 #include "jpeg_parse.h"
+#include "simple_idct.h"
 #include "yuv_bgr.h"
 
 /* return codes past jpeg_parse.h's */
@@ -41,98 +41,6 @@ enum {
 /* the decoder's pixel formats */
 enum { PF_GRAY = 0, PF_420 = 1, PF_422 = 2, PF_444 = 3 };
 
-/* ---- ff_simple_idct_put_int16_8bit (simple_idct_template.c) ---- */
-
-#define W1 22725
-#define W2 21407
-#define W3 19266
-#define W4 16383
-#define W5 12873
-#define W6 8867
-#define W7 4520
-#define ROW_SHIFT 11
-#define COL_SHIFT 20
-#define DC_SHIFT 3
-
-static void idct_row(int16_t *row) {
-  if (!(row[1] | row[2] | row[3] | row[4] | row[5] | row[6] | row[7])) {
-    int16_t t = (int16_t)(uint16_t)((unsigned)row[0] << DC_SHIFT);
-    for (int i = 0; i < 8; ++i) row[i] = t;
-    return;
-  }
-  unsigned a0, a1, a2, a3, b0, b1, b2, b3;
-  a0 = (unsigned)W4 * row[0] + (1u << (ROW_SHIFT - 1));
-  a1 = a0;
-  a2 = a0;
-  a3 = a0;
-  a0 += (unsigned)W2 * row[2];
-  a1 += (unsigned)W6 * row[2];
-  a2 -= (unsigned)W6 * row[2];
-  a3 -= (unsigned)W2 * row[2];
-  b0 = (unsigned)W1 * row[1] + (unsigned)W3 * row[3];
-  b1 = (unsigned)W3 * row[1] - (unsigned)W7 * row[3];
-  b2 = (unsigned)W5 * row[1] - (unsigned)W1 * row[3];
-  b3 = (unsigned)W7 * row[1] - (unsigned)W5 * row[3];
-  if (row[4] | row[5] | row[6] | row[7]) {
-    a0 += (unsigned)W4 * row[4] + (unsigned)W6 * row[6];
-    a1 += -(unsigned)W4 * row[4] - (unsigned)W2 * row[6];
-    a2 += -(unsigned)W4 * row[4] + (unsigned)W2 * row[6];
-    a3 += (unsigned)W4 * row[4] - (unsigned)W6 * row[6];
-    b0 += (unsigned)W5 * row[5] + (unsigned)W7 * row[7];
-    b1 += -(unsigned)W1 * row[5] - (unsigned)W5 * row[7];
-    b2 += (unsigned)W7 * row[5] + (unsigned)W3 * row[7];
-    b3 += (unsigned)W3 * row[5] - (unsigned)W1 * row[7];
-  }
-  row[0] = (int16_t)((int)(a0 + b0) >> ROW_SHIFT);
-  row[7] = (int16_t)((int)(a0 - b0) >> ROW_SHIFT);
-  row[1] = (int16_t)((int)(a1 + b1) >> ROW_SHIFT);
-  row[6] = (int16_t)((int)(a1 - b1) >> ROW_SHIFT);
-  row[2] = (int16_t)((int)(a2 + b2) >> ROW_SHIFT);
-  row[5] = (int16_t)((int)(a2 - b2) >> ROW_SHIFT);
-  row[3] = (int16_t)((int)(a3 + b3) >> ROW_SHIFT);
-  row[4] = (int16_t)((int)(a3 - b3) >> ROW_SHIFT);
-}
-
-static void idct_col_put(const int16_t *col, uint8_t *dest, long stride) {
-  unsigned a0, a1, a2, a3, b0, b1, b2, b3;
-  a0 = (unsigned)W4 * (col[0] + ((1 << (COL_SHIFT - 1)) / W4));
-  a1 = a0;
-  a2 = a0;
-  a3 = a0;
-  a0 += (unsigned)W2 * col[16];
-  a1 += (unsigned)W6 * col[16];
-  a2 += (unsigned)-W6 * col[16];
-  a3 += (unsigned)-W2 * col[16];
-  b0 = (unsigned)W1 * col[8] + (unsigned)W3 * col[24];
-  b1 = (unsigned)W3 * col[8] - (unsigned)W7 * col[24];
-  b2 = (unsigned)W5 * col[8] - (unsigned)W1 * col[24];
-  b3 = (unsigned)W7 * col[8] - (unsigned)W5 * col[24];
-  a0 += (unsigned)W4 * col[32];
-  a1 += (unsigned)-W4 * col[32];
-  a2 += (unsigned)-W4 * col[32];
-  a3 += (unsigned)W4 * col[32];
-  b0 += (unsigned)W5 * col[40];
-  b1 += (unsigned)-W1 * col[40];
-  b2 += (unsigned)W7 * col[40];
-  b3 += (unsigned)W3 * col[40];
-  a0 += (unsigned)W6 * col[48];
-  a1 += (unsigned)-W2 * col[48];
-  a2 += (unsigned)W2 * col[48];
-  a3 += (unsigned)-W6 * col[48];
-  b0 += (unsigned)W7 * col[56];
-  b1 += (unsigned)-W5 * col[56];
-  b2 += (unsigned)W3 * col[56];
-  b3 += (unsigned)-W1 * col[56];
-  dest[0 * stride] = clip_u8((int)(a0 + b0) >> COL_SHIFT);
-  dest[1 * stride] = clip_u8((int)(a1 + b1) >> COL_SHIFT);
-  dest[2 * stride] = clip_u8((int)(a2 + b2) >> COL_SHIFT);
-  dest[3 * stride] = clip_u8((int)(a3 + b3) >> COL_SHIFT);
-  dest[4 * stride] = clip_u8((int)(a3 - b3) >> COL_SHIFT);
-  dest[5 * stride] = clip_u8((int)(a2 - b2) >> COL_SHIFT);
-  dest[6 * stride] = clip_u8((int)(a1 - b1) >> COL_SHIFT);
-  dest[7 * stride] = clip_u8((int)(a0 - b0) >> COL_SHIFT);
-}
-
 /* One block: FFmpeg's dequantized int16 block (the DC with the 1024 of the
  * predictor's start, clipped as decode_block clips it), then the IDCT. */
 static void idct_put(const int16_t *coef, const uint16_t *q, uint8_t *out,
@@ -142,8 +50,7 @@ static void idct_put(const int16_t *coef, const uint16_t *q, uint8_t *out,
   blk[0] = (int16_t)(dc < -32768 ? -32768 : dc > 32767 ? 32767 : dc);
   for (int i = 1; i < DCTSIZE2; ++i)
     blk[i] = (int16_t)(uint16_t)((unsigned)coef[i] * q[i]);
-  for (int r = 0; r < 8; ++r) idct_row(blk + 8 * r);
-  for (int c = 0; c < 8; ++c) idct_col_put(blk + c, out + c, stride);
+  simple_idct_put(blk, out, stride);
 }
 
 static int idct_component(comp_t *c) {

@@ -30,12 +30,8 @@
  *                (level * 2q + ((q - 1) | 1)); intra AC the same, the DC
  *                times the DC scaler (dct_unquantize_h263_intra_c), all in
  *                int16 as FFmpeg's blocks are
- *   IDCT         ff_simple_idct_put / _add_int16_8bit (W1..W7 = 22725,
- *                21407, 19266, 16383, 12873, 8867, 4520; rows >> 11,
- *                columns >> 20), the IDCT mjpeg_decode.c matched against
- *                cv2's Motion JPEG: cv2's MPEG-4 frames equal it on every
- *                committed clip, so its x86-64 build's simple_idct8 code
- *                gives the C function's results here
+ *   IDCT         ff_simple_idct_put / _add_int16_8bit (simple_idct.h,
+ *                shared with mjpeg_decode.c and mpeg2_decode.c)
  *   motion       mpeg_motion: luma at half-pel, chroma at
  *                (mv >> 1) | (mv & 1) half-pel; reference samples at
  *                coordinates clamped to the macroblock-aligned picture
@@ -55,6 +51,7 @@
  * decoded bumps a counter (C_*), so a test holds the committed clips to
  * covering all of them.
  */
+#include "simple_idct.h"
 #include "yuv_bgr.h"
 
 #include <stdio.h>
@@ -675,125 +672,6 @@ static int decode_block(mp4_t *d, br_t *b, int n, int coded, int intra) {
   return MP4_OK;
 }
 
-/* ---- IDCT (ff_simple_idct_int16_8bit) ---- */
-
-#define W1 22725
-#define W2 21407
-#define W3 19266
-#define W4 16383
-#define W5 12873
-#define W6 8867
-#define W7 4520
-#define ROW_SHIFT 11
-#define COL_SHIFT 20
-
-static void idct_row(int16_t *row) {
-  if (!(row[1] | row[2] | row[3] | row[4] | row[5] | row[6] | row[7])) {
-    int16_t t = (int16_t)(uint16_t)((unsigned)row[0] << 3);
-    for (int i = 0; i < 8; ++i) row[i] = t;
-    return;
-  }
-  unsigned a0, a1, a2, a3, b0, b1, b2, b3;
-  a0 = (unsigned)W4 * row[0] + (1u << (ROW_SHIFT - 1));
-  a1 = a0;
-  a2 = a0;
-  a3 = a0;
-  a0 += (unsigned)W2 * row[2];
-  a1 += (unsigned)W6 * row[2];
-  a2 -= (unsigned)W6 * row[2];
-  a3 -= (unsigned)W2 * row[2];
-  b0 = (unsigned)W1 * row[1] + (unsigned)W3 * row[3];
-  b1 = (unsigned)W3 * row[1] - (unsigned)W7 * row[3];
-  b2 = (unsigned)W5 * row[1] - (unsigned)W1 * row[3];
-  b3 = (unsigned)W7 * row[1] - (unsigned)W5 * row[3];
-  if (row[4] | row[5] | row[6] | row[7]) {
-    a0 += (unsigned)W4 * row[4] + (unsigned)W6 * row[6];
-    a1 += -(unsigned)W4 * row[4] - (unsigned)W2 * row[6];
-    a2 += -(unsigned)W4 * row[4] + (unsigned)W2 * row[6];
-    a3 += (unsigned)W4 * row[4] - (unsigned)W6 * row[6];
-    b0 += (unsigned)W5 * row[5] + (unsigned)W7 * row[7];
-    b1 += -(unsigned)W1 * row[5] - (unsigned)W5 * row[7];
-    b2 += (unsigned)W7 * row[5] + (unsigned)W3 * row[7];
-    b3 += (unsigned)W3 * row[5] - (unsigned)W1 * row[7];
-  }
-  row[0] = (int16_t)((int)(a0 + b0) >> ROW_SHIFT);
-  row[7] = (int16_t)((int)(a0 - b0) >> ROW_SHIFT);
-  row[1] = (int16_t)((int)(a1 + b1) >> ROW_SHIFT);
-  row[6] = (int16_t)((int)(a1 - b1) >> ROW_SHIFT);
-  row[2] = (int16_t)((int)(a2 + b2) >> ROW_SHIFT);
-  row[5] = (int16_t)((int)(a2 - b2) >> ROW_SHIFT);
-  row[3] = (int16_t)((int)(a3 + b3) >> ROW_SHIFT);
-  row[4] = (int16_t)((int)(a3 - b3) >> ROW_SHIFT);
-}
-
-/* one column's eight outputs (before the shift) */
-static void idct_col(const int16_t *col, int out[8]) {
-  unsigned a0, a1, a2, a3, b0, b1, b2, b3;
-  a0 = (unsigned)W4 * (col[0] + ((1 << (COL_SHIFT - 1)) / W4));
-  a1 = a0;
-  a2 = a0;
-  a3 = a0;
-  a0 += (unsigned)W2 * col[16];
-  a1 += (unsigned)W6 * col[16];
-  a2 += -(unsigned)W6 * col[16];
-  a3 += -(unsigned)W2 * col[16];
-  b0 = (unsigned)W1 * col[8] + (unsigned)W3 * col[24];
-  b1 = (unsigned)W3 * col[8] - (unsigned)W7 * col[24];
-  b2 = (unsigned)W5 * col[8] - (unsigned)W1 * col[24];
-  b3 = (unsigned)W7 * col[8] - (unsigned)W5 * col[24];
-  if (col[32]) {
-    a0 += (unsigned)W4 * col[32];
-    a1 += (unsigned)-W4 * col[32];
-    a2 += (unsigned)-W4 * col[32];
-    a3 += (unsigned)W4 * col[32];
-  }
-  if (col[40]) {
-    b0 += (unsigned)W5 * col[40];
-    b1 += (unsigned)-W1 * col[40];
-    b2 += (unsigned)W7 * col[40];
-    b3 += (unsigned)W3 * col[40];
-  }
-  if (col[48]) {
-    a0 += (unsigned)W6 * col[48];
-    a1 += (unsigned)-W2 * col[48];
-    a2 += (unsigned)W2 * col[48];
-    a3 += (unsigned)-W6 * col[48];
-  }
-  if (col[56]) {
-    b0 += (unsigned)W7 * col[56];
-    b1 += (unsigned)-W5 * col[56];
-    b2 += (unsigned)W3 * col[56];
-    b3 += (unsigned)-W1 * col[56];
-  }
-  out[0] = (int)(a0 + b0) >> COL_SHIFT;
-  out[1] = (int)(a1 + b1) >> COL_SHIFT;
-  out[2] = (int)(a2 + b2) >> COL_SHIFT;
-  out[3] = (int)(a3 + b3) >> COL_SHIFT;
-  out[4] = (int)(a3 - b3) >> COL_SHIFT;
-  out[5] = (int)(a2 - b2) >> COL_SHIFT;
-  out[6] = (int)(a1 - b1) >> COL_SHIFT;
-  out[7] = (int)(a0 - b0) >> COL_SHIFT;
-}
-
-static void idct_put(int16_t *blk, uint8_t *dst, int stride) {
-  int out[8];
-  for (int r = 0; r < 8; ++r) idct_row(blk + 8 * r);
-  for (int c = 0; c < 8; ++c) {
-    idct_col(blk + c, out);
-    for (int r = 0; r < 8; ++r) dst[r * stride + c] = clip_u8(out[r]);
-  }
-}
-
-static void idct_add(int16_t *blk, uint8_t *dst, int stride) {
-  int out[8];
-  for (int r = 0; r < 8; ++r) idct_row(blk + 8 * r);
-  for (int c = 0; c < 8; ++c) {
-    idct_col(blk + c, out);
-    for (int r = 0; r < 8; ++r)
-      dst[r * stride + c] = clip_u8(dst[r * stride + c] + out[r]);
-  }
-}
-
 /* ---- motion compensation ---- */
 
 static inline int clampi(int v, int lo, int hi) {
@@ -925,10 +803,11 @@ static void put_intra(mp4_t *d) {
         blk[i] = (int16_t)(blk[i] < 0 ? blk[i] * qmul - qadd
                                       : blk[i] * qmul + qadd);
     if (n < 4)
-      idct_put(blk, y + (n >> 1) * 8 * d->ys + (n & 1) * 8, d->ys);
+      simple_idct_put(blk, y + (n >> 1) * 8 * d->ys + (n & 1) * 8, d->ys);
     else
-      idct_put(blk, d->pic[d->cur][n - 3] + (long)d->mb_y * 8 * d->cs +
-                        d->mb_x * 8, d->cs);
+      simple_idct_put(blk, d->pic[d->cur][n - 3] +
+                               (long)d->mb_y * 8 * d->cs + d->mb_x * 8,
+                      d->cs);
   }
 }
 
@@ -937,11 +816,12 @@ static void add_inter(mp4_t *d) {
   for (int n = 0; n < 6; ++n) {
     if (d->last_index[n] < 0) continue;
     if (n < 4)
-      idct_add(d->block[n], y + (n >> 1) * 8 * d->ys + (n & 1) * 8, d->ys);
+      simple_idct_add(d->block[n], y + (n >> 1) * 8 * d->ys + (n & 1) * 8,
+                      d->ys);
     else
-      idct_add(d->block[n], d->pic[d->cur][n - 3] +
-                                (long)d->mb_y * 8 * d->cs + d->mb_x * 8,
-               d->cs);
+      simple_idct_add(d->block[n], d->pic[d->cur][n - 3] +
+                                       (long)d->mb_y * 8 * d->cs + d->mb_x * 8,
+                      d->cs);
   }
 }
 

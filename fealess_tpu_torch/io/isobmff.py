@@ -11,17 +11,27 @@ under ``cv2.VideoCapture``.
   the codec as FFmpeg's ``ff_codec_movvideo_tags`` and, for ``mp4v``, the
   ``esds`` object type (``ff_mp4_obj_type``) do: ``FFV1`` (extradata from
   its ``glbl`` box), ``mp4v`` with object type 0x6C (JPEG) or 0x6D (PNG),
-  which ``cv2.VideoWriter`` writes for Motion JPEG and PNG, or 0x20
-  (MPEG-4 Part 2, extradata from the DecoderSpecificInfo), ``jpeg`` and
-  ``png ``.
+  which ``cv2.VideoWriter`` writes for Motion JPEG and PNG, 0x20
+  (MPEG-4 Part 2) or 0x60-0x65 (MPEG-2, 0x61 what the writer writes), each
+  with its DecoderSpecificInfo as extradata, ``jpeg``, ``png ``, and
+  MOV's ``m2v1`` (MPEG-2) and ``DIVX``, ``XVID``, ``3IV2`` (MPEG-4 Part 2,
+  extradata from ``glbl``).  A format FFmpeg's table lacks is named by its
+  fourcc (:attr:`Mp4Track.codec` ``"fourcc ..."``): FFmpeg then looks it
+  up among the AVI fourccs (``HFYU`` in MOV, say).  A ``raw `` entry of
+  depth 12 (what ``cv2.VideoWriter`` writes for I420 in MOV) names no
+  pixel format FFmpeg's raw decoder knows, so the decoder does not open
+  (:class:`Mp4Error`, as cv2 does not open the file).
+- ``ctts``: each sample's composition offset (signed), zero without it.
 - Samples: ``stsz`` (one size or a size a sample), ``stco`` / ``co64``
   (chunk offsets), ``stsc`` (samples a chunk, by runs of chunks).
-- Edit lists (``edts/elst``): empty edits, and one edit from media time
-  0 that ends past the last frame's start (``stts``), which is what
-  ``cv2.VideoWriter`` writes, change no frame and are read; an edit that
-  starts later or ends earlier (FFmpeg drops the frames outside it), or
-  several, raise :class:`UnsupportedMp4`, as does a fragmented file
-  (``moof``) or a track of several sample descriptions.
+- Edit lists (``edts/elst``): empty edits, and one edit from the
+  smallest composition time (``stts`` plus ``ctts``) that ends past the
+  largest, change no frame and are read: ``cv2.VideoWriter`` writes one
+  from media time 0, or with B pictures from the one-frame delay its
+  ``ctts`` gives them, and FFmpeg's mov demuxer drops no frame there; an
+  edit that starts at another time or ends earlier (FFmpeg drops the
+  frames outside it), or several, raise :class:`UnsupportedMp4`, as does a
+  fragmented file (``moof``) or a track of several sample descriptions.
 
 A file whose ``moov`` is missing or cut raises :class:`Mp4Error`.
 """
@@ -36,11 +46,12 @@ from typing import BinaryIO, Dict, Iterator, List, Optional, Tuple
 _TOP = (b"ftyp", b"moov", b"mdat", b"wide", b"free", b"skip", b"pnot",
         b"udta", b"uuid", b"junk", b"styp", b"sidx")
 
-# ff_mp4_obj_type (libavformat/isom.c): 0x20 is read (MPEG-4 Part 2, its
-# DecoderSpecificInfo the extradata), the others named when refused
+# ff_mp4_obj_type (libavformat/isom.c): 0x20 (MPEG-4 Part 2) and 0x60-0x65
+# (MPEG-2) are read, their DecoderSpecificInfo the extradata; the others
+# are named when refused
 OBJECT_TYPES = {0x20: "mpeg4", 0x21: "H.264", 0x23: "HEVC",
-                0x60: "MPEG-2", 0x61: "MPEG-2", 0x62: "MPEG-2",
-                0x63: "MPEG-2", 0x64: "MPEG-2", 0x65: "MPEG-2",
+                0x60: "mpeg2", 0x61: "mpeg2", 0x62: "mpeg2",
+                0x63: "mpeg2", 0x64: "mpeg2", 0x65: "mpeg2",
                 0x6A: "MPEG-1", 0x6C: "mjpeg", 0x6D: "png", 0x6E: "JPEG 2000",
                 0xA3: "VC-1", 0xA4: "Dirac", 0xB1: "VP9", 0xC0: "VP8"}
 
@@ -49,10 +60,21 @@ FORMATS = {b"FFV1": "ffv1", b"jpeg": "mjpeg", b"png ": "png",
            b"mjpa": "mjpeg", b"avc1": "H.264", b"avc3": "H.264",
            b"hvc1": "HEVC", b"hev1": "HEVC", b"vp08": "VP8",
            b"vp09": "vp9", b"av01": "AV1", b"mp4v": "MPEG-4 Part 2",
-           b"s263": "H.263", b"raw ": "raw RGB", b"2vuy": "raw UYVY",
+           b"DIVX": "mpeg4", b"XVID": "mpeg4", b"3IV2": "mpeg4",
+           b"s263": "H.263", b"h263": "H.263", b"H263": "H.263",
+           b"3IVD": "MS MPEG-4 v3", b"raw ": "raw RGB", b"2vuy": "raw UYVY",
            b"apch": "ProRes", b"apcn": "ProRes", b"apcs": "ProRes",
            b"apco": "ProRes", b"ap4h": "ProRes", b"mjpb": "Motion JPEG B",
-           b"SVQ3": "Sorenson Video 3", b"rle ": "QuickTime Animation"}
+           b"SVQ3": "Sorenson Video 3", b"rle ": "QuickTime Animation",
+           b"m2v1": "mpeg2", b"m1v ": "MPEG-1", b"m1v1": "MPEG-1",
+           b"mpeg": "MPEG-1", b"mp1v": "MPEG-1"}
+# ff_codec_movvideo_tags' other MPEG-2 entries (HDV, XDCAM, IMX): FFmpeg
+# decodes them with mpeg2video; the port names them when refused
+FORMATS.update({tag.encode(): "MPEG-2 (HDV, XDCAM or IMX)" for tag in (
+    "hdv1 hdv2 hdv3 hdv4 hdv5 hdv6 hdv7 hdv8 hdv9 hdva mx5n mx5p mx4n mx4p "
+    "mx3n mx3p xd51 xd54 xd55 xd59 xd5a xd5b xd5c xd5d xd5e xd5f xdv1 xdv2 "
+    "xdv3 xdv4 xdv5 xdv6 xdv7 xdv8 xdv9 xdva xdvb xdvc xdvd xdve xdvf xdhd "
+    "xdh2 AVmp mp2v").split()})
 
 
 class Mp4Error(ValueError):
@@ -72,7 +94,8 @@ def is_isobmff(head: bytes) -> bool:
 
 @dataclass
 class Mp4Track:
-    codec: str      # "ffv1", "mjpeg", "png", "mpeg4", or a name refused
+    codec: str      # "ffv1", "mjpeg", "png", "mpeg4", "mpeg2", "vp9", or
+    #                 a name refused
     fourcc: bytes           # the sample entry's format
     width: int
     height: int
@@ -221,7 +244,7 @@ class Mp4File:
             scale = _u32(mdhd, 20 if mdhd[0] == 1 else 12)
             if b"edts" in tb:
                 self._check_edits(tb[b"edts"][0], movie_scale, scale,
-                                  self._last_start(stbl))
+                                  self._composition_times(stbl))
             return track, samples
         raise Mp4Error(f"{self.path}: the file has no video track")
 
@@ -239,11 +262,14 @@ class Mp4File:
         kids = self._children(entry, 78)
         codec = FORMATS.get(fmt, f"fourcc {fmt!r}")
         extradata = kids[b"glbl"][0] if b"glbl" in kids else b""
+        if fmt == b"raw " and struct.unpack_from(">h", entry, 74)[0] == 12:
+            raise Mp4Error(f"{self.path}: raw video of depth 12 (no pixel "
+                           f"format FFmpeg's raw decoder opens)")
         if fmt == b"mp4v" and b"esds" in kids:
             ot, info = esds_config(kids[b"esds"][0])
             codec = OBJECT_TYPES.get(ot, f"MPEG-4 object type {ot!r}")
-            if ot == 0x20:
-                codec, extradata = "mpeg4", info
+            if codec in ("mpeg4", "mpeg2"):
+                extradata = info
         return Mp4Track(codec=codec, fourcc=fmt, width=width, height=height,
                         extradata=extradata)
 
@@ -282,16 +308,31 @@ class Mp4File:
                     k += 1
         return out
 
-    def _last_start(self, stbl) -> int:
-        """The last sample's decode time in media units (``stts``)."""
+    def _composition_times(self, stbl) -> Tuple[int, int]:
+        """The smallest and the largest composition time of the samples
+        in media units: each decode time (``stts``) plus its offset
+        (``ctts``)."""
         stts = self._one(stbl, b"stts")
-        runs = [struct.unpack_from(">II", stts, 8 + 8 * i)
-                for i in range(_u32(stts, 4))]
-        total = sum(count * delta for count, delta in runs)
-        return total - runs[-1][1] if runs else 0
+        dts, t = [], 0
+        for i in range(_u32(stts, 4)):
+            count, delta = struct.unpack_from(">II", stts, 8 + 8 * i)
+            for _ in range(count):
+                dts.append(t)
+                t += delta
+        if not dts:
+            return 0, 0
+        offsets: List[int] = []
+        if b"ctts" in stbl:
+            ctts = stbl[b"ctts"][0]
+            for i in range(_u32(ctts, 4)):
+                count, off = struct.unpack_from(">Ii", ctts, 8 + 8 * i)
+                offsets += [off] * count
+        offsets += [0] * (len(dts) - len(offsets))
+        cts = [d + o for d, o in zip(dts, offsets)]
+        return min(cts), max(cts)
 
     def _check_edits(self, edts: bytes, movie_scale: int, media_scale: int,
-                     last_start: int) -> None:
+                     times: Tuple[int, int]) -> None:
         elst = self._children(edts).get(b"elst")
         if not elst:
             return
@@ -309,15 +350,17 @@ class Mp4File:
         if not edits:
             return
         dur, media = edits[0]
-        # the edit ends past the last frame's start (in seconds: dur /
-        # movie_scale against last_start / media_scale)
-        covers = dur * media_scale > last_start * movie_scale
-        if len(edits) > 1 or media != 0 or not covers:
+        first, last = times
+        # the edit starts at the first frame shown and ends past the last
+        # one's start (in seconds: dur / movie_scale against the media
+        # time from its start over media_scale)
+        covers = dur * media_scale > (last - media) * movie_scale
+        if len(edits) > 1 or media != first or not covers:
             raise UnsupportedMp4(
                 f"{self.path}: MP4 edit list that drops frames "
                 f"({len(edits)} edits, the first from media time {media} "
-                f"for {dur}/{movie_scale} s; last frame at "
-                f"{last_start}/{media_scale} s)")
+                f"for {dur}/{movie_scale} s; frames shown from {first} to "
+                f"{last} in units of 1/{media_scale} s)")
 
     # ---- reading ----
 

@@ -12,8 +12,9 @@ as FFmpeg's ``matroska`` demuxer hands them to the decoder under
   ``SimpleBlock`` and ``BlockGroup`` / ``Block``, laced or not (Xiph,
   fixed-size and EBML lacing).  Other elements (``SeekHead``, ``Info``,
   ``Cues``, ``Tags``, ``Void``, ``CRC-32``, ...) are stepped over.
-- The codec is the ``CodecID``'s (``ff_mkv_codec_tags``): ``V_FFV1``
-  (``CodecPrivate`` is its extradata), ``V_MJPEG``, ``V_UNCOMPRESSED``
+- The codec is the ``CodecID``'s (``ff_mkv_codec_tags``): ``V_FFV1`` and
+  ``V_MPEG2`` (``CodecPrivate`` is the extradata), ``V_MJPEG``,
+  ``V_UNCOMPRESSED``
   (the raw format is ``ColourSpace``'s fourcc) and ``V_MS/VFW/FOURCC``
   (``CodecPrivate`` is a BITMAPINFOHEADER: the fourcc at byte 16, the
   extradata past byte 40).
@@ -47,7 +48,7 @@ _LEVEL1 = (0x114D9B74, 0x1549A966, _TRACKS, _CLUSTER, 0x1C53BB6B,
 CODEC_NAMES = {"V_VP8": "VP8", "V_VP9": "VP9", "V_AV1": "AV1",
                "V_MPEG4/ISO/AVC": "H.264", "V_MPEGH/ISO/HEVC": "HEVC",
                "V_MPEG4/MS/V3": "MS MPEG-4 v3", "V_MPEG1": "MPEG-1",
-               "V_MPEG2": "MPEG-2", "V_THEORA": "Theora",
+               "V_THEORA": "Theora",
                "V_PRORES": "ProRes", "V_DIRAC": "Dirac",
                "V_QUICKTIME": "QuickTime"}
 

@@ -1,8 +1,12 @@
 """Video files, image files and printf patterns as ``cv2.VideoCapture``
 reads them (the JAX reader's source for a path that is not a directory),
-bit for bit and in cv2's number, for the containers and codecs that
-``cv2.VideoWriter`` writes and USB cameras record.  Decoding stays on the
-host, as FFmpeg's does under cv2.
+bit for bit and in cv2's number, for the containers and codecs listed
+below: most of what ``cv2.VideoWriter`` writes, and what USB cameras
+record.  ``cv2.VideoWriter`` also writes MS MPEG-4 v2 and v3 (``MP42``,
+``DIV3``), WMV7 and WMV8 (``WMV1``, ``WMV2``), Sorenson Spark (``FLV1``)
+and H.263 (``H263``); the port refuses those by name
+(``tests/test_torch_containers.py`` holds that list to what the writer
+writes).  Decoding stays on the host, as FFmpeg's does under cv2.
 
 The demuxer is picked as FFmpeg picks it:
 
@@ -37,6 +41,11 @@ Then a frame decoder by codec:
 - VP9 (:mod:`~fealess_tpu_torch.io.vp9`): AVI ``VP90``; MP4 ``vp09``;
   Matroska and WebM ``V_VP9`` (a superframe's packet gives each frame it
   shows, a ``show_existing_frame`` packet its slot's frame again);
+- MPEG-2 (:mod:`~fealess_tpu_torch.io.mpeg2`): AVI ``mpg2``, ``MPEG``;
+  MP4 ``mp4v`` with object types 0x60-0x65; MOV ``m2v1``; Matroska
+  ``V_MPEG2`` (B pictures leave the decoder in display order, one anchor
+  late; the last anchor comes from draining it after the last packet, as
+  FFmpeg drains at the end of the file);
 - BMP (:func:`~fealess_tpu_torch.io.image2.bmp_frame`): BMP images.
 
 Matroska's ``V_MS/VFW/FOURCC`` takes the AVI fourccs.  A path that does
@@ -47,11 +56,13 @@ source ...")``, as the JAX reader raises when ``cv2.VideoCapture`` does
 not open.  A source cv2 reads and the port does not raises
 :class:`UnsupportedVideo`, naming it: MPEG-PS/TS, Ogg, FLV and ASF;
 fragmented MP4 and edit lists that drop frames; Matroska with
-compressed blocks; other codecs (VP9, AV1, H.264, HEVC, ``FFVH``,
-uncompressed BI_RGB, other MPEG-4 Part 2 fourccs, VP8 in MP4, MS MPEG-4
-``DIV3``, ...); the MPEG-4 Part 2 tools :mod:`~fealess_tpu_torch.io.mpeg4`,
-the VP8 ones :mod:`~fealess_tpu_torch.io.vp8` and the VP9 ones
-:mod:`~fealess_tpu_torch.io.vp9` refuse by name; raw Motion JPEG (JPEG
+compressed blocks; other codecs (AV1, H.264, HEVC, ``FFVH``,
+uncompressed BI_RGB, other MPEG-4 Part 2 fourccs, VP8 in MP4, MPEG-1, MS
+MPEG-4, WMV, ...); the MPEG-4 Part 2 tools
+:mod:`~fealess_tpu_torch.io.mpeg4`, the VP8 ones
+:mod:`~fealess_tpu_torch.io.vp8`, the VP9 ones
+:mod:`~fealess_tpu_torch.io.vp9` and the MPEG-2 ones
+:mod:`~fealess_tpu_torch.io.mpeg2` refuse by name; raw Motion JPEG (JPEG
 images back to back); images of other formats (TIFF, WebP, ...); the PNG
 and BMP kinds :mod:`~fealess_tpu_torch.io.image2` names (16-bit colour
 PNG, Adam7 PNG, 16-bit BMP, RLE deltas, BMP data ``cv2.imread`` cannot
@@ -66,7 +77,9 @@ A packet the decoder rejects (``DecodeError``) is where cv2's ``read``
 first returns False: iterating a :class:`VideoReader` ends there, as the
 JAX reader's loop does.  A VP8 frame that FFmpeg stops part way (its
 end-of-data check) is one too: cv2 returns it with the macroblocks left
-undecoded holding an older buffer's pixels, which no reader can match.
+undecoded holding an older buffer's pixels, which no reader can match;
+so is an MPEG-2 packet cut short, whose missing macroblocks FFmpeg
+conceals.
 """
 
 from __future__ import annotations
@@ -85,6 +98,8 @@ from fealess_tpu_torch.io.jpeg import UnsupportedImage
 from fealess_tpu_torch.io.matroska import (CODEC_NAMES, MatroskaError,
                                            MkvFile, UnsupportedMatroska,
                                            is_ebml)
+from fealess_tpu_torch.io.mpeg2 import CODEC_ID as MPEG2_CODEC_ID
+from fealess_tpu_torch.io.mpeg2 import FOURCCS as MPEG2_FOURCCS
 from fealess_tpu_torch.io.mpeg4 import FOURCCS as MPEG4_FOURCCS
 from fealess_tpu_torch.io.png import DecodeError
 from fealess_tpu_torch.io.rawvideo import YUV420P_FOURCCS
@@ -131,6 +146,17 @@ _FOURCC_NAMES = {
     b"hev1": "HEVC (hev1)", b"hvc1": "HEVC (hvc1)",
     b"FFVH": "FFmpeg's Huffyuv variant (FFVH)",
     b"\0\0\0\0": "uncompressed (BI_RGB)"}
+# the codecs cv2.VideoWriter writes that the port does not decode yet
+# (ROADMAP's decoding queue), by the fourccs FFmpeg's AVI demuxer maps to
+# them
+QUEUED_FOURCCS = {
+    "MS MPEG-4 v3": (b"DIV3", b"MP43", b"DIV4", b"DIV5", b"DIV6", b"MPG3",
+                     b"AP41", b"COL1", b"COL0", b"3IVD"),
+    "MS MPEG-4 v2": (b"MP42", b"DIV2"),
+    "WMV7": (b"WMV1",), "WMV8": (b"WMV2",), "Sorenson Spark": (b"FLV1",),
+    "H.263": (b"H263", b"U263", b"h263", b"s263")}
+_FOURCC_NAMES.update({cc: f"{name} ({cc.decode()})"
+                      for name, ccs in QUEUED_FOURCCS.items() for cc in ccs})
 
 
 def _codec(fourcc: bytes) -> str:
@@ -155,11 +181,13 @@ def fourcc_codec(fourcc: bytes) -> Optional[str]:
         return "vp8"
     if fourcc in VP9_FOURCCS:
         return "vp9"
+    if fourcc in MPEG2_FOURCCS:
+        return "mpeg2"
     return None
 
 
 _READS = ("Motion JPEG, FFV1, raw I420 / IYUV / YV12, PNG, Huffyuv, "
-          "MPEG-4 Part 2, VP8 and VP9")
+          "MPEG-4 Part 2, VP8, VP9 and MPEG-2")
 
 
 class VideoReader:
@@ -290,13 +318,19 @@ class VideoReader:
             raise UnsupportedVideo(f"{e}: read by cv2.VideoCapture but not "
                                    f"by the port") from None
         t = mp4.track
-        if t.codec not in ("ffv1", "mjpeg", "png", "mpeg4", "vp9"):
+        if t.codec.startswith("fourcc "):
+            # FFmpeg's mov demuxer takes a format its own table lacks from
+            # the AVI fourccs
+            t.codec = fourcc_codec(t.fourcc) or _codec(t.fourcc)
+        if t.codec not in ("ffv1", "mjpeg", "png", "mpeg4", "vp9", "mpeg2",
+                           "huffyuv"):
             mp4.close()
             fourcc = t.fourcc.decode("latin-1")
             raise UnsupportedVideo(
                 f"{path}: MP4 with {t.codec} video ({fourcc}) is read by "
                 f"cv2.VideoCapture but not by the port (which reads FFV1, "
-                f"Motion JPEG, PNG, MPEG-4 Part 2 and VP9 in MP4)")
+                f"Huffyuv, Motion JPEG, PNG, MPEG-4 Part 2, VP9 and MPEG-2 "
+                f"in MP4 and MOV)")
         self.container = "MP4"
         self._set(t.codec, t.fourcc, t.width, t.height, t.extradata, mp4)
 
@@ -321,6 +355,8 @@ class VideoReader:
             codec, fourcc = "vp8", b""
         elif t.codec_id == VP9_CODEC_ID:
             codec, fourcc = "vp9", b""
+        elif t.codec_id == MPEG2_CODEC_ID:
+            codec, fourcc, extradata = "mpeg2", b"", t.codec_private
         elif t.codec_id == "V_UNCOMPRESSED":
             fourcc = t.colour_space
             codec = "rawvideo" if fourcc in YUV420P_FOURCCS else None
@@ -358,10 +394,15 @@ class VideoReader:
     # ---- decoders ----
 
     def _decoder(self) -> Tuple[Callable[[bytes, str], np.ndarray],
-                                Callable[[], None]]:
-        """(decode(packet, what), close) for one pass over the stream."""
+                                Callable[[], None], Callable[[], list]]:
+        """(decode(packet, what), close, drain) for one pass over the
+        stream: drain gives the frames a decoder still holds after the
+        last packet."""
         try:
-            return self._new_decoder()
+            decoder = self._new_decoder()
+            if len(decoder) == 2:
+                decoder += (list,)
+            return decoder
         except UnsupportedImage as e:
             raise UnsupportedVideo(str(e)) from None
         except DecodeError as e:      # the codec does not open: nor does cv2
@@ -401,6 +442,10 @@ class VideoReader:
             from fealess_tpu_torch.io.vp9 import Vp9Decoder
             dec = Vp9Decoder(self.path, self.container)
             return lambda data, what: dec.decode(data), dec.close
+        if self.codec == "mpeg2":
+            from fealess_tpu_torch.io.mpeg2 import Mpeg2Decoder
+            dec = Mpeg2Decoder(self.extradata, self.path, self.container)
+            return lambda data, what: dec.decode(data), dec.close, dec.flush
         if self.codec == "png":
             return image2.png_frame, nothing
         return image2.bmp_frame, nothing
@@ -428,8 +473,9 @@ class VideoReader:
 
     def __iter__(self) -> Iterator[np.ndarray]:
         """The frames cv2's ``read`` returns, up to the first packet the
-        decoder rejects (where ``read`` first returns False)."""
-        decode, close = self._decoder()
+        decoder rejects (where ``read`` first returns False), then those
+        the decoder holds at the end of the stream."""
+        decode, close, drain = self._decoder()
         first = None
         try:
             for i, data in enumerate(self._packets()):
@@ -442,7 +488,7 @@ class VideoReader:
                     ) from None
                 except DecodeError:
                     return
-                if isinstance(frame, list):   # a VP9 packet's shown frames
+                if isinstance(frame, list):   # VP9 or MPEG-2: 0-n frames
                     yield from frame
                     continue
                 if frame is None:    # a VOP not coded, a hidden VP8 frame
@@ -457,6 +503,7 @@ class VideoReader:
                             f"after {first[1]}x{first[0]}: cv2 scales each "
                             f"to the first's with swscale)")
                 yield frame
+            yield from drain()
         finally:
             close()
 

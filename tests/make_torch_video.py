@@ -5,6 +5,7 @@ holds them to, taken from cv2 and the JAX package on the CPU.
     python -m tests.make_torch_video          # everything
     python -m tests.make_torch_video vp8      # tests/data/torch_vp8 only
     python -m tests.make_torch_video vp9      # tests/data/torch_vp9 only
+    python -m tests.make_torch_video mpeg2    # tests/data/torch_mpeg2 only
 
 - ``clip.avi``: four panned 640x480 fixture frames (``apps/fixture.pan``)
   written by ``cv2.VideoWriter`` as Motion JPEG, with ``depth/<i>.png``
@@ -72,6 +73,23 @@ holds them to, taken from cv2 and the JAX package on the CPU.
   two shown frames, a superframe with a hidden frame, ``show_existing_frame``
   packets); tile rows on the 640x480 pan's packets; and at 640x480 the
   clip's four frames in WebM (``pan_vp9.webm``);
+- in ``tests/data/torch_mpeg2/`` (:func:`write_mpeg2`, with a
+  ``digests.json`` and a ``recon.json`` of its own), MPEG-2 from
+  ``cv2.VideoWriter`` (:func:`mpeg2_sources`, ``mpeg2_*``; FFmpeg's
+  mpeg2video encoder, B pictures, a closed then an open GOP): 16 panned
+  fixture frames at 640x480 in AVI, MP4, MOV and Matroska, a 96x64 pan of
+  16 frames, noise at 640x480 (I and B pictures only), motion of 37
+  pixels a frame (f_code 2 and up), 1280x720 with a flat still lower
+  half (address escapes), 95x63 (the writer writes 94x62), 16x16, 2 and 60 fps
+  and the AVI fourcc ``MPEG``; from the 96x64 pan's packets, edited by
+  ``tests/mpeg2_edit.py`` as :func:`mpeg2_edits` lists (loaded matrices,
+  the display, quant matrix, copyright and picture display extensions,
+  user data, broken_link, sequence end codes, the clip cut before its open
+  GOP with closed_gop 0 and 1, low_delay, fine and coarse quantisers on
+  each slice's first macroblock with extra slice information, a B
+  picture's slice opening with an intra macroblock, an odd width, the
+  sequence header as Matroska CodecPrivate); and at 640x480 the
+  clip's four frames in MP4 (``pan_mpeg2.mp4``);
 - ``digests.json``: for each source the frame count and each frame's
   shape and sha256 from ``cv2.VideoCapture``;
 - ``recon.json``: the JAX CLI's ``acq`` output on ``clip.avi`` with its
@@ -82,7 +100,8 @@ holds them to, taken from cv2 and the JAX package on the CPU.
   each frame; under ``"sources"`` the same for ``pan_ffv1.mp4``,
   ``pan/%d.jpg`` and ``pan_mp4v.avi`` (``RECON_SOURCES``), and in
   ``tests/data/torch_vp8/recon.json`` for ``pan_vp8.webm`` and
-  ``tests/data/torch_vp9/recon.json`` for ``pan_vp9.webm``.
+  ``tests/data/torch_vp9/recon.json`` for ``pan_vp9.webm`` and
+  ``tests/data/torch_mpeg2/recon.json`` for ``pan_mpeg2.mp4``.
 
 ``tests/test_torch_video.py`` holds the digests to cv2 on the CPU, so they
 cannot go stale.  The muxer is shared with that test.
@@ -118,6 +137,10 @@ VP8_RECON_SOURCES = {"pan_vp8.webm": CLIP_FRAMES}
 # the VP9 sources, in a directory of their own
 VP9_OUT = os.path.join(REPO, "tests", "data", "torch_vp9")
 VP9_RECON_SOURCES = {"pan_vp9.webm": CLIP_FRAMES}
+# the MPEG-2 sources, in a directory of their own
+MPEG2_OUT = os.path.join(REPO, "tests", "data", "torch_mpeg2")
+MPEG2_RECON_SOURCES = {"pan_mpeg2.mp4": CLIP_FRAMES}
+MPEG2_CONTAINERS = (".avi", ".mkv", ".mp4", ".mov")
 # the fourccs cv2.VideoWriter writes MPEG-4 Part 2 for
 MPEG4_FOURCCS = ("mp4v", "MP4V", "XVID", "xvid", "FMP4", "DIVX", "DX50")
 # (first bit, width) of VOL fields past the start code in the VOL that
@@ -757,6 +780,133 @@ def vp9_sources(frames) -> None:
     write_cv2_clip(out("pan_vp9.webm"), [b for b, _ in frames], "VP90")
 
 
+def mpeg2_edits(packets):
+    """The MPEG-2 clips edited from ``mpeg2_pan96.avi``'s ``packets``
+    (see the module docstring): name -> (packets, Matroska CodecPrivate
+    or None for an AVI)."""
+    from tests import mpeg2_edit as E
+
+    def each(fn, ps=packets):
+        return [E.join(fn(E.units(p))) for p in ps]
+
+    def after(units, kind, new):
+        """``new`` units after the first unit that ``kind`` picks."""
+        out, done = [], False
+        for u in units:
+            out.append(u)
+            if not done and kind(u):
+                out += new
+                done = True
+        return out
+
+    intra = [8] + [8 + (i * 7) % 50 for i in range(1, 64)]
+    inter = [10 + (i * 5) % 30 for i in range(64)]
+    seq_ext = lambda u: E.ext_id(u) == 1                      # noqa: E731
+    coding_ext = lambda u: E.ext_id(u) == 8                   # noqa: E731
+    out = {
+        "mpeg2_matrices.avi": each(lambda us: [
+            E.sequence_header(u, intra, inter) if E.code(u) == E.SEQ else u
+            for u in us]),
+        "mpeg2_quant_matrix_ext.avi": packets[:1] + each(
+            lambda us: after(us, coding_ext, [E.quant_matrix_extension(
+                inter, intra, [16] * 64, [20 + i % 9 for i in range(64)])]),
+            packets[1:2]) + packets[2:],
+        "mpeg2_display_ext.avi": [
+            E.join(after(E.units(p), seq_ext, [E.display_extension(
+                96, 64, 6 if i == 0 else 5)])) if i in (0, 10) else p
+            for i, p in enumerate(packets)],
+        "mpeg2_user_data.avi": each(lambda us: after(
+            after(us, lambda u: E.code(u) == E.SEQ,
+                  [E.user_data(b"fealess MPEG-2 test " * 2)]),
+            coding_ext, [E.copyright_extension(),
+                         E.picture_display_extension()])),
+        "mpeg2_broken_link.avi": each(lambda us: [
+            E.set_field(u, *E.GOP_FIELDS["broken_link"], 1)
+            if E.code(u) == E.GOP else u for u in us]),
+        "mpeg2_seq_end.avi": packets[:-1] + [
+            packets[-1] + b"\x00\x00\x01\xb7", b"\x00\x00\x01\xb7"],
+        "mpeg2_open_gop_start.avi": packets[10:],
+        "mpeg2_closed_gop_start.avi": each(lambda us: [
+            E.set_field(u, *E.GOP_FIELDS["closed_gop"], 1)
+            if E.code(u) == E.GOP else u for u in us], packets[10:]),
+        "mpeg2_low_delay.avi": each(lambda us: [
+            E.set_field(u, *E.SEQ_EXT_FIELDS["low_delay"], 1)
+            if seq_ext(u) else u for u in us]),
+        "mpeg2_q_fine.avi": [E.requantise(p, 1, extra=True)
+                             for p in packets],
+        "mpeg2_q_coarse.avi": [E.requantise(p, 31) for p in packets],
+        "mpeg2_b_intra.avi": packets[:2] + each(lambda us: [
+            E.b_intra_slice(0, 6) if E.code(u) == 0x01 else u for u in us],
+            packets[2:3]) + packets[3:],
+        "mpeg2_width_95.avi": each(lambda us: [
+            E.set_field(u, *E.SEQ_FIELDS["width"], 95)
+            if E.code(u) == E.SEQ else u for u in us]),
+    }
+    out = {name: (ps, None) for name, ps in out.items()}
+    head = E.units(packets[0])
+    seq = [u for u in head if E.code(u) == E.SEQ or seq_ext(u)]
+    out["mpeg2_extradata.mkv"] = (packets, E.join(seq))
+    return out
+
+
+def mpeg2_sources(frames) -> None:
+    """Write the MPEG-2 sources (see the module docstring); ``frames`` are
+    the clip's."""
+    import cv2
+    from fealess_tpu_torch.apps import fixture
+    from fealess_tpu_torch.io.avi import AviFile
+    from fealess_tpu_torch.io.png import read_png
+    from tests.test_torch_containers import mux_mkv
+
+    def out(name):
+        return os.path.join(MPEG2_OUT, name)
+    bgr = read_png(os.path.join(fixture.FIXTURE, "scene_bgr.png"))
+    depth = read_png(os.path.join(fixture.FIXTURE, "scene_depth.png"))
+    pan = [b for b, _ in fixture.pan(bgr, depth, 16)]
+    for ext in MPEG2_CONTAINERS:
+        write_cv2_clip(out(f"mpeg2_pan{ext}"), pan, "MPG2")
+    base = scene(96, 64, 51, 1)[0]
+    small = [_shifted(base, 3 * i, -2 * i) for i in range(16)]
+    write_cv2_clip(out("mpeg2_pan96.avi"), small, "MPG2")
+    write_cv2_clip(out("mpeg2_fourcc_MPEG.avi"), small[:5], "MPEG")
+    rng = np.random.default_rng(52)
+    write_cv2_clip(out("mpeg2_noise.avi"), [
+        np.clip(128 + rng.integers(-8, 9, (480, 640, 3)), 0, 255).astype(
+            np.uint8) for _ in range(3)], "MPG2")
+    fast = scene(128, 96, 53, 1)[0]
+    write_cv2_clip(out("mpeg2_motion.mkv"),
+                   [_shifted(fast, 37 * i, -11 * i) for i in range(8)],
+                   "MPG2")
+    wide = cv2.GaussianBlur(cv2.resize(scene(160, 90, 54, 1)[0], (1280, 720),
+                                       interpolation=cv2.INTER_CUBIC),
+                            (9, 9), 0)
+    still = []
+    for i in range(4):
+        f = np.full_like(wide, 90)
+        f[:360] = _shifted(wide, 5 * i, 3 * i)[:360]
+        still.append(f)
+    write_cv2_clip(out("mpeg2_size_1280x720.avi"), still, "MPG2")
+    odd = scene(95, 63, 55, 1)[0]
+    write_cv2_clip(out("mpeg2_size_95x63.avi"),
+                   [_shifted(odd, 9 * i, -5 * i) for i in range(8)], "MPG2")
+    write_cv2_clip(out("mpeg2_size_16x16.mkv"),
+                   [_shifted(scene(16, 16, 56, 1)[0], i, -i)
+                    for i in range(5)], "MPG2")
+    smooth = [cv2.GaussianBlur(_shifted(fast, 2 * i, i), (21, 21), 0)
+              [:64, :96] for i in range(6)]
+    write_cv2_clip(out("mpeg2_rate_fps2.avi"), smooth, "MPG2", fps=2)
+    write_cv2_clip(out("mpeg2_rate_fps60.avi"),
+                   [rng.integers(0, 256, (64, 96, 3)).astype(np.uint8)
+                    for _ in range(4)], "MPG2", fps=60)
+    with AviFile(out("mpeg2_pan96.avi")) as avi:
+        packets = list(avi.frames())
+    for name, (data, private) in mpeg2_edits(packets).items():
+        with open(out(name), "wb") as f:
+            f.write(mux_avi(data, 96, 64, fourcc=b"mpg2") if private is None
+                    else mux_mkv(data, 96, 64, "V_MPEG2", private))
+    write_cv2_clip(out("pan_mpeg2.mp4"), [b for b, _ in frames], "MPG2")
+
+
 def committed_sources():
     """Every committed source of OUT that ``digests.json`` lists."""
     return sorted([n for n in os.listdir(OUT) if n.endswith(CONTAINERS)]
@@ -844,6 +994,7 @@ def main() -> None:
     print(f"wrote {OUT}: {total} bytes")
     write_vp8(frames)
     write_vp9(frames)
+    write_mpeg2(frames)
 
 
 def vp9_committed_sources():
@@ -875,6 +1026,38 @@ def write_vp9(frames) -> None:
     total = sum(os.path.getsize(os.path.join(VP9_OUT, n))
                 for n in os.listdir(VP9_OUT))
     print(f"wrote {VP9_OUT}: {total} bytes")
+
+
+def mpeg2_committed_sources():
+    """Every committed source of MPEG2_OUT (its ``digests.json`` lists
+    them)."""
+    return sorted(n for n in os.listdir(MPEG2_OUT)
+                  if n.endswith(MPEG2_CONTAINERS))
+
+
+def write_mpeg2(frames) -> None:
+    """Write MPEG2_OUT: the MPEG-2 sources, their ``digests.json`` and
+    ``recon.json`` (the JAX CLI's acq and recon under ``"sources"``)."""
+    os.makedirs(MPEG2_OUT, exist_ok=True)
+    for name in os.listdir(MPEG2_OUT):
+        os.remove(os.path.join(MPEG2_OUT, name))
+    mpeg2_sources(frames)
+    digests = {name: digest(os.path.join(MPEG2_OUT, name))
+               for name in mpeg2_committed_sources()}
+    with open(os.path.join(MPEG2_OUT, "digests.json"), "w") as f:
+        json.dump(digests, f, indent=1, sort_keys=True)
+        f.write("\n")
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    recon = {"sources": {name: jax_acq_recon(os.path.join(MPEG2_OUT, name),
+                                             n)
+                         for name, n in MPEG2_RECON_SOURCES.items()}}
+    with open(os.path.join(MPEG2_OUT, "recon.json"), "w") as f:
+        json.dump(recon, f, indent=1, sort_keys=True)
+        f.write("\n")
+    total = sum(os.path.getsize(os.path.join(MPEG2_OUT, n))
+                for n in os.listdir(MPEG2_OUT))
+    print(f"wrote {MPEG2_OUT}: {total} bytes")
 
 
 def vp8_committed_sources():
@@ -914,5 +1097,7 @@ if __name__ == "__main__":
         write_vp8(clip_frames())
     elif sys.argv[1:] == ["vp9"]:
         write_vp9(clip_frames())
+    elif sys.argv[1:] == ["mpeg2"]:
+        write_mpeg2(clip_frames())
     else:
         main()

@@ -5,8 +5,12 @@ clips from ``cv2.VideoWriter`` (fourcc 0, I420, IYUV, YV12, MPNG, FFV1,
 MJPG in AVI, MP4 and Matroska) and hand-muxed files that reach what the
 writer does not write (odd raw sizes; moov first, co64, chunk runs, edit
 lists; Matroska block groups, lacing and unknown sizes), each bit for bit
-and in cv2's number; the codecs and layouts still refused, by name; and
-``ImageSeriesReader`` on these sources equal to the JAX reader."""
+and in cv2's number; the codecs and layouts still refused, by name; every
+fourcc ``cv2.VideoWriter`` takes, in each container it writes, read to
+cv2's frames or refused as a codec of the decoding queue (``QUEUED``, the
+line of ROADMAP.md that names it); MP4 edit lists around the B-picture
+delay; and ``ImageSeriesReader`` on these sources equal to the JAX
+reader."""
 
 import os
 import struct
@@ -19,7 +23,8 @@ from fealess_tpu.io.series import ImageSeriesReader as JaxReader
 from fealess_tpu_torch.io import rawvideo
 from fealess_tpu_torch.io.avi import AviFile
 from fealess_tpu_torch.io.series import ImageSeriesReader
-from fealess_tpu_torch.io.video import UnsupportedVideo, VideoReader
+from fealess_tpu_torch.io.video import (QUEUED_FOURCCS, UnsupportedVideo,
+                                        VideoReader)
 from tests.make_torch_video import (cv2_frames, jpeg, mux_avi, scene,
                                     set_vol_bit, set_vp9_color_space,
                                     write_cv2_clip, yuv420p)
@@ -380,6 +385,111 @@ def test_mp4_edit_lists_that_drop_frames_are_refused(tmp_path, edits,
     assert len(cv2_frames(path)) < 5
     with pytest.raises(UnsupportedVideo, match=match):
         VideoReader(path)
+
+
+def _mp4_with_edits(data: bytes, edits) -> bytes:
+    """``data`` (an MP4 whose moov follows mdat, as cv2.VideoWriter writes
+    it) with its elst box's entries replaced by ``edits`` ((duration in
+    movie units, media time) each); the parent boxes' sizes follow."""
+    at = data.index(b"elst") - 4
+    size = struct.unpack_from(">I", data, at)[0]
+    body = struct.pack(">II", 0, len(edits)) + b"".join(
+        struct.pack(">IiI", d, m, 0x10000) for d, m in edits)
+    new = _box(b"elst", body)
+    out = bytearray(data[:at] + new + data[at + size:])
+    for kind in (b"edts", b"trak", b"moov"):
+        k = out.index(kind) - 4
+        out[k:k + 4] = struct.pack(">I", struct.unpack_from(">I", out, k)[0]
+                                   + len(new) - size)
+    return bytes(out)
+
+
+@pytest.mark.parametrize("edits", [
+    ((1600, 1024),), ((1700, 1024),), ((100, -1), (1600, 1024)),
+    ((1600, 0),), ((1600, 2048),), ((1000, 1024),),
+    ((800, 1024), (800, 9216))], ids=[
+        "delay", "delay_longer", "empty_then_delay", "media_time_0",
+        "media_time_2048", "short", "two_edits"])
+def test_mp4_edit_lists_with_b_picture_delay(tmp_path, edits):
+    """cv2.VideoWriter's MP4 with B pictures (16 frames of MPEG-2) has one
+    edit from media time 1024, its smallest composition time (ctts), at a
+    timescale of 10240: FFmpeg drops no frame there, and the port reads
+    every frame as cv2 does.  Hand-edited elst boxes that start at another
+    time, end before the last frame is shown or add an edit: the port
+    reads cv2's frames or refuses the file by name."""
+    src = os.path.join(os.path.dirname(__file__), "data", "torch_mpeg2",
+                       "mpeg2_pan.mp4")
+    with open(src, "rb") as f:
+        data = f.read()
+    assert struct.unpack_from(">IiI", data, data.index(b"elst") + 12) == (
+        1600, 1024, 0x10000)
+    path = _write(tmp_path, _mp4_with_edits(data, edits), "clip.mp4")
+    want = cv2_frames(path)
+    try:
+        got = list(VideoReader(path))
+    except UnsupportedVideo as e:
+        assert "edit list that drops frames" in str(e)
+        assert edits[-1] != (1600, 1024)
+        return
+    assert edits[-1][1] == 1024 and len(got) == len(want) == 16
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+# the fourccs cv2.VideoWriter takes, each written in AVI, MP4, MOV and
+# Matroska where the writer opens
+EVERY_FOURCC = ("MJPG", "FFV1", "I420", "MPNG", "HFYU", "mp4v", "XVID",
+                "DIVX", "VP80", "VP90", "MPG2", "DIV3", "MP42", "WMV1",
+                "WMV2", "FLV1", "H263")
+# the codecs the port refuses by name and ROADMAP's decoding queue lists
+QUEUED = tuple(QUEUED_FOURCCS)
+
+
+def test_queued_is_roadmaps_decoding_queue():
+    """QUEUED names the codecs of ROADMAP.md's decoding queue line, and
+    MPEG-2 is not among them."""
+    with open(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "ROADMAP.md")) as f:
+        line = next(ln for ln in f if ln.startswith("Decoding queue:"))
+    names = [n.strip().rstrip(".") for n in line.split(":", 1)[1].split(";")]
+    assert sorted(names) == sorted(QUEUED)
+    assert "MPEG-2" not in QUEUED
+
+
+@pytest.mark.parametrize("ext", ["avi", "mp4", "mov", "mkv"])
+@pytest.mark.parametrize("fourcc", EVERY_FOURCC)
+def test_every_codec_cv2_writes_is_read_or_queued(tmp_path, fourcc, ext):
+    """Four frames through cv2.VideoWriter (96x64; 128x96 for H.263, whose
+    picture sizes are fixed): the port reads them to cv2's frames, or
+    refuses the file naming a codec of QUEUED; where cv2 does not open
+    what its writer wrote, the port raises OSError as the JAX reader
+    does.  A codec cv2 writes that is neither read nor queued fails here."""
+    import cv2
+    w, h = (128, 96) if fourcc == "H263" else (96, 64)
+    path = str(tmp_path / f"clip.{ext}")
+    vw = cv2.VideoWriter(path, cv2.CAP_FFMPEG,
+                         cv2.VideoWriter_fourcc(*fourcc), 10, (w, h))
+    if not vw.isOpened():
+        return                          # the writer takes no such file
+    for f in scene(w, h, 3, 4):
+        vw.write(f)
+    vw.release()
+    cap = cv2.VideoCapture(path)
+    opened = cap.isOpened()
+    cap.release()
+    if not opened:
+        with pytest.raises(OSError, match="cannot open video source"):
+            VideoReader(path)
+        return
+    want = cv2_frames(path)
+    try:
+        got = list(VideoReader(path))
+    except UnsupportedVideo as e:
+        assert any(f"{name} " in str(e) for name in QUEUED), str(e)
+        return
+    assert len(got) == len(want) == 4
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
 
 
 def _ebml_id(eid: int) -> bytes:

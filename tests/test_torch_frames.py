@@ -293,25 +293,26 @@ def test_cv2_only_sources_are_refused(acq_source, tmp_path, monkeypatch,
                                       capsys):
     """A camera index needs a video device: the reader refuses it by
     name, and acq says so and returns 1; a video path that does not exist
-    raises OSError as the JAX reader's does, and an MPEG-2 MP4 (a codec
-    the port does not read) raises UnsupportedVideo naming it; JPEG and BMP
+    raises OSError as the JAX reader's does, and an MS MPEG-4 v2 AVI (a
+    codec the port does not read yet) raises UnsupportedVideo naming it;
+    JPEG and BMP
     files are read (as the JAX reader reads them, in a directory and in a
     list); the ROI picker needs a display."""
     from fealess_tpu.io.series import ImageSeriesReader as JaxReader
     from fealess_tpu_torch.io.video import UnsupportedVideo
     with pytest.raises(ValueError, match="camera index"):
         ImageSeriesReader(0)
-    clip = str(tmp_path / "clip.mp4")
+    clip = str(tmp_path / "clip.avi")
     with pytest.raises(OSError, match="cannot open video source"):
         ImageSeriesReader(clip)
     with pytest.raises(OSError, match="cannot open video source"):
         JaxReader(clip)
-    vw = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"MPG2"), 10, (32, 16))
+    vw = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"MP42"), 10, (32, 16))
     for _ in range(2):
         vw.write(np.full((16, 32, 3), 90, np.uint8))
     vw.release()
     assert len(list(JaxReader(clip))) == 2
-    with pytest.raises(UnsupportedVideo, match="MP4"):
+    with pytest.raises(UnsupportedVideo, match="AVI with MS MPEG-4 v2"):
         ImageSeriesReader(clip)
     jpg = tmp_path / "jpg"
     shutil.copytree(acq_source[0], jpg)

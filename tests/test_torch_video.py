@@ -371,11 +371,11 @@ def test_acq_cli_on_the_committed_clip_equals_jax(tmp_path):
 
 
 def test_acq_refuses_a_video_it_does_not_read(tmp_path, capsys):
-    """acq on an MPEG-2 MP4 (a codec the port does not read) or a missing
-    path prints the reason and returns 1, writing nothing."""
-    mp4 = str(tmp_path / "a.mp4")
-    write_cv2_clip(mp4, scene(32, 16, 1, 2), "MPG2")
-    for source, match in ((mp4, "MP4"),
+    """acq on an MS MPEG-4 v3 AVI (a codec the port does not read yet) or a
+    missing path prints the reason and returns 1, writing nothing."""
+    avi = str(tmp_path / "a.avi")
+    write_cv2_clip(avi, scene(32, 16, 1, 2), "DIV3")
+    for source, match in ((avi, "MS MPEG-4 v3"),
                           (str(tmp_path / "nope.avi"), "cannot open")):
         out = str(tmp_path / "out")
         assert cli.main(["acq", source, out, "--device", "cpu"]) == 1
