@@ -144,22 +144,26 @@ Phases, one line of output each (or a few):
 7f. video files, image files and printf patterns (``io/video.
    VideoReader``, as ``cv2.VideoCapture`` reads them: AVI, MP4 and
    Matroska holding Motion JPEG, FFV1, raw I420, PNG, Huffyuv, MPEG-4
-   Part 2, VP8, VP9 or MPEG-2 frames, MOV holding MPEG-2; image2's single
-   images and patterns): every committed source of
-   ``tests/data/torch_video``, ``torch_vp8``, ``torch_vp9`` and
-   ``torch_mpeg2`` decoded to the frame count and each frame's
-   sha256 of cv2's (recorded by ``tests/make_torch_video.py``); ``acq
-   --device cuda --clouds`` with the committed depth directory from the
-   640x480 Motion JPEG clip, the FFV1 MP4, the JPEG pattern, the mp4v
-   AVI, the VP8 and VP9 WebM clips and the MPEG-2 MP4, each
+   Part 2, VP8, VP9 or MPEG-2 frames, MOV holding MPEG-2 or raw RGBA;
+   raw gray, NV12 and RGBA in AVI and Matroska; YUV4MPEG2; the MPEG video
+   elementary stream; image2's single images and patterns; raw Motion
+   JPEG and PNG pipes): every committed source of
+   ``tests/data/torch_video``, ``torch_vp8``, ``torch_vp9``,
+   ``torch_mpeg2`` and ``torch_raw`` decoded to the frame count and each
+   frame's sha256 of cv2's (recorded by ``tests/make_torch_video.py``);
+   ``acq --device cuda --clouds`` with the committed depth directory from
+   the 640x480 Motion JPEG clip, the FFV1 MP4, the JPEG pattern, the mp4v
+   AVI, the VP8 and VP9 WebM clips, the MPEG-2 MP4 and the YUV4MPEG2 clip
+   (two frames, paired with the depth directory's first two), each
    package's ``gray/`` and ``depth/`` pixels equal to the JAX CLI's and its
    clouds within ``CLOUD_TOL_MM`` of the same call on the CPU; ``recon
    --device cuda`` on each package in both ICP settings, its lines held to
    the JAX CLI's (similarity exact, pose within phase 4's tolerances) with
    K1/K2/K3 at 1/1/0 a frame in (a) and 1/1/9 in (b); the host time to
    decode a 640x480 frame of each format, demux included, and of one
-   MPEG-4 I-VOP and one P-VOP, a VP8 and a VP9 key and inter frame, and
-   an MPEG-2 I, P and B picture.
+   MPEG-4 I-VOP and one P-VOP, a VP8 and a VP9 key and inter frame, an
+   MPEG-2 I, P and B picture, and a frame of the YUV4MPEG2 and the MPEG-2
+   elementary stream readers.
 8. the rest of the public surface: the CLI's device-stage table
    (``cli._profile_stages``: front-end, match and the full step as
    cumulative prefixes, each the device busy of warm calls under
@@ -355,6 +359,7 @@ VIDEO_DIR = os.path.join(REPO, "tests", "data", "torch_video")
 VP8_DIR = os.path.join(REPO, "tests", "data", "torch_vp8")
 VP9_DIR = os.path.join(REPO, "tests", "data", "torch_vp9")
 MPEG2_DIR = os.path.join(REPO, "tests", "data", "torch_mpeg2")
+RAW_DIR = os.path.join(REPO, "tests", "data", "torch_raw")
 CLOUD_TOL_MM = 1e-3
 DECODE_TIMED = 10
 
@@ -2390,6 +2395,7 @@ def video_phase(eng, card, counts, default_icp) -> None:
     vp8_sources(eng, card, counts, default_icp)
     vp9_sources(eng, card, counts, default_icp)
     mpeg2_sources(eng, card, counts, default_icp)
+    raw_sources(eng, card, counts, default_icp)
 
 
 def mpeg4_frame_times(card) -> None:
@@ -2643,6 +2649,91 @@ def mpeg2_sources(eng, card, counts, default_icp) -> None:
           f"warm call): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
           + f" ({card})")
+
+
+def raw_sources(eng, card, counts, default_icp) -> None:
+    """Phase 7f's part for the sources read with no new decoder: every
+    committed source of ``tests/data/torch_raw`` (YUV4MPEG2, the MPEG
+    video elementary stream, raw gray / NV12 / RGBA in AVI, Matroska and
+    MOV, AVI's jpeg / LJPG / GEOX, MOV's MPEG-2 tags, raw Motion JPEG, a
+    PNG pipe, a PAM image that gives no frame) decoded by ``VideoReader``
+    to cv2's digests; ``acq --device cuda --clouds`` from the 640x480
+    YUV4MPEG2 clip and ``recon`` on its package in both ICP settings
+    (``acq_recon_source``); host times a 640x480 frame of the YUV4MPEG2
+    reader and of the elementary stream reader (on ``tests/data/
+    torch_mpeg2/mpeg2_pan.avi``'s packets joined into a stream, whose
+    frames must be the AVI's)."""
+    import hashlib
+
+    import numpy as np
+    from fealess_tpu_torch.io import mpegvideo
+    from fealess_tpu_torch.io.avi import AviFile
+    from fealess_tpu_torch.io.video import VideoReader
+
+    t_part = time.perf_counter()
+    with open(os.path.join(RAW_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    with open(os.path.join(RAW_DIR, "recon.json")) as f:
+        expect = json.load(f)
+
+    def sha(a) -> str:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    for name, want in sorted(digests.items()):
+        with VideoReader(os.path.join(RAW_DIR, name)) as reader:
+            frames = list(reader)
+        got = {"frames": len(frames),
+               "shapes": [list(f.shape) for f in frames],
+               "sha256": [sha(f) for f in frames]}
+        check(got == want, f"video {name}: {got}, cv2 gives {want}")
+    print(f"raw and demuxed input: {len(digests)} committed sources ("
+          f"{sum(d['frames'] for d in digests.values())} frames: "
+          f"cv2.VideoWriter's YUV4MPEG2 (I420, Y800, YUY2), AVI jpeg, LJPG, "
+          f"GEOX, Y800, GREY, Y8, NV12 and RGBA, Matroska Y800, NV12 and "
+          f"RGBA, MOV RGBA, xd5b and mp2v, raw Motion JPEG, an MPEG-2 "
+          f"elementary stream (and two streams joined, a last picture cut "
+          f"in its headers), 640x480 YUV4MPEG2; hand-made YUV4MPEG2 at "
+          f"17x33, gray, full range, FRAME parameters, C420mpeg2, cut "
+          f"short; raw AVIs at odd widths with padded rows; a PNG pipe; a "
+          f"PAM image of no frame): frame counts and every frame's sha256 "
+          f"equal to cv2.VideoCapture's")
+    name = "pan_y4m.y4m"
+    acq_recon_source(eng, card, counts, default_icp, name,
+                     digests[name]["frames"], expect["sources"][name],
+                     "YUV4MPEG2 (I420)", False, RAW_DIR)
+
+    # host time a 640x480 frame, demux included
+    clip = os.path.join(MPEG2_DIR, "mpeg2_pan.avi")
+    with AviFile(clip) as avi:
+        packets = list(avi.frames())
+    with tempfile.TemporaryDirectory() as tmp:
+        m2v = os.path.join(tmp, "pan.m2v")
+        with open(m2v, "wb") as f:
+            f.write(b"".join(packets))
+        with open(m2v, "rb") as f:
+            check(mpegvideo.packets(f.read()) == packets,
+                  "the parser does not cut the joined stream at the AVI's "
+                  "packets")
+        got = list(VideoReader(m2v))
+        want = list(VideoReader(clip))
+        check(len(got) == len(want) == len(packets) and all(
+            np.array_equal(a, b) for a, b in zip(got, want)),
+            "the elementary stream does not decode to the AVI's frames")
+        y4m = os.path.join(RAW_DIR, name)
+        n_y4m = digests[name]["frames"]
+        times = {
+            f"YUV4MPEG2 ({name}, {n_y4m} frames)": host_mean_ms(
+                lambda: list(VideoReader(y4m)), DECODE_TIMED) / n_y4m,
+            f"MPEG-2 elementary stream (mpeg2_pan.avi's {len(packets)} "
+            f"packets joined)": host_mean_ms(
+                lambda: list(VideoReader(m2v)), DECODE_TIMED) / len(packets)}
+    print("time raw and elementary stream input to BGR (host, demux "
+          f"included, ms per 640x480 frame, mean of {DECODE_TIMED} passes "
+          "after a warm one): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+          + f" ({card})")
+    print(f"time phase 7f raw and demuxed part: "
+          f"{time.perf_counter() - t_part:.1f} s ({card})")
 
 
 # -- phase 8: the rest of the public surface --------------------------------

@@ -17,6 +17,9 @@
  *     through the vertical bicubic filter; the rows above the last two in
  *     x86's MMX output code, the last two in C with the 24-bit tables (see
  *     subsampled_odd).
+ * NV12 has no unscaled converter: it takes the scaler at every height
+ * (full_chroma for an odd width, subsampled_odd for an even one; see
+ * yuv_planar.c).
  * full_range picks the yuvj* (JPEG) range, else the limited yuv* range.
  * The coefficients are ff_yuv2rgb_c_init_tables' for BT.601 at the default
  * contrast and saturation.  Every function is static. */

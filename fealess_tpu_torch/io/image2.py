@@ -26,7 +26,9 @@ The frame decoders (:func:`png_frame`, :func:`bmp_frame`; JPEG goes to
   16-bit RGB(A) goes through swscale's dithered 16-to-8 bit conversion,
   which the port does not reproduce, and swscale refuses the frame of an
   Adam7-interlaced PNG (cv2 then hands on a buffer it did not convert):
-  both raise :class:`~fealess_tpu_torch.io.video.UnsupportedVideo`.  No
+  both raise :class:`~fealess_tpu_torch.io.video.UnsupportedVideo`.  A
+  chunk cut short before ``IEND`` fails the frame, as FFmpeg's decoder
+  fails it (a file that simply ends before ``IEND`` decodes).  No
   EXIF orientation is applied (cv2's FFmpeg path applies none to an
   image).
 - BMP: FFmpeg's ``bmp`` decoder, equal to ``cv2.imread(IMREAD_COLOR)``
@@ -44,7 +46,7 @@ from __future__ import annotations
 
 import os
 import struct
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -164,11 +166,12 @@ def sequence_files(pattern: str) -> Iterator[str]:
         yield name
 
 
-def second_jpeg_at(data: bytes) -> int:
-    """Where FFmpeg's mjpeg parser starts a second frame in ``data`` (an
-    SOI followed by a marker past the first one, segment payloads stepped
-    over), or -1."""
-    state, size, i, found = 0, 0, 0, False
+def jpeg_frame_end(data: bytes, start: int = 0) -> int:
+    """Where FFmpeg's mjpeg parser ends the frame that starts at
+    ``start`` (``find_frame_end`` from a fresh state: the frame's SOI, then
+    the next SOI followed by a marker, segment payloads stepped over), or
+    -1 where the data ends first."""
+    state, size, i, found = 0, 0, start, False
     n = len(data)
     while i < n:
         state = ((state << 8) | data[i]) & 0xFFFFFFFF
@@ -191,16 +194,64 @@ def second_jpeg_at(data: bytes) -> int:
     return -1
 
 
-def second_png_at(data: bytes) -> int:
-    """Where a second PNG starts past the first one's ``IEND``, or -1."""
+def jpeg_packets(data: bytes) -> List[bytes]:
+    """JPEG images back to back (raw Motion JPEG) cut as FFmpeg's mjpeg
+    parser cuts them: each packet from where the last one ended up to the
+    next frame's SOI."""
+    out, at = [], 0
+    while at < len(data):
+        end = jpeg_frame_end(data, at)
+        if end < 0:
+            out.append(data[at:])
+            break
+        out.append(data[at:end])
+        at = end
+    return out
+
+
+def png_packets(data: bytes) -> List[bytes]:
+    """PNG images back to back cut as FFmpeg's png parser (``png_pipe``)
+    cuts them: a packet runs from where the last one ended through the
+    next PNG signature and its chunks to the end of its ``IEND`` chunk; a
+    chunk length past 2**31 - 1 sends the parser back to the signature
+    search; the rest of the data is the last packet."""
+    out, at, start, n = [], 0, 0, len(data)
+    while at < n:
+        found = data.find(png._SIGNATURE, at)
+        if found < 0:
+            break
+        at = found + 8
+        while at + 8 <= n:                     # chunk length, type
+            length, kind = struct.unpack_from(">I4s", data, at)
+            if length > 0x7FFFFFFF:
+                at += 4
+                break
+            at += 8 + length + 4
+            if kind == b"IEND":
+                if at <= n:
+                    out.append(data[start:at])
+                    start = at
+                break
+        else:
+            break
+    if start < n:
+        out.append(data[start:])
+    return out
+
+
+def _check_chunks(data: bytes, what: str) -> None:
+    """FFmpeg's png decoder walks the chunks to ``IEND`` or to the end of
+    the packet, and fails the frame at a chunk cut short (its length,
+    type, data or CRC past the end): raise DecodeError there."""
     at = 8
-    while at + 12 <= len(data):
-        length, kind = struct.unpack_from(">I4s", data, at)
+    while at < len(data):
+        left = len(data) - at
+        length = struct.unpack_from(">I", data, at)[0] if left >= 4 else 0
+        if left < 12 or length > 0x7FFFFFFF or length + 12 > left:
+            raise DecodeError(f"{what}: a PNG chunk cut short at byte {at}")
+        if data[at + 4:at + 8] == b"IEND":
+            return
         at += 12 + length
-        if kind == b"IEND":
-            nxt = data.find(png._SIGNATURE, at)
-            return nxt
-    return -1
 
 
 def png_frame(data: bytes, what: str = "<frame>") -> np.ndarray:
@@ -213,6 +264,7 @@ def png_frame(data: bytes, what: str = "<frame>") -> np.ndarray:
         # and cv2 hands on a buffer it did not convert
         raise UnsupportedImage(f"{what}: an Adam7-interlaced PNG, which "
                                f"swscale does not convert under cv2")
+    _check_chunks(data, what)
     img, _, _ = png.decode_bytes(data, what)
     if img.dtype == np.uint16:
         if img.shape[2] >= 3:

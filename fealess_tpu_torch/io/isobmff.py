@@ -14,8 +14,9 @@ under ``cv2.VideoCapture``.
   which ``cv2.VideoWriter`` writes for Motion JPEG and PNG, 0x20
   (MPEG-4 Part 2) or 0x60-0x65 (MPEG-2, 0x61 what the writer writes), each
   with its DecoderSpecificInfo as extradata, ``jpeg``, ``png ``, and
-  MOV's ``m2v1`` (MPEG-2) and ``DIVX``, ``XVID``, ``3IV2`` (MPEG-4 Part 2,
-  extradata from ``glbl``).  A format FFmpeg's table lacks is named by its
+  MOV's ``m2v1`` and its HDV, XDCAM and IMX entries (``xd5b``, ``mp2v``,
+  ...: MPEG-2, extradata from ``glbl``) and ``DIVX``, ``XVID``, ``3IV2``
+  (MPEG-4 Part 2).  A format FFmpeg's table lacks is named by its
   fourcc (:attr:`Mp4Track.codec` ``"fourcc ..."``): FFmpeg then looks it
   up among the AVI fourccs (``HFYU`` in MOV, say).  A ``raw `` entry of
   depth 12 (what ``cv2.VideoWriter`` writes for I420 in MOV) names no
@@ -69,8 +70,9 @@ FORMATS = {b"FFV1": "ffv1", b"jpeg": "mjpeg", b"png ": "png",
            b"m2v1": "mpeg2", b"m1v ": "MPEG-1", b"m1v1": "MPEG-1",
            b"mpeg": "MPEG-1", b"mp1v": "MPEG-1"}
 # ff_codec_movvideo_tags' other MPEG-2 entries (HDV, XDCAM, IMX): FFmpeg
-# decodes them with mpeg2video; the port names them when refused
-FORMATS.update({tag.encode(): "MPEG-2 (HDV, XDCAM or IMX)" for tag in (
+# decodes them with mpeg2video, and so does the port (io/mpeg2 names what
+# of them it does not decode: field pictures, 4:2:2, ...)
+FORMATS.update({tag.encode(): "mpeg2" for tag in (
     "hdv1 hdv2 hdv3 hdv4 hdv5 hdv6 hdv7 hdv8 hdv9 hdva mx5n mx5p mx4n mx4p "
     "mx3n mx3p xd51 xd54 xd55 xd59 xd5a xd5b xd5c xd5d xd5e xd5f xdv1 xdv2 "
     "xdv3 xdv4 xdv5 xdv6 xdv7 xdv8 xdv9 xdva xdvb xdvc xdvd xdve xdvf xdhd "

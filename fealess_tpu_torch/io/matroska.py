@@ -50,7 +50,7 @@ CODEC_NAMES = {"V_VP8": "VP8", "V_VP9": "VP9", "V_AV1": "AV1",
                "V_MPEG4/MS/V3": "MS MPEG-4 v3", "V_MPEG1": "MPEG-1",
                "V_THEORA": "Theora",
                "V_PRORES": "ProRes", "V_DIRAC": "Dirac",
-               "V_QUICKTIME": "QuickTime"}
+               "V_QUICKTIME": "QuickTime", "V_SNOW": "Snow"}
 
 
 class MatroskaError(ValueError):

@@ -1,7 +1,9 @@
 """MPEG-4 Part 2 video as ``cv2.VideoCapture`` returns it (FFmpeg's
 ``mpeg4`` decoder, then swscale's yuv420p to BGR24), bit for bit, for
 what ``cv2.VideoWriter`` writes with the fourccs ``mp4v``, ``MP4V``,
-``XVID``, ``xvid``, ``FMP4``, ``DIVX`` and ``DX50``: FFmpeg's own encoder,
+``XVID``, ``xvid``, ``FMP4``, ``DIVX``, ``DX50`` and ``GEOX`` (GeoVision's
+tag, under which FFmpeg turns the pictures upside down: ``io/video`` flips
+them): FFmpeg's own encoder,
 I- and P-VOPs, 1MV, H.263 quantisation, user data ``Lavc...``.
 
 Decoded on the host in C (``csrc/mpeg4_decode.c``, built at first use and
@@ -65,7 +67,8 @@ PATHS = ("VOS", "VO", "VOL", "VOL_EXTRADATA", "USER_DATA", "GOV", "IVOP",
 
 # the fourccs cv2.VideoWriter writes MPEG-4 Part 2 for, and the upper-case
 # ones FFmpeg's workarounds key on (h263dec takes codec_tag upper-cased)
-FOURCCS = (b"mp4v", b"MP4V", b"XVID", b"xvid", b"FMP4", b"DIVX", b"DX50")
+FOURCCS = (b"mp4v", b"MP4V", b"XVID", b"xvid", b"FMP4", b"DIVX", b"DX50",
+           b"GEOX", b"GEOV")
 _XVID_TAGS = (b"XVID", b"XVIX", b"RMP4", b"ZMP4", b"SIPP")
 
 _LIB = None

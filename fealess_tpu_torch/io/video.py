@@ -1,85 +1,108 @@
 """Video files, image files and printf patterns as ``cv2.VideoCapture``
 reads them (the JAX reader's source for a path that is not a directory),
 bit for bit and in cv2's number, for the containers and codecs listed
-below: most of what ``cv2.VideoWriter`` writes, and what USB cameras
-record.  ``cv2.VideoWriter`` also writes MS MPEG-4 v2 and v3 (``MP42``,
-``DIV3``), WMV7 and WMV8 (``WMV1``, ``WMV2``), Sorenson Spark (``FLV1``)
-and H.263 (``H263``); the port refuses those by name
-(``tests/test_torch_containers.py`` holds that list to what the writer
-writes).  Decoding stays on the host, as FFmpeg's does under cv2.
+below, and what USB cameras record.  Decoding stays on the host, as
+FFmpeg's does under cv2.  ``tests/test_torch_containers.py`` writes every
+fourcc and container pair ``cv2.VideoWriter`` writes here and holds each
+to one of two ends: read equal to cv2, or refused naming a codec of
+:data:`QUEUED_FOURCCS` or a container of :data:`QUEUED_CONTAINERS`
+(ROADMAP's decoding and demuxing queues).
 
-The demuxer is picked as FFmpeg picks it:
+Containers read, picked as FFmpeg picks its demuxer:
 
 - a path with a printf field (``%d``, ``%0Nd``) and an image extension,
   or with a field and no file of its literal name, is an image2 sequence
   (:mod:`~fealess_tpu_torch.io.image2`: its first number in 0-4, its run
   of files, the codec by extension);
 - otherwise the file's first bytes: AVI (:mod:`~fealess_tpu_torch.io.avi`),
-  ISO base media / MP4 (:mod:`~fealess_tpu_torch.io.isobmff`), Matroska
-  (:mod:`~fealess_tpu_torch.io.matroska`), or a single PNG, JPEG or BMP
-  image (one frame, image2 or its pipes).
+  ISO base media: MP4 and MOV (:mod:`~fealess_tpu_torch.io.isobmff`),
+  Matroska and WebM (:mod:`~fealess_tpu_torch.io.matroska`), YUV4MPEG2
+  (:mod:`~fealess_tpu_torch.io.y4m`), the MPEG video elementary stream
+  (:mod:`~fealess_tpu_torch.io.mpegvideo`), or PNG, JPEG and BMP images:
+  one image, PNG images back to back (``png_pipe``, split by FFmpeg's png
+  parser) and JPEG images back to back under a name image2 does not take
+  (raw Motion JPEG, split by FFmpeg's mjpeg parser).
 
-Then a frame decoder by codec:
+Codecs read, each by its decoder:
 
 - Motion JPEG (:mod:`~fealess_tpu_torch.io.mjpeg`): AVI fourcc ``MJPG``,
-  ``mjpg``, ``AVRn``, ``dmb1``; MP4 ``mp4v`` with object type 0x6C and
-  ``jpeg``; Matroska ``V_MJPEG``; JPEG images;
+  ``mjpg``, ``AVRn``, ``dmb1``, ``jpeg``, ``LJPG`` (baseline JPEG as
+  ``cv2.VideoWriter`` writes it); MP4 ``mp4v`` with object type 0x6C and
+  ``jpeg``; Matroska ``V_MJPEG``; JPEG images and raw Motion JPEG;
 - FFV1 (:mod:`~fealess_tpu_torch.io.ffv1`): AVI ``FFV1``, ``ffv1``; MP4
   ``FFV1``; Matroska ``V_FFV1``;
-- raw yuv420p (:mod:`~fealess_tpu_torch.io.rawvideo`): AVI ``I420``,
-  ``IYUV`` (``cv2.VideoWriter``'s fourcc 0) and ``YV12``; Matroska
-  ``V_UNCOMPRESSED`` with those colour spaces;
+- raw video (:mod:`~fealess_tpu_torch.io.rawvideo`): yuv420p as AVI
+  ``I420``, ``IYUV`` (``cv2.VideoWriter``'s fourcc 0) and ``YV12``, gray
+  as ``Y800``, ``Y8  `` and ``GREY``, ``NV12`` and ``RGBA``, in AVI and
+  in Matroska's ``V_UNCOMPRESSED``; ``RGBA`` in MOV; YUV4MPEG2's 4:2:0
+  and ``Cmono``;
 - PNG (:func:`~fealess_tpu_torch.io.image2.png_frame`): AVI ``MPNG``,
   ``PNG1``, ``png ``; MP4 ``mp4v`` with object type 0x6D and ``png ``;
-  PNG images;
+  PNG images and pipes;
 - Huffyuv (:mod:`~fealess_tpu_torch.io.huffyuv`): AVI ``HFYU``;
 - MPEG-4 Part 2 (:mod:`~fealess_tpu_torch.io.mpeg4`): AVI ``mp4v``,
-  ``MP4V``, ``XVID``, ``xvid``, ``FMP4``, ``DIVX``, ``DX50``; MP4 ``mp4v``
-  with object type 0x20; Matroska ``V_MPEG4/ISO/SP``, ``ASP``, ``AP``;
+  ``MP4V``, ``XVID``, ``xvid``, ``FMP4``, ``DIVX``, ``DX50``, and
+  GeoVision's ``GEOX`` and ``GEOV``, whose pictures FFmpeg turns upside
+  down; MP4 ``mp4v`` with object type 0x20; Matroska ``V_MPEG4/ISO/SP``,
+  ``ASP``, ``AP``;
 - VP8 (:mod:`~fealess_tpu_torch.io.vp8`): AVI ``VP80``; Matroska and
   WebM ``V_VP8``;
 - VP9 (:mod:`~fealess_tpu_torch.io.vp9`): AVI ``VP90``; MP4 ``vp09``;
   Matroska and WebM ``V_VP9`` (a superframe's packet gives each frame it
   shows, a ``show_existing_frame`` packet its slot's frame again);
 - MPEG-2 (:mod:`~fealess_tpu_torch.io.mpeg2`): AVI ``mpg2``, ``MPEG``;
-  MP4 ``mp4v`` with object types 0x60-0x65; MOV ``m2v1``; Matroska
-  ``V_MPEG2`` (B pictures leave the decoder in display order, one anchor
-  late; the last anchor comes from draining it after the last packet, as
-  FFmpeg drains at the end of the file);
+  MP4 ``mp4v`` with object types 0x60-0x65; MOV ``m2v1`` and the HDV,
+  XDCAM and IMX tags (``xd5b``, ``mp2v``, ...); Matroska ``V_MPEG2``; the
+  MPEG video elementary stream (B pictures leave the decoder in display
+  order, one anchor late; the last anchor comes from draining it after
+  the last packet, as FFmpeg drains at the end of the file);
 - BMP (:func:`~fealess_tpu_torch.io.image2.bmp_frame`): BMP images.
 
 Matroska's ``V_MS/VFW/FOURCC`` takes the AVI fourccs.  A path that does
 not exist, a file of no container cv2 knows, a container without a video
-stream, a stream whose decoder does not open (corrupt extradata) and a
-pattern with no file at 0-4 raise ``OSError("cannot open video
-source ...")``, as the JAX reader raises when ``cv2.VideoCapture`` does
-not open.  A source cv2 reads and the port does not raises
-:class:`UnsupportedVideo`, naming it: MPEG-PS/TS, Ogg, FLV and ASF;
-fragmented MP4 and edit lists that drop frames; Matroska with
-compressed blocks; other codecs (AV1, H.264, HEVC, ``FFVH``,
-uncompressed BI_RGB, other MPEG-4 Part 2 fourccs, VP8 in MP4, MPEG-1, MS
-MPEG-4, WMV, ...); the MPEG-4 Part 2 tools
-:mod:`~fealess_tpu_torch.io.mpeg4`, the VP8 ones
-:mod:`~fealess_tpu_torch.io.vp8`, the VP9 ones
-:mod:`~fealess_tpu_torch.io.vp9` and the MPEG-2 ones
-:mod:`~fealess_tpu_torch.io.mpeg2` refuse by name; raw Motion JPEG (JPEG
-images back to back); images of other formats (TIFF, WebP, ...); the PNG
-and BMP kinds :mod:`~fealess_tpu_torch.io.image2` names (16-bit colour
-PNG, Adam7 PNG, 16-bit BMP, RLE deltas, BMP data ``cv2.imread`` cannot
-finish); an image sequence whose frames differ in size (cv2 scales them
-to the first's) or whose extension FFmpeg does not know (OpenCV's own
-CAP_IMAGES reader opens it); an interlaced Motion JPEG; a frame kind
-:mod:`~fealess_tpu_torch.io.mjpeg`, :mod:`~fealess_tpu_torch.io.ffv1` or
-:mod:`~fealess_tpu_torch.io.huffyuv` does not read.  No frame cv2
-would serve is dropped without a word.
+stream, a stream whose decoder does not open (corrupt extradata), a
+YUV4MPEG2 header FFmpeg refuses and a pattern with no file at 0-4 raise
+``OSError("cannot open video source ...")``, as the JAX reader raises when
+``cv2.VideoCapture`` does not open.  A PAM image without a ``TUPLTYPE``
+line (``cv2.imwrite``'s) under an image name opens and gives no frame,
+as in cv2, whose image2 decoder refuses it.
 
-A packet the decoder rejects (``DecodeError``) is where cv2's ``read``
-first returns False: iterating a :class:`VideoReader` ends there, as the
-JAX reader's loop does.  A VP8 frame that FFmpeg stops part way (its
-end-of-data check) is one too: cv2 returns it with the macroblocks left
-undecoded holding an older buffer's pixels, which no reader can match;
-so is an MPEG-2 packet cut short, whose missing macroblocks FFmpeg
-conceals.
+A source cv2 reads and the port does not raises :class:`UnsupportedVideo`,
+naming it:
+
+- containers, by their first bytes: MPEG program and transport streams
+  (and BDAV's 192-byte packets), fragmented MP4, Ogg, FLV, ASF, NUT,
+  RealMedia, SWF and raw Dirac (:data:`QUEUED_CONTAINERS`); these are
+  named even where cv2 then finds no stream it decodes in them;
+- codecs: those of :data:`QUEUED_FOURCCS` (MS MPEG-4 v2 and v3, WMV7,
+  WMV8, Sorenson Spark, H.263, FFmpeg's Huffyuv variant, Ut Video,
+  MagicYUV, JPEG-LS, ASUS V1 and V2, TIFF, Snow, Dirac, JPEG 2000,
+  RealVideo 1 and 2) and others no writer here writes (AV1, H.264, HEVC,
+  uncompressed BI_RGB, VP8 in MP4, MPEG-1, ...);
+- kinds inside a codec or container: edit lists that drop frames and
+  Matroska with compressed blocks; the tools
+  :mod:`~fealess_tpu_torch.io.mpeg4`, :mod:`~fealess_tpu_torch.io.vp8`,
+  :mod:`~fealess_tpu_torch.io.vp9` and :mod:`~fealess_tpu_torch.io.mpeg2`
+  refuse by name; YUV4MPEG2 of other colour spaces, interlaced, or sited
+  left or top-left at an odd height; images of other formats (TIFF, WebP,
+  PNM, ...); the PNG and BMP kinds :mod:`~fealess_tpu_torch.io.image2`
+  names (16-bit colour PNG, Adam7 PNG, 16-bit BMP, RLE deltas, BMP data
+  ``cv2.imread`` cannot finish); JPEG images back to back under the
+  image extension of another codec (cv2 decodes the first or none, as
+  FFmpeg's probe of the first bytes finds the second image or not); an
+  image sequence or pipe whose frames differ in size (cv2 scales them to
+  the first's) or whose extension FFmpeg does not know (OpenCV's own
+  CAP_IMAGES reader opens it); an interlaced Motion JPEG; a frame kind
+  :mod:`~fealess_tpu_torch.io.mjpeg`, :mod:`~fealess_tpu_torch.io.ffv1`
+  or :mod:`~fealess_tpu_torch.io.huffyuv` does not read.
+
+No frame cv2 would serve is dropped without a word.  A packet the decoder
+rejects (``DecodeError``) is where cv2's ``read`` first returns False:
+iterating a :class:`VideoReader` ends there, as the JAX reader's loop
+does.  A VP8 frame that FFmpeg stops part way (its end-of-data check) is
+one too: cv2 returns it with the macroblocks left undecoded holding an
+older buffer's pixels, which no reader can match; so is an MPEG-2 packet
+cut short, whose missing macroblocks FFmpeg conceals.
 """
 
 from __future__ import annotations
@@ -91,6 +114,8 @@ import numpy as np
 
 from fealess_tpu_torch.io import image2
 from fealess_tpu_torch.io.avi import AviError, AviFile, is_avi
+from fealess_tpu_torch.io.mpegvideo import (MpegVideoFile, is_mpeg_video,
+                                            start_code_at)
 from fealess_tpu_torch.io.imfile import image_format
 from fealess_tpu_torch.io.isobmff import (Mp4Error, Mp4File, UnsupportedMp4,
                                           is_isobmff)
@@ -102,13 +127,14 @@ from fealess_tpu_torch.io.mpeg2 import CODEC_ID as MPEG2_CODEC_ID
 from fealess_tpu_torch.io.mpeg2 import FOURCCS as MPEG2_FOURCCS
 from fealess_tpu_torch.io.mpeg4 import FOURCCS as MPEG4_FOURCCS
 from fealess_tpu_torch.io.png import DecodeError
-from fealess_tpu_torch.io.rawvideo import YUV420P_FOURCCS
+from fealess_tpu_torch.io.rawvideo import RAW_FOURCCS
 from fealess_tpu_torch.io.vp8 import CODEC_ID as VP8_CODEC_ID
 from fealess_tpu_torch.io.vp8 import FOURCCS as VP8_FOURCCS
 from fealess_tpu_torch.io.vp9 import CODEC_ID as VP9_CODEC_ID
 from fealess_tpu_torch.io.vp9 import FOURCCS as VP9_FOURCCS
+from fealess_tpu_torch.io.y4m import UnsupportedY4m, Y4mError, Y4mFile, is_y4m
 
-MJPEG_FOURCCS = (b"MJPG", b"mjpg", b"AVRn", b"dmb1")
+MJPEG_FOURCCS = (b"MJPG", b"mjpg", b"AVRn", b"dmb1", b"jpeg", b"LJPG")
 FFV1_FOURCCS = (b"FFV1", b"ffv1")
 PNG_FOURCCS = (b"MPNG", b"PNG1", b"png ")
 HUFFYUV_FOURCCS = (b"HFYU",)
@@ -123,20 +149,38 @@ class UnsupportedVideo(ValueError):
 
 def _container(head: bytes) -> Optional[str]:
     """The name of a container cv2's FFmpeg opens and the port does not
-    read, by its first bytes, or None."""
-    if head[:4] in (b"\x00\x00\x01\xba", b"\x00\x00\x01\xb3"):
+    read, by its first bytes (FFmpeg's probes, reduced to their
+    signatures), or None."""
+    if start_code_at(head) == 0xBA:
         return "MPEG program stream"
-    if head[:1] == b"\x47" and len(head) > 188 and head[188:189] == b"\x47":
+    if head[:1] == b"\x47" and head[188:189] == b"\x47":
         return "MPEG transport stream"
+    if head[4:5] == b"\x47" and head[196:197] == b"\x47":
+        return "BDAV MPEG transport stream"      # 192-byte packets (.m2ts)
     if head[:4] == b"OggS":
         return "Ogg"
     if head[:3] == b"FLV":
         return "FLV"
     if head[:4] == b"\x30\x26\xb2\x75":
-        return "ASF/WMV"
+        return "ASF"
+    if head.startswith(b"nut/multimedia container"):
+        return "NUT"
+    if head[:4] in (b".RMF", b".RMP"):
+        return "RealMedia"
+    if head[:3] in (b"FWS", b"CWS", b"ZWS"):
+        return "SWF"
+    if head[:4] == b"BBCD":
+        return "raw Dirac"
     if head[:4] == b"RIFF":
         return f"RIFF {head[8:12]!r} (not AVI)"
     return None
+
+
+# the containers cv2's FFmpeg opens that the port does not demux yet
+# (ROADMAP's demuxing queue), as the refusals name them
+QUEUED_CONTAINERS = ("MPEG program stream", "MPEG transport stream",
+                     "BDAV MPEG transport stream", "fragmented MP4", "Ogg",
+                     "FLV", "ASF", "NUT", "RealMedia", "SWF", "raw Dirac")
 
 
 _FOURCC_NAMES = {
@@ -144,7 +188,6 @@ _FOURCC_NAMES = {
     b"h264": "H.264 (h264)", b"avc1": "H.264 (avc1)",
     b"X264": "H.264 (X264)", b"HEVC": "HEVC (HEVC)",
     b"hev1": "HEVC (hev1)", b"hvc1": "HEVC (hvc1)",
-    b"FFVH": "FFmpeg's Huffyuv variant (FFVH)",
     b"\0\0\0\0": "uncompressed (BI_RGB)"}
 # the codecs cv2.VideoWriter writes that the port does not decode yet
 # (ROADMAP's decoding queue), by the fourccs FFmpeg's AVI demuxer maps to
@@ -154,7 +197,17 @@ QUEUED_FOURCCS = {
                      b"AP41", b"COL1", b"COL0", b"3IVD"),
     "MS MPEG-4 v2": (b"MP42", b"DIV2"),
     "WMV7": (b"WMV1",), "WMV8": (b"WMV2",), "Sorenson Spark": (b"FLV1",),
-    "H.263": (b"H263", b"U263", b"h263", b"s263")}
+    "H.263": (b"H263", b"U263", b"h263", b"s263"),
+    "FFmpeg's Huffyuv variant": (b"FFVH", b"ffvh"),
+    "Ut Video": (b"ULY0", b"ULY2", b"ULY4", b"ULRG", b"ULRA", b"ULH0",
+                 b"ULH2", b"ULH4", b"UQY0", b"UQY2", b"UQRG", b"UQRA",
+                 b"UMY2", b"UMY4", b"UMH2", b"UMH4"),
+    "MagicYUV": (b"MAGY", b"M8RG", b"M8RA", b"M8G0", b"M8Y0", b"M8Y2",
+                 b"M8Y4", b"M8YA"),
+    "JPEG-LS": (b"MJLS",), "ASUS V1": (b"ASV1",), "ASUS V2": (b"ASV2",),
+    "TIFF": (b"tiff", b"TIFF"), "Snow": (b"SNOW",), "Dirac": (b"drac",),
+    "JPEG 2000": (b"MJ2C", b"mjp2", b"LJ2C", b"LJ2K", b"MJP2"),
+    "RealVideo 1": (b"RV10",), "RealVideo 2": (b"RV20",)}
 _FOURCC_NAMES.update({cc: f"{name} ({cc.decode()})"
                       for name, ccs in QUEUED_FOURCCS.items() for cc in ccs})
 
@@ -169,7 +222,7 @@ def fourcc_codec(fourcc: bytes) -> Optional[str]:
         return "mjpeg"
     if fourcc in FFV1_FOURCCS:
         return "ffv1"
-    if fourcc in YUV420P_FOURCCS:
+    if fourcc in RAW_FOURCCS:
         return "rawvideo"
     if fourcc in PNG_FOURCCS:
         return "png"
@@ -186,8 +239,23 @@ def fourcc_codec(fourcc: bytes) -> Optional[str]:
     return None
 
 
-_READS = ("Motion JPEG, FFV1, raw I420 / IYUV / YV12, PNG, Huffyuv, "
-          "MPEG-4 Part 2, VP8, VP9 and MPEG-2")
+_CONTAINERS = ("AVI, MP4, MOV, Matroska, YUV4MPEG2, the MPEG video "
+               "elementary stream, image files and their pipes")
+_READS = ("Motion JPEG, FFV1, raw I420 / IYUV / YV12 / gray / NV12 / RGBA, "
+          "PNG, Huffyuv, MPEG-4 Part 2, VP8, VP9 and MPEG-2")
+
+
+def _pam_without_tuple_type(path: str) -> bool:
+    """Whether ``path`` is a PAM image with no ``TUPLTYPE`` line (what
+    ``cv2.imwrite`` writes), which FFmpeg's PNM header parser refuses,
+    under a name whose extension image2 takes."""
+    if image2.extension_codec(path) is None:
+        return False
+    with open(path, "rb") as f:
+        head = f.read(4096)
+    end = head.find(b"ENDHDR")
+    return head.startswith(b"P7") and end > 0 and \
+        b"TUPLTYPE" not in head[:end]
 
 
 class VideoReader:
@@ -201,6 +269,8 @@ class VideoReader:
         self.fourcc = b""
         self.width = self.height = 0
         self.extradata = b""
+        self.raw_format = ""
+        self.full_range = False
         self._close: Callable[[], None] = lambda: None
         self._packets: Callable[[], Iterator[bytes]] = lambda: iter(())
         self._image2 = False
@@ -230,8 +300,17 @@ class VideoReader:
             self._open_mp4(path)
         elif is_ebml(head):
             self._open_mkv(path)
+        elif is_y4m(head):
+            self._open_y4m(path)
+        elif is_mpeg_video(head):
+            self.container = "MPEG video elementary stream"
+            self._set("mpeg2", b"", 0, 0, b"", MpegVideoFile(path))
         elif image in _IMAGE_CODECS:          # the image pipes' probes
             self._open_image(path, _IMAGE_CODECS[image])
+        elif image == "PNM" and _pam_without_tuple_type(path):
+            # image2 takes the name's image extension and its decoder
+            # refuses the file: cv2 opens it and reads no frame
+            self.codec, self._image2 = "pam", True
         elif image:
             raise UnsupportedVideo(
                 f"{path}: a {image} image is read by cv2.VideoCapture but "
@@ -277,17 +356,20 @@ class VideoReader:
         with open(path, "rb") as f:
             data = f.read()
         ext = image2.extension_codec(path)
-        if codec == "mjpeg" and ext != "mjpeg" and \
-                image2.second_jpeg_at(data) >= 0:
+        packets = [data]
+        if codec == "png":               # png_pipe outbids image2's probe
+            packets = image2.png_packets(data)
+        elif codec == "mjpeg" and ext is None:   # FFmpeg's mjpeg demuxer
+            packets = image2.jpeg_packets(data)
+        elif codec == "mjpeg" and ext != "mjpeg" and \
+                image2.jpeg_frame_end(data) >= 0:
             raise UnsupportedVideo(
-                f"{path}: raw Motion JPEG (JPEG images back to back) is "
-                f"read by cv2.VideoCapture but not by the port")
-        if codec == "png" and image2.second_png_at(data) >= 0:
-            raise UnsupportedVideo(
-                f"{path}: PNG images back to back (FFmpeg's png_pipe) are "
-                f"read by cv2.VideoCapture but not by the port")
+                f"{path}: raw Motion JPEG (JPEG images back to back) under "
+                f"the image extension of {ext}: cv2 decodes the first image "
+                f"or none, as FFmpeg's probe of the file's first bytes "
+                f"finds the second image or not")
         self.codec, self._image2 = codec, True
-        self._packets = lambda: iter((data,))
+        self._packets = lambda: iter(packets)
 
     def _open_avi(self, path: str) -> None:
         try:
@@ -309,6 +391,18 @@ class VideoReader:
         self._set(fourcc_codec(fourcc), fourcc, s.width, abs(s.height),
                   s.extradata, avi)
 
+    def _open_y4m(self, path: str) -> None:
+        try:
+            y4m = Y4mFile(path)
+        except Y4mError as e:
+            raise OSError(f"cannot open video source {path!r}: {e}") from e
+        except UnsupportedY4m as e:
+            raise UnsupportedVideo(f"{e}: read by cv2.VideoCapture but not "
+                                   f"by the port") from None
+        self.container = "YUV4MPEG2"
+        self._set("rawvideo", b"", y4m.width, y4m.height, b"", y4m)
+        self.raw_format, self.full_range = y4m.fmt, y4m.full_range
+
     def _open_mp4(self, path: str) -> None:
         try:
             mp4 = Mp4File(path)
@@ -323,14 +417,14 @@ class VideoReader:
             # the AVI fourccs
             t.codec = fourcc_codec(t.fourcc) or _codec(t.fourcc)
         if t.codec not in ("ffv1", "mjpeg", "png", "mpeg4", "vp9", "mpeg2",
-                           "huffyuv"):
+                           "huffyuv", "rawvideo"):
             mp4.close()
             fourcc = t.fourcc.decode("latin-1")
             raise UnsupportedVideo(
                 f"{path}: MP4 with {t.codec} video ({fourcc}) is read by "
                 f"cv2.VideoCapture but not by the port (which reads FFV1, "
-                f"Huffyuv, Motion JPEG, PNG, MPEG-4 Part 2, VP9 and MPEG-2 "
-                f"in MP4 and MOV)")
+                f"Huffyuv, Motion JPEG, PNG, MPEG-4 Part 2, VP9, MPEG-2 and "
+                f"raw RGBA in MP4 and MOV)")
         self.container = "MP4"
         self._set(t.codec, t.fourcc, t.width, t.height, t.extradata, mp4)
 
@@ -359,7 +453,7 @@ class VideoReader:
             codec, fourcc, extradata = "mpeg2", b"", t.codec_private
         elif t.codec_id == "V_UNCOMPRESSED":
             fourcc = t.colour_space
-            codec = "rawvideo" if fourcc in YUV420P_FOURCCS else None
+            codec = "rawvideo" if fourcc in RAW_FOURCCS else None
         elif t.codec_id == "V_MS/VFW/FOURCC" and len(t.codec_private) >= 40:
             fourcc = t.codec_private[16:20]
             codec, extradata = fourcc_codec(fourcc), t.codec_private[40:]
@@ -369,6 +463,9 @@ class VideoReader:
                 kind = f"raw video {fourcc!r}"
             elif t.codec_id == "V_MS/VFW/FOURCC":
                 kind = _codec(fourcc)
+            elif t.codec_id == "V_QUICKTIME" and len(t.codec_private) >= 8:
+                # FFmpeg takes the QuickTime sample description's format
+                kind = _codec(t.codec_private[4:8])
             else:
                 kind = CODEC_NAMES.get(t.codec_id, t.codec_id)
             raise UnsupportedVideo(
@@ -380,6 +477,7 @@ class VideoReader:
 
     def _set(self, codec, fourcc, width, height, extradata, demuxer) -> None:
         self.codec, self.fourcc = codec, fourcc
+        self.raw_format = RAW_FOURCCS.get(fourcc, "")
         self.width, self.height, self.extradata = width, height, extradata
         self._packets, self._close = demuxer.frames, demuxer.close
 
@@ -388,7 +486,7 @@ class VideoReader:
         if kind:
             raise UnsupportedVideo(f"{path}: {kind} is read by "
                                    f"cv2.VideoCapture but not by the port "
-                                   f"(which reads AVI, MP4 and Matroska)")
+                                   f"(which reads {_CONTAINERS})")
         raise OSError(f"cannot open video source {path!r}")
 
     # ---- decoders ----
@@ -420,10 +518,10 @@ class VideoReader:
                               self.path)
             return lambda data, what: dec.decode(data), dec.close
         if self.codec == "rawvideo":
-            from fealess_tpu_torch.io.rawvideo import decode_yuv420p
-            u_first = YUV420P_FOURCCS[self.fourcc]
-            return lambda data, what: decode_yuv420p(
-                data, self.width, self.height, u_first, what), nothing
+            from fealess_tpu_torch.io.rawvideo import decode_raw
+            return lambda data, what: decode_raw(
+                data, self.width, self.height, self.raw_format, what,
+                self.full_range), nothing
         if self.codec == "huffyuv":
             from fealess_tpu_torch.io.huffyuv import HuffyuvDecoder
             dec = HuffyuvDecoder(self.extradata, self.width, self.height,
@@ -433,6 +531,13 @@ class VideoReader:
             from fealess_tpu_torch.io.mpeg4 import Mpeg4Decoder
             dec = Mpeg4Decoder(self.extradata, self.fourcc, self.path,
                                self.container)
+            if self.fourcc.upper() in (b"GEOV", b"GEOX"):
+                # FFmpeg turns GeoVision's pictures upside down
+                def flipped(data, what):
+                    frame = dec.decode(data)
+                    return None if frame is None else \
+                        np.ascontiguousarray(frame[::-1])
+                return flipped, dec.close
             return lambda data, what: dec.decode(data), dec.close
         if self.codec == "vp8":
             from fealess_tpu_torch.io.vp8 import Vp8Decoder
@@ -498,8 +603,9 @@ class VideoReader:
                         first = frame.shape
                     elif frame.shape != first:
                         raise UnsupportedVideo(
-                            f"{what}: an image sequence whose frames differ "
-                            f"in size ({frame.shape[1]}x{frame.shape[0]} "
+                            f"{what}: an image sequence or pipe whose frames "
+                            f"differ in size ({frame.shape[1]}x"
+                            f"{frame.shape[0]} "
                             f"after {first[1]}x{first[0]}: cv2 scales each "
                             f"to the first's with swscale)")
                 yield frame

@@ -6,6 +6,7 @@ holds them to, taken from cv2 and the JAX package on the CPU.
     python -m tests.make_torch_video vp8      # tests/data/torch_vp8 only
     python -m tests.make_torch_video vp9      # tests/data/torch_vp9 only
     python -m tests.make_torch_video mpeg2    # tests/data/torch_mpeg2 only
+    python -m tests.make_torch_video raw      # tests/data/torch_raw only
 
 - ``clip.avi``: four panned 640x480 fixture frames (``apps/fixture.pan``)
   written by ``cv2.VideoWriter`` as Motion JPEG, with ``depth/<i>.png``
@@ -90,6 +91,22 @@ holds them to, taken from cv2 and the JAX package on the CPU.
   picture's slice opening with an intra macroblock, an odd width, the
   sequence header as Matroska CodecPrivate); and at 640x480 the
   clip's four frames in MP4 (``pan_mpeg2.mp4``);
+- in ``tests/data/torch_raw/`` (:func:`write_raw`, with a ``digests.json``
+  and a ``recon.json`` of its own), what ``cv2.VideoCapture`` reads with
+  no new decoder (:func:`raw_sources`): from ``cv2.VideoWriter``'s FFmpeg
+  backend at 48x32, YUV4MPEG2 for ``I420``, ``Y800`` and ``YUY2`` (all
+  written as ``C420jpeg``), AVI ``jpeg``, ``LJPG``, ``GEOX``, ``Y800``,
+  ``GREY``, ``Y8  ``, ``NV12`` and ``RGBA``, Matroska ``Y800``, ``NV12``
+  and ``RGBA``, MOV ``RGBA``, ``xd5b`` and ``mp2v``, raw Motion JPEG
+  (``.mjpeg``) and an MPEG-2 elementary stream of 12 frames at 96x64
+  (``.m2v``;
+  edited: two streams, the first closed by a sequence end code, and the
+  last picture cut inside its headers); hand-made YUV4MPEG2 (17x33, gray,
+  full range, FRAME parameters, ``C420mpeg2``, a last frame cut short)
+  and raw AVIs at odd widths (gray rows and NV12 planes padded to 4
+  bytes, RGBA); PNG images back to back (``png_pipe.bin``); a PAM image
+  (``image.pam``, which cv2 opens and reads no frame from); and at
+  640x480 the clip's first two frames as YUV4MPEG2 (``pan_y4m.y4m``);
 - ``digests.json``: for each source the frame count and each frame's
   shape and sha256 from ``cv2.VideoCapture``;
 - ``recon.json``: the JAX CLI's ``acq`` output on ``clip.avi`` with its
@@ -101,7 +118,9 @@ holds them to, taken from cv2 and the JAX package on the CPU.
   ``pan/%d.jpg`` and ``pan_mp4v.avi`` (``RECON_SOURCES``), and in
   ``tests/data/torch_vp8/recon.json`` for ``pan_vp8.webm`` and
   ``tests/data/torch_vp9/recon.json`` for ``pan_vp9.webm`` and
-  ``tests/data/torch_mpeg2/recon.json`` for ``pan_mpeg2.mp4``.
+  ``tests/data/torch_mpeg2/recon.json`` for ``pan_mpeg2.mp4`` and
+  ``tests/data/torch_raw/recon.json`` for ``pan_y4m.y4m`` (two frames,
+  with the depth directory's first two by position).
 
 ``tests/test_torch_video.py`` holds the digests to cv2 on the CPU, so they
 cannot go stale.  The muxer is shared with that test.
@@ -141,6 +160,12 @@ VP9_RECON_SOURCES = {"pan_vp9.webm": CLIP_FRAMES}
 MPEG2_OUT = os.path.join(REPO, "tests", "data", "torch_mpeg2")
 MPEG2_RECON_SOURCES = {"pan_mpeg2.mp4": CLIP_FRAMES}
 MPEG2_CONTAINERS = (".avi", ".mkv", ".mp4", ".mov")
+# the sources read with no new decoder (YUV4MPEG2, the MPEG video
+# elementary stream, raw gray / NV12 / RGBA, AVI's jpeg / LJPG / GEOX,
+# MOV's MPEG-2 tags, raw Motion JPEG, PNG pipes), in a directory of their
+# own; the 640x480 YUV4MPEG2 clip holds the clip's first two frames
+RAW_OUT = os.path.join(REPO, "tests", "data", "torch_raw")
+RAW_RECON_SOURCES = {"pan_y4m.y4m": 2}
 # the fourccs cv2.VideoWriter writes MPEG-4 Part 2 for
 MPEG4_FOURCCS = ("mp4v", "MP4V", "XVID", "xvid", "FMP4", "DIVX", "DX50")
 # (first bit, width) of VOL fields past the start code in the VOL that
@@ -400,6 +425,48 @@ def write_cv2_clip(path: str, frames, fourcc: str, fps: int = 10) -> None:
     for f in frames:
         vw.write(f)
     vw.release()
+
+
+def write_ffmpeg_clip(path: str, frames, fourcc: str, fps: int = 10) -> None:
+    """``frames`` through ``cv2.VideoWriter``'s FFmpeg backend (CAP_FFMPEG),
+    the container by the path's extension."""
+    import cv2
+    h, w = frames[0].shape[:2]
+    vw = cv2.VideoWriter(path, cv2.CAP_FFMPEG,
+                         cv2.VideoWriter_fourcc(*fourcc), fps, (w, h))
+    assert vw.isOpened(), (path, fourcc)
+    for f in frames:
+        vw.write(f)
+    vw.release()
+
+
+def y4m(planes, width: int, height: int, colour: str = "C420jpeg",
+        extra: str = "", frame_line: bytes = b"FRAME\n") -> bytes:
+    """A YUV4MPEG2 stream of raw frames ``planes`` (bytes each): the
+    header's ``colour`` token and ``extra`` tokens, each frame behind
+    ``frame_line``."""
+    head = f"YUV4MPEG2 W{width} H{height} F10:1 Ip A1:1 {colour}{extra}\n"
+    return head.encode() + b"".join(frame_line + p for p in planes)
+
+
+def nv12(img: np.ndarray) -> bytes:
+    """:func:`yuv420p`'s frame with U and V interleaved (NV12)."""
+    h, w = img.shape[:2]
+    n, c = w * h, ((w + 1) // 2) * ((h + 1) // 2)
+    raw = np.frombuffer(yuv420p(img), np.uint8)
+    uv = np.stack([raw[n:n + c], raw[n + c:]], 1)
+    return raw[:n].tobytes() + uv.tobytes()
+
+
+def padded_rows(data: bytes, planes) -> bytes:
+    """Planes back to back in ``data``, given as (rows, width) each, laid
+    out again with each row padded to a multiple of 4 bytes."""
+    out, at = b"", 0
+    for rows, width in planes:
+        for _ in range(rows):
+            out += data[at:at + width] + bytes(-width % 4)
+            at += width
+    return out
 
 
 def yuv420p(img: np.ndarray) -> bytes:
@@ -907,6 +974,111 @@ def mpeg2_sources(frames) -> None:
     write_cv2_clip(out("pan_mpeg2.mp4"), [b for b, _ in frames], "MPG2")
 
 
+def raw_sources(frames) -> None:
+    """Write the sources read with no new decoder (see the module
+    docstring); ``frames`` are the clip's."""
+    import cv2
+
+    def out(name):
+        return os.path.join(RAW_OUT, name)
+
+    def write(name, data):
+        with open(out(name), "wb") as f:
+            f.write(data)
+    write_ffmpeg_clip(out("pan_y4m.y4m"),
+                      [b for b, _ in frames[:RAW_RECON_SOURCES[
+                          "pan_y4m.y4m"]]], "I420")
+    small = scene(48, 32, 61, 3)
+    for cc in ("I420", "Y800", "YUY2"):
+        write_ffmpeg_clip(out(f"y4m_{cc}.y4m"), small, cc)
+    for cc in ("jpeg", "LJPG", "GEOX", "Y800", "GREY", "Y8  ", "NV12",
+               "RGBA"):
+        write_ffmpeg_clip(out(f"avi_{cc.strip()}.avi"), small, cc)
+    for cc in ("Y800", "NV12", "RGBA"):
+        write_ffmpeg_clip(out(f"mkv_{cc}.mkv"), small, cc)
+    for cc in ("RGBA", "xd5b", "mp2v"):
+        write_ffmpeg_clip(out(f"mov_{cc}.mov"), small, cc)
+    write_ffmpeg_clip(out("raw.mjpeg"), small, "MJPG")
+    base = scene(96, 64, 62, 1)[0]
+    pan = [_shifted(base, 3 * i, -2 * i) for i in range(12)]
+    write_ffmpeg_clip(out("m2v_pan96.m2v"), pan, "MPG2")
+    with open(out("m2v_pan96.m2v"), "rb") as f:
+        m2v = f.read()
+    from fealess_tpu_torch.io.mpegvideo import packets
+    last = packets(m2v)[-1]
+    # two streams, the first closed by a sequence end code; the last
+    # picture cut inside its headers (before its first slice)
+    write("m2v_two_streams.m2v", m2v + b"\x00\x00\x01\xb7" + m2v)
+    write("m2v_cut_headers.m2v",
+          m2v[:len(m2v) - len(last) + last.index(b"\x00\x00\x01\x01")])
+    # hand-made YUV4MPEG2: odd sizes, gray, full range, FRAME parameters,
+    # MPEG-2 chroma siting at an even height, a last frame cut short
+    odd = scene(17, 33, 63, 2)
+    write("y4m_17x33.y4m", y4m([yuv420p(x) for x in odd], 17, 33))
+    write("y4m_mono_17x33.y4m", y4m(
+        [cv2.cvtColor(x, cv2.COLOR_BGR2GRAY).tobytes() for x in odd], 17, 33,
+        "Cmono"))
+    wide = scene(34, 20, 64, 2)
+    write("y4m_full_range.y4m", y4m([yuv420p(x) for x in wide], 34, 20,
+                                    extra=" XCOLORRANGE=FULL"))
+    write("y4m_frame_params.y4m", y4m([yuv420p(x) for x in wide], 34, 20,
+                                      frame_line=b"FRAME Ip XFOO=1\n"))
+    write("y4m_420mpeg2.y4m", y4m([yuv420p(x) for x in wide], 34, 20,
+                                  "C420mpeg2"))
+    write("y4m_cut.y4m", y4m([yuv420p(x) for x in wide], 34, 20)[:-7])
+    # hand-muxed raw AVIs at odd widths: gray rows padded to 4 bytes where
+    # the packet holds them, NV12 planes padded likewise, RGBA
+    write("avi_Y800_17x33.avi", mux_avi(
+        [padded_rows(cv2.cvtColor(x, cv2.COLOR_BGR2GRAY).tobytes(),
+                     [(33, 17)]) for x in odd], 17, 33, fourcc=b"Y800"))
+    write("avi_NV12_17x33.avi", mux_avi([nv12(x) for x in odd], 17, 33,
+                                        fourcc=b"NV12"))
+    write("avi_NV12_18x9_padded.avi", mux_avi(
+        [padded_rows(nv12(x), [(9, 18), (5, 18)])
+         for x in scene(18, 9, 65, 2)], 18, 9, fourcc=b"NV12"))
+    write("avi_RGBA_17x33.avi", mux_avi(
+        [cv2.cvtColor(x, cv2.COLOR_BGR2RGBA).tobytes() for x in odd], 17, 33,
+        fourcc=b"RGBA"))
+    # PNG images back to back (png_pipe), one of them gray
+    pngs = [cv2.imencode(".png", x)[1].tobytes() for x in scene(48, 32, 66,
+                                                                  3)]
+    pngs[1] = cv2.imencode(".png", cv2.cvtColor(scene(48, 32, 67, 1)[0],
+                                                cv2.COLOR_BGR2GRAY))[1]
+    write("png_pipe.bin", b"".join(bytes(p) for p in pngs))
+    # a PAM image (no TUPLTYPE line): cv2 opens it and reads no frame
+    cv2.imwrite(out("image.pam"), small[0])
+
+
+def raw_committed_sources():
+    """Every committed source of RAW_OUT (its ``digests.json`` lists
+    them)."""
+    return sorted(n for n in os.listdir(RAW_OUT) if not n.endswith(".json"))
+
+
+def write_raw(frames) -> None:
+    """Write RAW_OUT: the sources, their ``digests.json`` and
+    ``recon.json`` (the JAX CLI's acq and recon under ``"sources"``)."""
+    os.makedirs(RAW_OUT, exist_ok=True)
+    for name in os.listdir(RAW_OUT):
+        os.remove(os.path.join(RAW_OUT, name))
+    raw_sources(frames)
+    digests = {name: digest(os.path.join(RAW_OUT, name))
+               for name in raw_committed_sources()}
+    with open(os.path.join(RAW_OUT, "digests.json"), "w") as f:
+        json.dump(digests, f, indent=1, sort_keys=True)
+        f.write("\n")
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    recon = {"sources": {name: jax_acq_recon(os.path.join(RAW_OUT, name), n)
+                         for name, n in RAW_RECON_SOURCES.items()}}
+    with open(os.path.join(RAW_OUT, "recon.json"), "w") as f:
+        json.dump(recon, f, indent=1, sort_keys=True)
+        f.write("\n")
+    total = sum(os.path.getsize(os.path.join(RAW_OUT, n))
+                for n in os.listdir(RAW_OUT))
+    print(f"wrote {RAW_OUT}: {total} bytes")
+
+
 def committed_sources():
     """Every committed source of OUT that ``digests.json`` lists."""
     return sorted([n for n in os.listdir(OUT) if n.endswith(CONTAINERS)]
@@ -995,6 +1167,7 @@ def main() -> None:
     write_vp8(frames)
     write_vp9(frames)
     write_mpeg2(frames)
+    write_raw(frames)
 
 
 def vp9_committed_sources():
@@ -1099,5 +1272,7 @@ if __name__ == "__main__":
         write_vp9(clip_frames())
     elif sys.argv[1:] == ["mpeg2"]:
         write_mpeg2(clip_frames())
+    elif sys.argv[1:] == ["raw"]:
+        write_raw(clip_frames())
     else:
         main()

@@ -23,7 +23,8 @@ from fealess_tpu.io.series import ImageSeriesReader as JaxReader
 from fealess_tpu_torch.io import rawvideo
 from fealess_tpu_torch.io.avi import AviFile
 from fealess_tpu_torch.io.series import ImageSeriesReader
-from fealess_tpu_torch.io.video import (QUEUED_FOURCCS, UnsupportedVideo,
+from fealess_tpu_torch.io.video import (QUEUED_CONTAINERS, QUEUED_FOURCCS,
+                                        UnsupportedVideo,
                                         VideoReader)
 from tests.make_torch_video import (cv2_frames, jpeg, mux_avi, scene,
                                     set_vol_bit, set_vp9_color_space,
@@ -92,8 +93,8 @@ def test_yuv420p_planes_with_strides():
     got = rawvideo.yuv420p_to_bgr(y, u, v)
     want = rawvideo.yuv420p_to_bgr(y.copy(), u.copy(), v.copy())
     np.testing.assert_array_equal(got, want)
-    frame = rawvideo.decode_yuv420p(
-        y.tobytes() + u.tobytes() + v.tobytes(), 21, 11)
+    frame = rawvideo.decode_raw(
+        y.tobytes() + u.tobytes() + v.tobytes(), 21, 11, "yuv420p")
     np.testing.assert_array_equal(frame, want)
 
 
@@ -441,36 +442,71 @@ def test_mp4_edit_lists_with_b_picture_delay(tmp_path, edits):
 EVERY_FOURCC = ("MJPG", "FFV1", "I420", "MPNG", "HFYU", "mp4v", "XVID",
                 "DIVX", "VP80", "VP90", "MPG2", "DIV3", "MP42", "WMV1",
                 "WMV2", "FLV1", "H263")
+# (fourcc, extension) pairs past EVERY_FOURCC's matrix that the writer
+# writes and cv2 reads (ROADMAP item 13): the readers that need no new
+# decoder, the containers and the codecs queued
+WRITER_PAIRS = (
+    ("jpeg", "avi"), ("LJPG", "avi"), ("GEOX", "avi"), ("xd5b", "mov"),
+    ("mp2v", "mov"), ("Y800", "avi"), ("Y800", "mkv"), ("Y8  ", "avi"),
+    ("GREY", "avi"), ("GREY", "mkv"), ("NV12", "avi"), ("NV12", "mkv"),
+    ("RGBA", "avi"), ("RGBA", "mkv"), ("RGBA", "mov"), ("I420", "y4m"),
+    ("Y800", "y4m"), ("YUY2", "y4m"), ("MPG2", "m2v"), ("MJPG", "mjpeg"),
+    ("MPG2", "mpg"), ("mp4v", "mpg"), ("MPG2", "ts"), ("mp4v", "ts"),
+    ("MPG2", "m2ts"), ("mp4v", "m2ts"), ("MJPG", "ismv"), ("VP80", "ogv"),
+    ("VP90", "flv"), ("MJPG", "asf"), ("FFV1", "nut"), ("MJPG", "nut"),
+    ("FFVH", "avi"), ("FFVH", "mov"), ("FFVH", "mkv"), ("ULY0", "avi"),
+    ("ULY0", "mov"), ("ULY0", "mkv"), ("magy", "avi"), ("magy", "mov"),
+    ("magy", "mkv"), ("MJLS", "avi"), ("MJLS", "mov"), ("MJLS", "mkv"),
+    ("ASV1", "avi"), ("ASV1", "mov"), ("ASV1", "mkv"), ("ASV2", "avi"),
+    ("ASV2", "mov"), ("ASV2", "mkv"), ("tiff", "avi"), ("tiff", "mov"),
+    ("tiff", "mkv"), ("SNOW", "avi"), ("SNOW", "mov"), ("SNOW", "mkv"),
+    ("drac", "avi"), ("drac", "mov"), ("drac", "mkv"), ("drac", "drc"),
+    ("MJ2C", "avi"), ("MJ2C", "mov"), ("MJ2C", "mkv"), ("MJ2C", "mp4"),
+    ("RV10", "rm"), ("RV20", "rm"), ("FLV1", "swf"), ("mp4v", "3gp"),
+    ("H263", "3gp"))
 # the codecs the port refuses by name and ROADMAP's decoding queue lists
 QUEUED = tuple(QUEUED_FOURCCS)
+
+
+def _queue_line(prefix: str):
+    with open(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "ROADMAP.md")) as f:
+        line = next(ln for ln in f if ln.startswith(prefix))
+    return [n.strip().rstrip(".") for n in line.split(":", 1)[1].split(";")]
 
 
 def test_queued_is_roadmaps_decoding_queue():
     """QUEUED names the codecs of ROADMAP.md's decoding queue line, and
     MPEG-2 is not among them."""
-    with open(os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), "ROADMAP.md")) as f:
-        line = next(ln for ln in f if ln.startswith("Decoding queue:"))
-    names = [n.strip().rstrip(".") for n in line.split(":", 1)[1].split(";")]
-    assert sorted(names) == sorted(QUEUED)
+    assert sorted(_queue_line("Decoding queue:")) == sorted(QUEUED)
     assert "MPEG-2" not in QUEUED
 
 
-@pytest.mark.parametrize("ext", ["avi", "mp4", "mov", "mkv"])
-@pytest.mark.parametrize("fourcc", EVERY_FOURCC)
+def test_queued_containers_are_roadmaps_demuxing_queue():
+    """QUEUED_CONTAINERS names the containers of ROADMAP.md's demuxing
+    queue line; the ones the port reads are not among them."""
+    assert sorted(_queue_line("Demuxing queue:")) == sorted(QUEUED_CONTAINERS)
+    assert not {"AVI", "Matroska", "YUV4MPEG2"} & set(QUEUED_CONTAINERS)
+
+
+@pytest.mark.parametrize("fourcc,ext", [
+    (f, e) for f in EVERY_FOURCC for e in ("avi", "mp4", "mov", "mkv")]
+    + list(WRITER_PAIRS), ids=lambda v: v.strip())
 def test_every_codec_cv2_writes_is_read_or_queued(tmp_path, fourcc, ext):
     """Four frames through cv2.VideoWriter (96x64; 128x96 for H.263, whose
     picture sizes are fixed): the port reads them to cv2's frames, or
-    refuses the file naming a codec of QUEUED; where cv2 does not open
-    what its writer wrote, the port raises OSError as the JAX reader
-    does.  A codec cv2 writes that is neither read nor queued fails here."""
+    refuses the file naming a codec of QUEUED or a container of
+    QUEUED_CONTAINERS; where cv2 does not open what its writer wrote, the
+    port raises OSError as the JAX reader does.  A codec or container cv2
+    writes that is neither read nor queued fails here."""
     import cv2
     w, h = (128, 96) if fourcc == "H263" else (96, 64)
     path = str(tmp_path / f"clip.{ext}")
     vw = cv2.VideoWriter(path, cv2.CAP_FFMPEG,
                          cv2.VideoWriter_fourcc(*fourcc), 10, (w, h))
-    if not vw.isOpened():
-        return                          # the writer takes no such file
+    if not vw.isOpened():               # the writer takes no such file
+        assert (fourcc, ext) not in WRITER_PAIRS
+        return
     for f in scene(w, h, 3, 4):
         vw.write(f)
     vw.release()
@@ -485,7 +521,8 @@ def test_every_codec_cv2_writes_is_read_or_queued(tmp_path, fourcc, ext):
     try:
         got = list(VideoReader(path))
     except UnsupportedVideo as e:
-        assert any(f"{name} " in str(e) for name in QUEUED), str(e)
+        assert any(f"{name} " in str(e)
+                   for name in QUEUED + QUEUED_CONTAINERS), str(e)
         return
     assert len(got) == len(want) == 4
     for a, b in zip(got, want):

@@ -317,7 +317,10 @@ def _refused(tmp_path, kind: str) -> str:
         cv2.imwrite(str(tmp_path / "z_0.png"), img)
         cv2.imwrite(str(tmp_path / "z_1.png"), scene(20, 12, 2, 1)[0])
         return str(tmp_path / "z_%d.png")
-    return _write(tmp_path / "two.mjpeg", jpeg(img) + jpeg(img[::-1]))
+    # two JPEGs under a PNG name: FFmpeg's image2 probes the first bytes,
+    # which hold only the first image here, and decodes that one
+    big = scene(128, 96, 2, 1)[0]
+    return _write(tmp_path / "two.png", jpeg(big) + jpeg(big[::-1]))
 
 
 @pytest.mark.parametrize("kind,match", [

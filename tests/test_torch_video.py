@@ -232,8 +232,8 @@ def test_refusals_name_what_they_refuse(tmp_path):
     """VP9 in MP4 and in Matroska whose key frames say BT.709 (cv2
     converts them with its matrix), MS MPEG-4 v3 (DIV3) in AVI, an
     MPEG-4 Part 2 clip whose VOL asks for OBMC, an interlaced
-    Motion JPEG (two fields a chunk), raw Motion JPEG: UnsupportedVideo
-    naming the container, the fourcc or the kind; a missing file, a file
+    Motion JPEG (two fields a chunk), an MPEG program stream:
+    UnsupportedVideo naming the container, the fourcc or the kind; a missing file, a file
     of no known container and an AVI with no video stream: OSError as the
     JAX reader's; a camera index: ValueError."""
     frames = scene(64, 48, 1, 2)
@@ -263,9 +263,11 @@ def test_refusals_name_what_they_refuse(tmp_path):
     assert len(cv2_frames(inter)) == 2
     with pytest.raises(UnsupportedVideo, match="interlaced"):
         list(VideoReader(inter))
-    raw = _write(tmp_path, b"".join(jpeg(f) for f in frames), "raw.mjpeg")
-    with pytest.raises(UnsupportedVideo, match="raw Motion JPEG"):
-        VideoReader(raw)
+    program = str(tmp_path / "a.mpg")
+    write_cv2_clip(program, frames, "MPG2")
+    assert len(cv2_frames(program)) == 2
+    with pytest.raises(UnsupportedVideo, match="MPEG program stream"):
+        VideoReader(program)
     junk = _write(tmp_path, b"not a video at all" * 20, "junk.avi")
     audio = bytearray(mux_avi([jpeg(frames[0])], 64, 48))
     at = audio.index(b"vids")
