@@ -360,6 +360,7 @@ VP8_DIR = os.path.join(REPO, "tests", "data", "torch_vp8")
 VP9_DIR = os.path.join(REPO, "tests", "data", "torch_vp9")
 MPEG2_DIR = os.path.join(REPO, "tests", "data", "torch_mpeg2")
 RAW_DIR = os.path.join(REPO, "tests", "data", "torch_raw")
+DEMUX_DIR = os.path.join(REPO, "tests", "data", "torch_demux")
 CLOUD_TOL_MM = 1e-3
 DECODE_TIMED = 10
 
@@ -2396,6 +2397,7 @@ def video_phase(eng, card, counts, default_icp) -> None:
     vp9_sources(eng, card, counts, default_icp)
     mpeg2_sources(eng, card, counts, default_icp)
     raw_sources(eng, card, counts, default_icp)
+    demux_sources(eng, card, counts, default_icp)
 
 
 def mpeg4_frame_times(card) -> None:
@@ -2734,6 +2736,154 @@ def raw_sources(eng, card, counts, default_icp) -> None:
           + f" ({card})")
     print(f"time phase 7f raw and demuxed part: "
           f"{time.perf_counter() - t_part:.1f} s ({card})")
+
+
+def demux_640(tmp: str):
+    """(container name, its file, the same codec's packets in AVI, frames)
+    for each container of ``demux_sources``' host times, muxed in ``tmp``
+    by ``tests/stream_mux.py`` from the committed 640x480 clips' packets:
+    MPEG-2 (``mpeg2_pan.avi``'s first 8) in program and transport streams,
+    Motion JPEG (``clip.avi``) in fragmented MP4 and ASF, VP8
+    (``pan_vp8.webm``) in Ogg, VP9 (``pan_vp9.webm``) in FLV, MPEG-4 Part
+    2 (``pan_mp4v.avi``) in NUT."""
+    import struct
+
+    import importlib.util
+
+    from fealess_tpu_torch.io.avi import AviFile
+    from fealess_tpu_torch.io.matroska import MkvFile
+
+    def repo_module(name):
+        # by path: an installed package named "tests" would shadow the
+        # repo's directory, which has no __init__.py
+        spec = importlib.util.spec_from_file_location(
+            f"_chip_smoke_{name}", os.path.join(REPO, "tests", f"{name}.py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+    sm = repo_module("stream_mux")
+    mux_avi = repo_module("make_torch_video").mux_avi
+
+    def avi_packets(path, n=None):
+        with AviFile(path) as avi:
+            return list(avi.frames())[:n]
+
+    def mkv_packets(path):
+        with MkvFile(path) as mkv:
+            return list(mkv.frames())
+
+    def write(name, data):
+        path = os.path.join(tmp, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        return path
+
+    mpeg2 = avi_packets(os.path.join(MPEG2_DIR, "mpeg2_pan.avi"), 8)
+    mpeg2_avi = write("mpeg2.avi", mux_avi(mpeg2, 640, 480, b"mpg2"))
+    clip = os.path.join(VIDEO_DIR, "clip.avi")
+    mjpeg = avi_packets(clip)
+    mp4v_avi = os.path.join(VIDEO_DIR, "pan_mp4v.avi")
+    vp8 = mkv_packets(os.path.join(VP8_DIR, "pan_vp8.webm"))
+    vp9 = mkv_packets(os.path.join(VP9_DIR, "pan_vp9.webm"))
+    with open(os.path.join(DEMUX_DIR, "ismv_MJPG.ismv"), "rb") as f:
+        ismv = f.read()
+    with open(os.path.join(DEMUX_DIR, "asf_MJPG.asf"), "rb") as f:
+        asf = f.read()
+    info = b"OVP80\x01\x01\x00" + struct.pack(">HH", 640, 480) + \
+        (1).to_bytes(3, "big") * 2 + struct.pack(">II", 10, 1)
+    comments = b"OVP80\x02 " + bytes(8)
+    flv = [(9, 0, b"\x90vp09" + b"vpcC" + bytes(8))] + \
+        [(9, 100 * k, (b"\x91" if k == 0 else b"\xa1") + b"vp09" + p)
+         for k, p in enumerate(vp9)]
+    return [
+        ("MPEG program stream (MPEG-2)", write("a.mpg", sm.mux_ps(
+            [b"".join(mpeg2)], "mpeg2", "mpeg2", 2000)), mpeg2_avi, 8),
+        ("MPEG transport stream (MPEG-2)", write("a.ts", sm.mux_ts(
+            mpeg2, 0x02)), mpeg2_avi, 8),
+        ("BDAV MPEG transport stream (MPEG-2)", write("a.m2ts", sm.mux_ts(
+            mpeg2, 0x02, bdav=True)), mpeg2_avi, 8),
+        ("fragmented MP4 (Motion JPEG)", write("a.ismv", sm.mux_fmp4(
+            ismv[:ismv.index(b"moof") - 4], mjpeg,
+            [{"n": 1, "size": "trun", "base": "none"}] * len(mjpeg))),
+         clip, len(mjpeg)),
+        ("Ogg (VP8)", write("a.ogv", sm.mux_ogg([info, comments] + vp8)),
+         write("vp8.avi", mux_avi(vp8, 640, 480, b"VP80")), len(vp8)),
+        ("FLV (VP9)", write("a.flv", sm.mux_flv(flv)),
+         write("vp9.avi", mux_avi(vp9, 640, 480, b"VP90")), len(vp9)),
+        ("ASF (Motion JPEG)", write("a.asf", sm.mux_asf(
+            asf[:struct.unpack_from("<Q", asf, 16)[0]], mjpeg, 3200)),
+         clip, len(mjpeg)),
+        ("NUT (MPEG-4 Part 2)", write("a.nut", sm.mux_nut(
+            avi_packets(mp4v_avi), b"mp4v", 640, 480)), mp4v_avi, 4)]
+
+
+def demux_sources(eng, card, counts, default_icp) -> None:
+    """Phase 7f's part for the containers demuxed for codecs the port
+    already decodes: every committed source of ``tests/data/torch_demux``
+    (MPEG program and transport streams, BDAV, fragmented MP4, Ogg, FLV,
+    ASF, NUT; the writer's and hand-muxed) decoded by ``VideoReader`` to
+    cv2's digests; ``acq --device cuda --clouds`` from the 640x480 MPEG-TS
+    and ``recon`` on its package in both ICP settings
+    (``acq_recon_source``); host times a 640x480 frame of each container,
+    demux included, beside the same packets read from AVI
+    (``demux_640``), whose frames must be the container's."""
+    import hashlib
+
+    import numpy as np
+    from fealess_tpu_torch.io.video import VideoReader
+
+    t_part = time.perf_counter()
+    with open(os.path.join(DEMUX_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    with open(os.path.join(DEMUX_DIR, "recon.json")) as f:
+        expect = json.load(f)
+
+    def sha(a) -> str:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    for name, want in sorted(digests.items()):
+        with VideoReader(os.path.join(DEMUX_DIR, name)) as reader:
+            frames = list(reader)
+        got = {"frames": len(frames),
+               "shapes": [list(f.shape) for f in frames],
+               "sha256": [sha(f) for f in frames]}
+        check(got == want, f"video {name}: {got}, cv2 gives {want}")
+    print(f"demuxed input: {len(digests)} committed sources ("
+          f"{sum(d['frames'] for d in digests.values())} frames: "
+          f"cv2.VideoWriter's MPEG program streams (.mpg, .vob), transport "
+          f"streams (.ts, BDAV .m2ts), fragmented MP4 (.ismv), Ogg, FLV, "
+          f"ASF (.asf, .wmv) and NUT of MPEG-2, MPEG-4 Part 2, VP8, VP9, "
+          f"Motion JPEG, FFV1, I420, PNG and Huffyuv, 640x480 MPEG-TS; "
+          f"hand-muxed pack and PES forms, adaptation stuffing, BDAV null "
+          f"packets, fragment defaults, Ogg packets over pages and a bad "
+          f"CRC, FLV metadata, ASF fragments, NUT syncpoints and elision, "
+          f"each cut short): frame counts and every frame's sha256 equal "
+          f"to cv2.VideoCapture's")
+    name = "pan_ts.ts"
+    acq_recon_source(eng, card, counts, default_icp, name,
+                     digests[name]["frames"], expect["sources"][name],
+                     "MPEG-TS (MPEG-2)", False, DEMUX_DIR)
+
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind, path, avi, n in demux_640(tmp):
+            got, want = list(VideoReader(path)), list(VideoReader(avi))
+            check(len(got) == len(want) == n and all(
+                np.array_equal(a, b) for a, b in zip(got, want)),
+                f"{kind} does not decode to the same packets' frames in "
+                f"AVI ({len(got)} and {len(want)} frames)")
+            times[kind] = (
+                host_mean_ms(lambda p=path: list(VideoReader(p)),
+                             DECODE_TIMED) / n,
+                host_mean_ms(lambda p=avi: list(VideoReader(p)),
+                             DECODE_TIMED) / n)
+    print("time demuxed input to BGR (host, demux included, ms per 640x480 "
+          f"frame, mean of {DECODE_TIMED} passes after a warm one; the same "
+          "packets in AVI beside): " + ", ".join(
+              f"{k} {c:.3f} ms (AVI {a:.3f} ms)"
+              for k, (c, a) in times.items()) + f" ({card})")
+    print(f"time phase 7f demuxed part: {time.perf_counter() - t_part:.1f} s "
+          f"({card})")
 
 
 # -- phase 8: the rest of the public surface --------------------------------

@@ -32,9 +32,21 @@ under ``cv2.VideoCapture``.
   ``ctts`` gives them, and FFmpeg's mov demuxer drops no frame there; an
   edit that starts at another time or ends earlier (FFmpeg drops the
   frames outside it), or several, raise :class:`UnsupportedMp4`, as does a
-  fragmented file (``moof``) or a track of several sample descriptions.
+  track of several sample descriptions.
+- Fragments (``.ismv``, or any file whose ``moov`` holds ``mvex``): the
+  samples of each ``moof``'s ``traf`` of the track follow the sample
+  table's, in file order, as FFmpeg's mov demuxer reads them.  ``trex``
+  gives the track's default sample size and duration; ``tfhd`` its base
+  data offset (else the ``moof``'s first byte where default-base-is-moof
+  is set, else where the track's data last ended, as FFmpeg takes it) and
+  its own defaults; ``tfdt`` the decode time; each ``trun`` its data
+  offset from that base and, by its flags, each sample's duration, size,
+  flags and composition offset.  ``uuid`` (Smooth Streaming's ``tfxd``),
+  ``mfra`` and ``sidx`` are skipped.  The composition offsets are held
+  to the edit list as the sample table's are.
 
-A file whose ``moov`` is missing or cut raises :class:`Mp4Error`.
+A file whose ``moov`` is missing or cut, or whose tables run past their
+boxes, raises :class:`Mp4Error`.
 """
 
 from __future__ import annotations
@@ -159,15 +171,19 @@ class Mp4File:
         self._f: BinaryIO = open(path, "rb")
         try:
             self._size = self._f.seek(0, 2)
-            moov = None
+            moov, moofs = None, []
             for kind, at, size in self._boxes(0, self._size):
                 if kind == b"moov" and moov is None:
                     moov = self._read(at, size)
                 elif kind == b"moof":
-                    raise UnsupportedMp4(f"{path}: fragmented MP4 (moof)")
+                    moofs.append((at - 8, self._read(at, size)))
             if moov is None:
                 raise Mp4Error(f"{path}: no moov box")
-            self.track, self._samples = self._video_track(moov)
+            try:
+                self.track, self._samples = self._video_track(moov, moofs)
+            except struct.error as e:          # a table past its box
+                raise Mp4Error(f"{path}: a sample table is cut ({e})") \
+                    from None
         except BaseException:
             self._f.close()
             raise
@@ -226,8 +242,13 @@ class Mp4File:
         raise Mp4Error(f"{self.path}: the video track has no "
                        f"{'/'.join(k.decode() for k in kinds)} box")
 
-    def _video_track(self, moov: bytes):
+    def _video_track(self, moov: bytes, moofs):
         movie_scale = 0
+        trex = {}
+        for mvex in self._children(moov).get(b"mvex", []):
+            for t in self._children(mvex).get(b"trex", []):
+                if len(t) >= 24:
+                    trex[_u32(t, 4)] = struct.unpack_from(">III", t, 8)
         mvhd = self._children(moov).get(b"mvhd")
         if mvhd:
             m = mvhd[0]
@@ -242,11 +263,18 @@ class Mp4File:
             stbl = self._children(self._one(minf, b"stbl"))
             track = self._sample_entry(self._one(stbl, b"stsd"))
             samples = self._sample_table(stbl)
+            times = self._sample_times(stbl)
+            tkhd = self._one(tb, b"tkhd")
+            track_id = _u32(tkhd, 20 if tkhd[0] == 1 else 12)
+            for at, moof in moofs:
+                self._fragment(moof, at, track_id,
+                               trex.get(track_id, (1, 0, 0)), samples, times)
             mdhd = self._one(mdia, b"mdhd")
             scale = _u32(mdhd, 20 if mdhd[0] == 1 else 12)
-            if b"edts" in tb:
+            if b"edts" in tb and times:
+                cts = [d + o for d, o in times]
                 self._check_edits(tb[b"edts"][0], movie_scale, scale,
-                                  self._composition_times(stbl))
+                                  (min(cts), max(cts)))
             return track, samples
         raise Mp4Error(f"{self.path}: the file has no video track")
 
@@ -310,10 +338,9 @@ class Mp4File:
                     k += 1
         return out
 
-    def _composition_times(self, stbl) -> Tuple[int, int]:
-        """The smallest and the largest composition time of the samples
-        in media units: each decode time (``stts``) plus its offset
-        (``ctts``)."""
+    def _sample_times(self, stbl) -> List[Tuple[int, int]]:
+        """(decode time, composition offset) of each sample of the sample
+        table, in media units (``stts``, ``ctts``)."""
         stts = self._one(stbl, b"stts")
         dts, t = [], 0
         for i in range(_u32(stts, 4)):
@@ -321,8 +348,6 @@ class Mp4File:
             for _ in range(count):
                 dts.append(t)
                 t += delta
-        if not dts:
-            return 0, 0
         offsets: List[int] = []
         if b"ctts" in stbl:
             ctts = stbl[b"ctts"][0]
@@ -330,8 +355,68 @@ class Mp4File:
                 count, off = struct.unpack_from(">Ii", ctts, 8 + 8 * i)
                 offsets += [off] * count
         offsets += [0] * (len(dts) - len(offsets))
-        cts = [d + o for d, o in zip(dts, offsets)]
-        return min(cts), max(cts)
+        self._next_dts = t
+        return list(zip(dts, offsets))
+
+    def _fragment(self, moof: bytes, moof_at: int, track_id: int,
+                  trex: Tuple[int, int, int], samples: List[Tuple[int, int]],
+                  times: List[Tuple[int, int]]) -> None:
+        """Append the samples of the track's ``traf`` boxes in ``moof``
+        (whose first byte is at ``moof_at``) to ``samples`` and their
+        times to ``times``."""
+        implicit = moof_at
+        for traf in self._children(moof).get(b"traf", []):
+            boxes = self._children(traf)
+            tfhd = self._one(boxes, b"tfhd")
+            flags, tid = _u32(tfhd) & 0xFFFFFF, _u32(tfhd, 4)
+            if tid != track_id:
+                continue
+            at, fields = 8, {}
+            for bit, name, width in ((0x1, "base", 8), (0x2, "index", 4),
+                                     (0x8, "duration", 4),
+                                     (0x10, "size", 4), (0x20, "flags", 4)):
+                if flags & bit:
+                    fields[name] = int.from_bytes(tfhd[at:at + width], "big")
+                    at += width
+            if fields.get("index", trex[0]) != 1:
+                raise UnsupportedMp4(f"{self.path}: an MP4 fragment of "
+                                     f"sample description "
+                                     f"{fields.get('index', trex[0])}")
+            base = fields["base"] if flags & 0x1 else \
+                moof_at if flags & 0x20000 else implicit
+            duration = fields.get("duration", trex[1])
+            size = fields.get("size", trex[2])
+            if b"tfdt" in boxes:
+                tfdt = boxes[b"tfdt"][0]
+                self._next_dts = int.from_bytes(
+                    tfdt[4:12] if tfdt[0] == 1 else tfdt[4:8], "big")
+            for trun in boxes.get(b"trun", []):
+                tflags, count = _u32(trun) & 0xFFFFFF, _u32(trun, 4)
+                at = 8
+                offset = base
+                if tflags & 0x1:
+                    offset += struct.unpack_from(">i", trun, at)[0]
+                    at += 4
+                if tflags & 0x4:
+                    at += 4
+                per = [(0x100, "duration"), (0x200, "size"),
+                       (0x400, "flags"), (0x800, "cto")]
+                step = 4 * sum(1 for bit, _ in per if tflags & bit)
+                if len(trun) < at + step * count:
+                    raise Mp4Error(f"{self.path}: trun is cut")
+                for _ in range(count):
+                    got = {}
+                    for bit, name in per:
+                        if tflags & bit:
+                            got[name] = struct.unpack_from(
+                                ">i" if name == "cto" else ">I", trun, at)[0]
+                            at += 4
+                    n = got.get("size", size)
+                    samples.append((offset, n))
+                    times.append((self._next_dts, got.get("cto", 0)))
+                    self._next_dts += got.get("duration", duration)
+                    offset += n
+                implicit = offset
 
     def _check_edits(self, edts: bytes, movie_scale: int, media_scale: int,
                      times: Tuple[int, int]) -> None:

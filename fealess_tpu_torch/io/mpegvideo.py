@@ -16,6 +16,16 @@ packet that holds no slice (a stream cut inside a picture's headers)
 gives FFmpeg's decoder no frame; the reader leaves it out, and the
 frames the decoder holds are drained after it as at the end of any
 stream.
+
+MPEG program and transport streams (:mod:`~fealess_tpu_torch.io.mpegps`,
+:mod:`~fealess_tpu_torch.io.mpegts`) hand their video payload to the
+same parsers: :func:`packets` for MPEG-2, and for MPEG-4 Part 2
+:func:`mpeg4_packets`, FFmpeg's ``mpeg4video`` parser
+(``ff_mpeg4_find_frame_end``): a packet runs through its VOP's start
+code (``00 00 01 b6``) and ends at the next start code of any kind, so
+the VOS, VOL, GOV and user data before a VOP go with it; the rest of the
+stream is the last packet.  :func:`payload_codec` tells the two apart as
+FFmpeg's probes do where the container names no codec.
 """
 
 from __future__ import annotations
@@ -119,6 +129,47 @@ def _has_slice(data: bytes) -> bool:
             return True
         at = data.find(b"\x00\x00\x01", at + 3)
     return False
+
+
+def mpeg4_packets(data: bytes) -> List[bytes]:
+    """The MPEG-4 Part 2 stream ``data`` cut into the packets FFmpeg's
+    ``mpeg4video`` parser hands the decoder (see the module
+    docstring)."""
+    out, at = [], 0
+    while at < len(data):
+        vop = data.find(b"\x00\x00\x01\xb6", at)
+        end = -1 if vop < 0 else data.find(b"\x00\x00\x01", vop + 4)
+        if end < 0 or end + 3 >= len(data):
+            out.append(data[at:])
+            break
+        out.append(data[at:end])
+        at = end
+    return out
+
+
+# the video codecs FFmpeg's probes find by a stream's first start code
+# that the port does not decode, by name
+_PROBED_NAMES = {0x09: "H.264", 0x67: "H.264", 0x27: "H.264",
+                 0x47: "H.264", 0x40: "HEVC", 0x46: "HEVC"}
+
+
+def payload_codec(data: bytes) -> Optional[str]:
+    """The codec of a video payload whose container names none (an MPEG
+    program stream's): ``"mpeg2"`` where it opens with a sequence header
+    (FFmpeg's ``mpegvideo`` probe), ``"mpeg4"`` with a VOS, VO or VOL
+    (its ``m4v`` probe), the name of another codec its probes find
+    (H.264, HEVC) by its first NAL unit, or None where no probe takes it
+    (cv2 then opens no video stream)."""
+    code = start_code_at(data[:64])
+    if code == 0xB3:
+        return "mpeg2"
+    if code in (0xB0, 0xB5) or 0x20 <= code <= 0x2F:
+        return "mpeg4"
+    if 0 <= code <= 0x1F:                # a VO start code, then its VOL
+        at = data.find(b"\x00\x00\x01", data.find(b"\x00\x00\x01") + 4)
+        if 0 <= at < len(data) - 3 and 0x20 <= data[at + 3] <= 0x2F:
+            return "mpeg4"
+    return _PROBED_NAMES.get(code)
 
 
 class MpegVideoFile:

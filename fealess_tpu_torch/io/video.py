@@ -4,9 +4,10 @@ bit for bit and in cv2's number, for the containers and codecs listed
 below, and what USB cameras record.  Decoding stays on the host, as
 FFmpeg's does under cv2.  ``tests/test_torch_containers.py`` writes every
 fourcc and container pair ``cv2.VideoWriter`` writes here and holds each
-to one of two ends: read equal to cv2, or refused naming a codec of
+to one of three ends: read equal to cv2, refused naming a codec of
 :data:`QUEUED_FOURCCS` or a container of :data:`QUEUED_CONTAINERS`
-(ROADMAP's decoding and demuxing queues).
+(ROADMAP's decoding and demuxing queues), or ``OSError`` where cv2 does
+not open what its writer wrote.
 
 Containers read, picked as FFmpeg picks its demuxer:
 
@@ -15,10 +16,17 @@ Containers read, picked as FFmpeg picks its demuxer:
   (:mod:`~fealess_tpu_torch.io.image2`: its first number in 0-4, its run
   of files, the codec by extension);
 - otherwise the file's first bytes: AVI (:mod:`~fealess_tpu_torch.io.avi`),
-  ISO base media: MP4 and MOV (:mod:`~fealess_tpu_torch.io.isobmff`),
-  Matroska and WebM (:mod:`~fealess_tpu_torch.io.matroska`), YUV4MPEG2
+  ISO base media: MP4 and MOV, fragmented (``.ismv``) or not
+  (:mod:`~fealess_tpu_torch.io.isobmff`), Matroska and WebM
+  (:mod:`~fealess_tpu_torch.io.matroska`), YUV4MPEG2
   (:mod:`~fealess_tpu_torch.io.y4m`), the MPEG video elementary stream
-  (:mod:`~fealess_tpu_torch.io.mpegvideo`), or PNG, JPEG and BMP images:
+  (:mod:`~fealess_tpu_torch.io.mpegvideo`), MPEG program streams
+  (``.mpg``, ``.vob``: :mod:`~fealess_tpu_torch.io.mpegps`), MPEG
+  transport streams of 188-byte packets and BDAV's 192-byte ones
+  (``.ts``, ``.m2ts``: :mod:`~fealess_tpu_torch.io.mpegts`), Ogg
+  (:mod:`~fealess_tpu_torch.io.ogg`), FLV (:mod:`~fealess_tpu_torch.io.
+  flv`), ASF (``.asf``, ``.wmv``: :mod:`~fealess_tpu_torch.io.asf`),
+  NUT (:mod:`~fealess_tpu_torch.io.nut`), or PNG, JPEG and BMP images:
   one image, PNG images back to back (``png_pipe``, split by FFmpeg's png
   parser) and JPEG images back to back under a name image2 does not take
   (raw Motion JPEG, split by FFmpeg's mjpeg parser).
@@ -44,24 +52,31 @@ Codecs read, each by its decoder:
   ``MP4V``, ``XVID``, ``xvid``, ``FMP4``, ``DIVX``, ``DX50``, and
   GeoVision's ``GEOX`` and ``GEOV``, whose pictures FFmpeg turns upside
   down; MP4 ``mp4v`` with object type 0x20; Matroska ``V_MPEG4/ISO/SP``,
-  ``ASP``, ``AP``;
+  ``ASP``, ``AP``; MPEG program and transport streams (stream type 0x10,
+  or private data its probe takes), cut at its VOPs;
 - VP8 (:mod:`~fealess_tpu_torch.io.vp8`): AVI ``VP80``; Matroska and
-  WebM ``V_VP8``;
+  WebM ``V_VP8``; Ogg's ``OVP80`` streams;
 - VP9 (:mod:`~fealess_tpu_torch.io.vp9`): AVI ``VP90``; MP4 ``vp09``;
   Matroska and WebM ``V_VP9`` (a superframe's packet gives each frame it
   shows, a ``show_existing_frame`` packet its slot's frame again);
+  enhanced FLV's ``vp09``;
 - MPEG-2 (:mod:`~fealess_tpu_torch.io.mpeg2`): AVI ``mpg2``, ``MPEG``;
   MP4 ``mp4v`` with object types 0x60-0x65; MOV ``m2v1`` and the HDV,
   XDCAM and IMX tags (``xd5b``, ``mp2v``, ...); Matroska ``V_MPEG2``; the
-  MPEG video elementary stream (B pictures leave the decoder in display
+  MPEG video elementary stream, and MPEG program and transport streams
+  (stream types 0x01 and 0x02), cut into pictures alike (B pictures
+  leave the decoder in display
   order, one anchor late; the last anchor comes from draining it after
   the last packet, as FFmpeg drains at the end of the file);
 - BMP (:func:`~fealess_tpu_torch.io.image2.bmp_frame`): BMP images.
 
-Matroska's ``V_MS/VFW/FOURCC`` takes the AVI fourccs.  A path that does
-not exist, a file of no container cv2 knows, a container without a video
-stream, a stream whose decoder does not open (corrupt extradata), a
-YUV4MPEG2 header FFmpeg refuses and a pattern with no file at 0-4 raise
+Matroska's ``V_MS/VFW/FOURCC``, ASF's and NUT's fourccs take the AVI
+ones.  A path that does not exist, a file of no container cv2 knows, a
+container without a video stream, or with none FFmpeg finds a codec for
+(an MPEG program or transport stream of what ``cv2.VideoWriter`` writes
+there for Motion JPEG, FFV1, raw video, VP8, ...), a stream whose decoder
+does not open (corrupt extradata), a YUV4MPEG2 header FFmpeg refuses,
+NUT headers whose checksums fail and a pattern with no file at 0-4 raise
 ``OSError("cannot open video source ...")``, as the JAX reader raises when
 ``cv2.VideoCapture`` does not open.  A PAM image without a ``TUPLTYPE``
 line (``cv2.imwrite``'s) under an image name opens and gives no frame,
@@ -70,17 +85,19 @@ as in cv2, whose image2 decoder refuses it.
 A source cv2 reads and the port does not raises :class:`UnsupportedVideo`,
 naming it:
 
-- containers, by their first bytes: MPEG program and transport streams
-  (and BDAV's 192-byte packets), fragmented MP4, Ogg, FLV, ASF, NUT,
-  RealMedia, SWF and raw Dirac (:data:`QUEUED_CONTAINERS`); these are
-  named even where cv2 then finds no stream it decodes in them;
+- containers, by their first bytes: RealMedia, SWF and raw Dirac
+  (:data:`QUEUED_CONTAINERS`); these are named even where cv2 then finds
+  no stream it decodes in them;
 - codecs: those of :data:`QUEUED_FOURCCS` (MS MPEG-4 v2 and v3, WMV7,
   WMV8, Sorenson Spark, H.263, FFmpeg's Huffyuv variant, Ut Video,
   MagicYUV, JPEG-LS, ASUS V1 and V2, TIFF, Snow, Dirac, JPEG 2000,
   RealVideo 1 and 2) and others no writer here writes (AV1, H.264, HEVC,
   uncompressed BI_RGB, VP8 in MP4, MPEG-1, ...);
 - kinds inside a codec or container: edit lists that drop frames and
-  Matroska with compressed blocks; the tools
+  Matroska with compressed blocks; a program stream map, ASF's
+  compressed payloads, NUT's side data, encrypted or multitrack FLV tags
+  and a PreviousTagSize that does not match its tag, MP4 fragments of
+  another sample description; the tools
   :mod:`~fealess_tpu_torch.io.mpeg4`, :mod:`~fealess_tpu_torch.io.vp8`,
   :mod:`~fealess_tpu_torch.io.vp9` and :mod:`~fealess_tpu_torch.io.mpeg2`
   refuse by name; YUV4MPEG2 of other colour spaces, interlaced, or sited
@@ -113,9 +130,9 @@ from typing import Callable, Iterator, Optional, Tuple
 import numpy as np
 
 from fealess_tpu_torch.io import image2
+from fealess_tpu_torch.io.asf import AsfError, AsfFile, UnsupportedAsf, is_asf
 from fealess_tpu_torch.io.avi import AviError, AviFile, is_avi
-from fealess_tpu_torch.io.mpegvideo import (MpegVideoFile, is_mpeg_video,
-                                            start_code_at)
+from fealess_tpu_torch.io.flv import FlvError, FlvFile, UnsupportedFlv, is_flv
 from fealess_tpu_torch.io.imfile import image_format
 from fealess_tpu_torch.io.isobmff import (Mp4Error, Mp4File, UnsupportedMp4,
                                           is_isobmff)
@@ -126,6 +143,13 @@ from fealess_tpu_torch.io.matroska import (CODEC_NAMES, MatroskaError,
 from fealess_tpu_torch.io.mpeg2 import CODEC_ID as MPEG2_CODEC_ID
 from fealess_tpu_torch.io.mpeg2 import FOURCCS as MPEG2_FOURCCS
 from fealess_tpu_torch.io.mpeg4 import FOURCCS as MPEG4_FOURCCS
+from fealess_tpu_torch.io.mpegps import (MpegPsError, MpegPsFile,
+                                         UnsupportedMpegPs, is_mpeg_ps)
+from fealess_tpu_torch.io.mpegts import (MpegTsError, MpegTsFile,
+                                         UnsupportedMpegTs, packet_layout)
+from fealess_tpu_torch.io.mpegvideo import MpegVideoFile, is_mpeg_video
+from fealess_tpu_torch.io.nut import NutError, NutFile, UnsupportedNut, is_nut
+from fealess_tpu_torch.io.ogg import OggError, OggFile, UnsupportedOgg, is_ogg
 from fealess_tpu_torch.io.png import DecodeError
 from fealess_tpu_torch.io.rawvideo import RAW_FOURCCS
 from fealess_tpu_torch.io.vp8 import CODEC_ID as VP8_CODEC_ID
@@ -151,20 +175,6 @@ def _container(head: bytes) -> Optional[str]:
     """The name of a container cv2's FFmpeg opens and the port does not
     read, by its first bytes (FFmpeg's probes, reduced to their
     signatures), or None."""
-    if start_code_at(head) == 0xBA:
-        return "MPEG program stream"
-    if head[:1] == b"\x47" and head[188:189] == b"\x47":
-        return "MPEG transport stream"
-    if head[4:5] == b"\x47" and head[196:197] == b"\x47":
-        return "BDAV MPEG transport stream"      # 192-byte packets (.m2ts)
-    if head[:4] == b"OggS":
-        return "Ogg"
-    if head[:3] == b"FLV":
-        return "FLV"
-    if head[:4] == b"\x30\x26\xb2\x75":
-        return "ASF"
-    if head.startswith(b"nut/multimedia container"):
-        return "NUT"
     if head[:4] in (b".RMF", b".RMP"):
         return "RealMedia"
     if head[:3] in (b"FWS", b"CWS", b"ZWS"):
@@ -178,9 +188,7 @@ def _container(head: bytes) -> Optional[str]:
 
 # the containers cv2's FFmpeg opens that the port does not demux yet
 # (ROADMAP's demuxing queue), as the refusals name them
-QUEUED_CONTAINERS = ("MPEG program stream", "MPEG transport stream",
-                     "BDAV MPEG transport stream", "fragmented MP4", "Ogg",
-                     "FLV", "ASF", "NUT", "RealMedia", "SWF", "raw Dirac")
+QUEUED_CONTAINERS = ("RealMedia", "SWF", "raw Dirac")
 
 
 _FOURCC_NAMES = {
@@ -239,8 +247,10 @@ def fourcc_codec(fourcc: bytes) -> Optional[str]:
     return None
 
 
-_CONTAINERS = ("AVI, MP4, MOV, Matroska, YUV4MPEG2, the MPEG video "
-               "elementary stream, image files and their pipes")
+_CONTAINERS = ("AVI, MP4 and MOV (fragmented too), Matroska, YUV4MPEG2, "
+               "the MPEG video elementary stream, MPEG program and "
+               "transport streams, Ogg, FLV, ASF, NUT, image files and "
+               "their pipes")
 _READS = ("Motion JPEG, FFV1, raw I420 / IYUV / YV12 / gray / NV12 / RGBA, "
           "PNG, Huffyuv, MPEG-4 Part 2, VP8, VP9 and MPEG-2")
 
@@ -256,6 +266,10 @@ def _pam_without_tuple_type(path: str) -> bool:
     end = head.find(b"ENDHDR")
     return head.startswith(b"P7") and end > 0 and \
         b"TUPLTYPE" not in head[:end]
+
+
+# what a demuxer refuses part way through the stream
+_STREAM_REFUSALS = (UnsupportedAsf, UnsupportedNut)
 
 
 class VideoReader:
@@ -305,6 +319,20 @@ class VideoReader:
         elif is_mpeg_video(head):
             self.container = "MPEG video elementary stream"
             self._set("mpeg2", b"", 0, 0, b"", MpegVideoFile(path))
+        elif is_mpeg_ps(head):
+            self._open_stream(path, "MPEG program stream", MpegPsFile,
+                              MpegPsError, UnsupportedMpegPs)
+        elif packet_layout(head) is not None:
+            self._open_stream(path, "MPEG transport stream", MpegTsFile,
+                              MpegTsError, UnsupportedMpegTs)
+        elif is_ogg(head):
+            self._open_stream(path, "Ogg", OggFile, OggError, UnsupportedOgg)
+        elif is_flv(head):
+            self._open_stream(path, "FLV", FlvFile, FlvError, UnsupportedFlv)
+        elif is_asf(head):
+            self._open_fourcc(path, "ASF", AsfFile, AsfError, UnsupportedAsf)
+        elif is_nut(head):
+            self._open_fourcc(path, "NUT", NutFile, NutError, UnsupportedNut)
         elif image in _IMAGE_CODECS:          # the image pipes' probes
             self._open_image(path, _IMAGE_CODECS[image])
         elif image == "PNM" and _pam_without_tuple_type(path):
@@ -402,6 +430,39 @@ class VideoReader:
         self.container = "YUV4MPEG2"
         self._set("rawvideo", b"", y4m.width, y4m.height, b"", y4m)
         self.raw_format, self.full_range = y4m.fmt, y4m.full_range
+
+    @staticmethod
+    def _demuxer(path: str, cls, error, unsupported):
+        """``cls(path)``, its errors raised as the JAX reader's OSError
+        (cv2 does not open the file) or as :class:`UnsupportedVideo`."""
+        try:
+            return cls(path)
+        except error as e:
+            raise OSError(f"cannot open video source {path!r}: {e}") from e
+        except unsupported as e:
+            raise UnsupportedVideo(f"{e}: read by cv2.VideoCapture but not "
+                                   f"by the port") from None
+
+    def _open_stream(self, path: str, container: str, *demuxer) -> None:
+        """A container whose demuxer names its codec (no fourcc: FFmpeg's
+        codec tag is 0 there)."""
+        d = self._demuxer(path, *demuxer)
+        self.container = container
+        self._set(d.codec, b"", d.width, d.height, b"", d)
+
+    def _open_fourcc(self, path: str, container: str, *demuxer) -> None:
+        """A container whose video stream carries a BITMAPINFOHEADER-style
+        fourcc and extradata, looked up as in AVI."""
+        d = self._demuxer(path, *demuxer)
+        if fourcc_codec(d.fourcc) is None:
+            d.close()
+            raise UnsupportedVideo(
+                f"{path}: {container} with {_codec(d.fourcc)} video is read "
+                f"by cv2.VideoCapture but not by the port (which reads "
+                f"{_READS})")
+        self.container = container
+        self._set(fourcc_codec(d.fourcc), d.fourcc, d.width, d.height,
+                  d.extradata, d)
 
     def _open_mp4(self, path: str) -> None:
         try:
@@ -583,7 +644,7 @@ class VideoReader:
         decode, close, drain = self._decoder()
         first = None
         try:
-            for i, data in enumerate(self._packets()):
+            for i, data in enumerate(self._demuxed()):
                 what = f"{self.path} frame {i}"
                 try:
                     frame = decode(data, what)
@@ -612,6 +673,15 @@ class VideoReader:
             yield from drain()
         finally:
             close()
+
+    def _demuxed(self) -> Iterator[bytes]:
+        """The demuxer's packets, its refusals of what it meets in the
+        stream raised as :class:`UnsupportedVideo`."""
+        try:
+            yield from self._packets()
+        except _STREAM_REFUSALS as e:
+            raise UnsupportedVideo(f"{e}: read by cv2.VideoCapture but not "
+                                   f"by the port") from None
 
     def close(self) -> None:
         self._close()

@@ -7,6 +7,7 @@ holds them to, taken from cv2 and the JAX package on the CPU.
     python -m tests.make_torch_video vp9      # tests/data/torch_vp9 only
     python -m tests.make_torch_video mpeg2    # tests/data/torch_mpeg2 only
     python -m tests.make_torch_video raw      # tests/data/torch_raw only
+    python -m tests.make_torch_video demux    # tests/data/torch_demux only
 
 - ``clip.avi``: four panned 640x480 fixture frames (``apps/fixture.pan``)
   written by ``cv2.VideoWriter`` as Motion JPEG, with ``depth/<i>.png``
@@ -107,6 +108,27 @@ holds them to, taken from cv2 and the JAX package on the CPU.
   bytes, RGBA); PNG images back to back (``png_pipe.bin``); a PAM image
   (``image.pam``, which cv2 opens and reads no frame from); and at
   640x480 the clip's first two frames as YUV4MPEG2 (``pan_y4m.y4m``);
+- in ``tests/data/torch_demux/`` (:func:`write_demux`, with a
+  ``digests.json`` and a ``recon.json`` of its own), the containers
+  demuxed for codecs the port already decodes (:func:`demux_sources`):
+  from ``cv2.VideoWriter``'s FFmpeg backend, a 96x64 pan of 8 frames
+  (MPEG-2, MPEG-4 Part 2, VP8, VP9, Motion JPEG) and 48x32 scenes of 3
+  (FFV1, I420, PNG, Huffyuv) in MPEG program streams (``.mpg``: MPEG-1
+  packs, ``.vob``: MPEG-2 packs), transport streams (``.ts``, BDAV's
+  ``.m2ts``), fragmented MP4 (``.ismv``), Ogg, FLV, ASF (``.asf``,
+  ``.wmv``) and NUT; hand-muxed by ``tests/stream_mux.py`` from those
+  files' packets: both pack and PES header forms with padding, foreign
+  streams and pictures split across packs, adaptation-field stuffing,
+  PES lengths, private data that FFmpeg probes, BDAV with null packets,
+  fragments whose sample sizes come from ``trex`` / ``tfhd`` / ``trun``,
+  Ogg packets that span pages and a page with a wrong CRC, FLV metadata,
+  script and sequence-end tags and CodedFramesX, ASF objects in
+  fragments over 500-byte packets and several payloads a packet, NUT
+  syncpoints with an elision header and info packets, a syncpoint with a
+  wrong checksum and a main header without its elision table (no
+  frame), and each container cut short at a packet or page boundary;
+  and at 640x480 the clip's first two frames as MPEG-2 in a transport
+  stream (``pan_ts.ts``);
 - ``digests.json``: for each source the frame count and each frame's
   shape and sha256 from ``cv2.VideoCapture``;
 - ``recon.json``: the JAX CLI's ``acq`` output on ``clip.avi`` with its
@@ -119,7 +141,8 @@ holds them to, taken from cv2 and the JAX package on the CPU.
   ``tests/data/torch_vp8/recon.json`` for ``pan_vp8.webm`` and
   ``tests/data/torch_vp9/recon.json`` for ``pan_vp9.webm`` and
   ``tests/data/torch_mpeg2/recon.json`` for ``pan_mpeg2.mp4`` and
-  ``tests/data/torch_raw/recon.json`` for ``pan_y4m.y4m`` (two frames,
+  ``tests/data/torch_raw/recon.json`` for ``pan_y4m.y4m`` and
+  ``tests/data/torch_demux/recon.json`` for ``pan_ts.ts`` (two frames,
   with the depth directory's first two by position).
 
 ``tests/test_torch_video.py`` holds the digests to cv2 on the CPU, so they
@@ -166,6 +189,24 @@ MPEG2_CONTAINERS = (".avi", ".mkv", ".mp4", ".mov")
 # own; the 640x480 YUV4MPEG2 clip holds the clip's first two frames
 RAW_OUT = os.path.join(REPO, "tests", "data", "torch_raw")
 RAW_RECON_SOURCES = {"pan_y4m.y4m": 2}
+# the containers demuxed for codecs the port already decodes, in a
+# directory of their own; the 640x480 transport stream holds the clip's
+# first two frames
+DEMUX_OUT = os.path.join(REPO, "tests", "data", "torch_demux")
+DEMUX_RECON_SOURCES = {"pan_ts.ts": 2}
+# (fourcc, extension) of the writer's files there: the 96x64 pan, and the
+# lossless codecs at 48x32
+DEMUX_WRITER = (
+    ("MPG2", "mpg"), ("mp4v", "mpg"), ("MPG2", "vob"), ("XVID", "vob"),
+    ("MPG2", "ts"), ("mp4v", "ts"), ("MPG2", "m2ts"), ("DIVX", "m2ts"),
+    ("MJPG", "ismv"), ("MPG2", "ismv"), ("mp4v", "ismv"), ("FFV1", "ismv"),
+    ("MPNG", "ismv"), ("VP80", "ogv"), ("VP90", "flv"), ("MJPG", "asf"),
+    ("mp4v", "asf"), ("VP80", "asf"), ("VP90", "asf"), ("FFV1", "asf"),
+    ("I420", "asf"), ("HFYU", "asf"), ("MPNG", "asf"), ("MPG2", "wmv"),
+    ("MJPG", "nut"), ("mp4v", "nut"), ("VP80", "nut"), ("VP90", "nut"),
+    ("MPG2", "nut"), ("FFV1", "nut"), ("I420", "nut"), ("HFYU", "nut"),
+    ("MPNG", "nut"))
+LOSSLESS = ("FFV1", "I420", "MPNG", "HFYU")
 # the fourccs cv2.VideoWriter writes MPEG-4 Part 2 for
 MPEG4_FOURCCS = ("mp4v", "MP4V", "XVID", "xvid", "FMP4", "DIVX", "DX50")
 # (first bit, width) of VOL fields past the start code in the VOL that
@@ -1079,6 +1120,162 @@ def write_raw(frames) -> None:
     print(f"wrote {RAW_OUT}: {total} bytes")
 
 
+def demux_sources(frames) -> None:
+    """Write the demuxed containers' sources (see the module docstring);
+    ``frames`` are the clip's."""
+    from fealess_tpu_torch.io.asf import AsfFile
+    from fealess_tpu_torch.io.isobmff import Mp4File
+    from fealess_tpu_torch.io.mpegps import MpegPsFile
+    from fealess_tpu_torch.io.mpegvideo import mpeg4_packets, packets
+    from fealess_tpu_torch.io.nut import NutFile
+    from fealess_tpu_torch.io.ogg import OggFile
+    from tests import stream_mux as sm
+
+    def out(name):
+        return os.path.join(DEMUX_OUT, name)
+
+    def write(name, data):
+        with open(out(name), "wb") as f:
+            f.write(data)
+    base = scene(96, 64, 71, 1)[0]
+    pan = [_shifted(base, 3 * i, -2 * i) for i in range(8)]
+    small = scene(48, 32, 72, 3)
+    for cc, ext in DEMUX_WRITER:
+        write_ffmpeg_clip(out(f"{ext}_{cc}.{ext}"),
+                          small if cc in LOSSLESS else pan, cc)
+    write_ffmpeg_clip(out("pan_ts.ts"), [b for b, _ in frames[
+        :DEMUX_RECON_SOURCES["pan_ts.ts"]]], "MPG2")
+    m2 = MpegPsFile(out("mpg_MPG2.mpg"))._payload
+    m4 = MpegPsFile(out("mpg_mp4v.mpg"))._payload
+    pictures = packets(m2)
+    vops = mpeg4_packets(m4)
+    # program streams: MPEG-1 packs and PES headers (stuffing, the STD
+    # buffer, PTS and DTS), padding, an audio stream and private stream 2;
+    # MPEG-2 packs with stuffing, two PES packets a pack; pictures in PES
+    # packets of their own, the stream cut after a picture's last pack
+    write("ps_mpeg1_packs.mpg", sm.mux_ps([m2], "mpeg1", "mpeg1", 700,
+                                          padding=True, foreign=True))
+    write("ps_mpeg2_split.vob", sm.mux_ps([m4], "mpeg2", "mpeg2", 900,
+                                          pack_every=2, stuffing=3,
+                                          padding=True, foreign=True))
+    whole = sm.mux_ps(pictures[:5], chunk=600, end_code=False)
+    write("ps_cut.mpg", whole)
+    # transport streams: adaptation-field stuffing in every packet (a PES
+    # over many packets), PES lengths, MPEG-4 Part 2 as private data that
+    # FFmpeg probes, BDAV with null packets, a stream cut before a PES
+    write("ts_stuffing.ts", sm.mux_ts(pictures, 0x02, stuff_all=True))
+    write("ts_pes_length.ts", sm.mux_ts(vops, 0x10, pes_length=True))
+    write("ts_private.ts", sm.mux_ts(vops, 0x06))
+    write("bdav_null.m2ts", sm.mux_ts(pictures, 0x02, bdav=True,
+                                      null_every=3))
+    write("ts_cut.ts", sm.mux_ts(pictures[:5], 0x02))
+    # fragmented MP4: sizes from trex, tfhd and trun, each base kind; the
+    # writer's one-sample fragments cut before the sixth
+    ismv = out("ismv_MJPG.ismv")
+    with open(ismv, "rb") as f:
+        data = f.read()
+    head = data[:data.index(b"moof") - 4]
+    with Mp4File(ismv) as mp4:
+        samples = list(mp4.frames())
+    size = max(len(x) for x in samples)
+    padded = [x + bytes(size - len(x)) for x in samples]
+    write("fmp4_defaults.ismv", sm.mux_fmp4(
+        sm.set_trex(head, 1000, size), padded,
+        [{"n": 2, "size": "trex", "base": "moof"},
+         {"n": 3, "size": "tfhd", "base": "explicit"},
+         {"n": 3, "size": "trun", "base": "none"}]))
+    moofs = [i - 4 for i in range(len(data)) if data[i:i + 4] == b"moof"]
+    write("fmp4_cut.ismv", data[:moofs[5]])
+    # Ogg: a packet over pages of three lacing values, a page with a
+    # wrong CRC, the stream cut before its last pages
+    ogg = OggFile(out("ogv_VP80.ogv"))
+    vp8 = list(ogg._packets())
+    span = sm.mux_ogg(vp8, max_segments=3)
+    write("ogg_span.ogv", span)
+    bad = bytearray(sm.mux_ogg(vp8))
+    pages = [i for i in range(len(bad)) if bad[i:i + 4] == b"OggS"]
+    bad[pages[5] + 22] ^= 0xFF
+    write("ogg_bad_crc.ogv", bytes(bad))
+    pages = [i for i in range(len(span)) if span[i:i + 4] == b"OggS"]
+    write("ogg_cut.ogv", span[:pages[-4]])
+    # FLV: a Metadata tag and a script tag after each frame, a
+    # SequenceEnd tag, CodedFramesX; cut after its ninth tag
+    with open(out("flv_VP90.flv"), "rb") as f:
+        tags = sm.flv_tags(f.read())
+    meta = next(t for t in tags if t[0] == 9 and t[2][0] == 0xD4)
+    more = []
+    for k, t in enumerate(tags):
+        coded = t[0] == 9 and t[2][0] in (0x91, 0xA1)
+        if coded and k % 2:
+            t = (9, t[1], bytes([t[2][0] | 2]) + t[2][1:])   # CodedFramesX
+        more.append(t)
+        if coded:
+            more += [(9, t[1], meta[2]), (18, t[1], tags[0][2])]
+    more.append((9, 800, b"\x82vp09"))
+    write("flv_metadata.flv", sm.mux_flv(more))
+    write("flv_cut.flv", sm.mux_flv(more[:9]))
+    # ASF: objects in fragments over 500-byte packets, two payloads a
+    # packet, the file cut after its twentieth packet
+    asf_path = out("asf_MJPG.asf")
+    with open(asf_path, "rb") as f:
+        data = f.read()
+    header = data[:struct.unpack_from("<Q", data, 16)[0]]
+    objects = list(AsfFile(asf_path).frames())
+    frag = sm.mux_asf(header, objects, 500)
+    write("asf_fragments.asf", frag)
+    write("asf_multiple.asf", sm.mux_asf(header, objects, 700, True))
+    write("asf_cut.asf", frag[:len(header) + 50 + 500 * 20])
+    # NUT: a syncpoint every third frame with an elision header and info
+    # packets; a syncpoint with a wrong checksum; no elision table; cut
+    # before the third syncpoint
+    nut = NutFile(out("nut_mp4v.nut"))
+    nut_frames = list(nut.frames())
+    args = (nut_frames, b"mp4v", 96, 64, nut.stream.extradata)
+    synced = sm.mux_nut(*args, sync_every=3, elide=b"\x00\x00\x01\xb6",
+                        info=True)
+    write("nut_syncpoints.nut", synced)
+    bare = bytearray(sm.mux_nut(*args, sync_every=2, elide=b"\x00\x00\x01"))
+    syncs = [i for i in range(len(bare))
+             if bare[i:i + 8] == sm.NUT_SYNC]
+    bare[syncs[1] + 10] ^= 0x40
+    write("nut_bad_syncpoint.nut", bytes(bare))
+    write("nut_no_elision_table.nut", sm.mux_nut(*args, table=False))
+    write("nut_cut.nut", synced[:[i for i in range(len(synced))
+                                  if synced[i:i + 8] == sm.NUT_SYNC][2]])
+
+
+def demux_committed_sources():
+    """Every committed source of DEMUX_OUT (its ``digests.json`` lists
+    them)."""
+    return sorted(n for n in os.listdir(DEMUX_OUT)
+                  if not n.endswith(".json"))
+
+
+def write_demux(frames) -> None:
+    """Write DEMUX_OUT: the sources, their ``digests.json`` and
+    ``recon.json`` (the JAX CLI's acq and recon under ``"sources"``)."""
+    os.makedirs(DEMUX_OUT, exist_ok=True)
+    for name in os.listdir(DEMUX_OUT):
+        os.remove(os.path.join(DEMUX_OUT, name))
+    demux_sources(frames)
+    digests = {name: digest(os.path.join(DEMUX_OUT, name))
+               for name in demux_committed_sources()}
+    with open(os.path.join(DEMUX_OUT, "digests.json"), "w") as f:
+        json.dump(digests, f, indent=1, sort_keys=True)
+        f.write("\n")
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    recon = {"sources": {name: jax_acq_recon(os.path.join(DEMUX_OUT, name),
+                                             n)
+                         for name, n in DEMUX_RECON_SOURCES.items()}}
+    with open(os.path.join(DEMUX_OUT, "recon.json"), "w") as f:
+        json.dump(recon, f, indent=1, sort_keys=True)
+        f.write("\n")
+    total = sum(os.path.getsize(os.path.join(DEMUX_OUT, n))
+                for n in os.listdir(DEMUX_OUT))
+    print(f"wrote {DEMUX_OUT}: {total} bytes")
+
+
 def committed_sources():
     """Every committed source of OUT that ``digests.json`` lists."""
     return sorted([n for n in os.listdir(OUT) if n.endswith(CONTAINERS)]
@@ -1168,6 +1365,7 @@ def main() -> None:
     write_vp9(frames)
     write_mpeg2(frames)
     write_raw(frames)
+    write_demux(frames)
 
 
 def vp9_committed_sources():
@@ -1274,5 +1472,7 @@ if __name__ == "__main__":
         write_mpeg2(clip_frames())
     elif sys.argv[1:] == ["raw"]:
         write_raw(clip_frames())
+    elif sys.argv[1:] == ["demux"]:
+        write_demux(clip_frames())
     else:
         main()

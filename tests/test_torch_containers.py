@@ -464,6 +464,12 @@ WRITER_PAIRS = (
     ("MJ2C", "avi"), ("MJ2C", "mov"), ("MJ2C", "mkv"), ("MJ2C", "mp4"),
     ("RV10", "rm"), ("RV20", "rm"), ("FLV1", "swf"), ("mp4v", "3gp"),
     ("H263", "3gp"))
+# the containers item 13 (b) demuxes, each written with every fourcc of
+# EVERY_FOURCC (the pairs WRITER_PAIRS holds left out)
+DEMUXED_EXTENSIONS = ("mpg", "vob", "ts", "m2ts", "ismv", "ogv", "flv",
+                      "asf", "wmv", "nut")
+DEMUXED_PAIRS = tuple((f, e) for e in DEMUXED_EXTENSIONS for f in EVERY_FOURCC
+                      if (f, e) not in WRITER_PAIRS)
 # the codecs the port refuses by name and ROADMAP's decoding queue lists
 QUEUED = tuple(QUEUED_FOURCCS)
 
@@ -491,7 +497,7 @@ def test_queued_containers_are_roadmaps_demuxing_queue():
 
 @pytest.mark.parametrize("fourcc,ext", [
     (f, e) for f in EVERY_FOURCC for e in ("avi", "mp4", "mov", "mkv")]
-    + list(WRITER_PAIRS), ids=lambda v: v.strip())
+    + list(WRITER_PAIRS) + list(DEMUXED_PAIRS), ids=lambda v: v.strip())
 def test_every_codec_cv2_writes_is_read_or_queued(tmp_path, fourcc, ext):
     """Four frames through cv2.VideoWriter (96x64; 128x96 for H.263, whose
     picture sizes are fixed): the port reads them to cv2's frames, or
@@ -506,6 +512,7 @@ def test_every_codec_cv2_writes_is_read_or_queued(tmp_path, fourcc, ext):
                          cv2.VideoWriter_fourcc(*fourcc), 10, (w, h))
     if not vw.isOpened():               # the writer takes no such file
         assert (fourcc, ext) not in WRITER_PAIRS
+        assert ext not in ("asf", "wmv", "nut"), "ASF and NUT take all"
         return
     for f in scene(w, h, 3, 4):
         vw.write(f)

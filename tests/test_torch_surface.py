@@ -26,7 +26,7 @@ MOVED = {"ops/score_pallas.py": "ops/score.py",
 
 REASONS = ("jit wrapper", "TPU workaround", "tried and left out",
            "Pallas internals", "test/oracle-only", "renamed to",
-           "waits for ROADMAP item 10")
+           "waits for ROADMAP item 2")
 
 # (JAX module, name) -> (reason, detail).  "renamed to" names the port's
 # "module:name", which must exist.
@@ -71,7 +71,7 @@ LEFT_OUT = {
         "renamed to", "utils/profiling.py:device_seconds"),
     ("utils/profiling.py", "time_jitted"): (
         "renamed to", "utils/profiling.py:time_calls"),
-    ("apps/cli.py", "cmd_bench"): ("waits for ROADMAP item 10", ""),
+    ("apps/cli.py", "cmd_bench"): ("waits for ROADMAP item 2", ""),
 }
 
 # (JAX module, function or Class.method, parameter) -> (reason, detail):
@@ -198,7 +198,7 @@ def test_left_out_entries_are_current_and_allowed(surfaces):
             target_mod, target = detail.split(":")
             assert target in port.get(target_mod, set()), detail
     waits = [k for k, (r, _) in LEFT_OUT.items()
-             if r == "waits for ROADMAP item 10"]
+             if r == "waits for ROADMAP item 2"]
     assert waits == [("apps/cli.py", "cmd_bench")]
 
 

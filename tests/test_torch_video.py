@@ -32,7 +32,8 @@ from fealess_tpu_torch.io.video import UnsupportedVideo, VideoReader
 from tests.make_torch_video import (OUT, committed_sources, cut_dht,
                                     cv2_frames, digest, jpeg, mux_avi, scene,
                                     set_vol_bit, set_vp9_color_space,
-                                    sha256, write_cv2_clip)
+                                    sha256, write_cv2_clip,
+                                    write_ffmpeg_clip)
 from tests.test_torch_io import LOADED
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -232,8 +233,9 @@ def test_refusals_name_what_they_refuse(tmp_path):
     """VP9 in MP4 and in Matroska whose key frames say BT.709 (cv2
     converts them with its matrix), MS MPEG-4 v3 (DIV3) in AVI, an
     MPEG-4 Part 2 clip whose VOL asks for OBMC, an interlaced
-    Motion JPEG (two fields a chunk), an MPEG program stream:
-    UnsupportedVideo naming the container, the fourcc or the kind; a missing file, a file
+    Motion JPEG (two fields a chunk), RealMedia (a container of
+    ROADMAP's demuxing queue): UnsupportedVideo naming the container, the
+    fourcc or the kind; a missing file, a file
     of no known container and an AVI with no video stream: OSError as the
     JAX reader's; a camera index: ValueError."""
     frames = scene(64, 48, 1, 2)
@@ -263,11 +265,11 @@ def test_refusals_name_what_they_refuse(tmp_path):
     assert len(cv2_frames(inter)) == 2
     with pytest.raises(UnsupportedVideo, match="interlaced"):
         list(VideoReader(inter))
-    program = str(tmp_path / "a.mpg")
-    write_cv2_clip(program, frames, "MPG2")
-    assert len(cv2_frames(program)) == 2
-    with pytest.raises(UnsupportedVideo, match="MPEG program stream"):
-        VideoReader(program)
+    real = str(tmp_path / "a.rm")
+    write_ffmpeg_clip(real, frames, "RV10")
+    assert len(cv2_frames(real)) == 2
+    with pytest.raises(UnsupportedVideo, match="RealMedia"):
+        VideoReader(real)
     junk = _write(tmp_path, b"not a video at all" * 20, "junk.avi")
     audio = bytearray(mux_avi([jpeg(frames[0])], 64, 48))
     at = audio.index(b"vids")
