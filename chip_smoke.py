@@ -144,17 +144,20 @@ Phases, one line of output each (or a few):
 7f. video files, image files and printf patterns (``io/video.
    VideoReader``, as ``cv2.VideoCapture`` reads them: AVI, MP4 and
    Matroska holding Motion JPEG, FFV1, raw I420, PNG, Huffyuv, MPEG-4
-   Part 2, VP8, VP9 or MPEG-2 frames, MOV holding MPEG-2 or raw RGBA;
+   Part 2, VP8, VP9, MPEG-2, H.263 or Sorenson Spark frames, MOV holding
+   MPEG-2, H.263, Sorenson Spark or raw RGBA; FLV, SWF, ASF and NUT;
    raw gray, NV12 and RGBA in AVI and Matroska; YUV4MPEG2; the MPEG video
    elementary stream; image2's single images and patterns; raw Motion
    JPEG and PNG pipes): every committed source of
    ``tests/data/torch_video``, ``torch_vp8``, ``torch_vp9``,
-   ``torch_mpeg2`` and ``torch_raw`` decoded to the frame count and each
+   ``torch_mpeg2``, ``torch_raw``, ``torch_demux`` and ``torch_h263``
+   decoded to the frame count and each
    frame's sha256 of cv2's (recorded by ``tests/make_torch_video.py``);
    ``acq --device cuda --clouds`` with the committed depth directory from
    the 640x480 Motion JPEG clip, the FFV1 MP4, the JPEG pattern, the mp4v
-   AVI, the VP8 and VP9 WebM clips, the MPEG-2 MP4 and the YUV4MPEG2 clip
-   (two frames, paired with the depth directory's first two), each
+   AVI, the VP8 and VP9 WebM clips, the MPEG-2 MP4, and the YUV4MPEG2
+   clip, the MPEG-TS and the Sorenson Spark FLV (two frames each, paired
+   with the depth directory's first two), each
    package's ``gray/`` and ``depth/`` pixels equal to the JAX CLI's and its
    clouds within ``CLOUD_TOL_MM`` of the same call on the CPU; ``recon
    --device cuda`` on each package in both ICP settings, its lines held to
@@ -162,8 +165,9 @@ Phases, one line of output each (or a few):
    K1/K2/K3 at 1/1/0 a frame in (a) and 1/1/9 in (b); the host time to
    decode a 640x480 frame of each format, demux included, and of one
    MPEG-4 I-VOP and one P-VOP, a VP8 and a VP9 key and inter frame, an
-   MPEG-2 I, P and B picture, and a frame of the YUV4MPEG2 and the MPEG-2
-   elementary stream readers.
+   MPEG-2 I, P and B picture, a Sorenson Spark (640x480) and an H.263
+   (704x576) I and P picture, and a frame of the YUV4MPEG2, the MPEG-2
+   elementary stream and the Sorenson FLV readers.
 8. the rest of the public surface: the CLI's device-stage table
    (``cli._profile_stages``: front-end, match and the full step as
    cumulative prefixes, each the device busy of warm calls under
@@ -361,6 +365,7 @@ VP9_DIR = os.path.join(REPO, "tests", "data", "torch_vp9")
 MPEG2_DIR = os.path.join(REPO, "tests", "data", "torch_mpeg2")
 RAW_DIR = os.path.join(REPO, "tests", "data", "torch_raw")
 DEMUX_DIR = os.path.join(REPO, "tests", "data", "torch_demux")
+H263_DIR = os.path.join(REPO, "tests", "data", "torch_h263")
 CLOUD_TOL_MM = 1e-3
 DECODE_TIMED = 10
 
@@ -2398,6 +2403,7 @@ def video_phase(eng, card, counts, default_icp) -> None:
     mpeg2_sources(eng, card, counts, default_icp)
     raw_sources(eng, card, counts, default_icp)
     demux_sources(eng, card, counts, default_icp)
+    h263_sources(eng, card, counts, default_icp)
 
 
 def mpeg4_frame_times(card) -> None:
@@ -2883,6 +2889,87 @@ def demux_sources(eng, card, counts, default_icp) -> None:
               f"{k} {c:.3f} ms (AVI {a:.3f} ms)"
               for k, (c, a) in times.items()) + f" ({card})")
     print(f"time phase 7f demuxed part: {time.perf_counter() - t_part:.1f} s "
+          f"({card})")
+
+
+def h263_sources(eng, card, counts, default_icp) -> None:
+    """Phase 7f's H.263 and Sorenson Spark part: every committed source of
+    ``tests/data/torch_h263`` (``cv2.VideoWriter``'s H.263 at its five
+    sizes in AVI, MOV, 3GP, 3G2, Matroska, ASF and NUT; its Sorenson Spark
+    in FLV, SWF, AVI, MOV, Matroska, ASF and NUT at 1280x720 down to
+    16x16; hand edits of the Sorenson headers) decoded by ``VideoReader``
+    to cv2's digests; ``acq --device cuda --clouds`` from the 640x480
+    Sorenson FLV and ``recon`` on its package in both ICP settings
+    (``acq_recon_source``); host times of a 640x480 Sorenson and a 704x576
+    H.263 I and P picture (each P in a new decoder after its I) and of
+    ``VideoReader`` a frame on the 640x480 FLV."""
+    import hashlib
+
+    import numpy as np
+    from fealess_tpu_torch.io.h263 import H263Decoder
+    from fealess_tpu_torch.io.video import VideoReader
+
+    t_part = time.perf_counter()
+    with open(os.path.join(H263_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    with open(os.path.join(H263_DIR, "recon.json")) as f:
+        expect = json.load(f)
+
+    def sha(a) -> str:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    for name, want in sorted(digests.items()):
+        with VideoReader(os.path.join(H263_DIR, name)) as reader:
+            frames = list(reader)
+        got = {"frames": len(frames),
+               "shapes": [list(f.shape) for f in frames],
+               "sha256": [sha(f) for f in frames]}
+        check(got == want, f"video {name}: {got}, cv2 gives {want}")
+    print(f"H.263 and Sorenson Spark input: {len(digests)} committed sources "
+          f"({sum(d['frames'] for d in digests.values())} frames: "
+          f"cv2.VideoWriter's H.263 at 128x96, 176x144, 352x288, 704x576 "
+          f"and 1408x1152 in AVI (H263, U263), MOV, 3GP, 3G2, Matroska, ASF "
+          f"and NUT; its Sorenson Spark in FLV, SWF, AVI (FLV1, s263), MOV, "
+          f"Matroska, ASF and NUT at 1280x720, 640x480, 128x96, 96x64, "
+          f"94x62, 16x14 and 16x16, checkerboards (11-bit escapes), fast "
+          f"motion; edited to version 0, disposable P pictures, deblocking "
+          f"0, PSPARE bytes and 95x63): frame counts and every frame's "
+          f"sha256 equal to cv2.VideoCapture's")
+    name = "pan_flv1.flv"
+    acq_recon_source(eng, card, counts, default_icp, name,
+                     digests[name]["frames"], expect["sources"][name],
+                     "Sorenson Spark in FLV", False, H263_DIR)
+
+    times = {}
+    for clip, flavour, label in (("pan_flv1.flv", "sorenson",
+                                  "640x480 Sorenson"),
+                                 ("h263_704x576.avi", "h263",
+                                  "704x576 H.263")):
+        with VideoReader(os.path.join(H263_DIR, clip)) as reader:
+            packets = list(reader._packets())
+        for k, kind in enumerate(("I", "P")):
+            runs = []
+            for _ in range(DECODE_TIMED + 1):
+                dec = H263Decoder(b"", b"", clip, "", flavour)
+                for p in packets[:k]:
+                    dec.decode(p)
+                t0 = time.perf_counter()
+                frame = dec.decode(packets[k])
+                runs.append((time.perf_counter() - t0) * 1e3)
+                check(frame.shape[:2] == tuple(digests[clip]["shapes"][k][:2]),
+                      f"{clip}: packet {k} gave a {frame.shape} frame")
+                dec.close()
+            times[f"{label} {kind} ({len(packets[k])} bytes)"] = \
+                sum(runs[1:]) / DECODE_TIMED
+    clip = os.path.join(H263_DIR, "pan_flv1.flv")
+    times["VideoReader a 640x480 Sorenson frame (demux included)"] = \
+        host_mean_ms(lambda: list(VideoReader(clip)), DECODE_TIMED) / \
+        digests["pan_flv1.flv"]["frames"]
+    print(f"time H.263 and Sorenson Spark decode to BGR (host, mean of "
+          f"{DECODE_TIMED} after a warm call): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+          + f" ({card})")
+    print(f"time phase 7f H.263 part: {time.perf_counter() - t_part:.1f} s "
           f"({card})")
 
 

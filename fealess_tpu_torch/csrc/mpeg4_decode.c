@@ -32,13 +32,12 @@
  *                int16 as FFmpeg's blocks are
  *   IDCT         ff_simple_idct_put / _add_int16_8bit (simple_idct.h,
  *                shared with mjpeg_decode.c and mpeg2_decode.c)
- *   motion       mpeg_motion: luma at half-pel, chroma at
- *                (mv >> 1) | (mv & 1) half-pel; reference samples at
- *                coordinates clamped to the macroblock-aligned picture
- *                (emulated_edge_mc with h_edge_pos = mb_width * 16);
- *                vop_rounding_type picks put_pixels (rounding up) or
- *                put_no_rnd_pixels, whose x2 / y2 forms on x86 are the
- *                MMXEXT ones (pavgb of an operand less one, saturated)
+ *   motion       mpeg_motion at half-pel, reference samples clamped to
+ *                the macroblock-aligned picture; vop_rounding_type picks
+ *                put_pixels or put_no_rnd_pixels
+ * The inter TCOEF, MCBPC, CBPY and MVD tables, the bit reader, the vector
+ * prediction and decoding, motion compensation and the reconstruction
+ * are h263_mb.h's, shared with h263_decode.c (H.263 and Sorenson Spark).
  *   output       the picture cropped to the VOL's size, yuv420p at
  *                limited range to BGR24 through yuv_bgr.h
  *
@@ -51,6 +50,7 @@
  * decoded bumps a counter (C_*), so a test holds the committed clips to
  * covering all of them.
  */
+#include "h263_mb.h"
 #include "simple_idct.h"
 #include "yuv_bgr.h"
 
@@ -82,54 +82,6 @@ enum {
 };
 
 /* ---- tables ---- */
-
-/* MPEG-4 Part 2 Table B-17 (H.263 Table 16, inter TCOEF): code, length,
- * run and level of each index; index 102 is the escape, from index 58 on
- * the code ends the block (LAST) */
-static const uint16_t inter_code[103] = {
-    2, 15, 21, 23, 31, 37, 36, 33, 32, 7, 6, 32,
-    6, 20, 30, 15, 33, 80, 14, 29, 14, 81, 13, 35,
-    13, 12, 34, 82, 11, 12, 83, 19, 11, 84, 18, 10,
-    17, 9, 16, 8, 22, 85, 21, 20, 28, 27, 33, 32,
-    31, 30, 29, 28, 27, 26, 34, 35, 86, 87, 7, 25,
-    5, 15, 4, 14, 13, 12, 19, 18, 17, 16, 26, 25,
-    24, 23, 22, 21, 20, 19, 24, 23, 22, 21, 20, 19,
-    18, 17, 7, 6, 5, 4, 36, 37, 38, 39, 88, 89,
-    90, 91, 92, 93, 94, 95, 3,
-};
-static const uint8_t inter_len[103] = {
-    2, 4, 6, 7, 8, 9, 9, 10, 10, 11, 11, 11,
-    3, 6, 8, 10, 11, 12, 4, 8, 10, 12, 5, 9,
-    10, 5, 9, 12, 5, 10, 12, 6, 10, 12, 6, 10,
-    6, 10, 6, 10, 7, 12, 7, 7, 8, 8, 9, 9,
-    9, 9, 9, 9, 9, 9, 11, 11, 12, 12, 4, 9,
-    11, 6, 11, 6, 6, 6, 7, 7, 7, 7, 8, 8,
-    8, 8, 8, 8, 8, 8, 9, 9, 9, 9, 9, 9,
-    9, 9, 10, 10, 10, 10, 11, 11, 11, 11, 12, 12,
-    12, 12, 12, 12, 12, 12, 7,
-};
-static const uint8_t inter_run[102] = {
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    1, 1, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3,
-    3, 4, 4, 4, 5, 5, 5, 6, 6, 6, 7, 7,
-    8, 8, 9, 9, 10, 10, 11, 12, 13, 14, 15, 16,
-    17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 0, 0,
-    0, 1, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10,
-    11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22,
-    23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34,
-    35, 36, 37, 38, 39, 40,
-};
-static const uint8_t inter_level[102] = {
-    1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12,
-    1, 2, 3, 4, 5, 6, 1, 2, 3, 4, 1, 2,
-    3, 1, 2, 3, 1, 2, 3, 1, 2, 3, 1, 2,
-    1, 2, 1, 2, 1, 2, 1, 1, 1, 1, 1, 1,
-    1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2,
-    3, 1, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1,
-    1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
-    1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
-    1, 1, 1, 1, 1, 1,
-};
 
 /* Table B-16 (intra TCOEF); LAST from index 67 on */
 static const uint16_t intra_code[103] = {
@@ -177,25 +129,6 @@ static const uint8_t intra_level[102] = {
     1, 1, 1, 1, 1, 1,
 };
 
-/* H.263 Tables 7 and 8 (MCBPC) and 12 (CBPY), 14 (MVD) */
-static const uint16_t intra_mcbpc_code[9] = {1, 1, 2, 3, 1, 1, 2, 3, 1};
-static const uint8_t intra_mcbpc_len[9] = {1, 3, 3, 3, 4, 6, 6, 6, 9};
-static const uint16_t inter_mcbpc_code[28] = {
-    1, 3, 2, 5, 3, 4, 3, 3, 3, 7, 6, 5, 4, 4, 3, 2,
-    2, 5, 4, 5, 1, 0, 0, 0, 2, 12, 14, 15};
-static const uint8_t inter_mcbpc_len[28] = {
-    1, 4, 4, 6, 5, 8, 8, 7, 3, 7, 7, 9, 6, 9, 9, 9,
-    3, 7, 7, 8, 9, 0, 0, 0, 11, 13, 13, 13};
-static const uint16_t cbpy_code[16] = {3, 5, 4, 9, 3, 7, 2, 11,
-                                       2, 3, 5, 10, 4, 8, 6, 3};
-static const uint8_t cbpy_len[16] = {4, 5, 5, 4, 5, 4, 6, 4,
-                                     5, 6, 4, 4, 4, 4, 4, 2};
-static const uint16_t mv_code[33] = {
-    1, 1, 1, 1, 3, 5, 4, 3, 11, 10, 9, 17, 16, 15, 14, 13, 12, 11, 10,
-    9, 8, 7, 6, 5, 4, 7, 6, 5, 4, 3, 2, 3, 2};
-static const uint8_t mv_len[33] = {
-    1, 2, 3, 4, 6, 7, 7, 7, 9, 9, 9, 10, 10, 10, 10, 10, 10, 10, 10,
-    10, 10, 10, 10, 10, 10, 11, 11, 11, 11, 11, 11, 12, 12};
 /* Tables B-13 and B-14: dct_dc_size for luma and chroma */
 static const uint16_t dc_lum_code[13] = {3, 3, 2, 2, 1, 1, 1, 1, 1, 1, 1,
                                          1, 1};
@@ -206,11 +139,6 @@ static const uint16_t dc_chrom_code[13] = {3, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1,
 static const uint8_t dc_chrom_len[13] = {2, 2, 2, 3, 4, 5, 6, 7, 8, 9, 10,
                                          11, 12};
 
-static const uint8_t zigzag[64] = {
-    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
-    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
-    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
 /* ff_mpeg4_y_dc_scale_table / ff_mpeg4_c_dc_scale_table */
 static const uint8_t y_dc_scale[32] = {
     0, 8, 8, 8, 8, 10, 12, 14, 16, 17, 18, 19, 20, 21, 22, 23,
@@ -218,72 +146,6 @@ static const uint8_t y_dc_scale[32] = {
 static const uint8_t c_dc_scale[32] = {
     0, 8, 8, 8, 8, 9, 9, 10, 10, 11, 11, 12, 12, 13, 13, 14,
     14, 15, 15, 16, 16, 17, 17, 18, 18, 19, 20, 21, 22, 23, 24, 25};
-
-/* ---- bits ---- */
-
-typedef struct {
-  const uint8_t *buf; /* 8 zero bytes past the end */
-  long nbits;
-  long pos;
-} br_t;
-
-static inline uint32_t br_show(const br_t *b, int n) {
-  long byte = b->pos >> 3;
-  uint64_t v = 0;
-  if (byte <= (b->nbits >> 3)) {
-    const uint8_t *p = b->buf + byte;
-    v = ((uint64_t)p[0] << 56) | ((uint64_t)p[1] << 48) |
-        ((uint64_t)p[2] << 40) | ((uint64_t)p[3] << 32) |
-        ((uint64_t)p[4] << 24) | ((uint64_t)p[5] << 16) |
-        ((uint64_t)p[6] << 8) | (uint64_t)p[7];
-  }
-  return n ? (uint32_t)((v << (b->pos & 7)) >> (64 - n)) : 0;
-}
-
-static inline uint32_t br_get(br_t *b, int n) {
-  uint32_t v = br_show(b, n);
-  b->pos += n;
-  return v;
-}
-
-/* get_xbits: n bits, a leading 0 making it negative */
-static inline int br_xbits(br_t *b, int n) {
-  int v = (int)br_get(b, n);
-  return (v >> (n - 1)) ? v : v - (1 << n) + 1;
-}
-
-/* bits left before the packet's end (may go negative: past the end the
- * reader gives zeros, as FFmpeg's padded buffers do) */
-static inline long br_left(const br_t *b) { return b->nbits - b->pos; }
-
-/* ---- VLCs: one lookup of `bits` bits ---- */
-
-typedef struct {
-  int bits;
-  int16_t sym[1 << 13];
-  uint8_t len[1 << 13];
-} vlc_t;
-
-static void vlc_build(vlc_t *v, int bits, int n, const uint16_t *code,
-                      const uint8_t *len) {
-  v->bits = bits;
-  for (int i = 0; i < (1 << bits); ++i) v->sym[i] = -1;
-  for (int s = 0; s < n; ++s) {
-    if (!len[s]) continue;
-    int shift = bits - len[s];
-    for (int k = 0; k < (1 << shift); ++k) {
-      v->sym[(code[s] << shift) | k] = (int16_t)s;
-      v->len[(code[s] << shift) | k] = len[s];
-    }
-  }
-}
-
-static inline int vlc_get(br_t *b, const vlc_t *v) {
-  uint32_t idx = br_show(b, v->bits);
-  int s = v->sym[idx];
-  if (s >= 0) b->pos += v->len[idx];
-  return s;
-}
 
 /* ---- decoder ---- */
 
@@ -295,25 +157,21 @@ typedef struct {
 } rl_t;
 
 typedef struct {
-  vlc_t intra_tc, inter_tc, intra_mcbpc, inter_mcbpc, cbpy, mvd, dc_lum,
-      dc_chrom;
+  mb_vlcs_t v;
+  vlc_t intra_tc, dc_lum, dc_chrom;
   rl_t rl_intra, rl_inter;
+  mb_t m; /* pictures, vectors and the macroblock being decoded */
   /* stream */
   int tag;             /* 1: a fourcc FFmpeg takes for Xvid, 2: DIVX */
-  int have_vol, width, height, mb_w, mb_h, time_inc_bits;
+  int have_vol, time_inc_bits;
   int vo_type, vol_control;
   int lavc_build, xvid_build, divx_version;
-  /* pictures: luma mb_w*16 x mb_h*16, chroma half */
-  uint8_t *pic[2][3];
-  int cur, have_ref, ys, cs;
-  /* prediction state, each with a border of one entry all round */
-  int16_t *dc[3], *mv;
-  int dstride[3], mvstride;
+  int have_ref;
+  /* DC predictors, each with a border of one entry all round */
+  int16_t *dc[3];
+  int dstride[3];
   /* the VOP */
-  int pict, q, rounding, fcode;
-  int mb_x, mb_y;
-  int16_t block[6][64];
-  int last_index[6];
+  int pict;
   uint64_t count[C_NPATHS];
   int refused; /* the M_* of the last refusal */
 } mp4_t;
@@ -336,33 +194,19 @@ static void rl_init(rl_t *rl, const uint16_t *code, const uint8_t *len,
 }
 
 static void free_pictures(mp4_t *d) {
-  for (int k = 0; k < 2; ++k)
-    for (int p = 0; p < 3; ++p) {
-      free(d->pic[k][p]);
-      d->pic[k][p] = NULL;
-    }
+  mb_free(&d->m);
   for (int p = 0; p < 3; ++p) {
     free(d->dc[p] ? d->dc[p] - d->dstride[p] - 1 : NULL);
     d->dc[p] = NULL;
   }
-  free(d->mv ? d->mv - 2 * (d->mvstride + 1) : NULL);
-  d->mv = NULL;
 }
 
 /* pictures and prediction arrays for the VOL's size */
-static int alloc_pictures(mp4_t *d) {
-  d->mb_w = (d->width + 15) / 16;
-  d->mb_h = (d->height + 15) / 16;
-  d->ys = d->mb_w * 16;
-  d->cs = d->mb_w * 8;
-  for (int k = 0; k < 2; ++k)
-    for (int p = 0; p < 3; ++p) {
-      long n = p ? (long)d->cs * d->mb_h * 8 : (long)d->ys * d->mb_h * 16;
-      d->pic[k][p] = (uint8_t *)calloc((size_t)n, 1);
-      if (!d->pic[k][p]) return MP4_NOMEM;
-    }
+static int alloc_pictures(mp4_t *d, int width, int height) {
+  if (mb_alloc(&d->m, width, height)) return MP4_NOMEM;
   for (int p = 0; p < 3; ++p) {
-    int cols = p ? d->mb_w : 2 * d->mb_w, rows = p ? d->mb_h : 2 * d->mb_h;
+    int cols = p ? d->m.mb_w : 2 * d->m.mb_w;
+    int rows = p ? d->m.mb_h : 2 * d->m.mb_h;
     long n = (long)(cols + 2) * (rows + 2);
     d->dstride[p] = cols + 2;
     int16_t *dc = (int16_t *)malloc((size_t)n * sizeof(int16_t));
@@ -370,11 +214,6 @@ static int alloc_pictures(mp4_t *d) {
     for (long i = 0; i < n; ++i) dc[i] = 1024;
     d->dc[p] = dc + d->dstride[p] + 1;
   }
-  d->mvstride = 2 * d->mb_w + 2;
-  int16_t *mv = (int16_t *)calloc(
-      (size_t)d->mvstride * (2 * d->mb_h + 2) * 2, sizeof(int16_t));
-  if (!mv) return MP4_NOMEM;
-  d->mv = mv + 2 * (d->mvstride + 1);
   d->have_ref = 0;
   return MP4_OK;
 }
@@ -434,12 +273,10 @@ static int decode_vol(mp4_t *d, br_t *b) {
    * the scaler path an odd height takes; cv2.VideoWriter writes even
    * sizes only */
   if (h & 1) return refuse(d, M_ODD_HEIGHT);
-  if (d->have_vol && (w != d->width || h != d->height))
+  if (d->have_vol && (w != d->m.width || h != d->m.height))
     return refuse(d, M_RESIZE);
   if (!d->have_vol) {
-    d->width = w;
-    d->height = h;
-    int rc = alloc_pictures(d);
+    int rc = alloc_pictures(d, w, h);
     if (rc) return rc;
     d->have_vol = 1;
   }
@@ -534,17 +371,17 @@ static int decode_headers(mp4_t *d, br_t *b, int extradata) {
 /* ff_mpeg4_pred_dc: returns the block's quantised DC, stores its scaled
  * value as the next blocks' predictor */
 static int pred_dc(mp4_t *d, int n, int level) {
-  int scale = n < 4 ? y_dc_scale[d->q] : c_dc_scale[d->q];
+  int scale = n < 4 ? y_dc_scale[d->m.q] : c_dc_scale[d->m.q];
   int p = n < 4 ? 0 : n - 3, wrap = d->dstride[p];
-  int16_t *dc = d->dc[p] + (n < 4 ? (2 * d->mb_y + (n >> 1)) * wrap +
-                                        2 * d->mb_x + (n & 1)
-                                  : d->mb_y * wrap + d->mb_x);
+  int16_t *dc = d->dc[p] + (n < 4 ? (2 * d->m.mb_y + (n >> 1)) * wrap +
+                                        2 * d->m.mb_x + (n & 1)
+                                  : d->m.mb_y * wrap + d->m.mb_x);
   int a = dc[-1], bb = dc[-1 - wrap], c = dc[-wrap];
-  if (d->mb_y == 0 && n != 3) { /* the first slice line */
+  if (d->m.mb_y == 0 && n != 3) { /* the first slice line */
     if (n != 2) bb = c = 1024;
-    if (n != 1 && d->mb_x == 0) bb = a = 1024;
+    if (n != 1 && d->m.mb_x == 0) bb = a = 1024;
   }
-  if (d->mb_x == 0 && d->mb_y == 1 && (n == 0 || n == 4 || n == 5))
+  if (d->m.mb_x == 0 && d->m.mb_y == 1 && (n == 0 || n == 4 || n == 5))
     bb = 1024;
   int pred;
   if (abs(a - bb) < abs(bb - c)) {
@@ -568,9 +405,9 @@ static int pred_dc(mp4_t *d, int n, int level) {
 static void clean_intra(mp4_t *d) {
   for (int n = 0; n < 6; ++n) {
     int p = n < 4 ? 0 : n - 3, wrap = d->dstride[p];
-    long at = n < 4 ? (long)(2 * d->mb_y + (n >> 1)) * wrap + 2 * d->mb_x +
+    long at = n < 4 ? (long)(2 * d->m.mb_y + (n >> 1)) * wrap + 2 * d->m.mb_x +
                           (n & 1)
-                    : (long)d->mb_y * wrap + d->mb_x;
+                    : (long)d->m.mb_y * wrap + d->m.mb_x;
     d->dc[p][at] = 1024;
   }
 }
@@ -578,7 +415,7 @@ static void clean_intra(mp4_t *d) {
 /* ---- blocks ---- */
 
 static int decode_block(mp4_t *d, br_t *b, int n, int coded, int intra) {
-  int16_t *blk = d->block[n];
+  int16_t *blk = d->m.block[n];
   const rl_t *rl;
   const vlc_t *tc;
   int i, qmul, qadd;
@@ -595,7 +432,7 @@ static int decode_block(mp4_t *d, br_t *b, int n, int coded, int intra) {
     i = 0;
     if (!coded) {
       ++d->count[C_INTRA_UNCODED_BLOCK];
-      d->last_index[n] = 0;
+      d->m.last_index[n] = 0;
       return MP4_OK;
     }
     rl = &d->rl_intra;
@@ -605,19 +442,19 @@ static int decode_block(mp4_t *d, br_t *b, int n, int coded, int intra) {
   } else {
     i = -1;
     if (!coded) {
-      d->last_index[n] = -1;
+      d->m.last_index[n] = -1;
       return MP4_OK;
     }
     ++d->count[C_INTER_CODED_BLOCK];
     rl = &d->rl_inter;
-    tc = &d->inter_tc;
-    qmul = d->q << 1;
-    qadd = (d->q - 1) | 1;
+    tc = &d->v.inter_tc;
+    qmul = d->m.q << 1;
+    qadd = (d->m.q - 1) | 1;
   }
   for (;;) {
     int s = vlc_get(b, tc), run, level, last;
     if (s < 0) return MP4_CORRUPT;
-    if (s == 102) { /* escape */
+    if (s == TC_ESCAPE) {
       uint32_t cache = br_show(b, 2);
       if (cache & 2) {
         if (cache & 1) { /* third escape: LAST, RUN, LEVEL as they are */
@@ -635,7 +472,7 @@ static int decode_block(mp4_t *d, br_t *b, int n, int coded, int intra) {
         } else { /* second escape: RUN past RMAX + 1 */
           b->pos += 2;
           int t = vlc_get(b, tc);
-          if (t < 0 || t == 102) return MP4_CORRUPT;
+          if (t < 0 || t == TC_ESCAPE) return MP4_CORRUPT;
           last = t >= rl->last;
           level = rl->level[t] * qmul + qadd;
           i += rl->run[t] + 1 + (last ? 192 : 0) +
@@ -646,7 +483,7 @@ static int decode_block(mp4_t *d, br_t *b, int n, int coded, int intra) {
       } else { /* first escape: LEVEL past LMAX */
         b->pos += 1;
         int t = vlc_get(b, tc);
-        if (t < 0 || t == 102) return MP4_CORRUPT;
+        if (t < 0 || t == TC_ESCAPE) return MP4_CORRUPT;
         last = t >= rl->last;
         i += rl->run[t] + 1 + (last ? 192 : 0);
         level = rl->level[t] * qmul + qadd +
@@ -668,176 +505,23 @@ static int decode_block(mp4_t *d, br_t *b, int n, int coded, int intra) {
     }
     blk[zigzag[i]] = (int16_t)level;
   }
-  d->last_index[n] = i;
+  d->m.last_index[n] = i;
   return MP4_OK;
-}
-
-/* ---- motion compensation ---- */
-
-static inline int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : v > hi ? hi : v;
-}
-
-/* one block of w x h from `ref` (pw x ph, stride rs) at (sx, sy) full-pel
- * with the half-pel case dxy, samples at clamped coordinates */
-static void mc_block(mp4_t *d, const uint8_t *ref, int rs, int pw, int ph,
-                     int sx, int sy, int dxy, int w, int h, uint8_t *dst,
-                     int ds) {
-  int ex = w + (dxy & 1), ey = h + (dxy >> 1);
-  uint8_t src[17 * 17];
-  int clamped = sx < 0 || sy < 0 || sx + ex > pw || sy + ey > ph;
-  for (int y = 0; y < ey; ++y) {
-    const uint8_t *row = ref + (long)clampi(sy + y, 0, ph - 1) * rs;
-    for (int x = 0; x < ex; ++x) src[y * 17 + x] = row[clampi(sx + x, 0, pw - 1)];
-  }
-  if (clamped && w == 16) ++d->count[C_MC_CLAMPED];
-  int rnd = !d->rounding;
-  for (int y = 0; y < h; ++y)
-    for (int x = 0; x < w; ++x) {
-      const uint8_t *s = src + y * 17 + x;
-      int v;
-      switch (dxy) {
-        case 0:
-          v = s[0];
-          break;
-        case 1: /* pavgb(a, b), or pavgb(a - 1 saturated, b) */
-          v = rnd ? (s[0] + s[1] + 1) >> 1
-                  : ((s[0] ? s[0] - 1 : 0) + s[1] + 1) >> 1;
-          break;
-        case 2: { /* no_rnd: the block's odd source rows less one */
-          int a = s[0], c = s[17];
-          if (!rnd) {
-            if (y & 1)
-              a = a ? a - 1 : 0;
-            else
-              c = c ? c - 1 : 0;
-          }
-          v = (a + c + 1) >> 1;
-          break;
-        }
-        default:
-          v = (s[0] + s[1] + s[17] + s[18] + 1 + rnd) >> 2;
-      }
-      dst[y * ds + x] = (uint8_t)v;
-    }
-}
-
-/* mpeg_motion for a 16x16 vector (mx, my) in half-pels */
-static void motion(mp4_t *d, int mx, int my) {
-  const int cur = d->cur, ref = cur ^ 1;
-  int pw = d->mb_w * 16, ph = d->mb_h * 16;
-  int dxy = ((my & 1) << 1) | (mx & 1);
-  int sx = d->mb_x * 16 + (mx >> 1), sy = d->mb_y * 16 + (my >> 1);
-  static const int which[4] = {C_MC_FULL, C_MC_X, C_MC_Y, C_MC_XY};
-  ++d->count[which[dxy]];
-  mc_block(d, d->pic[ref][0], d->ys, pw, ph, sx, sy, dxy, 16, 16,
-           d->pic[cur][0] + (long)d->mb_y * 16 * d->ys + d->mb_x * 16, d->ys);
-  int uvdxy = dxy | (my & 2) | ((mx & 2) >> 1);
-  for (int p = 1; p < 3; ++p)
-    mc_block(d, d->pic[ref][p], d->cs, pw / 2, ph / 2, sx >> 1, sy >> 1,
-             uvdxy, 8, 8,
-             d->pic[cur][p] + (long)d->mb_y * 8 * d->cs + d->mb_x * 8, d->cs);
-}
-
-/* ff_h263_pred_motion for one 16x16 vector */
-static void pred_motion(mp4_t *d, int *px, int *py) {
-  int wrap = d->mvstride;
-  const int16_t *mv = d->mv + 2 * ((long)2 * d->mb_y * wrap + 2 * d->mb_x);
-  const int16_t *A = mv - 2, *B = mv - 2 * wrap, *C = mv + 2 * (2 - wrap);
-  if (d->mb_y == 0) {
-    *px = d->mb_x == 0 ? 0 : A[0];
-    *py = d->mb_x == 0 ? 0 : A[1];
-    return;
-  }
-#define MID(a, b, c) \
-  ((a) > (b) ? ((b) > (c) ? (b) : (a) > (c) ? (c) : (a)) \
-             : ((a) > (c) ? (a) : (b) > (c) ? (c) : (b)))
-  *px = MID(A[0], B[0], C[0]);
-  *py = MID(A[1], B[1], C[1]);
-#undef MID
-}
-
-static void set_mv(mp4_t *d, int mx, int my) {
-  int wrap = d->mvstride;
-  int16_t *mv = d->mv + 2 * ((long)2 * d->mb_y * wrap + 2 * d->mb_x);
-  for (int k = 0; k < 4; ++k) {
-    int16_t *e = mv + 2 * ((k >> 1) * wrap + (k & 1));
-    e[0] = (int16_t)mx;
-    e[1] = (int16_t)my;
-  }
-}
-
-/* ff_h263_decode_motion */
-static int decode_motion(mp4_t *d, br_t *b, int pred, int *out) {
-  int code = vlc_get(b, &d->mvd);
-  if (code < 0) return MP4_CORRUPT;
-  if (code == 0) {
-    ++d->count[C_MV_ZERO_CODE];
-    *out = pred;
-    return MP4_OK;
-  }
-  ++d->count[C_MV_CODED];
-  int sign = (int)br_get(b, 1), shift = d->fcode - 1, val = code;
-  if (shift) {
-    val = (val - 1) << shift;
-    val |= (int)br_get(b, shift);
-    val++;
-  }
-  if (sign) val = -val;
-  val += pred;
-  int bits = 5 + d->fcode;
-  *out = (int)((uint32_t)val << (32 - bits)) >> (32 - bits);
-  return MP4_OK;
-}
-
-/* ---- macroblocks ---- */
-
-static void put_intra(mp4_t *d) {
-  uint8_t *y = d->pic[d->cur][0] + (long)d->mb_y * 16 * d->ys + d->mb_x * 16;
-  for (int n = 0; n < 6; ++n) {
-    int16_t *blk = d->block[n];
-    int qmul = d->q << 1, qadd = (d->q - 1) | 1;
-    blk[0] = (int16_t)(blk[0] * (n < 4 ? y_dc_scale[d->q] : c_dc_scale[d->q]));
-    for (int i = 1; i < 64; ++i) /* dct_unquantize_h263_intra_c */
-      if (blk[i])
-        blk[i] = (int16_t)(blk[i] < 0 ? blk[i] * qmul - qadd
-                                      : blk[i] * qmul + qadd);
-    if (n < 4)
-      simple_idct_put(blk, y + (n >> 1) * 8 * d->ys + (n & 1) * 8, d->ys);
-    else
-      simple_idct_put(blk, d->pic[d->cur][n - 3] +
-                               (long)d->mb_y * 8 * d->cs + d->mb_x * 8,
-                      d->cs);
-  }
-}
-
-static void add_inter(mp4_t *d) {
-  uint8_t *y = d->pic[d->cur][0] + (long)d->mb_y * 16 * d->ys + d->mb_x * 16;
-  for (int n = 0; n < 6; ++n) {
-    if (d->last_index[n] < 0) continue;
-    if (n < 4)
-      simple_idct_add(d->block[n], y + (n >> 1) * 8 * d->ys + (n & 1) * 8,
-                      d->ys);
-    else
-      simple_idct_add(d->block[n], d->pic[d->cur][n - 3] +
-                                       (long)d->mb_y * 8 * d->cs + d->mb_x * 8,
-                      d->cs);
-  }
 }
 
 static int intra_mb(mp4_t *d, br_t *b, int cbpc) {
   if (br_get(b, 1)) return refuse(d, M_AC_PRED);
-  int cbpy = vlc_get(b, &d->cbpy);
+  int cbpy = vlc_get(b, &d->v.cbpy);
   if (cbpy < 0) return MP4_CORRUPT;
   int cbp = (cbpc & 3) | (cbpy << 2);
-  memset(d->block, 0, sizeof d->block);
+  memset(d->m.block, 0, sizeof d->m.block);
   for (int n = 0; n < 6; ++n) {
     int rc = decode_block(d, b, n, cbp & 32, 1);
     if (rc) return rc;
     cbp += cbp;
   }
-  set_mv(d, 0, 0);
-  put_intra(d);
+  mb_set_mv(&d->m, 0, 0);
+  mb_put_intra(&d->m, y_dc_scale[d->m.q], c_dc_scale[d->m.q]);
   return MP4_OK;
 }
 
@@ -856,7 +540,7 @@ static int after_mb(mp4_t *d, br_t *b) {
     t.pos = (t.pos + 7) & ~7L;
     int len = 0;
     while (len < 32 && !br_get(&t, 1)) ++len;
-    int need = d->pict == 1 ? 16 : d->fcode + 15;
+    int need = d->pict == 1 ? 16 : d->m.fcode + 15;
     if (len >= need) return refuse(d, M_RESYNC);
   }
   return MP4_OK;
@@ -876,46 +560,47 @@ static int decode_vop(mp4_t *d, br_t *b) {
     return MP4_SKIPPED;
   }
   d->pict = type + 1; /* 1: I, 2: P */
-  d->rounding = 0;
-  if (type == 1) d->rounding = (int)br_get(b, 1);
+  d->m.rounding = 0;
+  if (type == 1) d->m.rounding = (int)br_get(b, 1);
   if (br_left(b) < 3) return MP4_CORRUPT;
   if (br_get(b, 3) != 0) return refuse(d, M_DC_THRESHOLD);
-  d->q = (int)br_get(b, 5);
-  if (!d->q) return MP4_CORRUPT;
-  d->fcode = 1;
+  d->m.q = (int)br_get(b, 5);
+  if (!d->m.q) return MP4_CORRUPT;
+  d->m.fcode = 1;
   if (type == 1) {
-    d->fcode = (int)br_get(b, 3);
-    if (!d->fcode) return MP4_CORRUPT;
+    d->m.fcode = (int)br_get(b, 3);
+    if (!d->m.fcode) return MP4_CORRUPT;
     if (!d->have_ref) return refuse(d, M_NO_REFERENCE);
   }
   int rc = check_encoder(d);
   if (rc) return rc;
   ++d->count[type ? C_PVOP : C_IVOP];
   if (type) {
-    ++d->count[d->rounding ? C_ROUND1 : C_ROUND0];
-    ++d->count[d->fcode > 1 ? C_FCODE2UP : C_FCODE1];
+    ++d->count[d->m.rounding ? C_ROUND1 : C_ROUND0];
+    ++d->count[d->m.fcode > 1 ? C_FCODE2UP : C_FCODE1];
   }
-  d->cur = d->have_ref ? d->cur ^ 1 : d->cur;
-  for (d->mb_y = 0; d->mb_y < d->mb_h; ++d->mb_y)
-    for (d->mb_x = 0; d->mb_x < d->mb_w; ++d->mb_x) {
+  if (d->have_ref) d->m.cur ^= 1;
+  d->m.ref = d->m.cur ^ 1;
+  for (d->m.mb_y = 0; d->m.mb_y < d->m.mb_h; ++d->m.mb_y)
+    for (d->m.mb_x = 0; d->m.mb_x < d->m.mb_w; ++d->m.mb_x) {
       if (type == 0) {
-        int cbpc = vlc_get(b, &d->intra_mcbpc);
+        int cbpc = vlc_get(b, &d->v.intra_mcbpc);
         if (cbpc < 0) return MP4_CORRUPT;
-        if (cbpc == 8) return refuse(d, M_STUFFING);
+        if (cbpc == MCBPC_INTRA_STUFFING) return refuse(d, M_STUFFING);
         if (cbpc & 4) return refuse(d, M_DQUANT);
         rc = intra_mb(d, b, cbpc);
         if (rc) return rc;
         ++d->count[C_I_MB];
       } else if (br_get(b, 1)) { /* not coded */
         ++d->count[C_P_SKIP_MB];
-        set_mv(d, 0, 0);
+        mb_set_mv(&d->m, 0, 0);
         clean_intra(d);
-        memset(d->last_index, 0xff, sizeof d->last_index);
-        motion(d, 0, 0);
+        memset(d->m.last_index, 0xff, sizeof d->m.last_index);
+        mb_motion(&d->m, 0, 0);
       } else {
-        int cbpc = vlc_get(b, &d->inter_mcbpc);
+        int cbpc = vlc_get(b, &d->v.inter_mcbpc);
         if (cbpc < 0) return MP4_CORRUPT;
-        if (cbpc == 20) return refuse(d, M_STUFFING);
+        if (cbpc == MCBPC_INTER_STUFFING) return refuse(d, M_STUFFING);
         if (cbpc & 8) return refuse(d, M_DQUANT);
         if (cbpc & 16) return refuse(d, M_4MV);
         if (cbpc & 4) {
@@ -923,23 +608,23 @@ static int decode_vop(mp4_t *d, br_t *b) {
           if (rc) return rc;
           ++d->count[C_P_INTRA_MB];
         } else {
-          int cbpy = vlc_get(b, &d->cbpy);
+          int cbpy = vlc_get(b, &d->v.cbpy);
           if (cbpy < 0) return MP4_CORRUPT;
           int cbp = (cbpc & 3) | ((cbpy ^ 0xF) << 2), px, py, mx, my;
-          pred_motion(d, &px, &py);
-          rc = decode_motion(d, b, px, &mx);
-          if (!rc) rc = decode_motion(d, b, py, &my);
+          mb_pred_motion(&d->m, &px, &py);
+          rc = mb_decode_motion(&d->m, b, &d->v.mvd, px, &mx);
+          if (!rc) rc = mb_decode_motion(&d->m, b, &d->v.mvd, py, &my);
           if (rc) return rc;
-          memset(d->block, 0, sizeof d->block);
+          memset(d->m.block, 0, sizeof d->m.block);
           for (int n = 0; n < 6; ++n) {
             rc = decode_block(d, b, n, cbp & 32, 0);
             if (rc) return rc;
             cbp += cbp;
           }
-          set_mv(d, mx, my);
+          mb_set_mv(&d->m, mx, my);
           clean_intra(d);
-          motion(d, mx, my);
-          add_inter(d);
+          mb_motion(&d->m, mx, my);
+          mb_add_inter(&d->m);
           ++d->count[C_P_INTER_MB];
         }
       }
@@ -959,16 +644,14 @@ void *fl_mpeg4_open(const uint8_t *extradata, long n, int tag, int *rc) {
   mp4_t *d = (mp4_t *)calloc(1, sizeof(mp4_t));
   *rc = MP4_NOMEM;
   if (!d) return NULL;
+  mb_vlcs_build(&d->v);
   vlc_build(&d->intra_tc, 12, 103, intra_code, intra_len);
-  vlc_build(&d->inter_tc, 12, 103, inter_code, inter_len);
-  vlc_build(&d->intra_mcbpc, 9, 9, intra_mcbpc_code, intra_mcbpc_len);
-  vlc_build(&d->inter_mcbpc, 13, 28, inter_mcbpc_code, inter_mcbpc_len);
-  vlc_build(&d->cbpy, 6, 16, cbpy_code, cbpy_len);
-  vlc_build(&d->mvd, 12, 33, mv_code, mv_len);
   vlc_build(&d->dc_lum, 11, 13, dc_lum_code, dc_lum_len);
   vlc_build(&d->dc_chrom, 12, 13, dc_chrom_code, dc_chrom_len);
   rl_init(&d->rl_intra, intra_code, intra_len, intra_run, intra_level, 67);
-  rl_init(&d->rl_inter, inter_code, inter_len, inter_run, inter_level, 58);
+  rl_init(&d->rl_inter, inter_code, inter_len, inter_run, inter_level,
+          TC_INTER_LAST);
+  d->m.paths = d->count + C_MV_ZERO_CODE;
   d->tag = tag;
   d->lavc_build = d->xvid_build = d->divx_version = -1;
   *rc = MP4_OK;
@@ -1005,31 +688,24 @@ int fl_mpeg4_decode(void *h, const uint8_t *data, long n, int *wh) {
   if (!rc) rc = decode_vop(d, &b);
   free(buf);
   if (rc) return rc;
-  wh[0] = d->width;
-  wh[1] = d->height;
+  wh[0] = d->m.width;
+  wh[1] = d->m.height;
   return MP4_OK;
 }
 
 /* The last frame as BGR (H, W, 3). */
 int fl_mpeg4_bgr(void *h, uint8_t *out) {
   mp4_t *d = (mp4_t *)h;
-  yuv_planes_t p = {d->pic[d->cur][0], d->pic[d->cur][1], d->pic[d->cur][2],
-                    d->ys, d->cs};
-  return yuv_to_bgr(&p, d->width, d->height, 1, 1, 0, out);
+  const mb_t *m = &d->m;
+  yuv_planes_t p = {m->pic[m->cur][0], m->pic[m->cur][1], m->pic[m->cur][2],
+                    m->ys, m->cs};
+  return yuv_to_bgr(&p, d->m.width, d->m.height, 1, 1, 0, out);
 }
 
 /* The last frame's planes, cropped: y (H x W), u and v (ceil(H/2) x
  * ceil(W/2)), each packed. */
 void fl_mpeg4_planes(void *h, uint8_t *y, uint8_t *u, uint8_t *v) {
-  mp4_t *d = (mp4_t *)h;
-  int cw = (d->width + 1) / 2, ch = (d->height + 1) / 2;
-  for (int r = 0; r < d->height; ++r)
-    memcpy(y + (long)r * d->width, d->pic[d->cur][0] + (long)r * d->ys,
-           (size_t)d->width);
-  for (int r = 0; r < ch; ++r) {
-    memcpy(u + (long)r * cw, d->pic[d->cur][1] + (long)r * d->cs, (size_t)cw);
-    memcpy(v + (long)r * cw, d->pic[d->cur][2] + (long)r * d->cs, (size_t)cw);
-  }
+  mb_planes(&((mp4_t *)h)->m, y, u, v);
 }
 
 /* The syntax path counters (C_NPATHS of them) and the last refusal. */

@@ -1,6 +1,7 @@
 """An FLV demuxer (``.flv``): the video packets as FFmpeg's ``flv``
 demuxer hands them to the decoder under ``cv2.VideoCapture``, for VP9 in
-enhanced FLV (what ``cv2.VideoWriter`` writes for ``VP90`` there).
+enhanced FLV (what ``cv2.VideoWriter`` writes for ``VP90`` there) and
+Sorenson Spark in legacy tags (what it writes for ``FLV1`` and ``s263``).
 
 - The header (``FLV``, version, flags, the data offset), then after the
   first PreviousTagSize each tag: its type (8 audio, 9 video, 18 script
@@ -19,9 +20,11 @@ enhanced FLV (what ``cv2.VideoWriter`` writes for ``VP90`` there).
   than ``vp09`` (AV1, HEVC, H.264) and multitrack packets are refused by
   name.
 - Video tags in the legacy form carry the codec id in the low nibble of
-  the first byte; every legacy codec (Sorenson Spark, id 2, the one
-  ``cv2.VideoWriter`` writes for ``FLV1``; VP6, H.264, ...) is refused by
-  its name.
+  the first byte and the frame type in the high one: Sorenson Spark (id
+  2) gives the tag's data past that byte as its packet, whatever the
+  frame type says (FFmpeg's decoder takes the picture type from the
+  picture header); every other legacy codec (VP6, H.264, ...) is refused
+  by its name.
 
 A file with no video tag raises :class:`FlvError` (cv2 opens no video
 stream in it).
@@ -34,10 +37,12 @@ from typing import Iterator, List
 # enhanced FLV's packet types that carry frames (CodedFrames,
 # CodedFramesX), its multitrack type, and the command frame type
 _CODED, _CODED_X, _MULTITRACK, _COMMAND_FRAME = 1, 3, 6, 5
+# the legacy codec id of Sorenson Spark (FFmpeg's FLV_CODECID_H263)
+_SORENSON = 2
 # FourCCs of enhanced FLV and the legacy codec ids: their names
 FOURCC_NAMES = {b"vp09": "vp9", b"av01": "AV1", b"hvc1": "HEVC",
                 b"avc1": "H.264", b"vp08": "VP8"}
-LEGACY_NAMES = {2: "Sorenson Spark", 3: "Flash Screen Video", 4: "VP6",
+LEGACY_NAMES = {3: "Flash Screen Video", 4: "VP6",
                 5: "VP6 with alpha", 6: "Flash Screen Video 2", 7: "H.264",
                 12: "HEVC"}
 
@@ -57,7 +62,7 @@ def is_flv(head: bytes) -> bool:
 
 class FlvFile:
     """The video stream of the FLV file at ``path``: :attr:`codec`
-    (``"vp9"``) and :meth:`frames`."""
+    (``"vp9"`` or ``"flv1"``) and :meth:`frames`."""
 
     def __init__(self, path: str):
         self.path = path
@@ -89,7 +94,7 @@ class FlvFile:
                 self._frames.append(frame)
         if codec is None:
             raise FlvError(f"{path}: an FLV file with no video tag")
-        if codec != "vp9":
+        if codec not in ("vp9", "flv1"):
             raise UnsupportedFlv(f"{path}: FLV with {codec} video")
         self.codec = codec
         self.width = self.height = 0       # the decoder's, from the stream
@@ -99,6 +104,8 @@ class FlvFile:
         flags = body[0]
         if not flags & 0x80:                      # legacy
             cid = flags & 0x0F
+            if cid == _SORENSON:
+                return "flv1", body[1:]
             return LEGACY_NAMES.get(cid, f"codec id {cid}"), None
         kind = flags & 0x0F
         if kind == _MULTITRACK:

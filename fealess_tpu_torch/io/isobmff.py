@@ -15,8 +15,9 @@ under ``cv2.VideoCapture``.
   (MPEG-4 Part 2) or 0x60-0x65 (MPEG-2, 0x61 what the writer writes), each
   with its DecoderSpecificInfo as extradata, ``jpeg``, ``png ``, and
   MOV's ``m2v1`` and its HDV, XDCAM and IMX entries (``xd5b``, ``mp2v``,
-  ...: MPEG-2, extradata from ``glbl``) and ``DIVX``, ``XVID``, ``3IV2``
-  (MPEG-4 Part 2).  A format FFmpeg's table lacks is named by its
+  ...: MPEG-2, extradata from ``glbl``), ``DIVX``, ``XVID``, ``3IV2``
+  (MPEG-4 Part 2), ``h263``, ``s263`` (3GP's), ``H263`` (H.263) and
+  ``FLV1`` (Sorenson Spark).  A format FFmpeg's table lacks is named by its
   fourcc (:attr:`Mp4Track.codec` ``"fourcc ..."``): FFmpeg then looks it
   up among the AVI fourccs (``HFYU`` in MOV, say).  A ``raw `` entry of
   depth 12 (what ``cv2.VideoWriter`` writes for I420 in MOV) names no
@@ -74,7 +75,8 @@ FORMATS = {b"FFV1": "ffv1", b"jpeg": "mjpeg", b"png ": "png",
            b"hvc1": "HEVC", b"hev1": "HEVC", b"vp08": "VP8",
            b"vp09": "vp9", b"av01": "AV1", b"mp4v": "MPEG-4 Part 2",
            b"DIVX": "mpeg4", b"XVID": "mpeg4", b"3IV2": "mpeg4",
-           b"s263": "H.263", b"h263": "H.263", b"H263": "H.263",
+           b"s263": "h263", b"h263": "h263", b"H263": "h263",
+           b"FLV1": "flv1",
            b"3IVD": "MS MPEG-4 v3", b"raw ": "raw RGB", b"2vuy": "raw UYVY",
            b"apch": "ProRes", b"apcn": "ProRes", b"apcs": "ProRes",
            b"apco": "ProRes", b"ap4h": "ProRes", b"mjpb": "Motion JPEG B",
@@ -108,8 +110,8 @@ def is_isobmff(head: bytes) -> bool:
 
 @dataclass
 class Mp4Track:
-    codec: str      # "ffv1", "mjpeg", "png", "mpeg4", "mpeg2", "vp9", or
-    #                 a name refused
+    codec: str      # "ffv1", "mjpeg", "png", "mpeg4", "mpeg2", "vp9",
+    #                 "h263", "flv1", or a name refused
     fourcc: bytes           # the sample entry's format
     width: int
     height: int

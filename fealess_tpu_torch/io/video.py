@@ -25,7 +25,8 @@ Containers read, picked as FFmpeg picks its demuxer:
   transport streams of 188-byte packets and BDAV's 192-byte ones
   (``.ts``, ``.m2ts``: :mod:`~fealess_tpu_torch.io.mpegts`), Ogg
   (:mod:`~fealess_tpu_torch.io.ogg`), FLV (:mod:`~fealess_tpu_torch.io.
-  flv`), ASF (``.asf``, ``.wmv``: :mod:`~fealess_tpu_torch.io.asf`),
+  flv`), SWF (:mod:`~fealess_tpu_torch.io.swf`), ASF (``.asf``, ``.wmv``:
+  :mod:`~fealess_tpu_torch.io.asf`),
   NUT (:mod:`~fealess_tpu_torch.io.nut`), or PNG, JPEG and BMP images:
   one image, PNG images back to back (``png_pipe``, split by FFmpeg's png
   parser) and JPEG images back to back under a name image2 does not take
@@ -68,6 +69,10 @@ Codecs read, each by its decoder:
   leave the decoder in display
   order, one anchor late; the last anchor comes from draining it after
   the last packet, as FFmpeg drains at the end of the file);
+- H.263 (:mod:`~fealess_tpu_torch.io.h263`): AVI ``H263``, ``U263``;
+  MOV ``h263`` and 3GP / 3G2 ``s263``;
+- Sorenson Spark (:mod:`~fealess_tpu_torch.io.h263`): AVI ``FLV1``; MOV
+  ``FLV1``; FLV's legacy codec id 2; SWF;
 - BMP (:func:`~fealess_tpu_torch.io.image2.bmp_frame`): BMP images.
 
 Matroska's ``V_MS/VFW/FOURCC``, ASF's and NUT's fourccs take the AVI
@@ -76,7 +81,8 @@ container without a video stream, or with none FFmpeg finds a codec for
 (an MPEG program or transport stream of what ``cv2.VideoWriter`` writes
 there for Motion JPEG, FFV1, raw video, VP8, ...), a stream whose decoder
 does not open (corrupt extradata), a YUV4MPEG2 header FFmpeg refuses,
-NUT headers whose checksums fail and a pattern with no file at 0-4 raise
+NUT headers whose checksums fail, an LZMA SWF (``ZWS``, which FFmpeg
+does not know) and a pattern with no file at 0-4 raise
 ``OSError("cannot open video source ...")``, as the JAX reader raises when
 ``cv2.VideoCapture`` does not open.  A PAM image without a ``TUPLTYPE``
 line (``cv2.imwrite``'s) under an image name opens and gives no frame,
@@ -85,24 +91,24 @@ as in cv2, whose image2 decoder refuses it.
 A source cv2 reads and the port does not raises :class:`UnsupportedVideo`,
 naming it:
 
-- containers, by their first bytes: RealMedia, SWF and raw Dirac
+- containers, by their first bytes: RealMedia and raw Dirac
   (:data:`QUEUED_CONTAINERS`); these are named even where cv2 then finds
   no stream it decodes in them;
 - codecs: those of :data:`QUEUED_FOURCCS` (MS MPEG-4 v2 and v3, WMV7,
-  WMV8, Sorenson Spark, H.263, FFmpeg's Huffyuv variant, Ut Video,
-  MagicYUV, JPEG-LS, ASUS V1 and V2, TIFF, Snow, Dirac, JPEG 2000,
-  RealVideo 1 and 2) and others no writer here writes (AV1, H.264, HEVC,
+  WMV8, FFmpeg's Huffyuv variant, Ut Video, MagicYUV, JPEG-LS, ASUS V1
+  and V2, TIFF, Snow, Dirac, JPEG 2000, RealVideo 1 and 2) and others no writer here writes (AV1, H.264, HEVC,
   uncompressed BI_RGB, VP8 in MP4, MPEG-1, ...);
 - kinds inside a codec or container: edit lists that drop frames and
   Matroska with compressed blocks; a program stream map, ASF's
   compressed payloads, NUT's side data, encrypted or multitrack FLV tags
   and a PreviousTagSize that does not match its tag, MP4 fragments of
-  another sample description; the tools
-  :mod:`~fealess_tpu_torch.io.mpeg4`, :mod:`~fealess_tpu_torch.io.vp8`,
-  :mod:`~fealess_tpu_torch.io.vp9` and :mod:`~fealess_tpu_torch.io.mpeg2`
-  refuse by name; YUV4MPEG2 of other colour spaces, interlaced, or sited
-  left or top-left at an odd height; images of other formats (TIFF, WebP,
-  PNM, ...); the PNG and BMP kinds :mod:`~fealess_tpu_torch.io.image2`
+  another sample description, compressed SWF (``CWS``, which FFmpeg
+  inflates losing bytes) and SWF's other codecs and bitmap tags; the
+  tools :mod:`~fealess_tpu_torch.io.mpeg4`, :mod:`~fealess_tpu_torch.io.
+  vp8`, :mod:`~fealess_tpu_torch.io.vp9`, :mod:`~fealess_tpu_torch.io.
+  mpeg2` and :mod:`~fealess_tpu_torch.io.h263` refuse by name; YUV4MPEG2
+  of other colour spaces, interlaced, or sited left or top-left at an odd
+  height; images of other formats (TIFF, WebP, PNM, ...); the PNG and BMP kinds :mod:`~fealess_tpu_torch.io.image2`
   names (16-bit colour PNG, Adam7 PNG, 16-bit BMP, RLE deltas, BMP data
   ``cv2.imread`` cannot finish); JPEG images back to back under the
   image extension of another codec (cv2 decodes the first or none, as
@@ -133,6 +139,7 @@ from fealess_tpu_torch.io import image2
 from fealess_tpu_torch.io.asf import AsfError, AsfFile, UnsupportedAsf, is_asf
 from fealess_tpu_torch.io.avi import AviError, AviFile, is_avi
 from fealess_tpu_torch.io.flv import FlvError, FlvFile, UnsupportedFlv, is_flv
+from fealess_tpu_torch.io.h263 import H263_FOURCCS, SORENSON_FOURCCS
 from fealess_tpu_torch.io.imfile import image_format
 from fealess_tpu_torch.io.isobmff import (Mp4Error, Mp4File, UnsupportedMp4,
                                           is_isobmff)
@@ -152,6 +159,7 @@ from fealess_tpu_torch.io.nut import NutError, NutFile, UnsupportedNut, is_nut
 from fealess_tpu_torch.io.ogg import OggError, OggFile, UnsupportedOgg, is_ogg
 from fealess_tpu_torch.io.png import DecodeError
 from fealess_tpu_torch.io.rawvideo import RAW_FOURCCS
+from fealess_tpu_torch.io.swf import SwfError, SwfFile, UnsupportedSwf, is_swf
 from fealess_tpu_torch.io.vp8 import CODEC_ID as VP8_CODEC_ID
 from fealess_tpu_torch.io.vp8 import FOURCCS as VP8_FOURCCS
 from fealess_tpu_torch.io.vp9 import CODEC_ID as VP9_CODEC_ID
@@ -177,7 +185,7 @@ def _container(head: bytes) -> Optional[str]:
     signatures), or None."""
     if head[:4] in (b".RMF", b".RMP"):
         return "RealMedia"
-    if head[:3] in (b"FWS", b"CWS", b"ZWS"):
+    if is_swf(head):                 # io/swf reads or names these first
         return "SWF"
     if head[:4] == b"BBCD":
         return "raw Dirac"
@@ -188,7 +196,7 @@ def _container(head: bytes) -> Optional[str]:
 
 # the containers cv2's FFmpeg opens that the port does not demux yet
 # (ROADMAP's demuxing queue), as the refusals name them
-QUEUED_CONTAINERS = ("RealMedia", "SWF", "raw Dirac")
+QUEUED_CONTAINERS = ("RealMedia", "raw Dirac")
 
 
 _FOURCC_NAMES = {
@@ -204,8 +212,7 @@ QUEUED_FOURCCS = {
     "MS MPEG-4 v3": (b"DIV3", b"MP43", b"DIV4", b"DIV5", b"DIV6", b"MPG3",
                      b"AP41", b"COL1", b"COL0", b"3IVD"),
     "MS MPEG-4 v2": (b"MP42", b"DIV2"),
-    "WMV7": (b"WMV1",), "WMV8": (b"WMV2",), "Sorenson Spark": (b"FLV1",),
-    "H.263": (b"H263", b"U263", b"h263", b"s263"),
+    "WMV7": (b"WMV1",), "WMV8": (b"WMV2",),
     "FFmpeg's Huffyuv variant": (b"FFVH", b"ffvh"),
     "Ut Video": (b"ULY0", b"ULY2", b"ULY4", b"ULRG", b"ULRA", b"ULH0",
                  b"ULH2", b"ULH4", b"UQY0", b"UQY2", b"UQRG", b"UQRA",
@@ -244,6 +251,10 @@ def fourcc_codec(fourcc: bytes) -> Optional[str]:
         return "vp9"
     if fourcc in MPEG2_FOURCCS:
         return "mpeg2"
+    if fourcc in H263_FOURCCS:
+        return "h263"
+    if fourcc in SORENSON_FOURCCS:
+        return "flv1"
     return None
 
 
@@ -252,7 +263,8 @@ _CONTAINERS = ("AVI, MP4 and MOV (fragmented too), Matroska, YUV4MPEG2, "
                "transport streams, Ogg, FLV, ASF, NUT, image files and "
                "their pipes")
 _READS = ("Motion JPEG, FFV1, raw I420 / IYUV / YV12 / gray / NV12 / RGBA, "
-          "PNG, Huffyuv, MPEG-4 Part 2, VP8, VP9 and MPEG-2")
+          "PNG, Huffyuv, MPEG-4 Part 2, VP8, VP9, MPEG-2, H.263 and Sorenson "
+          "Spark")
 
 
 def _pam_without_tuple_type(path: str) -> bool:
@@ -329,6 +341,8 @@ class VideoReader:
             self._open_stream(path, "Ogg", OggFile, OggError, UnsupportedOgg)
         elif is_flv(head):
             self._open_stream(path, "FLV", FlvFile, FlvError, UnsupportedFlv)
+        elif is_swf(head):
+            self._open_stream(path, "SWF", SwfFile, SwfError, UnsupportedSwf)
         elif is_asf(head):
             self._open_fourcc(path, "ASF", AsfFile, AsfError, UnsupportedAsf)
         elif is_nut(head):
@@ -478,14 +492,14 @@ class VideoReader:
             # the AVI fourccs
             t.codec = fourcc_codec(t.fourcc) or _codec(t.fourcc)
         if t.codec not in ("ffv1", "mjpeg", "png", "mpeg4", "vp9", "mpeg2",
-                           "huffyuv", "rawvideo"):
+                           "huffyuv", "rawvideo", "h263", "flv1"):
             mp4.close()
             fourcc = t.fourcc.decode("latin-1")
             raise UnsupportedVideo(
                 f"{path}: MP4 with {t.codec} video ({fourcc}) is read by "
                 f"cv2.VideoCapture but not by the port (which reads FFV1, "
-                f"Huffyuv, Motion JPEG, PNG, MPEG-4 Part 2, VP9, MPEG-2 and "
-                f"raw RGBA in MP4 and MOV)")
+                f"Huffyuv, Motion JPEG, PNG, MPEG-4 Part 2, VP9, MPEG-2, "
+                f"H.263, Sorenson Spark and raw RGBA in MP4 and MOV)")
         self.container = "MP4"
         self._set(t.codec, t.fourcc, t.width, t.height, t.extradata, mp4)
 
@@ -612,6 +626,12 @@ class VideoReader:
             from fealess_tpu_torch.io.mpeg2 import Mpeg2Decoder
             dec = Mpeg2Decoder(self.extradata, self.path, self.container)
             return lambda data, what: dec.decode(data), dec.close, dec.flush
+        if self.codec in ("h263", "flv1"):
+            from fealess_tpu_torch.io.h263 import H263Decoder
+            dec = H263Decoder(self.extradata, self.fourcc, self.path,
+                              self.container, "h263" if self.codec == "h263"
+                              else "sorenson")
+            return lambda data, what: dec.decode(data), dec.close
         if self.codec == "png":
             return image2.png_frame, nothing
         return image2.bmp_frame, nothing

@@ -8,6 +8,7 @@ holds them to, taken from cv2 and the JAX package on the CPU.
     python -m tests.make_torch_video mpeg2    # tests/data/torch_mpeg2 only
     python -m tests.make_torch_video raw      # tests/data/torch_raw only
     python -m tests.make_torch_video demux    # tests/data/torch_demux only
+    python -m tests.make_torch_video h263     # tests/data/torch_h263 only
 
 - ``clip.avi``: four panned 640x480 fixture frames (``apps/fixture.pan``)
   written by ``cv2.VideoWriter`` as Motion JPEG, with ``depth/<i>.png``
@@ -189,6 +190,12 @@ MPEG2_CONTAINERS = (".avi", ".mkv", ".mp4", ".mov")
 # own; the 640x480 YUV4MPEG2 clip holds the clip's first two frames
 RAW_OUT = os.path.join(REPO, "tests", "data", "torch_raw")
 RAW_RECON_SOURCES = {"pan_y4m.y4m": 2}
+# the H.263 and Sorenson Spark sources, in a directory of their own; the
+# 640x480 Sorenson FLV holds the clip's first two frames
+H263_OUT = os.path.join(REPO, "tests", "data", "torch_h263")
+H263_RECON_SOURCES = {"pan_flv1.flv": 2}
+H263_CONTAINERS = (".avi", ".mkv", ".mov", ".3gp", ".3g2", ".asf", ".nut",
+                   ".flv", ".swf")
 # the containers demuxed for codecs the port already decodes, in a
 # directory of their own; the 640x480 transport stream holds the clip's
 # first two frames
@@ -1244,6 +1251,128 @@ def demux_sources(frames) -> None:
                                   if synced[i:i + 8] == sm.NUT_SYNC][2]])
 
 
+def h263_edits(packets):
+    """The Sorenson clips edited from ``flv1_pan.flv``'s first 14
+    ``packets`` (96x64; see the module docstring): name -> packets."""
+    from tests import h263_edit as E
+    return {
+        "flv1_version0.avi": [E.to_version0(p) for p in packets],
+        "flv1_type2.avi": [E.set_field(p, "type", 2) if i in (3, 7, 8) else p
+                           for i, p in enumerate(packets)],
+        "flv1_deblock0.avi": [E.set_field(p, "deblocking", 0)
+                              for p in packets],
+        "flv1_pei.avi": [E.insert_spare(p, b"\x5a\xa5") if i % 2 else p
+                         for i, p in enumerate(packets)],
+        "flv1_odd_95x63.avi": [E.set_field(E.set_field(p, "width", 95),
+                                           "height", 63) for p in packets],
+    }
+
+
+def h263_sources(frames) -> None:
+    """Write the H.263 and Sorenson Spark sources (see the module
+    docstring); ``frames`` are the clip's."""
+    import cv2
+    from fealess_tpu_torch.io.avi import AviFile
+    from fealess_tpu_torch.io.flv import FlvFile
+    from tests import h263_edit as E
+
+    def out(name):
+        return os.path.join(H263_OUT, name)
+
+    def pan(w, h, seed, n, dx=3, dy=-2):
+        base = scene(w, h, seed, 1)[0]
+        return [_shifted(base, dx * i, dy * i) for i in range(n)]
+
+    def smooth(w, h, seed, n):
+        big = cv2.GaussianBlur(cv2.resize(scene(w // 8, h // 8, seed, 1)[0],
+                                          (w, h),
+                                          interpolation=cv2.INTER_CUBIC),
+                               (9, 9), 0)
+        return [_shifted(big, 5 * i, 3 * i) for i in range(n)]
+    # H.263 at its five sizes, a pan long enough for a second I picture,
+    # each fourcc and container the writer writes it in
+    write_ffmpeg_clip(out("h263_pan.avi"), pan(176, 144, 61, 14), "H263")
+    write_ffmpeg_clip(out("h263_128x96.avi"), pan(128, 96, 62, 4), "H263")
+    write_ffmpeg_clip(out("h263_352x288.avi"), pan(352, 288, 63, 3), "H263")
+    write_ffmpeg_clip(out("h263_704x576.avi"), smooth(704, 576, 64, 2),
+                      "H263")
+    write_ffmpeg_clip(out("h263_1408x1152.avi"), smooth(1408, 1152, 65, 2),
+                      "H263")
+    small = pan(128, 96, 66, 3)
+    for cc, name in (("U263", "h263_U263.avi"), ("h263", "h263_h263.mov"),
+                     ("s263", "h263_s263.3gp"), ("H263", "h263_H263.3g2"),
+                     ("H263", "h263.mkv"), ("H263", "h263.asf"),
+                     ("H263", "h263.nut")):
+        write_ffmpeg_clip(out(name), small, cc)
+    with AviFile(out("h263_pan.avi")) as avi:
+        h263_packets = list(avi.frames())
+    with open(out("h263_pei.avi"), "wb") as f:
+        f.write(mux_avi([E.insert_spare(p, b"\x01\x02\x03")
+                         for p in h263_packets[:5]], 176, 144,
+                        fourcc=b"H263"))
+    # Sorenson Spark: a 30-frame pan (I pictures at 0, 12 and 24) in FLV,
+    # each container the writer writes it in, any size, checkerboards at
+    # its quantiser (11-bit escapes), fast motion (vectors past the edge,
+    # intra macroblocks in P pictures)
+    write_ffmpeg_clip(out("flv1_pan.flv"), pan(96, 64, 67, 30), "FLV1")
+    small = pan(96, 64, 68, 4)
+    for cc, name in (("FLV1", "flv1.swf"), ("FLV1", "flv1_FLV1.avi"),
+                     ("s263", "flv1_s263.avi"), ("FLV1", "flv1.mov"),
+                     ("FLV1", "flv1.asf"), ("FLV1", "flv1.nut")):
+        write_ffmpeg_clip(out(name), small, cc)
+    write_ffmpeg_clip(out("flv1_128x96.mkv"), pan(128, 96, 69, 4), "FLV1")
+    for w, h in ((16, 16), (17, 15), (95, 63)):
+        write_ffmpeg_clip(out(f"flv1_{w}x{h}.avi"), pan(w, h, 70, 4, 1, -1),
+                          "FLV1")
+    write_ffmpeg_clip(out("flv1_1280x720.flv"), smooth(1280, 720, 71, 2),
+                      "FLV1")
+    yy, xx = np.mgrid[0:64, 0:96]
+    checker = (((xx + yy) % 2) * 255).astype(np.uint8)
+    write_ffmpeg_clip(out("flv1_checker.avi"),
+                      [np.stack([np.roll(checker, i, 1)] * 3, -1)
+                       for i in range(3)], "FLV1")
+    write_ffmpeg_clip(out("flv1_motion.avi"),
+                      pan(128, 96, 72, 8, 37, -11), "FLV1")
+    packets = list(FlvFile(out("flv1_pan.flv")).frames())[:14]
+    for name, data in h263_edits(packets).items():
+        w, h = (95, 63) if "95x63" in name else (96, 64)
+        with open(out(name), "wb") as f:
+            f.write(mux_avi(data, w, h, fourcc=b"FLV1"))
+    write_ffmpeg_clip(out("pan_flv1.flv"), [b for b, _ in frames[
+        :H263_RECON_SOURCES["pan_flv1.flv"]]], "FLV1")
+
+
+def h263_committed_sources():
+    """Every committed source of H263_OUT (its ``digests.json`` lists
+    them)."""
+    return sorted(n for n in os.listdir(H263_OUT)
+                  if n.endswith(H263_CONTAINERS))
+
+
+def write_h263(frames) -> None:
+    """Write H263_OUT: the sources, their ``digests.json`` and
+    ``recon.json`` (the JAX CLI's acq and recon under ``"sources"``)."""
+    os.makedirs(H263_OUT, exist_ok=True)
+    for name in os.listdir(H263_OUT):
+        os.remove(os.path.join(H263_OUT, name))
+    h263_sources(frames)
+    digests = {name: digest(os.path.join(H263_OUT, name))
+               for name in h263_committed_sources()}
+    with open(os.path.join(H263_OUT, "digests.json"), "w") as f:
+        json.dump(digests, f, indent=1, sort_keys=True)
+        f.write("\n")
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    recon = {"sources": {name: jax_acq_recon(os.path.join(H263_OUT, name), n)
+                         for name, n in H263_RECON_SOURCES.items()}}
+    with open(os.path.join(H263_OUT, "recon.json"), "w") as f:
+        json.dump(recon, f, indent=1, sort_keys=True)
+        f.write("\n")
+    total = sum(os.path.getsize(os.path.join(H263_OUT, n))
+                for n in os.listdir(H263_OUT))
+    print(f"wrote {H263_OUT}: {total} bytes")
+
+
 def demux_committed_sources():
     """Every committed source of DEMUX_OUT (its ``digests.json`` lists
     them)."""
@@ -1366,6 +1495,7 @@ def main() -> None:
     write_mpeg2(frames)
     write_raw(frames)
     write_demux(frames)
+    write_h263(frames)
 
 
 def vp9_committed_sources():
@@ -1474,5 +1604,7 @@ if __name__ == "__main__":
         write_raw(clip_frames())
     elif sys.argv[1:] == ["demux"]:
         write_demux(clip_frames())
+    elif sys.argv[1:] == ["h263"]:
+        write_h263(clip_frames())
     else:
         main()

@@ -463,7 +463,11 @@ WRITER_PAIRS = (
     ("drac", "avi"), ("drac", "mov"), ("drac", "mkv"), ("drac", "drc"),
     ("MJ2C", "avi"), ("MJ2C", "mov"), ("MJ2C", "mkv"), ("MJ2C", "mp4"),
     ("RV10", "rm"), ("RV20", "rm"), ("FLV1", "swf"), ("mp4v", "3gp"),
-    ("H263", "3gp"))
+    ("H263", "3gp"), ("U263", "avi"), ("h263", "mov"), ("s263", "3gp"),
+    ("s263", "3g2"), ("s263", "avi"), ("s263", "mkv"), ("s263", "flv"),
+    ("H263", "3g2"))
+# the fourccs of H.263, whose writer takes its five picture sizes only
+H263_TAGS = ("H263", "U263", "h263", "s263")
 # the containers item 13 (b) demuxes, each written with every fourcc of
 # EVERY_FOURCC (the pairs WRITER_PAIRS holds left out)
 DEMUXED_EXTENSIONS = ("mpg", "vob", "ts", "m2ts", "ismv", "ogv", "flv",
@@ -499,14 +503,15 @@ def test_queued_containers_are_roadmaps_demuxing_queue():
     (f, e) for f in EVERY_FOURCC for e in ("avi", "mp4", "mov", "mkv")]
     + list(WRITER_PAIRS) + list(DEMUXED_PAIRS), ids=lambda v: v.strip())
 def test_every_codec_cv2_writes_is_read_or_queued(tmp_path, fourcc, ext):
-    """Four frames through cv2.VideoWriter (96x64; 128x96 for H.263, whose
-    picture sizes are fixed): the port reads them to cv2's frames, or
+    """Four frames through cv2.VideoWriter (96x64; 128x96 for every H.263
+    tag, whose picture sizes are fixed): the port reads them to cv2's
+    frames, or
     refuses the file naming a codec of QUEUED or a container of
     QUEUED_CONTAINERS; where cv2 does not open what its writer wrote, the
     port raises OSError as the JAX reader does.  A codec or container cv2
     writes that is neither read nor queued fails here."""
     import cv2
-    w, h = (128, 96) if fourcc == "H263" else (96, 64)
+    w, h = (128, 96) if fourcc in H263_TAGS else (96, 64)
     path = str(tmp_path / f"clip.{ext}")
     vw = cv2.VideoWriter(path, cv2.CAP_FFMPEG,
                          cv2.VideoWriter_fourcc(*fourcc), 10, (w, h))
