@@ -366,6 +366,7 @@ MPEG2_DIR = os.path.join(REPO, "tests", "data", "torch_mpeg2")
 RAW_DIR = os.path.join(REPO, "tests", "data", "torch_raw")
 DEMUX_DIR = os.path.join(REPO, "tests", "data", "torch_demux")
 H263_DIR = os.path.join(REPO, "tests", "data", "torch_h263")
+MSMPEG4_DIR = os.path.join(REPO, "tests", "data", "torch_msmpeg4")
 CLOUD_TOL_MM = 1e-3
 DECODE_TIMED = 10
 
@@ -2404,6 +2405,7 @@ def video_phase(eng, card, counts, default_icp) -> None:
     raw_sources(eng, card, counts, default_icp)
     demux_sources(eng, card, counts, default_icp)
     h263_sources(eng, card, counts, default_icp)
+    msmpeg4_sources(eng, card, counts, default_icp)
 
 
 def mpeg4_frame_times(card) -> None:
@@ -2971,6 +2973,86 @@ def h263_sources(eng, card, counts, default_icp) -> None:
           + f" ({card})")
     print(f"time phase 7f H.263 part: {time.perf_counter() - t_part:.1f} s "
           f"({card})")
+
+
+def msmpeg4_sources(eng, card, counts, default_icp) -> None:
+    """Phase 7f's MS MPEG-4 v2 / v3 and WMV7 part: every committed source
+    of ``tests/data/torch_msmpeg4`` (``cv2.VideoWriter``'s three codecs
+    under each of their fourccs in AVI and in MOV, Matroska, ASF, WMV and
+    NUT, at 640x480 down to 96x64, and its packets under a 95x63 AVI
+    header) decoded by ``VideoReader`` to cv2's digests; ``acq --device
+    cuda --clouds`` from the 640x480 DIV3 AVI and ``recon`` on its package
+    in both ICP settings (``acq_recon_source``); host times of a 640x480
+    MS MPEG-4 v3 I and P picture and a WMV7 P picture (each P in a new
+    decoder after its I) and of ``VideoReader`` a frame on the DIV3 AVI."""
+    import hashlib
+
+    import numpy as np
+    from fealess_tpu_torch.io.msmpeg4 import MSMPEG4Decoder
+    from fealess_tpu_torch.io.video import VideoReader
+
+    t_part = time.perf_counter()
+    with open(os.path.join(MSMPEG4_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    with open(os.path.join(MSMPEG4_DIR, "recon.json")) as f:
+        expect = json.load(f)
+
+    def sha(a) -> str:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    for name, want in sorted(digests.items()):
+        with VideoReader(os.path.join(MSMPEG4_DIR, name)) as reader:
+            frames = list(reader)
+        got = {"frames": len(frames),
+               "shapes": [list(f.shape) for f in frames],
+               "sha256": [sha(f) for f in frames]}
+        check(got == want, f"video {name}: {got}, cv2 gives {want}")
+    print(f"MS MPEG-4 v2 / v3 and WMV7 input: {len(digests)} committed "
+          f"sources ({sum(d['frames'] for d in digests.values())} frames: "
+          f"cv2.VideoWriter's MS MPEG-4 v2 (MP42, DIV2), v3 (DIV3, MP43, "
+          f"DIV4, DIV5, DIV6, MPG3, AP41, COL1, COL0, 3IVD) and WMV7 (WMV1) "
+          f"in AVI, each codec in MOV, Matroska, ASF, WMV and NUT, at "
+          f"640x480, 128x96 (30 fps), 96x64 and 95x63, checkerboards, "
+          f"halves moving apart, appearing squares, black and white "
+          f"halves): frame counts and every frame's sha256 equal to "
+          f"cv2.VideoCapture's")
+    name = "pan_div3.avi"
+    acq_recon_source(eng, card, counts, default_icp, name,
+                     digests[name]["frames"], expect["sources"][name],
+                     "MS MPEG-4 v3 in AVI", False, MSMPEG4_DIR)
+
+    times = {}
+    for clip, version, label, kinds in (
+            ("pan_div3.avi", "msmpeg4v3", "640x480 MS MPEG-4 v3",
+             ("I", "P")),
+            ("wmv1_640x480.avi", "wmv1", "640x480 WMV7", ("P",))):
+        with VideoReader(os.path.join(MSMPEG4_DIR, clip)) as reader:
+            packets = list(reader._packets())
+        for kind in kinds:
+            k = ("I", "P").index(kind)
+            runs = []
+            for _ in range(DECODE_TIMED + 1):
+                dec = MSMPEG4Decoder(version, 640, 480)
+                for p in packets[:k]:
+                    dec.decode(p)
+                t0 = time.perf_counter()
+                frame = dec.decode(packets[k])
+                runs.append((time.perf_counter() - t0) * 1e3)
+                check(frame.shape == tuple(digests[clip]["shapes"][k]),
+                      f"{clip}: packet {k} gave a {frame.shape} frame")
+                dec.close()
+            times[f"{label} {kind} ({len(packets[k])} bytes)"] = \
+                sum(runs[1:]) / DECODE_TIMED
+    clip = os.path.join(MSMPEG4_DIR, "pan_div3.avi")
+    times["VideoReader a 640x480 DIV3 frame (demux included)"] = \
+        host_mean_ms(lambda: list(VideoReader(clip)), DECODE_TIMED) / \
+        digests["pan_div3.avi"]["frames"]
+    print(f"time MS MPEG-4 and WMV7 decode to BGR (host, mean of "
+          f"{DECODE_TIMED} after a warm call): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+          + f" ({card})")
+    print(f"time phase 7f MS MPEG-4 part: {time.perf_counter() - t_part:.1f} "
+          f"s ({card})")
 
 
 # -- phase 8: the rest of the public surface --------------------------------

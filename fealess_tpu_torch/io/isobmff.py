@@ -16,8 +16,8 @@ under ``cv2.VideoCapture``.
   with its DecoderSpecificInfo as extradata, ``jpeg``, ``png ``, and
   MOV's ``m2v1`` and its HDV, XDCAM and IMX entries (``xd5b``, ``mp2v``,
   ...: MPEG-2, extradata from ``glbl``), ``DIVX``, ``XVID``, ``3IV2``
-  (MPEG-4 Part 2), ``h263``, ``s263`` (3GP's), ``H263`` (H.263) and
-  ``FLV1`` (Sorenson Spark).  A format FFmpeg's table lacks is named by its
+  (MPEG-4 Part 2), ``h263``, ``s263`` (3GP's), ``H263`` (H.263),
+  ``FLV1`` (Sorenson Spark) and ``3IVD`` (MS MPEG-4 v3).  A format FFmpeg's table lacks is named by its
   fourcc (:attr:`Mp4Track.codec` ``"fourcc ..."``): FFmpeg then looks it
   up among the AVI fourccs (``HFYU`` in MOV, say).  A ``raw `` entry of
   depth 12 (what ``cv2.VideoWriter`` writes for I420 in MOV) names no
@@ -77,7 +77,7 @@ FORMATS = {b"FFV1": "ffv1", b"jpeg": "mjpeg", b"png ": "png",
            b"DIVX": "mpeg4", b"XVID": "mpeg4", b"3IV2": "mpeg4",
            b"s263": "h263", b"h263": "h263", b"H263": "h263",
            b"FLV1": "flv1",
-           b"3IVD": "MS MPEG-4 v3", b"raw ": "raw RGB", b"2vuy": "raw UYVY",
+           b"3IVD": "msmpeg4v3", b"raw ": "raw RGB", b"2vuy": "raw UYVY",
            b"apch": "ProRes", b"apcn": "ProRes", b"apcs": "ProRes",
            b"apco": "ProRes", b"ap4h": "ProRes", b"mjpb": "Motion JPEG B",
            b"SVQ3": "Sorenson Video 3", b"rle ": "QuickTime Animation",
@@ -111,7 +111,7 @@ def is_isobmff(head: bytes) -> bool:
 @dataclass
 class Mp4Track:
     codec: str      # "ffv1", "mjpeg", "png", "mpeg4", "mpeg2", "vp9",
-    #                 "h263", "flv1", or a name refused
+    #                 "h263", "flv1", "msmpeg4v3", or a name refused
     fourcc: bytes           # the sample entry's format
     width: int
     height: int

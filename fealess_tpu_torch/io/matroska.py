@@ -47,7 +47,7 @@ _LEVEL1 = (0x114D9B74, 0x1549A966, _TRACKS, _CLUSTER, 0x1C53BB6B,
 # ff_mkv_codec_tags: the CodecIDs named when refused
 CODEC_NAMES = {"V_VP8": "VP8", "V_VP9": "VP9", "V_AV1": "AV1",
                "V_MPEG4/ISO/AVC": "H.264", "V_MPEGH/ISO/HEVC": "HEVC",
-               "V_MPEG4/MS/V3": "MS MPEG-4 v3", "V_MPEG1": "MPEG-1",
+               "V_MPEG1": "MPEG-1",
                "V_THEORA": "Theora",
                "V_PRORES": "ProRes", "V_DIRAC": "Dirac",
                "V_QUICKTIME": "QuickTime", "V_SNOW": "Snow"}

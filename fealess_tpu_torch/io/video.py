@@ -73,6 +73,12 @@ Codecs read, each by its decoder:
   MOV ``h263`` and 3GP / 3G2 ``s263``;
 - Sorenson Spark (:mod:`~fealess_tpu_torch.io.h263`): AVI ``FLV1``; MOV
   ``FLV1``; FLV's legacy codec id 2; SWF;
+- MS MPEG-4 v2 (:mod:`~fealess_tpu_torch.io.msmpeg4`): AVI ``MP42``,
+  ``DIV2``, and MOV with the same tags;
+- MS MPEG-4 v3 (:mod:`~fealess_tpu_torch.io.msmpeg4`): AVI ``DIV3``,
+  ``MP43``, ``DIV4``, ``DIV5``, ``DIV6``, ``MPG3``, ``AP41``, ``COL1``,
+  ``COL0``, ``3IVD``; MOV ``3IVD``; Matroska ``V_MPEG4/MS/V3``;
+- WMV7 (:mod:`~fealess_tpu_torch.io.msmpeg4`): AVI and MOV ``WMV1``;
 - BMP (:func:`~fealess_tpu_torch.io.image2.bmp_frame`): BMP images.
 
 Matroska's ``V_MS/VFW/FOURCC``, ASF's and NUT's fourccs take the AVI
@@ -94,10 +100,10 @@ naming it:
 - containers, by their first bytes: RealMedia and raw Dirac
   (:data:`QUEUED_CONTAINERS`); these are named even where cv2 then finds
   no stream it decodes in them;
-- codecs: those of :data:`QUEUED_FOURCCS` (MS MPEG-4 v2 and v3, WMV7,
-  WMV8, FFmpeg's Huffyuv variant, Ut Video, MagicYUV, JPEG-LS, ASUS V1
-  and V2, TIFF, Snow, Dirac, JPEG 2000, RealVideo 1 and 2) and others no writer here writes (AV1, H.264, HEVC,
-  uncompressed BI_RGB, VP8 in MP4, MPEG-1, ...);
+- codecs: those of :data:`QUEUED_FOURCCS` (WMV8, FFmpeg's Huffyuv
+  variant, Ut Video, MagicYUV, JPEG-LS, ASUS V1 and V2, TIFF, Snow,
+  Dirac, JPEG 2000, RealVideo 1 and 2) and others no writer here writes
+  (AV1, H.264, HEVC, uncompressed BI_RGB, VP8 in MP4, MPEG-1, ...);
 - kinds inside a codec or container: edit lists that drop frames and
   Matroska with compressed blocks; a program stream map, ASF's
   compressed payloads, NUT's side data, encrypted or multitrack FLV tags
@@ -106,7 +112,8 @@ naming it:
   inflates losing bytes) and SWF's other codecs and bitmap tags; the
   tools :mod:`~fealess_tpu_torch.io.mpeg4`, :mod:`~fealess_tpu_torch.io.
   vp8`, :mod:`~fealess_tpu_torch.io.vp9`, :mod:`~fealess_tpu_torch.io.
-  mpeg2` and :mod:`~fealess_tpu_torch.io.h263` refuse by name; YUV4MPEG2
+  mpeg2`, :mod:`~fealess_tpu_torch.io.h263` and :mod:`~fealess_tpu_torch.
+  io.msmpeg4` refuse by name; YUV4MPEG2
   of other colour spaces, interlaced, or sited left or top-left at an odd
   height; images of other formats (TIFF, WebP, PNM, ...); the PNG and BMP kinds :mod:`~fealess_tpu_torch.io.image2`
   names (16-bit colour PNG, Adam7 PNG, 16-bit BMP, RLE deltas, BMP data
@@ -155,6 +162,8 @@ from fealess_tpu_torch.io.mpegps import (MpegPsError, MpegPsFile,
 from fealess_tpu_torch.io.mpegts import (MpegTsError, MpegTsFile,
                                          UnsupportedMpegTs, packet_layout)
 from fealess_tpu_torch.io.mpegvideo import MpegVideoFile, is_mpeg_video
+from fealess_tpu_torch.io.msmpeg4 import FOURCCS as MSMPEG4_FOURCCS
+from fealess_tpu_torch.io.msmpeg4 import codec_of as msmpeg4_codec
 from fealess_tpu_torch.io.nut import NutError, NutFile, UnsupportedNut, is_nut
 from fealess_tpu_torch.io.ogg import OggError, OggFile, UnsupportedOgg, is_ogg
 from fealess_tpu_torch.io.png import DecodeError
@@ -209,10 +218,7 @@ _FOURCC_NAMES = {
 # (ROADMAP's decoding queue), by the fourccs FFmpeg's AVI demuxer maps to
 # them
 QUEUED_FOURCCS = {
-    "MS MPEG-4 v3": (b"DIV3", b"MP43", b"DIV4", b"DIV5", b"DIV6", b"MPG3",
-                     b"AP41", b"COL1", b"COL0", b"3IVD"),
-    "MS MPEG-4 v2": (b"MP42", b"DIV2"),
-    "WMV7": (b"WMV1",), "WMV8": (b"WMV2",),
+    "WMV8": (b"WMV2",),
     "FFmpeg's Huffyuv variant": (b"FFVH", b"ffvh"),
     "Ut Video": (b"ULY0", b"ULY2", b"ULY4", b"ULRG", b"ULRA", b"ULH0",
                  b"ULH2", b"ULH4", b"UQY0", b"UQY2", b"UQRG", b"UQRA",
@@ -255,7 +261,7 @@ def fourcc_codec(fourcc: bytes) -> Optional[str]:
         return "h263"
     if fourcc in SORENSON_FOURCCS:
         return "flv1"
-    return None
+    return msmpeg4_codec(fourcc) or None
 
 
 _CONTAINERS = ("AVI, MP4 and MOV (fragmented too), Matroska, YUV4MPEG2, "
@@ -263,8 +269,8 @@ _CONTAINERS = ("AVI, MP4 and MOV (fragmented too), Matroska, YUV4MPEG2, "
                "transport streams, Ogg, FLV, ASF, NUT, image files and "
                "their pipes")
 _READS = ("Motion JPEG, FFV1, raw I420 / IYUV / YV12 / gray / NV12 / RGBA, "
-          "PNG, Huffyuv, MPEG-4 Part 2, VP8, VP9, MPEG-2, H.263 and Sorenson "
-          "Spark")
+          "PNG, Huffyuv, MPEG-4 Part 2, VP8, VP9, MPEG-2, H.263, Sorenson "
+          "Spark, MS MPEG-4 v2 and v3 and WMV7")
 
 
 def _pam_without_tuple_type(path: str) -> bool:
@@ -492,14 +498,16 @@ class VideoReader:
             # the AVI fourccs
             t.codec = fourcc_codec(t.fourcc) or _codec(t.fourcc)
         if t.codec not in ("ffv1", "mjpeg", "png", "mpeg4", "vp9", "mpeg2",
-                           "huffyuv", "rawvideo", "h263", "flv1"):
+                           "huffyuv", "rawvideo", "h263", "flv1") + \
+                tuple(MSMPEG4_FOURCCS):
             mp4.close()
             fourcc = t.fourcc.decode("latin-1")
             raise UnsupportedVideo(
                 f"{path}: MP4 with {t.codec} video ({fourcc}) is read by "
                 f"cv2.VideoCapture but not by the port (which reads FFV1, "
                 f"Huffyuv, Motion JPEG, PNG, MPEG-4 Part 2, VP9, MPEG-2, "
-                f"H.263, Sorenson Spark and raw RGBA in MP4 and MOV)")
+                f"H.263, Sorenson Spark, MS MPEG-4 v2 and v3, WMV7 and raw "
+                f"RGBA in MP4 and MOV)")
         self.container = "MP4"
         self._set(t.codec, t.fourcc, t.width, t.height, t.extradata, mp4)
 
@@ -526,6 +534,8 @@ class VideoReader:
             codec, fourcc = "vp9", b""
         elif t.codec_id == MPEG2_CODEC_ID:
             codec, fourcc, extradata = "mpeg2", b"", t.codec_private
+        elif t.codec_id == "V_MPEG4/MS/V3":
+            codec, fourcc = "msmpeg4v3", b""
         elif t.codec_id == "V_UNCOMPRESSED":
             fourcc = t.colour_space
             codec = "rawvideo" if fourcc in RAW_FOURCCS else None
@@ -631,6 +641,11 @@ class VideoReader:
             dec = H263Decoder(self.extradata, self.fourcc, self.path,
                               self.container, "h263" if self.codec == "h263"
                               else "sorenson")
+            return lambda data, what: dec.decode(data), dec.close
+        if self.codec in MSMPEG4_FOURCCS:
+            from fealess_tpu_torch.io.msmpeg4 import MSMPEG4Decoder
+            dec = MSMPEG4Decoder(self.codec, self.width, self.height,
+                                 self.fourcc, self.path, self.container)
             return lambda data, what: dec.decode(data), dec.close
         if self.codec == "png":
             return image2.png_frame, nothing

@@ -9,6 +9,7 @@ holds them to, taken from cv2 and the JAX package on the CPU.
     python -m tests.make_torch_video raw      # tests/data/torch_raw only
     python -m tests.make_torch_video demux    # tests/data/torch_demux only
     python -m tests.make_torch_video h263     # tests/data/torch_h263 only
+    python -m tests.make_torch_video msmpeg4  # tests/data/torch_msmpeg4 only
 
 - ``clip.avi``: four panned 640x480 fixture frames (``apps/fixture.pan``)
   written by ``cv2.VideoWriter`` as Motion JPEG, with ``depth/<i>.png``
@@ -143,8 +144,10 @@ holds them to, taken from cv2 and the JAX package on the CPU.
   ``tests/data/torch_vp9/recon.json`` for ``pan_vp9.webm`` and
   ``tests/data/torch_mpeg2/recon.json`` for ``pan_mpeg2.mp4`` and
   ``tests/data/torch_raw/recon.json`` for ``pan_y4m.y4m`` and
-  ``tests/data/torch_demux/recon.json`` for ``pan_ts.ts`` (two frames,
-  with the depth directory's first two by position).
+  ``tests/data/torch_demux/recon.json`` for ``pan_ts.ts`` and
+  ``tests/data/torch_h263/recon.json`` for ``pan_flv1.flv`` and
+  ``tests/data/torch_msmpeg4/recon.json`` for ``pan_div3.avi`` (two
+  frames, with the depth directory's first two by position).
 
 ``tests/test_torch_video.py`` holds the digests to cv2 on the CPU, so they
 cannot go stale.  The muxer is shared with that test.
@@ -196,6 +199,14 @@ H263_OUT = os.path.join(REPO, "tests", "data", "torch_h263")
 H263_RECON_SOURCES = {"pan_flv1.flv": 2}
 H263_CONTAINERS = (".avi", ".mkv", ".mov", ".3gp", ".3g2", ".asf", ".nut",
                    ".flv", ".swf")
+# the MS MPEG-4 v2 / v3 and WMV7 sources, in a directory of their own;
+# the 640x480 DIV3 AVI holds the clip's first two frames
+MSMPEG4_OUT = os.path.join(REPO, "tests", "data", "torch_msmpeg4")
+MSMPEG4_RECON_SOURCES = {"pan_div3.avi": 2}
+MSMPEG4_CONTAINERS = (".avi", ".mkv", ".mov", ".asf", ".wmv", ".nut")
+# the fourccs cv2.VideoWriter writes each of the three codecs for
+MSMPEG4_ALIASES = ("MP42", "DIV2", "DIV3", "MP43", "DIV4", "DIV5", "DIV6",
+                   "MPG3", "AP41", "COL1", "COL0", "3IVD", "WMV1")
 # the containers demuxed for codecs the port already decodes, in a
 # directory of their own; the 640x480 transport stream holds the clip's
 # first two frames
@@ -1342,6 +1353,128 @@ def h263_sources(frames) -> None:
         :H263_RECON_SOURCES["pan_flv1.flv"]]], "FLV1")
 
 
+def msmpeg4_sources(frames) -> None:
+    """Write the MS MPEG-4 v2 / v3 and WMV7 sources (see
+    ``tests/test_torch_msmpeg4.py``); ``frames`` are the clip's."""
+    import cv2
+    from fealess_tpu_torch.io.avi import AviFile
+
+    def out(name):
+        return os.path.join(MSMPEG4_OUT, name)
+
+    def pan(w, h, seed, n, dx=3, dy=-2):
+        base = scene(w, h, seed, 1)[0]
+        return [_shifted(base, dx * i, dy * i) for i in range(n)]
+
+    def halves(w, h, v, n):
+        """The top half panned right, the bottom half left, ``v`` pixels
+        a frame (intra macroblocks in P pictures, MV escapes)."""
+        a, b = scene(w, h, 21, 1)[0], scene(w, h, 22, 1)[0]
+        frames = []
+        for i in range(n):
+            f = _shifted(a, v * i, 0)
+            f[h // 2:] = _shifted(b, -v * i, 0)[h // 2:]
+            frames.append(f)
+        return frames
+
+    def appear(w, h, n):
+        """A blurred slow pan with a noise square appearing each frame
+        from the fifth on (P pictures after P pictures that pick the low
+        motion run/level tables, with intra macroblocks)."""
+        base = cv2.GaussianBlur(scene(w, h, 23, 1)[0], (7, 7), 0)
+        rng, frames = np.random.default_rng(5), []
+        for i in range(n):
+            f = _shifted(base, i, 0)
+            if i >= 4:
+                y, x = rng.integers(0, h - 16), rng.integers(0, w - 16)
+                f[y:y + 16, x:x + 16] = rng.integers(0, 255, (16, 16, 3))
+            frames.append(f)
+        return frames
+
+    def split():
+        """Black and white halves (DC differences past the DC tables'
+        escape), then moved."""
+        f = np.zeros((64, 96, 3), np.uint8)
+        f[:, 48:] = 255
+        return [f, f, np.roll(f, 8, 1)]
+
+    yy, xx = np.mgrid[0:64, 0:96]
+    checker = (((xx + yy) % 2) * 255).astype(np.uint8)
+    checker = [np.stack([np.roll(checker, i, 1)] * 3, -1) for i in range(3)]
+    # every fourcc alias in AVI at 96x64
+    small = pan(96, 64, 81, 4)
+    for cc in MSMPEG4_ALIASES:
+        write_ffmpeg_clip(out(f"ms_{cc}.avi"), small, cc)
+    # the writer puts MP43 in AVI for 3IVD (its MOV tag); FFmpeg's AVI
+    # demuxer takes 3IVD too: the DIV3 packets under it
+    with AviFile(out("ms_DIV3.avi")) as avi:
+        packets = list(avi.frames())
+    with open(out("ms_3IVD.avi"), "wb") as f:
+        f.write(mux_avi(packets, 96, 64, fourcc=b"3IVD"))
+    for cc, tag in (("MP42", "v2"), ("DIV3", "v3"), ("WMV1", "wmv1")):
+        # each codec in each container the writer writes it in
+        for ext in ("mov", "mkv", "asf", "wmv", "nut"):
+            write_ffmpeg_clip(out(f"{tag}.{ext}"), small, cc)
+        # 14 frames (a second I picture at 12), 128x96 at 30 fps, 640x480
+        write_ffmpeg_clip(out(f"{tag}_pan.avi"), pan(96, 64, 82, 14), cc)
+        write_ffmpeg_clip(out(f"{tag}_128x96_30fps.avi"),
+                          pan(128, 96, 83, 6), cc, 30)
+        write_ffmpeg_clip(out(f"{tag}_640x480.avi"),
+                          pan(640, 480, 84, 3, 5, -3), cc)
+        # checkerboards (third escapes), halves moving apart, squares
+        # appearing, black and white halves
+        write_ffmpeg_clip(out(f"{tag}_checker.avi"), checker, cc)
+        write_ffmpeg_clip(out(f"{tag}_halves.avi"), halves(96, 64, 8, 6), cc)
+        write_ffmpeg_clip(out(f"{tag}_appear.avi"), appear(96, 64, 12), cc)
+        write_ffmpeg_clip(out(f"{tag}_split.avi"), split(), cc)
+        # the writer writes even sizes only (95x63 as 94x62): its packets
+        # under a 95x63 header
+        write_ffmpeg_clip(out("odd.avi"), pan(95, 63, 85, 4, 1, -1), cc)
+        with AviFile(out("odd.avi")) as avi:
+            packets = list(avi.frames())
+        os.remove(out("odd.avi"))
+        with open(out(f"{tag}_95x63.avi"), "wb") as f:
+            f.write(mux_avi(packets, 95, 63, fourcc=cc.encode()))
+    # WMV7 P pictures above 320x240 pixels' worth or 128 kbit/s decode
+    # intra macroblocks without the inter-intra prediction
+    write_ffmpeg_clip(out("wmv1_halves_128x96_30fps.avi"),
+                      halves(128, 96, 8, 6), "WMV1", 30)
+    write_ffmpeg_clip(out("pan_div3.avi"), [b for b, _ in frames[
+        :MSMPEG4_RECON_SOURCES["pan_div3.avi"]]], "DIV3")
+
+
+def msmpeg4_committed_sources():
+    """Every committed source of MSMPEG4_OUT (its ``digests.json`` lists
+    them)."""
+    return sorted(n for n in os.listdir(MSMPEG4_OUT)
+                  if n.endswith(MSMPEG4_CONTAINERS))
+
+
+def write_msmpeg4(frames) -> None:
+    """Write MSMPEG4_OUT: the sources, their ``digests.json`` and
+    ``recon.json`` (the JAX CLI's acq and recon under ``"sources"``)."""
+    os.makedirs(MSMPEG4_OUT, exist_ok=True)
+    for name in os.listdir(MSMPEG4_OUT):
+        os.remove(os.path.join(MSMPEG4_OUT, name))
+    msmpeg4_sources(frames)
+    digests = {name: digest(os.path.join(MSMPEG4_OUT, name))
+               for name in msmpeg4_committed_sources()}
+    with open(os.path.join(MSMPEG4_OUT, "digests.json"), "w") as f:
+        json.dump(digests, f, indent=1, sort_keys=True)
+        f.write("\n")
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    recon = {"sources": {
+        name: jax_acq_recon(os.path.join(MSMPEG4_OUT, name), n)
+        for name, n in MSMPEG4_RECON_SOURCES.items()}}
+    with open(os.path.join(MSMPEG4_OUT, "recon.json"), "w") as f:
+        json.dump(recon, f, indent=1, sort_keys=True)
+        f.write("\n")
+    total = sum(os.path.getsize(os.path.join(MSMPEG4_OUT, n))
+                for n in os.listdir(MSMPEG4_OUT))
+    print(f"wrote {MSMPEG4_OUT}: {total} bytes")
+
+
 def h263_committed_sources():
     """Every committed source of H263_OUT (its ``digests.json`` lists
     them)."""
@@ -1606,5 +1739,7 @@ if __name__ == "__main__":
         write_demux(clip_frames())
     elif sys.argv[1:] == ["h263"]:
         write_h263(clip_frames())
+    elif sys.argv[1:] == ["msmpeg4"]:
+        write_msmpeg4(clip_frames())
     else:
         main()

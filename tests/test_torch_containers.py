@@ -465,7 +465,9 @@ WRITER_PAIRS = (
     ("RV10", "rm"), ("RV20", "rm"), ("FLV1", "swf"), ("mp4v", "3gp"),
     ("H263", "3gp"), ("U263", "avi"), ("h263", "mov"), ("s263", "3gp"),
     ("s263", "3g2"), ("s263", "avi"), ("s263", "mkv"), ("s263", "flv"),
-    ("H263", "3g2"))
+    ("H263", "3g2"), ("MP43", "avi"), ("DIV4", "avi"), ("DIV5", "avi"),
+    ("MPG3", "avi"), ("AP41", "avi"), ("COL1", "avi"), ("DIV2", "avi"),
+    ("3IVD", "mov"))
 # the fourccs of H.263, whose writer takes its five picture sizes only
 H263_TAGS = ("H263", "U263", "h263", "s263")
 # the containers item 13 (b) demuxes, each written with every fourcc of
