@@ -144,19 +144,21 @@ Phases, one line of output each (or a few):
 7f. video files, image files and printf patterns (``io/video.
    VideoReader``, as ``cv2.VideoCapture`` reads them: AVI, MP4 and
    Matroska holding Motion JPEG, FFV1, raw I420, PNG, Huffyuv, MPEG-4
-   Part 2, VP8, VP9, MPEG-2, H.263 or Sorenson Spark frames, MOV holding
-   MPEG-2, H.263, Sorenson Spark or raw RGBA; FLV, SWF, ASF and NUT;
+   Part 2, VP8, VP9, MPEG-2, H.263, Sorenson Spark, MS MPEG-4 v2 / v3,
+   WMV7 or WMV8 frames, MOV holding MPEG-2, H.263, Sorenson Spark,
+   MS MPEG-4, WMV7, WMV8 or raw RGBA; FLV, SWF, ASF and NUT;
    raw gray, NV12 and RGBA in AVI and Matroska; YUV4MPEG2; the MPEG video
    elementary stream; image2's single images and patterns; raw Motion
    JPEG and PNG pipes): every committed source of
    ``tests/data/torch_video``, ``torch_vp8``, ``torch_vp9``,
-   ``torch_mpeg2``, ``torch_raw``, ``torch_demux`` and ``torch_h263``
-   decoded to the frame count and each
+   ``torch_mpeg2``, ``torch_raw``, ``torch_demux``, ``torch_h263``,
+   ``torch_msmpeg4`` and ``torch_wmv2`` decoded to the frame count and each
    frame's sha256 of cv2's (recorded by ``tests/make_torch_video.py``);
    ``acq --device cuda --clouds`` with the committed depth directory from
    the 640x480 Motion JPEG clip, the FFV1 MP4, the JPEG pattern, the mp4v
    AVI, the VP8 and VP9 WebM clips, the MPEG-2 MP4, and the YUV4MPEG2
-   clip, the MPEG-TS and the Sorenson Spark FLV (two frames each, paired
+   clip, the MPEG-TS, the Sorenson Spark FLV, the DIV3 AVI and the WMV8
+   ``.wmv`` (two frames each, paired
    with the depth directory's first two), each
    package's ``gray/`` and ``depth/`` pixels equal to the JAX CLI's and its
    clouds within ``CLOUD_TOL_MM`` of the same call on the CPU; ``recon
@@ -166,8 +168,10 @@ Phases, one line of output each (or a few):
    decode a 640x480 frame of each format, demux included, and of one
    MPEG-4 I-VOP and one P-VOP, a VP8 and a VP9 key and inter frame, an
    MPEG-2 I, P and B picture, a Sorenson Spark (640x480) and an H.263
-   (704x576) I and P picture, and a frame of the YUV4MPEG2, the MPEG-2
-   elementary stream and the Sorenson FLV readers.
+   (704x576) I and P picture, a 640x480 MS MPEG-4 v3 I and P, WMV7 P and
+   WMV8 I and P picture, and a frame of the YUV4MPEG2, the MPEG-2
+   elementary stream, the Sorenson FLV, the DIV3 AVI and the WMV8
+   ``.wmv`` readers.
 8. the rest of the public surface: the CLI's device-stage table
    (``cli._profile_stages``: front-end, match and the full step as
    cumulative prefixes, each the device busy of warm calls under
@@ -367,6 +371,7 @@ RAW_DIR = os.path.join(REPO, "tests", "data", "torch_raw")
 DEMUX_DIR = os.path.join(REPO, "tests", "data", "torch_demux")
 H263_DIR = os.path.join(REPO, "tests", "data", "torch_h263")
 MSMPEG4_DIR = os.path.join(REPO, "tests", "data", "torch_msmpeg4")
+WMV2_DIR = os.path.join(REPO, "tests", "data", "torch_wmv2")
 CLOUD_TOL_MM = 1e-3
 DECODE_TIMED = 10
 
@@ -2406,6 +2411,7 @@ def video_phase(eng, card, counts, default_icp) -> None:
     demux_sources(eng, card, counts, default_icp)
     h263_sources(eng, card, counts, default_icp)
     msmpeg4_sources(eng, card, counts, default_icp)
+    wmv2_sources(eng, card, counts, default_icp)
 
 
 def mpeg4_frame_times(card) -> None:
@@ -3053,6 +3059,82 @@ def msmpeg4_sources(eng, card, counts, default_icp) -> None:
           + f" ({card})")
     print(f"time phase 7f MS MPEG-4 part: {time.perf_counter() - t_part:.1f} "
           f"s ({card})")
+
+
+def wmv2_sources(eng, card, counts, default_icp) -> None:
+    """Phase 7f's WMV8 part: every committed source of
+    ``tests/data/torch_wmv2`` (``cv2.VideoWriter``'s WMV2 in AVI, MOV,
+    Matroska, ASF, WMV and NUT, at 640x480 down to 94x62, P pictures in
+    each qscale band, re-encoded with the other run/level and CBP tables,
+    and its packets under a 95x63 AVI header) decoded by
+    ``VideoReader`` to cv2's digests; ``acq --device cuda --clouds`` from
+    the 640x480 ``.wmv`` and ``recon`` on its package in both ICP settings
+    (``acq_recon_source``); host times of a 640x480 WMV8 I and P picture
+    (the P in a new decoder after its I) and of ``VideoReader`` a frame
+    on the ``.wmv``."""
+    import hashlib
+
+    import numpy as np
+    from fealess_tpu_torch.io.video import VideoReader
+    from fealess_tpu_torch.io.wmv2 import WMV2Decoder
+
+    t_part = time.perf_counter()
+    with open(os.path.join(WMV2_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    with open(os.path.join(WMV2_DIR, "recon.json")) as f:
+        expect = json.load(f)
+
+    def sha(a) -> str:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    for name, want in sorted(digests.items()):
+        with VideoReader(os.path.join(WMV2_DIR, name)) as reader:
+            frames = list(reader)
+        got = {"frames": len(frames),
+               "shapes": [list(f.shape) for f in frames],
+               "sha256": [sha(f) for f in frames]}
+        check(got == want, f"video {name}: {got}, cv2 gives {want}")
+    print(f"WMV8 input: {len(digests)} committed sources "
+          f"({sum(d['frames'] for d in digests.values())} frames: "
+          f"cv2.VideoWriter's WMV2 in AVI, MOV, Matroska, ASF, WMV and NUT, "
+          f"at 640x480, 128x96 (30 fps), 96x64, 95x63 and 94x62, "
+          f"checkerboards, halves moving apart, appearing squares, black "
+          f"and white halves, noise whose P pictures use the three CBP "
+          f"tables, and that noise re-encoded with run/level tables 1 and "
+          f"2 and cbp_index 1 and 2): frame counts and every frame's "
+          f"sha256 equal to cv2.VideoCapture's")
+    name = "pan_wmv2.wmv"
+    acq_recon_source(eng, card, counts, default_icp, name,
+                     digests[name]["frames"], expect["sources"][name],
+                     "WMV8 in ASF (.wmv)", False, WMV2_DIR)
+
+    times = {}
+    with VideoReader(os.path.join(WMV2_DIR, name)) as reader:
+        packets, extradata = list(reader._packets()), reader.extradata
+    for k, kind in enumerate(("I", "P")):
+        runs = []
+        for _ in range(DECODE_TIMED + 1):
+            dec = WMV2Decoder(extradata, 640, 480)
+            for p in packets[:k]:
+                dec.decode(p)
+            t0 = time.perf_counter()
+            frame = dec.decode(packets[k])
+            runs.append((time.perf_counter() - t0) * 1e3)
+            check(frame.shape == tuple(digests[name]["shapes"][k]),
+                  f"{name}: packet {k} gave a {frame.shape} frame")
+            dec.close()
+        times[f"640x480 WMV8 {kind} ({len(packets[k])} bytes)"] = \
+            sum(runs[1:]) / DECODE_TIMED
+    clip = os.path.join(WMV2_DIR, name)
+    times["VideoReader a 640x480 WMV8 frame (ASF demux included)"] = \
+        host_mean_ms(lambda: list(VideoReader(clip)), DECODE_TIMED) / \
+        digests[name]["frames"]
+    print(f"time WMV8 decode to BGR (host, mean of {DECODE_TIMED} after a "
+          f"warm call): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+          + f" ({card})")
+    print(f"time phase 7f WMV8 part: {time.perf_counter() - t_part:.1f} s "
+          f"({card})")
 
 
 # -- phase 8: the rest of the public surface --------------------------------

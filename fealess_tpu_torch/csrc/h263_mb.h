@@ -18,7 +18,9 @@
  *   reconstruction  an intra macroblock's DC times its scaler and its AC
  *                dequantised (dct_unquantize_h263_intra_c) into
  *                ff_simple_idct_put, an inter one's dequantised blocks
- *                into ff_simple_idct_add (simple_idct.h)
+ *                into ff_simple_idct_add (simple_idct.h); a decoder whose
+ *                codec has a transform of its own (WMV8's) sets
+ *                mb_t.idct_put and idct_add after mb_alloc
  * A decoder embeds an mb_t and points mb_t.paths at seven of its syntax
  * path counters, in the order of the MB_* names below. */
 #ifndef FL_H263_MB_H
@@ -217,6 +219,10 @@ typedef struct {
   int16_t block[6][64];
   int last_index[6];
   uint64_t *paths;
+  /* the inverse transform into and onto the picture (mb_alloc sets
+   * simple_idct.h's) */
+  void (*idct_put)(int16_t *blk, uint8_t *dst, long stride);
+  void (*idct_add)(int16_t *blk, uint8_t *dst, long stride);
 } mb_t;
 
 static void mb_free(mb_t *m) {
@@ -235,6 +241,8 @@ static int mb_alloc(mb_t *m, int width, int height) {
   m->height = height;
   m->mb_w = (width + 15) / 16;
   m->mb_h = (height + 15) / 16;
+  m->idct_put = simple_idct_put;
+  m->idct_add = simple_idct_add;
   m->ys = m->mb_w * 16;
   m->cs = m->mb_w * 8;
   for (int k = 0; k < 2; ++k)
@@ -386,11 +394,11 @@ static void mb_put_intra(mb_t *m, int y_dc_scale, int c_dc_scale) {
         blk[i] = (int16_t)(blk[i] < 0 ? blk[i] * qmul - qadd
                                       : blk[i] * qmul + qadd);
     if (n < 4)
-      simple_idct_put(blk, y + (n >> 1) * 8 * m->ys + (n & 1) * 8, m->ys);
+      m->idct_put(blk, y + (n >> 1) * 8 * m->ys + (n & 1) * 8, m->ys);
     else
-      simple_idct_put(blk, m->pic[m->cur][n - 3] +
-                               (long)m->mb_y * 8 * m->cs + m->mb_x * 8,
-                      m->cs);
+      m->idct_put(blk, m->pic[m->cur][n - 3] + (long)m->mb_y * 8 * m->cs +
+                           m->mb_x * 8,
+                  m->cs);
   }
 }
 
@@ -400,12 +408,12 @@ static void mb_add_inter(mb_t *m) {
   for (int n = 0; n < 6; ++n) {
     if (m->last_index[n] < 0) continue;
     if (n < 4)
-      simple_idct_add(m->block[n], y + (n >> 1) * 8 * m->ys + (n & 1) * 8,
-                      m->ys);
+      m->idct_add(m->block[n], y + (n >> 1) * 8 * m->ys + (n & 1) * 8,
+                  m->ys);
     else
-      simple_idct_add(m->block[n], m->pic[m->cur][n - 3] +
-                                       (long)m->mb_y * 8 * m->cs + m->mb_x * 8,
-                      m->cs);
+      m->idct_add(m->block[n], m->pic[m->cur][n - 3] +
+                                   (long)m->mb_y * 8 * m->cs + m->mb_x * 8,
+                  m->cs);
   }
 }
 

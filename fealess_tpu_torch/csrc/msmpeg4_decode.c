@@ -1,14 +1,18 @@
-/* MS MPEG-4 v2, MS MPEG-4 v3 and WMV7 video for io/msmpeg4.py: what
- * cv2.VideoCapture returns for the streams cv2.VideoWriter writes with the
- * fourccs MP42 / DIV2 (v2), DIV3 / MP43 / DIV4 / DIV5 / DIV6 / MPG3 /
- * AP41 / COL1 / COL0 / 3IVD (v3) and WMV1 (WMV7), bit for bit.  cv2
- * decodes them with FFmpeg's msmpeg4v2, msmpeg4v3 and wmv1 decoders
- * (libavcodec 62.28 in cv2 5.0.0, all three h263dec over msmpeg4dec) and
- * converts their yuv420p planes to BGR24 with swscale (yuv_bgr.h).  What
- * that writer produces is FFmpeg's own msmpeg4 encoder at its defaults:
- * I and P pictures, one slice, one quantiser a picture, no AC prediction,
- * one run/level table set a picture.  The stream carries no picture size:
- * the container's is given at open.
+/* MS MPEG-4 v2, MS MPEG-4 v3, WMV7 and WMV8 video for io/msmpeg4.py and
+ * io/wmv2.py: what cv2.VideoCapture returns for the streams
+ * cv2.VideoWriter writes with the fourccs MP42 / DIV2 (v2), DIV3 / MP43 /
+ * DIV4 / DIV5 / DIV6 / MPG3 / AP41 / COL1 / COL0 / 3IVD (v3), WMV1 (WMV7)
+ * and WMV2 (WMV8), bit for bit.  cv2 decodes them with FFmpeg's
+ * msmpeg4v2, msmpeg4v3, wmv1 and wmv2 decoders (libavcodec 62.28 in cv2
+ * 5.0.0, all four h263dec over msmpeg4dec) and converts their yuv420p
+ * planes to BGR24 with swscale (yuv_bgr.h).  What that writer produces is
+ * FFmpeg's own msmpeg4 and wmv2 encoders at their defaults: I and P
+ * pictures, one slice, one quantiser a picture, no AC prediction, one
+ * run/level table set a picture (WMV8: no IntraX8, no mspel, 8x8
+ * transforms only, no loop filter, no skipped macroblocks).  The stream
+ * carries no picture size: the container's is given at open.  WMV8's
+ * settings come from the container's 4-byte extradata
+ * (fl_msmpeg4_ext_header).
  *
  * Host C, no CUDA: built with the host compiler into a shared library at
  * first use (ops/_build.build_host) and called through ctypes.  A decoder
@@ -23,14 +27,23 @@
  *                ff_msmpeg4_decode_ext_header after a v2 / v3 I picture's
  *                macroblocks (fps, bit rate, flipflop_rounding); each P
  *                picture toggles no_rounding where flipflop_rounding is
- *                set
+ *                set; WMV8: decode_ext_header from the extradata,
+ *                ff_wmv2_decode_picture_header and
+ *                ff_wmv2_decode_secondary_picture_header (the skip type,
+ *                the P pictures' CBP table by cbp_index and qscale band:
+ *                wmv2_get_cbp_table_index; every P picture toggles
+ *                no_rounding, no inter-intra prediction)
  *   macroblocks  msmpeg4v12_decode_mb (v2: MB type and intra CBPC VLCs,
  *                H.263's CBPY, msmpeg4v2_decode_motion: H.263's MVD VLC
  *                wrapped at +-64) and msmpeg4v34_decode_mb (v3, WMV1: the
  *                intra MB VLC with the coded-block prediction
  *                ff_msmpeg4_coded_block_pred, the non-intra MB VLC,
  *                ff_msmpeg4_decode_motion: the MV tables, a 6+6 bit
- *                escape, wrapped at +-64; WMV1's inter-intra direction)
+ *                escape, wrapped at +-64; WMV1's inter-intra direction);
+ *                WMV8's wmv2_decode_mb, which is v3's without skip flags,
+ *                its P pictures' MB VLC the band's ff_wmv2_inter_table,
+ *                wmv2_pred_motion (h263's median without the top-left
+ *                flag) and its inter blocks at abt_type 0 (8x8)
  *   blocks       ff_msmpeg4_decode_block: the DC (v2: MPEG-4's DC size
  *                VLC inverted; v3 / WMV1: the DC tables with an 8-bit
  *                escape) predicted by ff_msmpeg4_pred_dc (a scaled
@@ -44,6 +57,9 @@
  *                of the table), the DC scales ff_mpeg1_dc_scale_table (v2),
  *                ff_old_ff_y_dc_scale_table with ff_wmv1_c_dc_scale_table
  *                (v3: FFmpeg's default workaround_bugs) and WMV1's own
+ *                (WMV1, WMV8)
+ *   transform    simple_idct.h's, WMV8's own ff_wmv2_idct_c (wmv2dsp.c:
+ *                put and add clamped) for its intra and inter blocks
  *   motion       h263_mb.h's ff_h263_pred_motion and mpeg_motion with the
  *                picture's rounding, reference samples at clamped
  *                coordinates
@@ -63,21 +79,24 @@
 #include "yuv_bgr.h"
 
 enum { MS_OK = 0, MS_CORRUPT = -1, MS_NOMEM = -2, MS_REFUSED = 100 };
-enum { V2 = 2, V3 = 3, WMV1 = 4 };
+enum { V2 = 2, V3 = 3, WMV1 = 4, WMV2 = 5 };
 
-/* tools and kinds refused, by name in io/msmpeg4.py */
+/* tools and kinds refused, by name in io/msmpeg4.py and io/wmv2.py */
 enum {
   R_AC_PRED = 1, R_PER_MB_RL, R_SLICES, R_NO_REFERENCE, R_DC_TABLE0,
-  R_MV_TABLE0, R_NO_SKIP_CODE
+  R_MV_TABLE0, R_NO_SKIP_CODE, R_INTRAX8, R_MSPEL, R_ABT, R_LOOP_FILTER,
+  R_SKIP_TYPE, R_TOP_LEFT_MV, R_NO_EXT_HEADER
 };
 
-/* syntax paths counted; the last seven are h263_mb.h's MB_* */
+/* syntax paths counted; C_MV_ZERO_CODE to C_MC_CLAMPED are h263_mb.h's
+ * MB_*, the CBP tables WMV8's */
 enum {
   C_IPIC, C_PPIC, C_ROUND0, C_ROUND1, C_EXT_HEADER, C_RL0, C_RL1, C_RL2,
   C_RL3, C_RL4, C_RL5, C_I_MB, C_P_INTRA_MB, C_P_INTER_MB, C_P_SKIP_MB,
   C_CBP_PRED, C_INTER_INTRA, C_DC_ESCAPE, C_DC_LEFT, C_DC_TOP, C_ESC1,
   C_ESC2, C_ESC3, C_ESC3_LENGTHS, C_MV_ESCAPE, C_MV_ZERO_CODE, C_MV_CODED,
-  C_MC_FULL, C_MC_X, C_MC_Y, C_MC_XY, C_MC_CLAMPED, C_NPATHS
+  C_MC_FULL, C_MC_X, C_MC_Y, C_MC_XY, C_MC_CLAMPED, C_CBP_TABLE0,
+  C_CBP_TABLE1, C_CBP_TABLE2, C_NPATHS
 };
 
 #define DC_MAX 119
@@ -197,7 +216,8 @@ typedef struct {
   mb_vlcs_t v; /* H.263's CBPY and MVD for v2 */
   /* DC and MV table 1 (table 0 is refused), DC for luma and chroma */
   xvlc_t mb_i, mb_non_intra, dc_vlc[2], mv, v2_dc[2], inter_intra,
-      v2_mb_type, v2_intra_cbpc;
+      v2_mb_type, v2_intra_cbpc, wmv2_inter[3];
+  const xvlc_t *p_mb; /* the P picture's MB VLC */
   rl_t rl[6];
   mb_t m;
   int version;
@@ -212,6 +232,8 @@ typedef struct {
   int pframe, rl_index, rl_chroma_index, inter_intra_pred, flipflop;
   int no_rounding, bit_rate, esc3_level_len, esc3_run_len;
   int y_dc_scale, c_dc_scale, aic_dir;
+  /* WMV8's extension header: the tools its pictures may switch on */
+  int mspel_bit, abt_flag, j_type_bit, per_mb_rl_bit;
   const uint8_t *intra_scan, *inter_scan;
   uint64_t count[C_NPATHS];
   int refused; /* the R_* of the last refusal */
@@ -283,7 +305,7 @@ static int pred_dc(ms_t *d, int n) {
       top = d->aic_dir == 3 || (d->aic_dir == 1 && n == 0) ||
             (d->aic_dir == 2 && n != 0);
     }
-  } else if (d->version == WMV1) {
+  } else if (d->version >= WMV1) {
     top = abs(a - b) < abs(b - c);
   } else {
     top = abs(a - b) <= abs(b - c);
@@ -508,7 +530,8 @@ static int decode_mb(ms_t *d, br_t *b) {
   mb_t *m = &d->m;
   int cbp, intra, rc;
   if (d->version >= V3 && br_left(b) <= 0) return MS_CORRUPT;
-  if (d->pframe && br_get(b, 1)) { /* use_skip_mb_code is 1 */
+  if (d->pframe && d->version != WMV2 && br_get(b, 1)) {
+    /* use_skip_mb_code is 1 (WMV8's skip type is none: no flags) */
     mb_set_mv(m, 0, 0);
     memset(m->last_index, 0xff, sizeof m->last_index);
     mb_motion(m, 0, 0);
@@ -534,7 +557,7 @@ static int decode_mb(ms_t *d, br_t *b) {
     if (!intra && (cbp & 3) != 3) cbp ^= 0x3C;
   } else { /* msmpeg4v34_decode_mb */
     if (d->pframe) {
-      int code = xvlc_get(b, &d->mb_non_intra);
+      int code = xvlc_get(b, d->p_mb);
       if (code < 0) return MS_CORRUPT;
       intra = !(code & 0x40);
       cbp = code & 0x3F;
@@ -562,7 +585,8 @@ static int decode_mb(ms_t *d, br_t *b) {
         if (d->aic_dir < 0) return MS_CORRUPT;
       }
     }
-    /* per_mb_rl_table 1 is refused at the picture header */
+    /* per_mb_rl_table 1 and WMV8's per-MB ABT are refused at the
+     * picture header */
   }
   int mx = 0, my = 0;
   if (!intra) {
@@ -664,9 +688,55 @@ static int picture_header(ms_t *d, br_t *b) {
   return MS_OK;
 }
 
+/* ff_wmv2_decode_picture_header and
+ * ff_wmv2_decode_secondary_picture_header.  The writer writes no IntraX8,
+ * no mspel, one ABT type of 0, no run/level table per macroblock, skip
+ * type none, cbp_index 0 and DC and MV table 1 (wmv2enc.c); the other
+ * settings are refused by name. */
+static int wmv2_picture_header(ms_t *d, br_t *b) {
+  /* wmv2_get_cbp_table_index */
+  static const uint8_t cbp_map[3][3] = {{0, 2, 1}, {1, 0, 2}, {2, 1, 0}};
+  mb_t *m = &d->m;
+  d->pframe = (int)br_get(b, 1);
+  if (!d->pframe) b->pos += 7;
+  m->q = (int)br_get(b, 5);
+  if (!m->q) return MS_CORRUPT;
+  if (!d->pframe) {
+    if (d->j_type_bit && br_get(b, 1)) return refuse(d, R_INTRAX8);
+    if (d->per_mb_rl_bit && br_get(b, 1)) return refuse(d, R_PER_MB_RL);
+    d->rl_chroma_index = decode012(b);
+    d->rl_index = decode012(b);
+    if (!br_get(b, 1)) return refuse(d, R_DC_TABLE0);
+    if (br_left(b) * 8 < (long)m->mb_w * m->mb_h) return MS_CORRUPT;
+    d->no_rounding = 1;
+  } else {
+    if (br_get(b, 2)) return refuse(d, R_SKIP_TYPE);
+    /* parse_mb_skip: a bit at least for each coded macroblock */
+    if ((long)m->mb_w * m->mb_h > br_left(b)) return MS_CORRUPT;
+    int table = cbp_map[(m->q > 10) + (m->q > 20)][decode012(b)];
+    d->p_mb = &d->wmv2_inter[table];
+    ++d->count[C_CBP_TABLE0 + table];
+    if (d->mspel_bit && br_get(b, 1)) return refuse(d, R_MSPEL);
+    /* per_mb_abt is the bit's complement; abt_type 0 is 8x8 */
+    if (d->abt_flag && (!br_get(b, 1) || decode012(b)))
+      return refuse(d, R_ABT);
+    if (d->per_mb_rl_bit && br_get(b, 1)) return refuse(d, R_PER_MB_RL);
+    d->rl_chroma_index = d->rl_index = decode012(b);
+    if (br_left(b) < 2) return MS_CORRUPT;
+    if (!br_get(b, 1)) return refuse(d, R_DC_TABLE0);
+    if (!br_get(b, 1)) return refuse(d, R_MV_TABLE0);
+    d->no_rounding ^= 1;
+    ++d->count[d->no_rounding ? C_ROUND1 : C_ROUND0];
+  }
+  d->inter_intra_pred = 0;
+  d->esc3_level_len = d->esc3_run_len = 0;
+  return MS_OK;
+}
+
 static int decode_picture(ms_t *d, br_t *b, long bytes) {
   mb_t *m = &d->m;
-  int rc = picture_header(d, b);
+  int rc = d->version == WMV2 ? wmv2_picture_header(d, b)
+                              : picture_header(d, b);
   if (rc) return rc;
   if (d->pframe && !d->have_ref) return refuse(d, R_NO_REFERENCE);
   /* ff_set_qscale's DC scales */
@@ -694,6 +764,69 @@ static int decode_picture(ms_t *d, br_t *b, long bytes) {
   return MS_OK;
 }
 
+/* ---- WMV8's transform: ff_wmv2_idct_c (wmv2dsp.c) ---- */
+
+enum { WW0 = 2048, WW1 = 2841, WW2 = 2676, WW3 = 2408, WW5 = 1609,
+       WW6 = 1108, WW7 = 565 };
+
+static void wmv2_idct_row(int16_t *b) {
+  int a1 = WW1 * b[1] + WW7 * b[7], a7 = WW7 * b[1] - WW1 * b[7];
+  int a5 = WW5 * b[5] + WW3 * b[3], a3 = WW3 * b[5] - WW5 * b[3];
+  int a2 = WW2 * b[2] + WW6 * b[6], a6 = WW6 * b[2] - WW2 * b[6];
+  int a0 = WW0 * b[0] + WW0 * b[4], a4 = WW0 * b[0] - WW0 * b[4];
+  int s1 = (int)(181u * (unsigned)(a1 - a5 + a7 - a3) + 128) >> 8;
+  int s2 = (int)(181u * (unsigned)(a1 - a5 - a7 + a3) + 128) >> 8;
+  b[0] = (int16_t)((a0 + a2 + a1 + a5 + (1 << 7)) >> 8);
+  b[1] = (int16_t)((a4 + a6 + s1 + (1 << 7)) >> 8);
+  b[2] = (int16_t)((a4 - a6 + s2 + (1 << 7)) >> 8);
+  b[3] = (int16_t)((a0 - a2 + a7 + a3 + (1 << 7)) >> 8);
+  b[4] = (int16_t)((a0 - a2 - a7 - a3 + (1 << 7)) >> 8);
+  b[5] = (int16_t)((a4 - a6 - s2 + (1 << 7)) >> 8);
+  b[6] = (int16_t)((a4 + a6 - s1 + (1 << 7)) >> 8);
+  b[7] = (int16_t)((a0 + a2 - a1 - a5 + (1 << 7)) >> 8);
+}
+
+static void wmv2_idct_col(int16_t *b) {
+  int a1 = (WW1 * b[8] + WW7 * b[56] + 4) >> 3;
+  int a7 = (WW7 * b[8] - WW1 * b[56] + 4) >> 3;
+  int a5 = (WW5 * b[40] + WW3 * b[24] + 4) >> 3;
+  int a3 = (WW3 * b[40] - WW5 * b[24] + 4) >> 3;
+  int a2 = (WW2 * b[16] + WW6 * b[48] + 4) >> 3;
+  int a6 = (WW6 * b[16] - WW2 * b[48] + 4) >> 3;
+  int a0 = (WW0 * b[0] + WW0 * b[32]) >> 3;
+  int a4 = (WW0 * b[0] - WW0 * b[32]) >> 3;
+  int s1 = (int)(181u * (unsigned)(a1 - a5 + a7 - a3) + 128) >> 8;
+  int s2 = (int)(181u * (unsigned)(a1 - a5 - a7 + a3) + 128) >> 8;
+  b[0] = (int16_t)((a0 + a2 + a1 + a5 + (1 << 13)) >> 14);
+  b[8] = (int16_t)((a4 + a6 + s1 + (1 << 13)) >> 14);
+  b[16] = (int16_t)((a4 - a6 + s2 + (1 << 13)) >> 14);
+  b[24] = (int16_t)((a0 - a2 + a7 + a3 + (1 << 13)) >> 14);
+  b[32] = (int16_t)((a0 - a2 - a7 - a3 + (1 << 13)) >> 14);
+  b[40] = (int16_t)((a4 - a6 - s2 + (1 << 13)) >> 14);
+  b[48] = (int16_t)((a4 + a6 - s1 + (1 << 13)) >> 14);
+  b[56] = (int16_t)((a0 + a2 - a1 - a5 + (1 << 13)) >> 14);
+}
+
+static void wmv2_idct(int16_t *blk) {
+  for (int i = 0; i < 64; i += 8) wmv2_idct_row(blk + i);
+  for (int i = 0; i < 8; ++i) wmv2_idct_col(blk + i);
+}
+
+/* put_pixels_clamped_c */
+static void wmv2_idct_put(int16_t *blk, uint8_t *dst, long stride) {
+  wmv2_idct(blk);
+  for (int r = 0; r < 8; ++r)
+    for (int c = 0; c < 8; ++c) dst[r * stride + c] = clip_u8(blk[8 * r + c]);
+}
+
+/* add_pixels_clamped_c */
+static void wmv2_idct_add(int16_t *blk, uint8_t *dst, long stride) {
+  wmv2_idct(blk);
+  for (int r = 0; r < 8; ++r)
+    for (int c = 0; c < 8; ++c)
+      dst[r * stride + c] = clip_u8(dst[r * stride + c] + blk[8 * r + c]);
+}
+
 /* ---- API ---- */
 
 static void ms_free(ms_t *d) {
@@ -707,6 +840,7 @@ static void ms_free(ms_t *d) {
   xvlc_free(&d->inter_intra);
   xvlc_free(&d->v2_mb_type);
   xvlc_free(&d->v2_intra_cbpc);
+  for (int k = 0; k < 3; ++k) xvlc_free(&d->wmv2_inter[k]);
   for (int k = 0; k < 6; ++k) xvlc_free(&d->rl[k].vlc);
   mb_free(&d->m);
   for (int p = 0; p < 3; ++p)
@@ -749,10 +883,11 @@ static int small_build(xvlc_t *v, int n, const uint8_t *code,
   return xvlc_build(v, n, codes, len);
 }
 
-/* A decoder for MS MPEG-4 v2 (version 2), v3 (3) or WMV7 (4) pictures of
- * width x height; NULL where memory runs out. */
+/* A decoder for MS MPEG-4 v2 (version 2), v3 (3), WMV7 (4) or WMV8 (5)
+ * pictures of width x height; NULL where memory runs out.  WMV8 reads its
+ * extension header (fl_msmpeg4_ext_header) before its first packet. */
 void *fl_msmpeg4_open(int version, int width, int height) {
-  if (version < V2 || version > WMV1 || width < 1 || height < 1 ||
+  if (version < V2 || version > WMV2 || width < 1 || height < 1 ||
       width > 16384 || height > 16384)
     return NULL;
   ms_t *d = (ms_t *)calloc(1, sizeof(ms_t));
@@ -767,7 +902,11 @@ void *fl_msmpeg4_open(int version, int width, int height) {
     rc |= xvlc_build(&d->mb_i, 64, codes, msmp4_mb_i_len);
     rc |= xvlc_build(&d->mb_non_intra, 128, msmp4_mb_non_intra_code,
                      msmp4_mb_non_intra_len);
+    for (int k = 0; k < 3; ++k)
+      rc |= xvlc_build(&d->wmv2_inter[k], 128, wmv2_inter_code[k],
+                       wmv2_inter_len[k]);
   }
+  d->p_mb = &d->mb_non_intra;
   for (int c = 0; c < 2; ++c)
     rc |= xvlc_build(&d->dc_vlc[c], 120, msmp4_dc_code[1][c],
                      msmp4_dc_len[1][c]);
@@ -828,9 +967,40 @@ void *fl_msmpeg4_open(int version, int width, int height) {
       d->coded = coded + d->dstride[0] + 1;
     }
   }
-  d->intra_scan = version == WMV1 ? wmv1_scan[1] : zigzag;
-  d->inter_scan = version == WMV1 ? wmv1_scan[0] : zigzag;
+  d->intra_scan = version >= WMV1 ? wmv1_scan[1] : zigzag;
+  d->inter_scan = version >= WMV1 ? wmv1_scan[0] : zigzag;
+  if (version == WMV2) {
+    d->m.idct_put = wmv2_idct_put;
+    d->m.idct_add = wmv2_idct_add;
+  }
   return d;
+}
+
+/* WMV8's decode_ext_header: the settings of the stream's pictures from
+ * the container's extradata (n bytes).  MS_OK, or MS_REFUSED + the R_* of
+ * a tool the writer never switches on (the loop filter, the top-left MV
+ * flag, a slice code other than 1) or of a stream without the header,
+ * whose pictures FFmpeg then leaves undecoded. */
+int fl_msmpeg4_ext_header(void *h, const uint8_t *data, long n) {
+  ms_t *d = (ms_t *)h;
+  uint8_t buf[12] = {0};
+  if (d->version != WMV2) return MS_CORRUPT;
+  if (n < 4) return refuse(d, R_NO_EXT_HEADER);
+  memcpy(buf, data, 4);
+  br_t b = {buf, 32, 0};
+  ++d->count[C_EXT_HEADER];
+  b.pos += 5 + 11; /* fps and bit rate: no WMV8 tool reads them */
+  d->mspel_bit = (int)br_get(&b, 1);
+  int loop_filter = (int)br_get(&b, 1);
+  d->abt_flag = (int)br_get(&b, 1);
+  d->j_type_bit = (int)br_get(&b, 1);
+  int top_left_mv_flag = (int)br_get(&b, 1);
+  d->per_mb_rl_bit = (int)br_get(&b, 1);
+  int code = (int)br_get(&b, 3);
+  if (loop_filter) return refuse(d, R_LOOP_FILTER);
+  if (top_left_mv_flag) return refuse(d, R_TOP_LEFT_MV);
+  if (code != 1) return refuse(d, R_SLICES);
+  return MS_OK;
 }
 
 /* Decode one packet.  MS_OK: a frame (fl_msmpeg4_bgr converts it);

@@ -35,13 +35,16 @@ REFUSED = {
     5: "DC table 0", 6: "MV table 0", 7: "P pictures without skip flags"}
 _REFUSED_BASE = 100
 
-# csrc/msmpeg4_decode.c's C_* syntax path counters, in order
+# csrc/msmpeg4_decode.c's C_* syntax path counters, in order (C_PATHS):
+# those these three codecs take (PATHS), then WMV8's CBP tables
+# (io/wmv2.py)
 PATHS = ("IPIC", "PPIC", "ROUND0", "ROUND1", "EXT_HEADER", "RL0", "RL1",
          "RL2", "RL3", "RL4", "RL5", "I_MB", "P_INTRA_MB", "P_INTER_MB",
          "P_SKIP_MB", "CBP_PRED", "INTER_INTRA", "DC_ESCAPE", "DC_LEFT",
          "DC_TOP", "ESC1", "ESC2", "ESC3", "ESC3_LENGTHS", "MV_ESCAPE",
          "MV_ZERO_CODE", "MV_CODED", "MC_FULL", "MC_X", "MC_Y", "MC_XY",
          "MC_CLAMPED")
+C_PATHS = PATHS + ("CBP_TABLE0", "CBP_TABLE1", "CBP_TABLE2")
 # FFmpeg's three decoders (the port's codec names), the AVI fourccs it
 # maps to each (cv2.VideoWriter writes each), and the version
 # csrc/msmpeg4_decode.c takes for each
@@ -87,6 +90,9 @@ def _lib():
             lib.fl_msmpeg4_counts.argtypes = (ctypes.c_void_p,
                                               ctypes.c_void_p)
             lib.fl_msmpeg4_counts.restype = ctypes.c_int
+            lib.fl_msmpeg4_ext_header.argtypes = (
+                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long)
+            lib.fl_msmpeg4_ext_header.restype = ctypes.c_int
             lib.fl_msmpeg4_close.argtypes = (ctypes.c_void_p,)
             lib.fl_msmpeg4_close.restype = None
             _LIB = lib
@@ -101,38 +107,48 @@ class MSMPEG4Decoder:
     (b"" for none), ``what`` and ``container`` (e.g. "AVI") go into the
     messages."""
 
+    # the refusals' names, the paths counted and what the writer writes,
+    # as a subclass for another of the C decoder's versions has its own
+    refused = REFUSED
+    paths = PATHS
+    writes = ("I and P pictures, one slice, no AC prediction, one "
+              "run/level table set a picture")
+
     def __init__(self, codec: str, width: int, height: int,
                  fourcc: bytes = b"", what: str = "<stream>",
                  container: str = ""):
         self._h = None
         if codec not in VERSIONS:
             raise ValueError(f"codec {codec!r}: one of {tuple(VERSIONS)}")
-        self.what, self.codec = what, codec
+        self.codec = codec
+        self._open(VERSIONS[codec], NAMES[codec], width, height, fourcc,
+                   what, container)
+
+    def _open(self, version: int, name: str, width: int, height: int,
+              fourcc: bytes, what: str, container: str) -> None:
+        self.what, self.name = what, name
         self.width, self.height = int(width), int(height)
         tag = f" ({fourcc.decode('latin-1')})" if fourcc else ""
         self.kind = (f"{container} with " if container else "") + \
-            f"{NAMES[codec]} video{tag}"
+            f"{name} video{tag}"
         if not (0 < self.width <= 16384 and 0 < self.height <= 16384):
             raise DecodeError(f"{what}: {self.kind} of size {self.width}x"
                               f"{self.height}")
-        self._h = _lib().fl_msmpeg4_open(VERSIONS[codec], self.width,
-                                         self.height)
+        self._h = _lib().fl_msmpeg4_open(version, self.width, self.height)
         if not self._h:
             raise MemoryError("fl_msmpeg4_open: out of memory")
 
     def _check(self, rc: int) -> None:
         if rc >= _REFUSED_BASE:
-            tool = REFUSED.get(rc - _REFUSED_BASE, f"tool {rc}")
+            tool = self.refused.get(rc - _REFUSED_BASE, f"tool {rc}")
             raise UnsupportedImage(
                 f"{self.what}: {self.kind} using {tool} is read by "
                 f"cv2.VideoCapture but not by the port (which reads what "
-                f"cv2.VideoWriter writes: I and P pictures, one slice, no "
-                f"AC prediction, one run/level table set a picture)")
+                f"cv2.VideoWriter writes: {self.writes})")
         if rc == -2:
             raise MemoryError("fl_msmpeg4_decode: out of memory")
         if rc < 0:
-            raise DecodeError(f"{self.what}: corrupt {NAMES[self.codec]} "
-                              f"packet")
+            raise DecodeError(f"{self.what}: corrupt {self.name} packet")
 
     def decode(self, data: bytes) -> np.ndarray:
         """The packet's frame as BGR u8 (H, W, 3)."""
@@ -154,10 +170,11 @@ class MSMPEG4Decoder:
         return y, u, v
 
     def counts(self) -> Dict[str, int]:
-        """How often each syntax path (:data:`PATHS`) was decoded."""
-        out = np.zeros(len(PATHS), np.uint64)
+        """How often each syntax path (:attr:`paths`) was decoded."""
+        out = np.zeros(len(C_PATHS), np.uint64)
         _lib().fl_msmpeg4_counts(self._h, out.ctypes.data)
-        return dict(zip(PATHS, (int(v) for v in out)))
+        counts = dict(zip(C_PATHS, (int(v) for v in out)))
+        return {k: counts[k] for k in self.paths}
 
     def close(self) -> None:
         if self._h:

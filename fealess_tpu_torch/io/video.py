@@ -79,6 +79,8 @@ Codecs read, each by its decoder:
   ``MP43``, ``DIV4``, ``DIV5``, ``DIV6``, ``MPG3``, ``AP41``, ``COL1``,
   ``COL0``, ``3IVD``; MOV ``3IVD``; Matroska ``V_MPEG4/MS/V3``;
 - WMV7 (:mod:`~fealess_tpu_torch.io.msmpeg4`): AVI and MOV ``WMV1``;
+- WMV8 (:mod:`~fealess_tpu_torch.io.wmv2`): AVI and MOV ``WMV2``, its
+  settings the container's 4-byte extradata;
 - BMP (:func:`~fealess_tpu_torch.io.image2.bmp_frame`): BMP images.
 
 Matroska's ``V_MS/VFW/FOURCC``, ASF's and NUT's fourccs take the AVI
@@ -100,9 +102,9 @@ naming it:
 - containers, by their first bytes: RealMedia and raw Dirac
   (:data:`QUEUED_CONTAINERS`); these are named even where cv2 then finds
   no stream it decodes in them;
-- codecs: those of :data:`QUEUED_FOURCCS` (WMV8, FFmpeg's Huffyuv
-  variant, Ut Video, MagicYUV, JPEG-LS, ASUS V1 and V2, TIFF, Snow,
-  Dirac, JPEG 2000, RealVideo 1 and 2) and others no writer here writes
+- codecs: those of :data:`QUEUED_FOURCCS` (FFmpeg's Huffyuv variant, Ut
+  Video, MagicYUV, JPEG-LS, ASUS V1 and V2, TIFF, Snow, Dirac, JPEG
+  2000, RealVideo 1 and 2) and others no writer here writes
   (AV1, H.264, HEVC, uncompressed BI_RGB, VP8 in MP4, MPEG-1, ...);
 - kinds inside a codec or container: edit lists that drop frames and
   Matroska with compressed blocks; a program stream map, ASF's
@@ -112,8 +114,9 @@ naming it:
   inflates losing bytes) and SWF's other codecs and bitmap tags; the
   tools :mod:`~fealess_tpu_torch.io.mpeg4`, :mod:`~fealess_tpu_torch.io.
   vp8`, :mod:`~fealess_tpu_torch.io.vp9`, :mod:`~fealess_tpu_torch.io.
-  mpeg2`, :mod:`~fealess_tpu_torch.io.h263` and :mod:`~fealess_tpu_torch.
-  io.msmpeg4` refuse by name; YUV4MPEG2
+  mpeg2`, :mod:`~fealess_tpu_torch.io.h263`, :mod:`~fealess_tpu_torch.
+  io.msmpeg4` and :mod:`~fealess_tpu_torch.io.wmv2` refuse by name;
+  YUV4MPEG2
   of other colour spaces, interlaced, or sited left or top-left at an odd
   height; images of other formats (TIFF, WebP, PNM, ...); the PNG and BMP kinds :mod:`~fealess_tpu_torch.io.image2`
   names (16-bit colour PNG, Adam7 PNG, 16-bit BMP, RLE deltas, BMP data
@@ -173,6 +176,7 @@ from fealess_tpu_torch.io.vp8 import CODEC_ID as VP8_CODEC_ID
 from fealess_tpu_torch.io.vp8 import FOURCCS as VP8_FOURCCS
 from fealess_tpu_torch.io.vp9 import CODEC_ID as VP9_CODEC_ID
 from fealess_tpu_torch.io.vp9 import FOURCCS as VP9_FOURCCS
+from fealess_tpu_torch.io.wmv2 import codec_of as wmv2_codec
 from fealess_tpu_torch.io.y4m import UnsupportedY4m, Y4mError, Y4mFile, is_y4m
 
 MJPEG_FOURCCS = (b"MJPG", b"mjpg", b"AVRn", b"dmb1", b"jpeg", b"LJPG")
@@ -218,7 +222,6 @@ _FOURCC_NAMES = {
 # (ROADMAP's decoding queue), by the fourccs FFmpeg's AVI demuxer maps to
 # them
 QUEUED_FOURCCS = {
-    "WMV8": (b"WMV2",),
     "FFmpeg's Huffyuv variant": (b"FFVH", b"ffvh"),
     "Ut Video": (b"ULY0", b"ULY2", b"ULY4", b"ULRG", b"ULRA", b"ULH0",
                  b"ULH2", b"ULH4", b"UQY0", b"UQY2", b"UQRG", b"UQRA",
@@ -261,7 +264,7 @@ def fourcc_codec(fourcc: bytes) -> Optional[str]:
         return "h263"
     if fourcc in SORENSON_FOURCCS:
         return "flv1"
-    return msmpeg4_codec(fourcc) or None
+    return msmpeg4_codec(fourcc) or wmv2_codec(fourcc) or None
 
 
 _CONTAINERS = ("AVI, MP4 and MOV (fragmented too), Matroska, YUV4MPEG2, "
@@ -270,7 +273,7 @@ _CONTAINERS = ("AVI, MP4 and MOV (fragmented too), Matroska, YUV4MPEG2, "
                "their pipes")
 _READS = ("Motion JPEG, FFV1, raw I420 / IYUV / YV12 / gray / NV12 / RGBA, "
           "PNG, Huffyuv, MPEG-4 Part 2, VP8, VP9, MPEG-2, H.263, Sorenson "
-          "Spark, MS MPEG-4 v2 and v3 and WMV7")
+          "Spark, MS MPEG-4 v2 and v3, WMV7 and WMV8")
 
 
 def _pam_without_tuple_type(path: str) -> bool:
@@ -498,16 +501,16 @@ class VideoReader:
             # the AVI fourccs
             t.codec = fourcc_codec(t.fourcc) or _codec(t.fourcc)
         if t.codec not in ("ffv1", "mjpeg", "png", "mpeg4", "vp9", "mpeg2",
-                           "huffyuv", "rawvideo", "h263", "flv1") + \
-                tuple(MSMPEG4_FOURCCS):
+                           "huffyuv", "rawvideo", "h263", "flv1",
+                           "wmv2") + tuple(MSMPEG4_FOURCCS):
             mp4.close()
             fourcc = t.fourcc.decode("latin-1")
             raise UnsupportedVideo(
                 f"{path}: MP4 with {t.codec} video ({fourcc}) is read by "
                 f"cv2.VideoCapture but not by the port (which reads FFV1, "
                 f"Huffyuv, Motion JPEG, PNG, MPEG-4 Part 2, VP9, MPEG-2, "
-                f"H.263, Sorenson Spark, MS MPEG-4 v2 and v3, WMV7 and raw "
-                f"RGBA in MP4 and MOV)")
+                f"H.263, Sorenson Spark, MS MPEG-4 v2 and v3, WMV7, WMV8 "
+                f"and raw RGBA in MP4 and MOV)")
         self.container = "MP4"
         self._set(t.codec, t.fourcc, t.width, t.height, t.extradata, mp4)
 
@@ -646,6 +649,11 @@ class VideoReader:
             from fealess_tpu_torch.io.msmpeg4 import MSMPEG4Decoder
             dec = MSMPEG4Decoder(self.codec, self.width, self.height,
                                  self.fourcc, self.path, self.container)
+            return lambda data, what: dec.decode(data), dec.close
+        if self.codec == "wmv2":
+            from fealess_tpu_torch.io.wmv2 import WMV2Decoder
+            dec = WMV2Decoder(self.extradata, self.width, self.height,
+                              self.fourcc, self.path, self.container)
             return lambda data, what: dec.decode(data), dec.close
         if self.codec == "png":
             return image2.png_frame, nothing

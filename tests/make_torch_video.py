@@ -10,6 +10,7 @@ holds them to, taken from cv2 and the JAX package on the CPU.
     python -m tests.make_torch_video demux    # tests/data/torch_demux only
     python -m tests.make_torch_video h263     # tests/data/torch_h263 only
     python -m tests.make_torch_video msmpeg4  # tests/data/torch_msmpeg4 only
+    python -m tests.make_torch_video wmv2     # tests/data/torch_wmv2 only
 
 - ``clip.avi``: four panned 640x480 fixture frames (``apps/fixture.pan``)
   written by ``cv2.VideoWriter`` as Motion JPEG, with ``depth/<i>.png``
@@ -131,6 +132,17 @@ holds them to, taken from cv2 and the JAX package on the CPU.
   frame), and each container cut short at a packet or page boundary;
   and at 640x480 the clip's first two frames as MPEG-2 in a transport
   stream (``pan_ts.ts``);
+- in ``tests/data/torch_wmv2/`` (:func:`write_wmv2`, with a
+  ``digests.json`` and a ``recon.json`` of its own), WMV8 from
+  ``cv2.VideoWriter``'s FFmpeg backend (:func:`wmv2_sources`): a 96x64
+  pan in AVI, MOV, Matroska, ASF, WMV and NUT, a 14-frame pan (a second
+  I picture), 128x96 at 30 fps, 640x480, checkerboards, halves moving
+  apart, appearing squares, black and white halves, noise whose P
+  pictures cross qscale 10 and 20 (the three CBP tables), that noise
+  re-encoded by ``tests/wmv2_edit.py`` with run/level tables 1 and 2 and
+  cbp_index 1 and 2, 95x63 as the writer writes it (94x62) and its
+  packets under a 95x63 header; and at
+  640x480 the clip's first two frames in a ``.wmv`` (``pan_wmv2.wmv``);
 - ``digests.json``: for each source the frame count and each frame's
   shape and sha256 from ``cv2.VideoCapture``;
 - ``recon.json``: the JAX CLI's ``acq`` output on ``clip.avi`` with its
@@ -146,7 +158,8 @@ holds them to, taken from cv2 and the JAX package on the CPU.
   ``tests/data/torch_raw/recon.json`` for ``pan_y4m.y4m`` and
   ``tests/data/torch_demux/recon.json`` for ``pan_ts.ts`` and
   ``tests/data/torch_h263/recon.json`` for ``pan_flv1.flv`` and
-  ``tests/data/torch_msmpeg4/recon.json`` for ``pan_div3.avi`` (two
+  ``tests/data/torch_msmpeg4/recon.json`` for ``pan_div3.avi`` and
+  ``tests/data/torch_wmv2/recon.json`` for ``pan_wmv2.wmv`` (two
   frames, with the depth directory's first two by position).
 
 ``tests/test_torch_video.py`` holds the digests to cv2 on the CPU, so they
@@ -207,6 +220,15 @@ MSMPEG4_CONTAINERS = (".avi", ".mkv", ".mov", ".asf", ".wmv", ".nut")
 # the fourccs cv2.VideoWriter writes each of the three codecs for
 MSMPEG4_ALIASES = ("MP42", "DIV2", "DIV3", "MP43", "DIV4", "DIV5", "DIV6",
                    "MPG3", "AP41", "COL1", "COL0", "3IVD", "WMV1")
+# the WMV8 sources, in a directory of their own; the 640x480 .wmv (ASF)
+# holds the clip's first two frames
+WMV2_OUT = os.path.join(REPO, "tests", "data", "torch_wmv2")
+WMV2_RECON_SOURCES = {"pan_wmv2.wmv": 2}
+WMV2_CONTAINERS = (".avi", ".mkv", ".mov", ".asf", ".wmv", ".nut")
+# (rl, rl_chroma, cbp_index) the noise source is re-encoded with
+# (tests/wmv2_edit.py): the run/level tables and CBP table choices the
+# writer never makes
+WMV2_RETABLED = ((1, 2, 1), (2, 1, 2))
 # the containers demuxed for codecs the port already decodes, in a
 # directory of their own; the 640x480 transport stream holds the clip's
 # first two frames
@@ -1353,6 +1375,56 @@ def h263_sources(frames) -> None:
         :H263_RECON_SOURCES["pan_flv1.flv"]]], "FLV1")
 
 
+def _pan(w, h, seed, n, dx=3, dy=-2):
+    """``n`` frames of a seeded scene panned (dx, dy) pixels a frame."""
+    base = scene(w, h, seed, 1)[0]
+    return [_shifted(base, dx * i, dy * i) for i in range(n)]
+
+
+def _halves(w, h, v, n):
+    """The top half panned right, the bottom half left, ``v`` pixels a
+    frame (intra macroblocks in P pictures, MV escapes)."""
+    a, b = scene(w, h, 21, 1)[0], scene(w, h, 22, 1)[0]
+    frames = []
+    for i in range(n):
+        f = _shifted(a, v * i, 0)
+        f[h // 2:] = _shifted(b, -v * i, 0)[h // 2:]
+        frames.append(f)
+    return frames
+
+
+def _appear(w, h, n):
+    """A blurred slow pan with a noise square appearing each frame from
+    the fifth on (P pictures after P pictures that pick the low motion
+    run/level tables, with intra macroblocks)."""
+    import cv2
+    base = cv2.GaussianBlur(scene(w, h, 23, 1)[0], (7, 7), 0)
+    rng, frames = np.random.default_rng(5), []
+    for i in range(n):
+        f = _shifted(base, i, 0)
+        if i >= 4:
+            y, x = rng.integers(0, h - 16), rng.integers(0, w - 16)
+            f[y:y + 16, x:x + 16] = rng.integers(0, 255, (16, 16, 3))
+        frames.append(f)
+    return frames
+
+
+def _split():
+    """Black and white halves at 96x64 (DC differences past the DC
+    tables' escape), then moved."""
+    f = np.zeros((64, 96, 3), np.uint8)
+    f[:, 48:] = 255
+    return [f, f, np.roll(f, 8, 1)]
+
+
+def _checker():
+    """Three 96x64 checkerboards of one-pixel squares, each moved a pixel
+    (third escapes)."""
+    yy, xx = np.mgrid[0:64, 0:96]
+    checker = (((xx + yy) % 2) * 255).astype(np.uint8)
+    return [np.stack([np.roll(checker, i, 1)] * 3, -1) for i in range(3)]
+
+
 def msmpeg4_sources(frames) -> None:
     """Write the MS MPEG-4 v2 / v3 and WMV7 sources (see
     ``tests/test_torch_msmpeg4.py``); ``frames`` are the clip's."""
@@ -1362,45 +1434,8 @@ def msmpeg4_sources(frames) -> None:
     def out(name):
         return os.path.join(MSMPEG4_OUT, name)
 
-    def pan(w, h, seed, n, dx=3, dy=-2):
-        base = scene(w, h, seed, 1)[0]
-        return [_shifted(base, dx * i, dy * i) for i in range(n)]
-
-    def halves(w, h, v, n):
-        """The top half panned right, the bottom half left, ``v`` pixels
-        a frame (intra macroblocks in P pictures, MV escapes)."""
-        a, b = scene(w, h, 21, 1)[0], scene(w, h, 22, 1)[0]
-        frames = []
-        for i in range(n):
-            f = _shifted(a, v * i, 0)
-            f[h // 2:] = _shifted(b, -v * i, 0)[h // 2:]
-            frames.append(f)
-        return frames
-
-    def appear(w, h, n):
-        """A blurred slow pan with a noise square appearing each frame
-        from the fifth on (P pictures after P pictures that pick the low
-        motion run/level tables, with intra macroblocks)."""
-        base = cv2.GaussianBlur(scene(w, h, 23, 1)[0], (7, 7), 0)
-        rng, frames = np.random.default_rng(5), []
-        for i in range(n):
-            f = _shifted(base, i, 0)
-            if i >= 4:
-                y, x = rng.integers(0, h - 16), rng.integers(0, w - 16)
-                f[y:y + 16, x:x + 16] = rng.integers(0, 255, (16, 16, 3))
-            frames.append(f)
-        return frames
-
-    def split():
-        """Black and white halves (DC differences past the DC tables'
-        escape), then moved."""
-        f = np.zeros((64, 96, 3), np.uint8)
-        f[:, 48:] = 255
-        return [f, f, np.roll(f, 8, 1)]
-
-    yy, xx = np.mgrid[0:64, 0:96]
-    checker = (((xx + yy) % 2) * 255).astype(np.uint8)
-    checker = [np.stack([np.roll(checker, i, 1)] * 3, -1) for i in range(3)]
+    pan, halves, appear, split = _pan, _halves, _appear, _split
+    checker = _checker()
     # every fourcc alias in AVI at 96x64
     small = pan(96, 64, 81, 4)
     for cc in MSMPEG4_ALIASES:
@@ -1441,6 +1476,106 @@ def msmpeg4_sources(frames) -> None:
                       halves(128, 96, 8, 6), "WMV1", 30)
     write_ffmpeg_clip(out("pan_div3.avi"), [b for b, _ in frames[
         :MSMPEG4_RECON_SOURCES["pan_div3.avi"]]], "DIV3")
+
+
+def _noise_pan(w, h, n, fresh, seed=1):
+    """``n`` frames of uniform noise panned (2, 1) pixels a frame, the top
+    ``fresh`` share of each frame's rows new noise: the writer's rate
+    control raises the quantiser picture by picture, P pictures crossing
+    qscale 10 and 20."""
+    rng = np.random.default_rng(seed)
+    big = rng.integers(0, 256, (h + 64, w + 200, 3), dtype=np.uint8)
+    frames = []
+    for i in range(n):
+        f = big[32 + i:32 + i + h, 8 + 2 * i:8 + 2 * i + w].copy()
+        rows = int(h * fresh)
+        f[:rows] = rng.integers(0, 256, (rows, w, 3), dtype=np.uint8)
+        frames.append(f)
+    return frames
+
+
+def wmv2_sources(frames) -> None:
+    """Write the WMV8 sources (see ``tests/test_torch_wmv2.py``);
+    ``frames`` are the clip's."""
+    from fealess_tpu_torch.io.avi import AviFile
+    from tests import wmv2_edit
+
+    def out(name):
+        return os.path.join(WMV2_OUT, name)
+
+    # the 96x64 pan in every container the writer writes WMV8 in
+    for ext in WMV2_CONTAINERS:
+        write_ffmpeg_clip(out(f"wmv2.{ext[1:]}"), _pan(96, 64, 81, 4),
+                          "WMV2")
+    # 14 frames (a second I picture at 12), 128x96 at 30 fps, 640x480
+    write_ffmpeg_clip(out("wmv2_pan.avi"), _pan(96, 64, 82, 14), "WMV2")
+    write_ffmpeg_clip(out("wmv2_128x96_30fps.avi"), _pan(128, 96, 83, 6),
+                      "WMV2", 30)
+    write_ffmpeg_clip(out("wmv2_640x480.avi"), _pan(640, 480, 84, 3, 5, -3),
+                      "WMV2")
+    # checkerboards (third escapes), halves moving apart, squares
+    # appearing, black and white halves
+    write_ffmpeg_clip(out("wmv2_checker.avi"), _checker(), "WMV2")
+    write_ffmpeg_clip(out("wmv2_halves.avi"), _halves(96, 64, 8, 6), "WMV2")
+    write_ffmpeg_clip(out("wmv2_appear.avi"), _appear(96, 64, 12), "WMV2")
+    write_ffmpeg_clip(out("wmv2_split.avi"), _split(), "WMV2")
+    # noise whose P pictures pick each of the three CBP tables by qscale
+    # band (up to 10, 11-20, over 20)
+    write_ffmpeg_clip(out("wmv2_qscale_bands.avi"),
+                      _noise_pan(96, 64, 13, 0.25), "WMV2")
+    # that noise re-encoded with run/level tables 1 and 2 and cbp_index 1
+    # and 2: the same coefficients, so cv2 gives the same frames
+    with AviFile(out("wmv2_qscale_bands.avi")) as avi:
+        packets, extradata = list(avi.frames()), avi.stream.extradata
+    for rl, rl_chroma, cbp_index in WMV2_RETABLED:
+        with open(out(f"wmv2_rl{rl}_rlc{rl_chroma}_cbp{cbp_index}.avi"),
+                  "wb") as f:
+            f.write(mux_avi(wmv2_edit.retable(packets, 96, 64, rl, rl_chroma,
+                                              cbp_index), 96, 64,
+                            fourcc=b"WMV2", extradata=extradata))
+    # the writer writes even sizes only (95x63 as 94x62): that file, and
+    # its packets under a 95x63 header
+    write_ffmpeg_clip(out("wmv2_94x62.avi"), _pan(95, 63, 85, 4, 1, -1),
+                      "WMV2")
+    with AviFile(out("wmv2_94x62.avi")) as avi:
+        packets, extradata = list(avi.frames()), avi.stream.extradata
+    with open(out("wmv2_95x63.avi"), "wb") as f:
+        f.write(mux_avi(packets, 95, 63, fourcc=b"WMV2",
+                        extradata=extradata))
+    write_ffmpeg_clip(out("pan_wmv2.wmv"), [b for b, _ in frames[
+        :WMV2_RECON_SOURCES["pan_wmv2.wmv"]]], "WMV2")
+
+
+def wmv2_committed_sources():
+    """Every committed source of WMV2_OUT (its ``digests.json`` lists
+    them)."""
+    return sorted(n for n in os.listdir(WMV2_OUT)
+                  if n.endswith(WMV2_CONTAINERS))
+
+
+def write_wmv2(frames) -> None:
+    """Write WMV2_OUT: the sources, their ``digests.json`` and
+    ``recon.json`` (the JAX CLI's acq and recon under ``"sources"``)."""
+    os.makedirs(WMV2_OUT, exist_ok=True)
+    for name in os.listdir(WMV2_OUT):
+        os.remove(os.path.join(WMV2_OUT, name))
+    wmv2_sources(frames)
+    digests = {name: digest(os.path.join(WMV2_OUT, name))
+               for name in wmv2_committed_sources()}
+    with open(os.path.join(WMV2_OUT, "digests.json"), "w") as f:
+        json.dump(digests, f, indent=1, sort_keys=True)
+        f.write("\n")
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    recon = {"sources": {
+        name: jax_acq_recon(os.path.join(WMV2_OUT, name), n)
+        for name, n in WMV2_RECON_SOURCES.items()}}
+    with open(os.path.join(WMV2_OUT, "recon.json"), "w") as f:
+        json.dump(recon, f, indent=1, sort_keys=True)
+        f.write("\n")
+    total = sum(os.path.getsize(os.path.join(WMV2_OUT, n))
+                for n in os.listdir(WMV2_OUT))
+    print(f"wrote {WMV2_OUT}: {total} bytes")
 
 
 def msmpeg4_committed_sources():
@@ -1741,5 +1876,7 @@ if __name__ == "__main__":
         write_h263(clip_frames())
     elif sys.argv[1:] == ["msmpeg4"]:
         write_msmpeg4(clip_frames())
+    elif sys.argv[1:] == ["wmv2"]:
+        write_wmv2(clip_frames())
     else:
         main()

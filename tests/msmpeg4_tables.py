@@ -1,5 +1,5 @@
-"""Take the MS MPEG-4 v2 / v3 and WMV7 tables from the libavcodec that cv2
-bundles, and write ``fealess_tpu_torch/csrc/msmpeg4_tables.h``.
+"""Take the MS MPEG-4 v2 / v3, WMV7 and WMV8 tables from the libavcodec that
+cv2 bundles, and write ``fealess_tpu_torch/csrc/msmpeg4_tables.h``.
 
     python -m tests.msmpeg4_tables          # rewrite the header
     python -m tests.msmpeg4_tables --check  # exit 1 unless it is current
@@ -129,6 +129,16 @@ def extract(path: str) -> Dict[str, object]:
     at = _unique(ro, struct.pack("<6I", 0x40, 7, 0x13C9, 13, 0x9FD, 12),
                  "mb_non_intra", 4)
     t["mb_non_intra"] = _pairs(ro, at, 128, "I")
+    # ff_wmv2_inter_table: four pointers (relative relocations) to 128
+    # pairs of u32, the last ff_table_mb_non_intra; [0..2] are WMV8's other
+    # P picture MB tables (cbp_index and the qscale band pick one)
+    arrays = [where for where, to in elf.relative.items()
+              if to == ro_addr + at and all(where - 8 * k in elf.relative
+                                            for k in (1, 2, 3))]
+    if len(arrays) != 1:
+        raise LookupError(f"ff_wmv2_inter_table: {len(arrays)} places")
+    t["wmv2_inter"] = [_pairs(ro, elf.relative[arrays[0] - 8 * (3 - k)] -
+                              ro_addr, 128, "I") for k in range(3)]
     # ff_msmp4_dc_tables[2][2][120]: dc table 0 luma, chroma, table 1 ...
     at = _unique(ro, struct.pack("<10I", 1, 1, 1, 2, 1, 4, 1, 5, 5, 5),
                  "dc", 4)
@@ -207,6 +217,8 @@ def check(t: Dict[str, object]) -> None:
     for name in ("mb_i", "mb_non_intra", "inter_intra", "v2_intra_cbpc",
                  "v2_mb_type"):
         check_prefix_code(*zip(*t[name]), name)
+    for k, table in enumerate(t["wmv2_inter"]):
+        check_prefix_code(*zip(*table), f"wmv2 inter {k}")
     for k, dc in enumerate(t["dc"]):
         check_prefix_code(*zip(*dc), f"dc {k}")
     for k, rl in enumerate(t["rl"]):
@@ -250,15 +262,17 @@ def _array(ctype: str, name: str, values: Sequence[int], per: int = 12,
 
 def header(t: Dict[str, object]) -> str:
     """The C header for ``t``."""
-    out = [f"""/* The MS MPEG-4 v2 / v3 and WMV7 tables of FFmpeg's msmpeg4data.c
- * and msmpeg4_vc1_data.c, as the libavcodec {LAVC_VERSION} that cv2 5.0.0
- * bundles holds them.  Written by tests/msmpeg4_tables.py, which finds
+    out = [f"""/* The MS MPEG-4 v2 / v3, WMV7 and WMV8 tables of FFmpeg's
+ * msmpeg4data.c and msmpeg4_vc1_data.c, as the libavcodec {LAVC_VERSION}
+ * that cv2 5.0.0 bundles holds them.  Written by tests/msmpeg4_tables.py, which finds
  * them in that library; do not edit.
  *
  *   msmp4_mb_i            ff_msmp4_mb_i_table: I picture MB (coded block
  *                         pattern before prediction), code and length
  *   msmp4_mb_non_intra    ff_table_mb_non_intra (ff_wmv2_inter_table[3]):
  *                         P picture MB, bit 6 set for inter, bits 0-5 CBP
+ *   wmv2_inter            ff_wmv2_inter_table[0..2]: WMV8's P picture MB
+ *                         tables of the same form, code and length
  *   msmp4_dc              ff_msmp4_dc_tables[table][chroma]: DC level
  *                         magnitude 0-118, 119 the escape
  *   msmp4_mv_len / _sym   the two MV tables, in ff_vlc_init_from_lengths
@@ -282,6 +296,12 @@ def header(t: Dict[str, object]) -> str:
 
     codelen("msmp4_mb_i", t["mb_i"], "uint16_t")
     codelen("msmp4_mb_non_intra", t["mb_non_intra"], "uint32_t")
+    out.append(_array("uint32_t", "wmv2_inter_code",
+                      [c for table in t["wmv2_inter"] for c, _ in table],
+                      shape=(3, 128)))
+    out.append(_array("uint8_t", "wmv2_inter_len",
+                      [n for table in t["wmv2_inter"] for _, n in table],
+                      shape=(3, 128)))
     out.append(_array("uint32_t", "msmp4_dc_code",
                       [c for dc in t["dc"] for c, _ in dc],
                       shape=(2, 2, 120)))

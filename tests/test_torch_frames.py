@@ -293,9 +293,9 @@ def test_cv2_only_sources_are_refused(acq_source, tmp_path, monkeypatch,
                                       capsys):
     """A camera index needs a video device: the reader refuses it by
     name, and acq says so and returns 1; a video path that does not exist
-    raises OSError as the JAX reader's does, and a WMV8 AVI (a codec the
-    port does not read yet) raises UnsupportedVideo naming it, where an
-    MS MPEG-4 v2 AVI gives the JAX reader's frames;
+    raises OSError as the JAX reader's does, and an ASUS V1 AVI (a codec
+    the port does not read yet) raises UnsupportedVideo naming it, where
+    an MS MPEG-4 v2 AVI and a WMV8 AVI give the JAX reader's frames;
     JPEG and BMP
     files are read (as the JAX reader reads them, in a directory and in a
     list); the ROI picker needs a display."""
@@ -308,22 +308,24 @@ def test_cv2_only_sources_are_refused(acq_source, tmp_path, monkeypatch,
         ImageSeriesReader(clip)
     with pytest.raises(OSError, match="cannot open video source"):
         JaxReader(clip)
-    vw = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"WMV2"), 10, (32, 16))
+    vw = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"ASV1"), 10, (32, 16))
     for _ in range(2):
         vw.write(np.full((16, 32, 3), 90, np.uint8))
     vw.release()
     assert len(list(JaxReader(clip))) == 2
-    with pytest.raises(UnsupportedVideo, match="AVI with WMV8"):
+    with pytest.raises(UnsupportedVideo, match="AVI with ASUS V1"):
         ImageSeriesReader(clip)
-    mp42 = str(tmp_path / "mp42.avi")
-    vw = cv2.VideoWriter(mp42, cv2.VideoWriter_fourcc(*"MP42"), 10, (32, 16))
-    for k in range(2):
-        vw.write(np.full((16, 32, 3), 90 + 40 * k, np.uint8))
-    vw.release()
-    got, want = list(ImageSeriesReader(mp42)), list(JaxReader(mp42))
-    assert len(got) == len(want) == 2
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(a, b)
+    for fourcc in ("MP42", "WMV2"):
+        path = str(tmp_path / f"{fourcc}.avi")
+        vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), 10,
+                             (32, 16))
+        for k in range(2):
+            vw.write(np.full((16, 32, 3), 90 + 40 * k, np.uint8))
+        vw.release()
+        got, want = list(ImageSeriesReader(path)), list(JaxReader(path))
+        assert len(got) == len(want) == 2
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
     jpg = tmp_path / "jpg"
     shutil.copytree(acq_source[0], jpg)
     cv2.imwrite(str(jpg / "7.jpg"), np.full((4, 4, 3), 90, np.uint8))

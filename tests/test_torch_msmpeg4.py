@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from fealess_tpu_torch.apps import cli
-from fealess_tpu_torch.io import msmpeg4
+from fealess_tpu_torch.io import msmpeg4, wmv2
 from fealess_tpu_torch.io.jpeg import UnsupportedImage
 from fealess_tpu_torch.io.png import DecodeError
 from fealess_tpu_torch.io.video import UnsupportedVideo, VideoReader
@@ -369,7 +369,10 @@ def test_decoder_arguments_are_checked():
     with pytest.raises(DecodeError, match="size"):
         msmpeg4.MSMPEG4Decoder("msmpeg4v3", 0, 64)
     assert msmpeg4.codec_of(b"DIV5") == "msmpeg4v3"
-    assert msmpeg4.codec_of(b"WMV2") == ""
+    # WMV8 is io/wmv2's; ASUS V1 waits on ROADMAP's decoding queue
+    assert msmpeg4.codec_of(b"ASV1") == ""
+    assert msmpeg4.codec_of(b"WMV2") == "" and wmv2.codec_of(b"WMV2") == \
+        "wmv2"
 
 
 def _run(argv):

@@ -231,16 +231,17 @@ def test_committed_clips_match_cv2_and_the_digests():
 
 def test_refusals_name_what_they_refuse(tmp_path):
     """VP9 in MP4 and in Matroska whose key frames say BT.709 (cv2
-    converts them with its matrix), WMV8 (WMV2) in AVI, an
+    converts them with its matrix), ASUS V1 (ASV1) in AVI, an
     MPEG-4 Part 2 clip whose VOL asks for OBMC, an interlaced
     Motion JPEG (two fields a chunk), RealMedia (a container of
     ROADMAP's demuxing queue): UnsupportedVideo naming the container, the
     fourcc or the kind; a missing file, a file
     of no known container and an AVI with no video stream: OSError as the
-    JAX reader's; a camera index: ValueError.  MS MPEG-4 v3 (DIV3) in
-    AVI, refused here until the port read it, gives cv2's frames."""
+    JAX reader's; a camera index: ValueError.  MS MPEG-4 v3 (DIV3) and
+    WMV8 (WMV2) in AVI, refused here until the port read them, give cv2's
+    frames."""
     frames = scene(64, 48, 1, 2)
-    mp4, mkv, wmv2, obmc = (str(tmp_path / n) for n in (
+    mp4, mkv, asv1, obmc = (str(tmp_path / n) for n in (
         "a.mp4", "a.mkv", "a.avi", "obmc.avi"))
     for path in (mp4, mkv):
         write_cv2_clip(path, frames, "VP90")
@@ -248,7 +249,7 @@ def test_refusals_name_what_they_refuse(tmp_path):
             data = set_vp9_color_space(f.read(), 2)
         with open(path, "wb") as f:
             f.write(data)
-    write_cv2_clip(wmv2, frames, "WMV2")
+    write_cv2_clip(asv1, frames, "ASV1")
     write_cv2_clip(obmc, frames, "XVID")
     with open(obmc, "r+b") as f:             # FFmpeg ignores the bit
         data = bytearray(f.read())
@@ -256,7 +257,7 @@ def test_refusals_name_what_they_refuse(tmp_path):
         f.seek(0)
         f.write(data)
     for path, match in ((mp4, "MP4 with VP9"), (mkv, "Matroska.*VP9"),
-                        (wmv2, "WMV2"), (obmc, "AVI with MPEG-4 Part 2 "
+                        (asv1, "ASV1"), (obmc, "AVI with MPEG-4 Part 2 "
                                                ".*OBMC")):
         assert len(cv2_frames(path)) == 2
         with pytest.raises(UnsupportedVideo, match=match):
@@ -283,13 +284,14 @@ def test_refusals_name_what_they_refuse(tmp_path):
             JaxReader(path)
     with pytest.raises(ValueError, match="camera index"):
         ImageSeriesReader(3)
-    div3 = str(tmp_path / "div3.avi")
-    write_cv2_clip(div3, frames, "DIV3")
-    want = cv2_frames(div3)
-    got = list(VideoReader(div3))
-    assert len(got) == len(want) == 2
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(a, b)
+    for fourcc in ("DIV3", "WMV2"):
+        path = str(tmp_path / f"{fourcc}.avi")
+        write_cv2_clip(path, frames, fourcc)
+        want = cv2_frames(path)
+        got = list(VideoReader(path))
+        assert len(got) == len(want) == 2
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("fourcc", ["MJPG", "FFV1"])
@@ -383,28 +385,29 @@ def test_acq_cli_on_the_committed_clip_equals_jax(tmp_path):
 
 
 def test_acq_refuses_a_video_it_does_not_read(tmp_path, capsys):
-    """acq on a WMV8 AVI (a codec the port does not read yet) or a
+    """acq on an ASUS V1 AVI (a codec the port does not read yet) or a
     missing path prints the reason and returns 1, writing nothing; on the
-    MS MPEG-4 v3 AVI it refused until the port read it, acq writes cv2's
-    frames."""
+    MS MPEG-4 v3 and WMV8 AVIs it refused until the port read them, acq
+    writes the JAX CLI's frames."""
     avi = str(tmp_path / "a.avi")
-    write_cv2_clip(avi, scene(32, 16, 1, 2), "WMV2")
-    for source, match in ((avi, "WMV8"),
+    write_cv2_clip(avi, scene(32, 16, 1, 2), "ASV1")
+    for source, match in ((avi, "ASUS V1"),
                           (str(tmp_path / "nope.avi"), "cannot open")):
         out = str(tmp_path / "out")
         assert cli.main(["acq", source, out, "--device", "cpu"]) == 1
         assert match in capsys.readouterr().err
         assert not os.path.exists(out)
-    div3 = str(tmp_path / "div3.avi")
-    write_cv2_clip(div3, scene(32, 16, 1, 2), "DIV3")
-    outs = {}
-    for name, main, device in (("jax", jax_cli.main, []),
-                               ("port", cli.main, ["--device", "cpu"])):
-        outs[name] = str(tmp_path / name)
-        with contextlib.redirect_stdout(io.StringIO()):
-            assert main(["acq", div3, outs[name]] + device) == 0
-    _outputs_equal(outs["port"], outs["jax"], ("gray",))
-    assert len(os.listdir(os.path.join(outs["port"], "gray"))) == 2
+    for fourcc in ("DIV3", "WMV2"):
+        clip = str(tmp_path / f"{fourcc}.avi")
+        write_cv2_clip(clip, scene(32, 16, 1, 2), fourcc)
+        outs = {}
+        for name, main, device in (("jax", jax_cli.main, []),
+                                   ("port", cli.main, ["--device", "cpu"])):
+            outs[name] = str(tmp_path / f"{fourcc}_{name}")
+            with contextlib.redirect_stdout(io.StringIO()):
+                assert main(["acq", clip, outs[name]] + device) == 0
+        _outputs_equal(outs["port"], outs["jax"], ("gray",))
+        assert len(os.listdir(os.path.join(outs["port"], "gray"))) == 2
 
 
 _SUBPROCESS = LOADED + r"""
